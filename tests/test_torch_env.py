@@ -258,6 +258,16 @@ def _run_steps(jenv, tenv, n_steps):
         assert saw_reset, "the episode boundary was not crossed"
 
 
+def test_single_agent_actions_get_the_agent_axis_whatever_their_rank(envs):
+    """A single-instance type's (E, 3) continuous action is one agent's
+    action, not three agents' scalars: the agent axis is always added, as
+    the JAX package does (world.py:179-180)."""
+    _, tenv = envs
+    got = tenv._actions([torch.zeros(E, dtype=torch.int32),
+                         torch.zeros(E, 3)])
+    assert [tuple(a.shape) for a in got] == [(E, 1), (E, 1, 3)]
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -4,8 +4,8 @@ The PyTorch port's own copy of ``vit_marl_tpu/config.py`` (the port imports
 nothing of the JAX package).  Field names, defaults and the YAML/dict
 override merge (:func:`make_config`, including the string coercion of YAML
 1.1 e-notation) are identical, so one YAML file configures both packages.
-Fields that only the JAX package reads (ViT kernel switches, mesh,
-checkpointing) are kept so every shipped config loads unchanged.
+Fields the port does not read yet (mesh, checkpointing, eval) are kept
+so every shipped config loads unchanged.
 """
 
 from __future__ import annotations
@@ -373,30 +373,22 @@ class TrainConfig:
     # LOBSTER data + unset EVAL_TIME_PERIOD is a hard error (the eval env
     # would silently be in-sample); this opts back in for smoke configs.
     eval_allow_in_sample: bool = False
-    vit_preset: str = "tiny"         # "tiny" | "small" | "base"
-    # use the fused block-half kernels (ops/block_kernel.py: LN1+QKV and
-    # proj+residual+LN2+MLP+residual)
+    vit_preset: str = "tiny"         # "tiny" | "small" | "base" | "micro"
+    # The vit_* switches below keep the JAX package's names and defaults so
+    # that every YAML file loads to the same values in both packages.  What
+    # each one does in the port:
+    # - vit_attn_kernel / vit_attn_bwd_kernel: attention forward / backward
+    #   through the CUDA kernels of ops/attention_kernel.py.  Only True is
+    #   ported; False raises NotImplementedError in models/vit.py.
+    # - vit_attn_env_block: accepted and unused (the CUDA kernels take any
+    #   batch of images).
+    # - vit_fused_block, vit_fused_block_full, vit_attn_ln_fold: the fused
+    #   block kernels, not ported; True raises NotImplementedError.
     vit_fused_block: bool = False
-    # use the fully-fused block kernel (ops/block_kernel.py::
-    # fused_block_full — attention included, one kernel per block); takes
-    # precedence over vit_fused_block
     vit_fused_block_full: bool = False
-    # use the fused short-seq attention kernel (ops/attention_kernel.py);
-    # falls back to the XLA path off-TPU or for untiled batch sizes.
-    # Default ON (hardware A/B: +33%, runs/r4/bench_vit_attnkernel.txt)
     vit_attn_kernel: bool = True
-    # Pallas backward for the attention kernel (custom-vjp dqkv kernel
-    # instead of the XLA recompute-and-differentiate); only consulted
-    # when vit_attn_kernel engages.
     vit_attn_bwd_kernel: bool = True
-    # envs per attention-kernel grid step; per-shard local envs must be a
-    # multiple (64 = measured v5e sweet spot; lower it to keep the kernel
-    # engaged on small per-shard batches)
     vit_attn_env_block: int = 64
-    # fold LN1+QKV into the attention kernel (ops/block_kernel.py::
-    # fused_ln_qkv_attn; uses the fused-family param tree — checkpoints
-    # interchange with fused modes only).  Mesh-composable (shard_mapped
-    # per shard).  Default OFF pending hardware measurement.
     vit_attn_ln_fold: bool = False
     seed: int = 30
     # distributed

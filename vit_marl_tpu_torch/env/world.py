@@ -150,8 +150,10 @@ class WorldEnv:
     # ------------------------------------------------------------------
 
     def _actions(self, actions: Sequence[Tensor]) -> List[Tensor]:
-        """(E,) actions of single-instance types -> (E, 1)."""
-        return [a[:, None] if n == 1 and a.dim() == 1 else a
+        """Add the agent axis to the actions of single-instance types:
+        ``(E,)`` -> ``(E, 1)``, ``(E, d)`` -> ``(E, 1, d)`` (ref:
+        world.py:179-180 always adds it, whatever the action's rank)."""
+        return [a[:, None] if n == 1 else a
                 for a, n in zip(actions, self.n_per_type)]
 
     def _build_messages(self, state: MultiAgentState, actions: List[Tensor],
