@@ -5,23 +5,40 @@
 
 Phases (each prints one line with its seconds; any failure exits non-zero):
 
-1. device: the card's name and power limit, and the nvcc build of the
-   book-scan kernel from ``vit_marl_tpu_torch/ops/csrc/book_scan.cu``;
-2. kernel against plain: the CUDA book scan against its plain PyTorch
-   version at the main path's shape (E=4096 envs, M=112 messages, S=128
-   slots, 2 traders) on seeded random books and streams in all four cancel
-   modes, on a stream built by the port's own message builder, and at
-   E=1000; every output must be bit-equal.  All of it goes through the
+1. device: the card's name and power limit, and the nvcc builds of the
+   kernels in ``vit_marl_tpu_torch/ops/csrc/`` (one nvcc per source, all
+   started together);
+2. book scan against plain: the CUDA book scan against its plain PyTorch
+   version at the 2-player path's shape (E=4096 envs, M=112 messages,
+   S=128 slots, 2 traders) on seeded random books and streams in all four
+   cancel modes, on a stream built by the port's own message builder, and
+   at E=1000; every output must be bit-equal.  All of it goes through the
    wrapper the environment calls.  Times the kernel (CUDA events around
    back-to-back launches, so the card never waits on the host; median over
    batches) and the plain version, beside the least time the card could
    take (bytes moved over 3.35 TB/s);
-3. training: ``make_train`` on ``configs/ippo_2player.yaml`` at its
-   published widths and NUM_ENVS=4096 on the card for 2 updates; losses
-   must be finite and the kernel's launch count must rise by exactly
-   NUM_STEPS x updates;
-4. summary: one JSON line describing the kernel, then the last line
-   ``{"ok": true, "device": {...}}``.
+3. attention against plain: the CUDA short-attention forward and backward
+   through the autograd wrapper the ViT calls, against the plain versions
+   on the card, at the vision path's shapes (ViT-Small: N=11 tokens,
+   W=384, H=6, bf16; B=1024 images in the rollout, 32,768 in a PPO
+   minibatch), at a ragged B=1000 in bf16 and float32, and at H=2, D=32.
+   float32 within rtol 1e-5 / atol 1e-6, bf16 within one bf16 ulp (rtol
+   8e-3, atol 1e-3); the float32 backward also against autograd of the
+   plain forward.  Times both kernels, the plain versions and
+   ``torch.nn.functional.scaled_dot_product_attention`` (forward, and
+   backward through autograd) on inputs laid out for it beforehand, the
+   yardstick of one library call, which the port never makes;
+4. 2-player training: ``make_train`` on ``configs/ippo_2player.yaml`` at
+   its published widths and NUM_ENVS=4096 on the card for 2 updates;
+   losses must be finite and the book scan's launch count must rise by
+   exactly NUM_STEPS x updates;
+5. vision training: ``make_train`` on ``configs/ippo_vision_dual_ppo.yaml``
+   at its published widths (ViT-Small, NUM_ENVS=1024, NUM_STEPS=128) for
+   2 updates; losses must be finite, the book scan must launch NUM_STEPS x
+   updates times and the attention kernels exactly as often as the ViT's
+   blocks run (with remat the forward runs twice per block in an update);
+6. summary: one JSON line describing the three kernels, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero before printing any result.
@@ -34,18 +51,27 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "ippo_2player.yaml")
+VISION_CONFIG = os.path.join(ROOT, "configs", "ippo_vision_dual_ppo.yaml")
 E_MAIN, M_MAIN, S_MAIN = 4096, 112, 128
 AGENT_TIDS = (-100, -101)
 TICK = 100
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
+F32_FLOPS = 67e12               # H100 SXM float32 rate outside tensor cores
 UPDATES = 2
 SEED = 30
 BATCHES, PER_BATCH = 10, 20     # kernel timing: batches of launches
+# ViT-Small attention: tokens, width, heads; images per rollout step and
+# per PPO minibatch (128 steps x 1024 envs / 4 minibatches)
+ATT_N, ATT_W, ATT_H = 11, 384, 6
+B_ROLLOUT, B_MINIBATCH = 1024, 32_768
+ATT_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
+           "bfloat16": dict(rtol=8e-3, atol=1e-3)}
 
 
 def phase(name, t0):
@@ -61,6 +87,193 @@ def scan_bytes(E, M, S, n_agg):
     return 4 * (ins + outs)
 
 
+def time_launches(fn, batches=BATCHES, per_batch=PER_BATCH, warm=5):
+    """Median and min ms per call over batches of back-to-back calls,
+    timed with CUDA events.  One untimed call keeps the card busy while
+    the first event is queued."""
+    import torch
+    for _ in range(warm):
+        fn()
+    per = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        fn()
+        a.record()
+        for _ in range(per_batch):
+            fn()
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b) / per_batch)
+    return float(np.median(per)), float(min(per))
+
+
+def attention_cost(B, N, W, H, itemsize, backward):
+    """(bytes, float ops) the attention must move and do: qkv (and g) read
+    once, the output (dqkv) written once; 4 N^2 D H operations per image
+    forward (logits and P v), 10 backward (logits recomputed, dP, dq, dk,
+    dv)."""
+    rows = B * N
+    nbytes = rows * (3 * W + W + (3 * W if backward else 0)) * itemsize
+    flops = (10 if backward else 4) * B * N * N * W
+    return nbytes, flops
+
+
+def bound(nbytes, flops):
+    """Least time in ms and what sets it: bytes over the memory rate or
+    float32 operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_phase(torch, attn, smi):
+    """Check both attention kernels against their plain versions at the
+    vision path's shapes and time them; returns the two kernels' summary
+    entries (without launches)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    N, W, H = ATT_N, ATT_W, ATT_H
+    errs = {"fwd": 0.0, "bwd": 0.0}
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(kind, label, got, want, dtype):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got, want, **ATT_TOL[str(dtype)[6:]],
+                                   msg=lambda m: f"{label}: {m}")
+        errs[kind] = max(errs[kind], err)
+        print(f"  {label}: max abs err {err:.3g} "
+              f"({str(dtype)[6:]}, tol {ATT_TOL[str(dtype)[6:]]})",
+              flush=True)
+
+    for B, h, d, dtype in [(B_ROLLOUT, H, W // H, torch.bfloat16),
+                           (B_MINIBATCH, H, W // H, torch.bfloat16),
+                           (1000, H, W // H, torch.bfloat16),
+                           (1000, H, W // H, torch.float32),
+                           (1000, 2, 32, torch.bfloat16)]:
+        x = rand((B * N, 3 * h * d), dtype)
+        check("fwd", f"forward B={B} H={h} D={d}",
+              attn.short_attention(x, N, h),
+              attn.short_attention_reference(x, N, h), dtype)
+    for B, dtype in [(B_MINIBATCH, torch.bfloat16), (1000, torch.float32)]:
+        x = rand((B * N, 3 * W), dtype).requires_grad_(True)
+        g = rand((B * N, W), dtype)
+        (got,) = torch.autograd.grad(attn.short_attention(x, N, H), x, g)
+        check("bwd", f"backward B={B} H={H}", got,
+              attn.short_attention_bwd_reference(x.detach(), g, N, H), dtype)
+        if dtype == torch.float32:
+            (want,) = torch.autograd.grad(
+                attn.short_attention_reference(x, N, H), x, g)
+            check("bwd", f"backward B={B} against autograd of the plain "
+                  "forward", got, want, dtype)
+        del x, g, got
+
+    # timing at the PPO minibatch's shape (and the forward at the
+    # rollout's), bf16, as the ViT-Small path launches them
+    B, D = B_MINIBATCH, W // H
+    x = rand((B * N, 3 * W), torch.bfloat16)
+    g = rand((B * N, W), torch.bfloat16)
+    q, k, v = x.view(B, N, 3, H, D).permute(2, 0, 3, 1, 4).contiguous()
+    gl = g.view(B, N, H, D).transpose(1, 2).contiguous()
+    ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+    x_roll = x[:B_ROLLOUT * N]
+    rows = {}
+    for kind, kern, plain, lib, backward in [
+            ("fwd", lambda: attn.short_attention(x, N, H),
+             lambda: attn.short_attention_reference(x, N, H),
+             lambda: F.scaled_dot_product_attention(q, k, v), False),
+            ("bwd", lambda: attn._launch_bwd(x, g, N, H),
+             lambda: attn.short_attention_bwd_reference(x, g, N, H),
+             lambda: torch.autograd.grad(lib_out, (ql, kl, vl), gl,
+                                         retain_graph=True), True)]:
+        ms, ms_min = time_launches(kern)
+        plain_ms, _ = time_launches(plain, batches=3, per_batch=3, warm=1)
+        lib_ms, _ = time_launches(lib)
+        nbytes, flops = attention_cost(B, N, W, H, 2, backward)
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        print(f"  {kind} B={B}: kernel {ms:.4f} ms (median of {BATCHES} "
+              f"batches of {PER_BATCH}, min {ms_min:.4f}); plain "
+              f"{plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP) [{smi}]", flush=True)
+    roll_ms, _ = time_launches(lambda: attn.short_attention(x_roll, N, H))
+    roll_bound, _ = bound(*attention_cost(B_ROLLOUT, N, W, H, 2, False))
+    print(f"  fwd B={B_ROLLOUT}: kernel {roll_ms:.4f} ms; bound "
+          f"{roll_bound:.4f} ms [{smi}]", flush=True)
+    common = dict(route="cuda",
+                  source="vit_marl_tpu_torch/ops/csrc/short_attention.cu",
+                  tolerance=ATT_TOL)
+    return {
+        "short_attention_fwd": dict(
+            name="short_attention_fwd", **common,
+            replaces="vit_marl_tpu/ops/attention_kernel.py:253",
+            max_abs_err=errs["fwd"], kernel_ms=rows["fwd"]["ms"],
+            ms_rollout=roll_ms, bound_ms_rollout=roll_bound, **rows["fwd"]),
+        "short_attention_bwd": dict(
+            name="short_attention_bwd", **common,
+            replaces="vit_marl_tpu/ops/attention_kernel.py:286",
+            max_abs_err=errs["bwd"], kernel_ms=rows["bwd"]["ms"],
+            **rows["bwd"]),
+    }
+
+
+def vision_phase(torch, attn, bkern, make_train, load_yaml_config, dev,
+                 smi):
+    """Train the vision path for UPDATES updates on the card; check losses
+    and launch counts.  Returns the launch counts of the run."""
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS
+
+    ma, tc = load_yaml_config(VISION_CONFIG)
+    depth = VIT_PRESETS[tc.vit_preset].depth
+    train = make_train(ma, tc, device=dev)
+    attn.short_attention.launches_fwd = 0
+    attn.short_attention.launches_bwd = 0
+    bkern.process_step_aggs.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tt = time.perf_counter()
+    out = train(tc.seed, n_updates=UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tt
+    got = {"book_scan": bkern.process_step_aggs.launches,
+           "short_attention_fwd": attn.short_attention.launches_fwd,
+           "short_attention_bwd": attn.short_attention.launches_bwd}
+    for m in out["metrics"]:
+        print("  " + " ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())),
+              flush=True)
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite metrics: {bad}")
+    passes = tc.update_epochs * tc.num_minibatches * UPDATES
+    want = {"book_scan": tc.num_steps * UPDATES,
+            # rollout: one forward per step and one for the last value;
+            # update: remat runs each block's forward twice per minibatch
+            "short_attention_fwd": depth * (tc.num_steps + 1) * UPDATES
+            + depth * 2 * passes,
+            "short_attention_bwd": depth * passes}
+    if got != want:
+        raise AssertionError(f"launch counts {got}, want {want}")
+    steps = tc.num_envs * tc.num_steps * UPDATES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    split = "; ".join(f"update {int(m['update_step'])}: rollout "
+                      f"{m['rollout_s']:.2f}s + PPO {m['update_s']:.2f}s"
+                      for m in out["metrics"])
+    print(f"  ViT-{tc.vit_preset} depth {depth}, {UPDATES} updates x "
+          f"NUM_STEPS={tc.num_steps} x NUM_ENVS={tc.num_envs}: {steps} "
+          f"env-steps in {wall:.2f}s = {steps / wall:.0f} env-steps/s; "
+          f"{split}; peak memory {peak:.2f} GiB; launches {got} [{smi}]",
+          flush=True)
+    return got
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -71,6 +284,7 @@ def main() -> int:
     from torch_cases import make_case
     from vit_marl_tpu_torch.config import EngineConfig, load_yaml_config
     from vit_marl_tpu_torch.lob.book import BookState
+    from vit_marl_tpu_torch.ops import attention_kernel as attn
     from vit_marl_tpu_torch.ops import book_kernel as bkern
     from vit_marl_tpu_torch.rl.ppo import make_train
 
@@ -87,15 +301,18 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     tb = time.perf_counter()
-    lib = bkern.build_library()
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(m.build_library) for m in (bkern, attn)]
+        libs = [f.result() for f in builds]
     bkern._library()
-    print(f"built {os.path.relpath(lib, ROOT)} in "
+    attn._library()
+    print(f"built {', '.join(os.path.relpath(x, ROOT) for x in libs)} in "
           f"{time.perf_counter() - tb:.2f}s", flush=True)
     phase("1 device", t0)
 
-    # ---- phase 2: kernel against plain ----
-    # Launches made here only check and time the kernel; phase 3 sets the
-    # count to 0 before it drives the main path.
+    # ---- phase 2: book scan against plain ----
+    # Launches made here only check and time the kernel; phases 4 and 5
+    # set the counts to 0 before they drive the paths.
     t0 = time.perf_counter()
     tids = torch.tensor(AGENT_TIDS, dtype=torch.int32, device=dev)
     max_err = 0
@@ -159,33 +376,21 @@ def main() -> int:
     compare(ma.world, combined, state.world.books, prev, draws.uniforms,
             "stream from the env's message builder")
 
-    # Timing at the main path's shape and cancel mode.  One untimed launch
-    # keeps the card busy while the first event is queued, and the host
-    # issues each batch faster than the card runs it, so the events span
-    # only kernels.
+    # Timing at the 2-player path's shape and cancel mode; the host issues
+    # each batch faster than the card runs it, so the events span only
+    # kernels.
     msgs, book, prev, u = cases[int(ma.world.cancel_mode)]
     cfg = EngineConfig(n_orders=S_MAIN, cancel_mode=ma.world.cancel_mode)
 
     def launch():
         return bkern.process_step_aggs(cfg, msgs, book, tids, prev, TICK, u)
 
-    for _ in range(5):
+    kernel_ms, kernel_min = time_launches(launch)
+    th = time.perf_counter()
+    for _ in range(PER_BATCH):
         launch()
-    per_launch, host = [], []
-    for _ in range(BATCHES):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        launch()
-        a.record()
-        th = time.perf_counter()
-        for _ in range(PER_BATCH):
-            launch()
-        host.append((time.perf_counter() - th) * 1e3 / PER_BATCH)
-        b.record()
-        b.synchronize()
-        per_launch.append(a.elapsed_time(b) / PER_BATCH)
-    kernel_ms = float(np.median(per_launch))
-    host_ms = float(np.median(host))
+    host_ms = (time.perf_counter() - th) * 1e3 / PER_BATCH
+    torch.cuda.synchronize()
     if host_ms >= kernel_ms:
         print(f"  warning: the host issues a launch in {host_ms:.4f} ms, "
               "not faster than the card runs it; the kernel time includes "
@@ -203,20 +408,30 @@ def main() -> int:
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"  kernel {kernel_ms:.4f} ms per launch (median of {BATCHES} "
           f"batches of {PER_BATCH} back-to-back launches, min "
-          f"{min(per_launch):.4f}); host issue {host_ms:.4f} ms per call; "
+          f"{kernel_min:.4f}); host issue {host_ms:.4f} ms per call; "
           f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
           f"({nbytes / 1e6:.1f} MB at 3.35 TB/s) [{smi}]", flush=True)
-    phase("2 kernel against plain", t0)
+    phase("2 book scan against plain", t0)
 
-    # ---- phase 3: training ----
+    # ---- phase 3: attention against plain ----
+    t0 = time.perf_counter()
+    att = attention_phase(torch, attn, smi)
+    phase("3 attention against plain", t0)
+
+    # ---- phase 4: 2-player training ----
     t0 = time.perf_counter()
     bkern.process_step_aggs.launches = 0
+    attn.short_attention.launches_fwd = 0
+    attn.short_attention.launches_bwd = 0
     torch.cuda.synchronize()
     tt = time.perf_counter()
     out = train(tc.seed, n_updates=UPDATES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tt
     launches = bkern.process_step_aggs.launches
+    if attn.short_attention.launches_fwd or attn.short_attention.launches_bwd:
+        raise AssertionError("the 2-player path (GRU policies) launched the "
+                             "attention kernels")
     for m in out["metrics"]:
         print("  " + " ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())),
               flush=True)
@@ -233,15 +448,22 @@ def main() -> int:
           f"{tc.num_envs}: {steps} env-steps in {wall:.2f}s = "
           f"{steps / wall:.0f} env-steps/s, book-scan launches {launches}, "
           f"obs {obs_shapes} [{smi}]", flush=True)
-    phase("3 training", t0)
+    phase("4 2-player training", t0)
 
-    # ---- phase 4: summary ----
+    # ---- phase 5: vision training ----
+    t0 = time.perf_counter()
+    vision = vision_phase(torch, attn, bkern, make_train, load_yaml_config,
+                          dev, smi)
+    phase("5 vision training", t0)
+
+    # ---- phase 6: summary ----
     print(json.dumps({"kernels": [{
         "name": "book_scan_aggs",
         "route": "cuda",
         "source": "vit_marl_tpu_torch/ops/csrc/book_scan.cu",
         "replaces": "vit_marl_tpu/ops/book_kernel.py:580",
         "launches": launches,
+        "launches_vision": vision["book_scan"],
         "bit_equal": max_err == 0,
         "max_abs_err": max_err,
         "ms": kernel_ms,
@@ -250,7 +472,9 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
-    }]}), flush=True)
+    }] + [dict(att[k], launches=vision[k]) for k in ("short_attention_fwd",
+                                                     "short_attention_bwd")]
+    }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -28,6 +28,7 @@ from vit_marl_tpu.env.world import WorldEnv as JWorldEnv
 from vit_marl_tpu.lob import book as jbk
 from vit_marl_tpu_torch import config as tcfg
 from vit_marl_tpu_torch.data.lobster import load_data as t_load_data
+from vit_marl_tpu_torch.env import spaces as tspaces
 from vit_marl_tpu_torch.env.structs import ResetDraws, StepDraws
 from vit_marl_tpu_torch.env.world import WorldEnv
 from vit_marl_tpu_torch.lob import book as tbk
@@ -129,13 +130,23 @@ def test_book_queries_match():
 # --------------------------------------------------------------------------
 
 
-def _env_pair(n_per_type=(1, 1)):
+def _env_pair(n_per_type=(1, 1), exe=None):
+    """JAX and port worlds of the same config; ``exe`` overrides the
+    execution agent's fields."""
+    exe = exe or {}
     jenv = JWorldEnv(jcfg.MultiAgentConfig(
-        world=jcfg.WorldConfig(**WORLD), n_agents_per_type=n_per_type))
+        world=jcfg.WorldConfig(**WORLD), n_agents_per_type=n_per_type,
+        agents=(jcfg.MarketMakingConfig(), jcfg.ExecutionConfig(**exe))))
     tenv = WorldEnv(tcfg.MultiAgentConfig(
-        world=tcfg.WorldConfig(**WORLD), n_agents_per_type=n_per_type),
+        world=tcfg.WorldConfig(**WORLD), n_agents_per_type=n_per_type,
+        agents=(tcfg.MarketMakingConfig(), tcfg.ExecutionConfig(**exe))),
         device="cpu")
     return jenv, tenv
+
+
+VISION = dict(action_space="policy_blending",
+              observation_space="execution_policy", reward_space="dual_ppo",
+              use_vision_obs=True, task_size=500)
 
 
 @pytest.fixture(scope="module")
@@ -208,6 +219,12 @@ def _assert_state_equal(jst, tst):
 
 
 def _assert_close(want, got, name):
+    """Leaf by leaf: a dict observation compares each entry."""
+    if isinstance(got, dict):
+        assert set(want) == set(got), name
+        for k in got:
+            _assert_close(want[k], got[k], f"{name}[{k}]")
+        return
     np.testing.assert_allclose(np.asarray(want), got.numpy(), rtol=1e-5,
                                atol=1e-5, err_msg=name)
 
@@ -221,6 +238,43 @@ def test_step_vec_matches_jax_with_several_agents_per_type():
     """Two market makers and three execution agents per env: per-instance
     trader ids, cancels, sums and actions of shape (E, n)."""
     _run_steps(*_env_pair((2, 3)), 3)
+
+
+@pytest.mark.parametrize("aggressive", [False, True],
+                         ids=["passive", "blend_aggressive"])
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_vision_step_vec_matches_jax(n_steps, aggressive):
+    """The ``ippo_vision_dual_ppo`` world: ``policy_blending`` continuous
+    actions, ``dual_ppo`` rewards, ``execution_policy`` + book-image dict
+    observations."""
+    jenv, tenv = _env_pair(exe=dict(VISION, blend_aggressive=aggressive))
+    assert isinstance(tenv.observation_spaces[1], tspaces.Dict)
+    _run_steps(jenv, tenv, n_steps)
+
+
+def test_vision_l2_state_matches_jax():
+    rng = np.random.default_rng(3)
+    book = _random_books(rng, 6, 32)
+    sides = [jbk.SideState(*[jnp.asarray(book[:, s, f]) for f in range(6)])
+             for s in (0, 1)]
+    for levels in (3, 10, 40):
+        want = jax.vmap(lambda x, y: jbk.get_vision_l2_state(
+            jcfg.EngineConfig(n_orders=32), levels, x, y))(*sides)
+        got = tbk.get_vision_l2_state(tcfg.EngineConfig(n_orders=32), levels,
+                                      tbk.BookState(torch.from_numpy(book)))
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+def _actions(rng, space, n):
+    """Random actions: integers of a Discrete space, or floats inside a
+    Box's bounds; ``(E,)``/``(E, d)`` for one instance, else with ``n``."""
+    lead = (E,) if n == 1 else (E, n)
+    if isinstance(space, tspaces.Discrete):
+        return rng.integers(0, space.n, lead).astype(np.int32)
+    low, high = space.low.numpy(), space.high.numpy()
+    return (low + (high - low) * rng.random(lead + space.shape)
+            ).astype(np.float32)
 
 
 def _run_steps(jenv, tenv, n_steps):
@@ -237,8 +291,7 @@ def _run_steps(jenv, tenv, n_steps):
     saw_reset = False
     for t in range(n_steps):
         key, sk = jax.random.split(key)
-        acts = [rng.integers(0, sp.n, (E, n) if n > 1 else E
-                             ).astype(np.int32)
+        acts = [_actions(rng, sp, n)
                 for sp, n in zip(tenv.action_spaces, tenv.n_per_type)]
         jobs, jst, jrew, jdone, _ = jenv.step_vec(
             sk, jst, [jnp.asarray(a) for a in acts], jp)

@@ -1,9 +1,16 @@
-"""The CUDA book scan against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``gpu``: each test skips without a CUDA device.  On a machine with
-one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.  Every
-output must be bit-equal, including ragged batches (E not a multiple of the
-kernel's 4 envs per block) and every supported book capacity.
+one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
+
+- Book scan: every output bit-equal, including ragged batches (E not a
+  multiple of the kernel's 4 envs per block) and every supported book
+  capacity.
+- Short attention, forward and backward, through the autograd wrapper:
+  float32 within rtol 1e-5 / atol 1e-6 of the plain version; bfloat16
+  within one bf16 ulp of it (rtol 8e-3, atol 1e-3), since the plain
+  version is the same float32 math rounded once.  Ragged B, heads
+  contiguous in the lanes at H > 1.
 """
 
 import numpy as np
@@ -12,6 +19,7 @@ import torch
 
 from vit_marl_tpu_torch.config import EngineConfig
 from vit_marl_tpu_torch.lob.book import BookState
+from vit_marl_tpu_torch.ops import attention_kernel as attn
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 
 from torch_cases import TICK, TIDS, make_case
@@ -58,3 +66,58 @@ def test_kernel_rejects_unsupported_capacity(cuda):
             BookState(torch.from_numpy(book).to(cuda)),
             torch.tensor(TIDS, dtype=torch.int32, device=cuda),
             torch.from_numpy(prev).to(cuda), TICK)
+
+
+ATTN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
+            torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,N,H,D", [(37, 11, 2, 32), (1000, 11, 6, 64),
+                                     (3, 5, 6, 64), (65, 32, 2, 128),
+                                     (9, 1, 3, 8)])
+def test_attention_kernels_match_plain(cuda, dtype, B, N, H, D):
+    rng = np.random.default_rng(B + N + H)
+    x = torch.from_numpy(rng.normal(size=(B * N, 3 * H * D)).astype(
+        np.float32)).to(cuda, dtype).requires_grad_(True)
+    g = torch.from_numpy(rng.normal(size=(B * N, H * D)).astype(
+        np.float32)).to(cuda, dtype)
+    f0, b0 = attn.short_attention.launches_fwd, attn.short_attention.launches_bwd
+    out = attn.short_attention(x, N, H)
+    (dx,) = torch.autograd.grad(out, x, g)
+    assert attn.short_attention.launches_fwd == f0 + 1
+    assert attn.short_attention.launches_bwd == b0 + 1
+    assert out.dtype == dx.dtype == dtype
+    want = attn.short_attention_reference(x.detach(), N, H)
+    want_dx = attn.short_attention_bwd_reference(x.detach(), g, N, H)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **ATTN_TOL[dtype])
+    torch.testing.assert_close(dx, want_dx, **ATTN_TOL[dtype])
+
+
+def test_attention_backward_is_the_gradient_of_the_forward(cuda):
+    """float32: the plain backward and the kernel both equal autograd of
+    the plain forward."""
+    x = torch.randn(13 * 11, 3 * 128, device=cuda, requires_grad=True)
+    g = torch.randn(13 * 11, 128, device=cuda)
+    (want,) = torch.autograd.grad(
+        attn.short_attention_reference(x, 11, 2), x, g)
+    torch.testing.assert_close(
+        attn.short_attention_bwd_reference(x.detach(), g, 11, 2), want,
+        rtol=1e-5, atol=1e-6)
+    (got,) = torch.autograd.grad(attn.short_attention(x, 11, 2), x, g)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_attention_kernel_rejects_unsupported_shapes(cuda):
+    with pytest.raises(ValueError, match="N <= 32"):
+        attn.short_attention(torch.zeros(33 * 2, 3 * 64, device=cuda), 33, 1)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        attn.short_attention(torch.zeros(4 * 2, 3 * 12, device=cuda), 4, 1)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        attn.short_attention(torch.zeros(4 * 2, 3 * 16, device=cuda,
+                                         dtype=torch.float16), 4, 1)
+    flat = torch.zeros(8 * 48 + 1, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attn.short_attention(flat[1:].view(8, 48), 4, 1)

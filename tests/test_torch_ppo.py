@@ -3,15 +3,20 @@
 GAE, actor batching and one PPO update (two epochs of two minibatches, run
 twice so the learning-rate anneal moves) are compared from identical
 weights (through the flax bridge), trajectories and minibatch
-permutations.  The JAX side is ``vit_marl_tpu/rl/ppo.py``'s code: GAE, the
+permutations: for the GRU policy with discrete actions, and for the
+ViT-GRU policy (micro preset, float32) with dict observations and
+continuous ``SquashedNormal`` actions.  The JAX side is ``vit_marl_tpu/rl/ppo.py``'s code: GAE, the
 loss and the epoch loop live inside its ``make_train`` closure, so they are
 restated here line for line (ppo.py:410-420, 442-485) around its optax
 chain.  GAE agrees within 1e-6, the updated weights within 1e-4 relative.
-A CPU ``make_train`` run gives finite losses.
+CPU ``make_train`` runs, of the 2-player world and of the vision world
+(``configs/ippo_vision_dual_ppo.yaml`` cut to the micro preset and a few
+envs), give finite losses.
 """
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -19,16 +24,22 @@ import numpy as np
 import optax
 import pytest
 import torch
+import yaml
 from flax.training.train_state import TrainState
 
 from vit_marl_tpu.models.rnn import ActorCriticRNN as JActorCriticRNN
 from vit_marl_tpu.models.rnn import ScannedGRU as JScannedGRU
+from vit_marl_tpu.models.vit import VIT_PRESETS as J_PRESETS
+from vit_marl_tpu.models.vit import ViTActorCriticRNN as JViTActorCriticRNN
 from vit_marl_tpu.rl import ppo as jppo
 from vit_marl_tpu_torch import config as tcfg
 from vit_marl_tpu_torch.models.bridge import flax_to_state_dict
+from vit_marl_tpu_torch.models import vit as tvit
 from vit_marl_tpu_torch.models.rnn import ActorCriticRNN
+from vit_marl_tpu_torch.ops import attention_kernel as attn
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 from vit_marl_tpu_torch.rl import ppo as tppo
+from vit_marl_tpu_torch.utils.tree import tree_map
 
 T, A, OBS, ACT, H = 8, 16, 10, 6, 64
 N_MB, EPOCHS, N_UPDATES = 2, 2, 4
@@ -63,12 +74,12 @@ def _trajectory(seed, with_logp=None):
 
 
 def _jtraj(tr):
-    return jppo.Transition(**{k: jnp.asarray(v) for k, v in tr.items()})
+    return jppo.Transition(**jax.tree.map(jnp.asarray, tr))
 
 
 def _ttraj(tr):
-    return tppo.Transition(**{k: torch.from_numpy(np.array(v))
-                              for k, v in tr.items()})
+    return tppo.Transition(**tree_map(lambda v: torch.from_numpy(
+        np.array(v)), tr))
 
 
 def test_gae_matches_jax():
@@ -127,31 +138,18 @@ def _jax_update(ts, init_h, traj, gae_all, tgt_all, perms, cfg):
     return ts, losses
 
 
-def test_ppo_update_matches_jax():
+def _check_update(jnet, params, net, tr, init_h):
+    """Two updates of the same trajectory through both; the updated
+    weights agree within 1e-4 relative."""
     cfg = tcfg.TrainConfig(num_minibatches=N_MB, update_epochs=EPOCHS,
                            lr=1e-3)
-    jnet = JActorCriticRNN(action_dim=ACT, fc_dim=H, hidden_size=H)
-    params = jnet.init(jax.random.PRNGKey(0),
-                       JScannedGRU.initialize_carry(A, H),
-                       (jnp.zeros((1, A, OBS)), jnp.zeros((1, A), bool)))
     n_mb = N_MB * EPOCHS
     lr_fn = functools.partial(
         lambda lr, count: lr * (1.0 - (count // n_mb) / N_UPDATES), cfg.lr)
     tx = optax.chain(optax.clip_by_global_norm(cfg.max_grad_norm),
                      optax.adam(learning_rate=lr_fn, eps=1e-5))
     ts = TrainState.create(apply_fn=jnet.apply, params=params, tx=tx)
-
-    net = ActorCriticRNN(OBS, ACT, fc_dim=H, hidden_size=H)
-    net.load_state_dict(flax_to_state_dict(jax.device_get(params)))
     learner = tppo.PPOLearner(net, cfg, 0, N_UPDATES)
-
-    tr = _trajectory(3)
-    init_h = np.random.default_rng(4).normal(size=(A, H)).astype(np.float32)
-    with torch.no_grad():   # behaviour log-probs near the policy's own
-        _, pi, _ = net(torch.from_numpy(init_h), torch.from_numpy(tr["obs"]),
-                       torch.from_numpy(tr["done"]))
-        logp = pi.log_prob(torch.from_numpy(tr["action"])).numpy()
-    tr = _trajectory(3, with_logp=logp + 0.05)
     last = np.zeros(A, np.float32)
     jadv, jtgt = _jax_gae(cfg.gamma, cfg.gae_lambda, _jtraj(tr),
                           jnp.asarray(last))
@@ -170,12 +168,66 @@ def test_ppo_update_matches_jax():
     assert learner.count == 2 * n_mb
     want = flax_to_state_dict(jax.device_get(ts.params))
     got = net.state_dict()
+    assert set(want) == set(got)
     for k, w in want.items():
         np.testing.assert_allclose(w.numpy(), got[k].numpy(), rtol=1e-4,
                                    atol=1e-6, err_msg=k)
     # the update moved the weights well beyond the tolerance
     before = flax_to_state_dict(jax.device_get(params))
     assert max(float((got[k] - before[k]).abs().max()) for k in got) > 1e-3
+
+
+def _behaviour_log_prob(net, init_h, tr):
+    """Log-probs of the trajectory's actions near the policy's own."""
+    with torch.no_grad():
+        _, pi, _ = net(torch.from_numpy(init_h), _ttraj(tr).obs,
+                       torch.from_numpy(tr["done"]))
+        return pi.log_prob(torch.from_numpy(tr["action"])).numpy() + 0.05
+
+
+def test_ppo_update_matches_jax():
+    jnet = JActorCriticRNN(action_dim=ACT, fc_dim=H, hidden_size=H)
+    params = jnet.init(jax.random.PRNGKey(0),
+                       JScannedGRU.initialize_carry(A, H),
+                       (jnp.zeros((1, A, OBS)), jnp.zeros((1, A), bool)))
+    net = ActorCriticRNN(OBS, ACT, fc_dim=H, hidden_size=H)
+    net.load_state_dict(flax_to_state_dict(jax.device_get(params)))
+    tr = _trajectory(3)
+    init_h = np.random.default_rng(4).normal(size=(A, H)).astype(np.float32)
+    tr = _trajectory(3, with_logp=_behaviour_log_prob(net, init_h, tr))
+    _check_update(jnet, params, net, tr, init_h)
+
+
+def test_vit_gru_ppo_update_matches_jax():
+    """ViT-GRU at the micro preset in float32: dict observations (28 flat
+    features and a (10, 3, 2) book image) and continuous Box(3,) actions."""
+    low = np.array([-1.0, 0.0, 0.0], np.float32)
+    high = np.array([3.0, 1.0, 1.0], np.float32)
+    jvit = dataclasses.replace(J_PRESETS["micro"], compute_dtype="float32")
+    tvit_cfg = dataclasses.replace(tvit.VIT_PRESETS["micro"],
+                                   compute_dtype="float32")
+    jnet = JViTActorCriticRNN(action_dim=3, vit=jvit, continuous=True,
+                              action_low=jnp.asarray(low),
+                              action_high=jnp.asarray(high))
+    rng = np.random.default_rng(6)
+    tr = _trajectory(6)
+    tr["obs"] = {"obs": rng.normal(size=(T, A, 28)).astype(np.float32),
+                 "vision_obs": rng.normal(size=(T, A, 10, 3, 2)).astype(
+                     np.float32)}
+    tr["action"] = (low + (high - low) * rng.random((T, A, 3))).astype(
+        np.float32)
+    params = jnet.init(jax.random.PRNGKey(1),
+                       JScannedGRU.initialize_carry(A, H),
+                       (jax.tree.map(lambda v: jnp.asarray(v[:1]),
+                                     tr["obs"]), jnp.zeros((1, A), bool)))
+    net = tvit.ViTActorCriticRNN(28, 10, 3, tvit_cfg,
+                                 action_low=torch.from_numpy(low),
+                                 action_high=torch.from_numpy(high))
+    net.load_state_dict(flax_to_state_dict(jax.device_get(params)),
+                        strict=True)
+    init_h = rng.normal(size=(A, H)).astype(np.float32)
+    tr["log_prob"] = _behaviour_log_prob(net, init_h, tr)
+    _check_update(jnet, params, net, tr, init_h)
 
 
 def test_linear_schedule_reads_the_count_before_the_step():
@@ -198,6 +250,40 @@ def test_make_train_cpu_smoke():
     for m in out["metrics"]:
         assert all(np.isfinite(v) for v in m.values()), m
         assert {"MM/total_loss", "EXE/total_loss"} <= set(m)
+
+
+def test_make_train_cpu_smoke_vision():
+    """The vision world at the micro preset: ViT-GRU policy for the
+    execution agent (policy blending, dual PPO), GRU for the market maker.
+    On the CPU the attention runs its plain versions (no launch counted)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "ippo_vision_dual_ppo.yaml")
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    raw.update(NUM_ENVS=4, NUM_STEPS=4, UPDATE_EPOCHS=1, NUM_MINIBATCHES=2,
+               TOTAL_TIMESTEPS=32, VIT_PRESET="micro")
+    raw["WORLD"].update({k.upper(): v for k, v in WORLD.items()})
+    ma, tc = tcfg.make_config(raw)
+    before = (attn.short_attention.launches_fwd,
+              attn.short_attention.launches_bwd)
+    out = tppo.make_train(ma, tc, device="cpu")(seed=0)
+    assert (attn.short_attention.launches_fwd,
+            attn.short_attention.launches_bwd) == before
+    assert isinstance(out["networks"][1], tvit.ViTActorCriticRNN)
+    assert len(out["metrics"]) == 2
+    for m in out["metrics"]:
+        assert all(np.isfinite(v) for v in m.values()), m
+        assert {"MM/total_loss", "EXE/total_loss"} <= set(m)
+
+
+def test_dict_observations_need_the_vit_network():
+    ma = tcfg.MultiAgentConfig(world=tcfg.WorldConfig(**WORLD), agents=(
+        tcfg.MarketMakingConfig(), tcfg.ExecutionConfig(
+            action_space="policy_blending",
+            observation_space="execution_policy", reward_space="dual_ppo",
+            use_vision_obs=True)))
+    with pytest.raises(ValueError, match="vit_gru"):
+        tppo.make_train(ma, tcfg.TrainConfig(num_envs=4), device="cpu")
 
 
 def test_train_cli_needs_a_card_unless_cpu_is_asked(monkeypatch):

@@ -1,10 +1,19 @@
-"""Execution agent: main-path action, reward and observation spaces.
+"""Execution agent: the action, reward and observation spaces of the
+ported paths.
 
-Port of ``vit_marl_tpu/env/execution.py`` for ``fixed_quants_complex``
-actions, the ``normal`` reward and ``engineered`` observations in
-``fixed_steps`` episodes, batched over ``(E, n)``.  The other spaces of the
-reference (vision, policy blending, dual PPO, TWAP, fixed prices) are not
-ported yet and raise.
+Port of ``vit_marl_tpu/env/execution.py`` in ``fixed_steps`` episodes,
+batched over ``(E, n)``:
+
+- actions ``fixed_quants_complex`` (13 discrete) and ``policy_blending``
+  (continuous ``Box(3,)`` blend over the top-3 own-side levels, with the
+  ``blend_aggressive`` option);
+- rewards ``normal`` and ``dual_ppo``;
+- observations ``engineered`` (12) and ``execution_policy`` (28), and the
+  ``{"obs", "vision_obs"}`` dict with the normalized ``(levels, 3, 2)``
+  book image when ``use_vision_obs`` is set.
+
+The other spaces of the reference (TWAP, fixed prices, fixed quants,
+simplest case, finish fast) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -12,6 +21,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from vit_marl_tpu_torch.config import ExecutionConfig, WorldConfig
 from vit_marl_tpu_torch.env import common, spaces
@@ -30,15 +40,16 @@ _QUANT_ARRAY = [
 
 class ExecutionAgent:
     def __init__(self, cfg: ExecutionConfig, wcfg: WorldConfig):
-        if cfg.action_space != "fixed_quants_complex":
+        if cfg.action_space not in ("fixed_quants_complex",
+                                    "policy_blending"):
             raise NotImplementedError(
                 f"execution action_space={cfg.action_space!r} is not "
                 "ported yet")
-        if cfg.observation_space != "engineered" or cfg.use_vision_obs:
+        if cfg.observation_space not in ("engineered", "execution_policy"):
             raise NotImplementedError(
                 f"execution observation_space={cfg.observation_space!r} "
-                f"(use_vision_obs={cfg.use_vision_obs}) is not ported yet")
-        if cfg.reward_space != "normal":
+                "is not ported yet")
+        if cfg.reward_space not in ("normal", "dual_ppo"):
             raise NotImplementedError(
                 f"execution reward_space={cfg.reward_space!r} is not "
                 "ported yet")
@@ -114,18 +125,71 @@ class ExecutionAgent:
         is_sell = state.is_sell_task[..., None] != 0
         return torch.where(is_sell, sell, buy).to(torch.int32)
 
-    def get_messages(self, action: Tensor, world: WorldState,
-                     state: ExecState, params: ExecParams
-                     ) -> Tuple[Tensor, Tensor]:
-        """Action and cancel messages, ``(E, n, 4, 8)`` each
-        (ref: vision_env.py:1537-1587)."""
-        dev = action.device
+    def _quants_fixed_quants_complex(self, action: Tensor, world: WorldState,
+                                     state: ExecState
+                                     ) -> Tuple[Tensor, Tensor]:
+        """(quants, prices) ``(E, n, 4)`` (ref: vision_env.py:1537-1587)."""
         prices = self._task_prices(world, state)
-        qa = torch.tensor(_QUANT_ARRAY, dtype=torch.int32, device=dev)
+        qa = torch.tensor(_QUANT_ARRAY, dtype=torch.int32,
+                          device=action.device)
         quants = qa[action.long()] * self.cfg.fixed_quant_value  # (E, n, 4)
         quant_left = (state.task_to_execute - state.quant_executed)[..., None]
         quants = torch.where(quants.sum(dim=-1, keepdim=True) <= quant_left,
                              quants, qa[1] * quant_left).to(torch.int32)
+        return quants, prices
+
+    def _quants_policy_blending(self, action: Tensor, world: WorldState,
+                                state: ExecState) -> Tuple[Tensor, Tensor]:
+        """Continuous blend over the top-3 own-side levels, ``action``
+        ``(E, n, 3)``; (quants, prices) ``(E, n, 4)`` with an all-zero 4th
+        row (ref: execution.py:303-347, vision_env.py:1426-1534).
+
+        Passive at the own-side top 3 levels; with ``blend_aggressive``
+        level 1 is the far touch (it crosses the spread).  A missing level
+        falls back one tick beyond the previous one."""
+        tick = self.wcfg.tick_size
+        l2 = bk.get_vision_l2_state(self.wcfg, 3, world.books)  # (E,3,2,2)
+        ask = l2[:, None, :, 0, 0]                               # (E, 1, 3)
+        bid = l2[:, None, :, 0, 1]
+        aggressive = self.cfg.blend_aggressive
+
+        def ladder(far, own, step):
+            p1 = far[..., 0] if aggressive else own[..., 0]
+            q2 = own[..., 0] if aggressive else own[..., 1]
+            p2 = torch.where(q2 != -1, q2, p1 + step)
+            q3 = own[..., 1] if aggressive else own[..., 2]
+            p3 = torch.where(q3 != -1, q3, p2 + step)
+            return torch.stack([p1, p2, p3], dim=-1)
+
+        is_sell = (state.is_sell_task != 0)[..., None]
+        prices3 = torch.where(is_sell, ladder(bid, ask, tick),
+                              ladder(ask, bid, -tick)).to(torch.int32)
+        v_twap = (state.task_to_execute
+                  / world.max_steps_in_episode[:, None])[..., None]
+        v_base = F.pad(v_twap, (0, 2))                   # [v_twap, 0, 0]
+        target = torch.floor(torch.clamp(v_base + v_twap * action, min=0)
+                             ).to(torch.int32)
+        quant_left = (state.task_to_execute - state.quant_executed)[..., None]
+        total = target.sum(dim=-1, keepdim=True, dtype=torch.int32)
+        scale = torch.where(total > quant_left,
+                            quant_left / (total + 1e-6), 1.0)
+        target = torch.floor(target * scale).to(torch.int32)
+        pad = torch.zeros_like(target[..., :1])
+        return (torch.cat([target, pad], dim=-1),
+                torch.cat([prices3, pad], dim=-1))
+
+    def get_messages(self, action: Tensor, world: WorldState,
+                     state: ExecState, params: ExecParams
+                     ) -> Tuple[Tensor, Tensor]:
+        """Action and cancel messages, ``(E, n, 4, 8)`` each
+        (ref: vision_env.py:1537-1587; execution.py:364-387)."""
+        dev = action.device
+        if self.cfg.action_space == "policy_blending":
+            quants, prices = self._quants_policy_blending(action, world,
+                                                          state)
+        else:
+            quants, prices = self._quants_fixed_quants_complex(action, world,
+                                                               state)
         n = self.cfg.num_action_messages
         side = (1 - state.is_sell_task * 2)[..., None]
         action_msgs = common.build_action_msgs(
@@ -156,8 +220,8 @@ class ExecutionAgent:
                    params: ExecParams, bestasks: Tensor, bestbids: Tensor,
                    summary: common.TradeSummary
                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """Doom trade + the ``normal`` reward (ref: exec_env.py:1698-1930,
-        vision_env.py:2063-2146)."""
+        """Doom trade + the ``normal`` or ``dual_ppo`` reward
+        (ref: exec_env.py:1698-1930, vision_env.py:2063-2240)."""
         cfg, wcfg = self.cfg, self.wcfg
         tick = wcfg.tick_size
         col = lambda v: v[:, None]                     # noqa: E731
@@ -193,24 +257,42 @@ class ExecutionAgent:
                                 * agent_quant) / state.task_to_execute)
         trade_duration = state.trade_duration + trade_duration_step
         quant_left = state.task_to_execute - state.quant_executed - agent_quant
-
         init_tick = torch.div(state.init_price, tick, rounding_mode="floor")
-        other_q = s.other_quant
-        vwap = torch.where(other_q == 0, state.init_price / tick,
-                           s.other_pq_tick / torch.clamp(other_q, min=1))
-        vwap_rm = rm(state.vwap_rm, vwap)
-        price_adv_rm = rm(state.price_adv_rm,
-                          revenue / (agent_quant + 0.001) - vwap)
         # money terms that nearly cancel: one rounding (common.mul_add)
         slippage_rm = rm(state.slippage_rm,
                          common.mul_sub(revenue, init_tick, agent_quant))
-        price_drift_rm = rm(state.price_drift_rm, vwap - init_tick)
-        advantage = direction * common.mul_sub(revenue, vwap, agent_quant)
-        drift = direction * agent_quant * (vwap - init_tick)
-        reward = common.mul_add(advantage, params.reward_lambda[None, :],
-                                drift)
-        reward_lam1 = direction * common.mul_sub(revenue, init_tick,
-                                                 agent_quant)
+
+        if cfg.reward_space == "dual_ppo":
+            # (ref: execution.py:452-470, vision_env.py:2160-2240)
+            p_benchmark = torch.where(
+                is_sell,
+                col(torch.div(bestbids[:, -1, 0], tick, rounding_mode="floor")),
+                col(torch.div(bestasks[:, -1, 0], tick, rounding_mode="floor")))
+            v_base = state.task_to_execute / col(world.max_steps_in_episode)
+            r_comp = direction * (revenue - agent_quant * p_benchmark)
+            r_mimic = -(agent_quant - v_base).abs() / (v_base + 1.0)
+            reward = r_comp + cfg.mimic_alpha * r_mimic
+            drift = direction * agent_quant * (p_benchmark - init_tick)
+            vwap_rm = rm(state.vwap_rm, p_benchmark)
+            price_adv_rm = rm(state.price_adv_rm, r_comp)
+            price_drift_rm = rm(state.price_drift_rm, p_benchmark - init_tick)
+            advantage = r_comp
+            reward_lam1 = r_comp
+        else:
+            other_q = s.other_quant
+            vwap = torch.where(other_q == 0, state.init_price / tick,
+                               s.other_pq_tick / torch.clamp(other_q, min=1))
+            vwap_rm = rm(state.vwap_rm, vwap)
+            price_adv_rm = rm(state.price_adv_rm,
+                              revenue / (agent_quant + 0.001) - vwap)
+            price_drift_rm = rm(state.price_drift_rm, vwap - init_tick)
+            advantage = direction * common.mul_sub(revenue, vwap,
+                                                   agent_quant)
+            drift = direction * agent_quant * (vwap - init_tick)
+            reward = common.mul_add(advantage, params.reward_lambda[None, :],
+                                    drift)
+            reward_lam1 = direction * common.mul_sub(revenue, init_tick,
+                                                     agent_quant)
         extras = {
             "reward": reward,
             "agentQuant": agent_quant,
@@ -263,7 +345,21 @@ class ExecutionAgent:
 
     # ------------------------------------------------------------------
 
-    def get_observation(self, world: WorldState, state: ExecState) -> Tensor:
+    def get_observation(self, world: WorldState, state: ExecState):
+        """The flat observation ``(E, n, d)``, or with ``use_vision_obs``
+        the dict ``{"obs": (E, n, d), "vision_obs": (E, n, levels, 3, 2)}``
+        (ref: execution.py:741-760)."""
+        if self.cfg.observation_space == "execution_policy":
+            obs = self._obs_execution_policy(world, state)
+        else:
+            obs = self._obs_engineered(world, state)
+        if not self.cfg.use_vision_obs:
+            return obs
+        vision = self.get_vision_obs(world)
+        return {"obs": obs, "vision_obs": vision[:, None].expand(
+            (-1, obs.shape[1]) + vision.shape[1:])}
+
+    def _obs_engineered(self, world: WorldState, state: ExecState) -> Tensor:
         """12-dim engineered features, ``(E, n, 12)`` float32
         (ref: vision_env.py:2415-2470)."""
         shape = state.quant_executed.shape
@@ -307,8 +403,103 @@ class ExecutionAgent:
             obs = {k: (v - means.get(k, 0)) / stds[k] for k, v in obs.items()}
         return common.flatten_obs_dict(obs)
 
+    def normalize_vision_obs(self, raw: Tensor, world: WorldState
+                             ) -> Tensor:
+        """Raw ``(E, levels, 2, 2)`` book image -> ``(E, levels, 3, 2)``:
+        (gap to mid in ticks, log1p volume, log1p cumulative volume) per
+        (ask, bid) channel (ref: execution.py:661-678)."""
+        tick = self.wcfg.tick_size
+        mid = world.mid_price[:, None]
+
+        def side_feats(prices, vols, gap_sign):
+            valid = prices != -1
+            gap = torch.where(valid, gap_sign * (prices - mid) / tick, 0.0)
+            clean = torch.where(valid, vols, 0)
+            cum = torch.where(valid, clean.cumsum(dim=1, dtype=torch.int32),
+                              0)
+            return torch.stack([gap, torch.log1p(clean), torch.log1p(cum)],
+                               dim=2)
+
+        return torch.stack([side_feats(raw[:, :, 0, 0], raw[:, :, 1, 0], 1.0),
+                            side_feats(raw[:, :, 0, 1], raw[:, :, 1, 1], -1.0)],
+                           dim=-1)
+
+    def get_vision_obs(self, world: WorldState) -> Tensor:
+        """Per-env book image ``(E, levels, 3, 2)`` (``(E, levels, 2, 2)``
+        raw prices and volumes without ``normalize``)
+        (ref: execution.py:680-686)."""
+        raw = bk.get_vision_l2_state(self.wcfg, self.cfg.vision_levels,
+                                     world.books)
+        if self.cfg.normalize:
+            return self.normalize_vision_obs(raw, world)
+        return raw.to(torch.float32)
+
+    def _obs_execution_policy(self, world: WorldState, state: ExecState
+                              ) -> Tensor:
+        """10 private + 9 aggressive-side + 9 passive-side features,
+        ``(E, n, 28)`` (ref: execution.py:688-739)."""
+        raw3 = bk.get_vision_l2_state(self.wcfg, 3, world.books)
+        if self.cfg.normalize:
+            feats = self.normalize_vision_obs(raw3, world)
+        else:
+            price = raw3[:, :, 0, :].to(torch.float32)
+            vol = raw3[:, :, 1, :].to(torch.float32)
+            cum = vol.clamp(min=0).cumsum(dim=1)
+            feats = torch.stack([price, vol, cum], dim=2)
+        # channel 0 = asks, 1 = bids; the aggressive side faces the task
+        feats = feats[:, None]                            # (E, 1, 3, 3, 2)
+        is_sell = (state.is_sell_task != 0)[..., None, None]
+        aggr = torch.where(is_sell, feats[..., 1], feats[..., 0])
+        pass_ = torch.where(is_sell, feats[..., 0], feats[..., 1])
+        shape = state.quant_executed.shape
+        w = lambda v: v[:, None].expand(shape)         # noqa: E731
+        t = world.time[:, 0] + world.time[:, 1] / 1e9
+        elapsed = t - (world.init_time[:, 0] + world.init_time[:, 1] / 1e9)
+        steps, max_steps = w(world.step_counter), w(world.max_steps_in_episode)
+        priv = {
+            "is_sell_task": state.is_sell_task,
+            "time": w(t),
+            "delta_time": w(world.delta_time),
+            "time_remaining": w(self.wcfg.episode_time - elapsed),
+            "init_price": state.init_price,
+            "current_task_size": state.task_to_execute,
+            "executed_quant": state.quant_executed,
+            "remaining_quant": state.task_to_execute - state.quant_executed,
+            "step_counter": steps,
+            "remaining_ratio": torch.where(
+                max_steps == 0, torch.zeros((), device=steps.device),
+                1.0 - steps / max_steps),
+        }
+        if self.cfg.normalize:
+            ts = self.cfg.task_size
+            stds = {
+                "is_sell_task": 1, "time": 1e5, "delta_time": 10,
+                "time_remaining": self.wcfg.episode_time, "init_price": 1e7,
+                "current_task_size": ts, "executed_quant": ts,
+                "remaining_quant": ts, "step_counter": 30,
+                "remaining_ratio": 1,
+            }
+            priv = {k: (v - 0) / stds[k] for k, v in priv.items()}
+        order = ("is_sell_task", "init_price", "current_task_size",
+                 "executed_quant", "remaining_quant", "step_counter",
+                 "remaining_ratio", "time", "delta_time", "time_remaining")
+        private = torch.stack([priv[k].to(torch.float32) for k in order],
+                              dim=-1)
+        return torch.cat([private, aggr.flatten(-2), pass_.flatten(-2)],
+                         dim=-1)
+
     def action_space(self):
+        """(ref: execution.py:766-776)"""
+        if self.cfg.action_space == "policy_blending":
+            return spaces.Box(torch.tensor([-1.0, 0.0, 0.0]),
+                              torch.tensor([3.0, 1.0, 1.0]), (3,))
         return spaces.Discrete(self.cfg.num_actions)
 
     def observation_space(self):
-        return spaces.Box(-10_000, 10_000, (12,))
+        """(ref: execution.py:778-792)"""
+        dim = 28 if self.cfg.observation_space == "execution_policy" else 12
+        flat = spaces.Box(-10_000, 10_000, (dim,))
+        if self.cfg.use_vision_obs:
+            vision = spaces.Box(-100, 1e8, (self.cfg.vision_levels, 3, 2))
+            return spaces.Dict({"obs": flat, "vision_obs": vision})
+        return flat

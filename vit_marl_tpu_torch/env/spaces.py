@@ -1,9 +1,9 @@
-"""Minimal action/observation spaces (port of ``vit_marl_tpu/env/spaces.py``,
+"""Action and observation spaces (port of ``vit_marl_tpu/env/spaces.py``,
 shapes and bounds only: the port samples actions from its policies)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Mapping, Tuple
 
 import torch
 
@@ -19,6 +19,8 @@ class Discrete:
 
 
 class Box:
+    """Bounds are scalars or per-dimension tensors of ``shape``."""
+
     def __init__(self, low, high, shape: Tuple[int, ...],
                  dtype=torch.float32):
         self.low = low
@@ -28,3 +30,13 @@ class Box:
 
     def __repr__(self):
         return f"Box(shape={self.shape})"
+
+
+class Dict:
+    """Named sub-spaces, e.g. ``{"obs", "vision_obs"}``."""
+
+    def __init__(self, spaces: Mapping[str, object]):
+        self.spaces = dict(spaces)
+
+    def __repr__(self):
+        return f"Dict({self.spaces})"

@@ -236,7 +236,12 @@ class WorldEnv:
         for i, agent in enumerate(self.agent_types):
             obs = agent.get_observation(new_world, new_agent_states[i])
             mask = dones_list[i] & ~done_all[:, None]
-            obs_list.append(torch.where(mask[..., None], 0.0, obs))
+
+            def zero_done(o, mask=mask):
+                m = mask.reshape(mask.shape + (1,) * (o.dim() - mask.dim()))
+                return torch.where(m, 0.0, o)
+
+            obs_list.append(tree_map(zero_done, obs))
         return obs_list, new_state, rewards, dones, info
 
     def step_vec(self, state: MultiAgentState, actions: Sequence[Tensor],
@@ -245,12 +250,14 @@ class WorldEnv:
                  generator: Optional[torch.Generator] = None):
         """Batched auto-resetting step.
 
-        ``actions``: one tensor per agent type, ``(E,)`` for a type with a
-        single instance, else ``(E, n)``.  ``draws`` supplies every random
+        ``actions``: one tensor per agent type, ``(E,)`` (discrete) or
+        ``(E, d)`` (continuous) for a type with a single instance, else
+        ``(E, n)`` or ``(E, n, d)``.  ``draws`` supplies every random
         draw of the step; when omitted they come from ``generator``.
 
         Returns ``(obs, state, rewards, dones, info)``: per-type ``(E, n,
-        d)`` observations and ``(E, n)`` rewards, ``dones["agents"]`` per
+        d)`` observations (or dicts of ``(E, n, ...)`` tensors) and
+        ``(E, n)`` rewards, ``dones["agents"]`` per
         type ``(E, n)`` and ``dones["__all__"]`` ``(E,)``.
         """
         E = state.world.step_counter.shape[0]

@@ -126,6 +126,18 @@ def get_l2_state(cfg: EngineConfig, n_levels: int, book: BookState
     return torch.stack([ap, av, bp, bv], dim=2).reshape(ap.shape[0], -1)
 
 
+def get_vision_l2_state(cfg: EngineConfig, n_levels: int, book: BookState
+                        ) -> torch.Tensor:
+    """Raw book image ``(E, n_levels, 2, 2)`` int32: dim 2 is (price,
+    volume), dim 3 is (ask, bid) (ref: ``vit_marl_tpu/lob/book.py::
+    get_vision_l2_state``)."""
+    ap, av = _side_levels(book.asks, n_levels)
+    bp, bv = _side_levels(book.bids, n_levels)
+    ask = torch.stack([ap, av], dim=2)                 # (E, L, 2)
+    bid = torch.stack([bp, bv], dim=2)
+    return torch.stack([ask, bid], dim=3).to(torch.int32)
+
+
 def init_msgs_from_l2(cfg: EngineConfig, book_l2: torch.Tensor,
                       time: torch.Tensor) -> torch.Tensor:
     """Limit-order messages reconstructing L2 snapshots

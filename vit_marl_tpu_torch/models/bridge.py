@@ -1,14 +1,20 @@
-"""Flax -> PyTorch weight bridge for :class:`ActorCriticRNN`.
+"""Flax -> PyTorch weight bridge for :class:`ActorCriticRNN` and
+:class:`ViTActorCriticRNN`.
 
-Turns the parameter tree of the JAX package's ``ActorCriticRNN`` (nested
-dicts of numpy arrays, as ``jax.device_get(params)`` gives them) into the
-port's ``state_dict``.  Two layout traps:
+Turns the parameter tree of the JAX package's ``ActorCriticRNN`` or
+``ViTActorCriticRNN`` (nested dicts of numpy arrays, as
+``jax.device_get(params)`` gives them) into the port's ``state_dict``.
+Layout traps:
 
 - a flax ``Dense`` kernel is ``(in, out)``; ``torch.nn.Linear.weight`` is
   ``(out, in)``;
 - flax ``GRUCell`` has no hidden-side bias on the reset and update gates:
   its ``hr``/``hz`` kernels carry none, only ``hn`` does (the port's cell
-  has the same parameters, so there is nothing to zero).
+  has the same parameters, so there is nothing to zero);
+- a flax ``LayerNorm`` names its weight ``scale``;
+- the ViT model names its flat embedding, so its unnamed head layers are
+  ``Dense_0``..``Dense_3`` where ``ActorCriticRNN`` has ``Dense_1``..
+  ``Dense_4``.
 """
 
 from __future__ import annotations
@@ -20,20 +26,30 @@ import torch
 
 _DENSE = {"Dense_0": "embed", "Dense_1": "actor_fc", "Dense_2": "actor_out",
           "Dense_3": "critic_fc", "Dense_4": "critic_out"}
+_VIT_DENSE = {"flat_embed": "flat_embed", "Dense_0": "actor_fc",
+              "Dense_1": "actor_out", "Dense_2": "critic_fc",
+              "Dense_3": "critic_out", "fusion/v_proj": "fusion.v_proj",
+              "fusion/f_proj": "fusion.f_proj", "fusion/gate": "fusion.gate"}
+_BLOCK_DENSE = ("attn/qkv", "attn/proj", "mlp1", "mlp2")
 
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
-def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """``{"params": {...}}`` (or the inner dict) -> ``state_dict``."""
-    p = params.get("params", params)
-    sd: Dict[str, torch.Tensor] = {}
-    for flax_name, name in _DENSE.items():
-        sd[f"{name}.weight"] = _t(p[flax_name]["kernel"]).T.contiguous()
-        sd[f"{name}.bias"] = _t(p[flax_name]["bias"])
-    (cell,) = p["ScannedGRU_0"].values()    # the one GRUCell_* child
+def _get(tree: Mapping, path: str):
+    for key in path.split("/"):
+        tree = tree[key]
+    return tree
+
+
+def _dense_into(sd: Dict[str, torch.Tensor], name: str, node: Mapping):
+    sd[f"{name}.weight"] = _t(node["kernel"]).T.contiguous()
+    sd[f"{name}.bias"] = _t(node["bias"])
+
+
+def _gru_into(sd: Dict[str, torch.Tensor], gru: Mapping):
+    (cell,) = gru.values()    # the one GRUCell_* child
     sd["gru.cell.w_i.weight"] = torch.cat(
         [_t(cell[g]["kernel"]).T for g in ("ir", "iz", "in")]).contiguous()
     sd["gru.cell.w_i.bias"] = torch.cat(
@@ -41,4 +57,53 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     sd["gru.cell.w_h.weight"] = torch.cat(
         [_t(cell[g]["kernel"]).T for g in ("hr", "hz", "hn")]).contiguous()
     sd["gru.cell.b_hn"] = _t(cell["hn"]["bias"])
+
+
+def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``{"params": {...}}`` (or the inner dict) of either model ->
+    ``state_dict`` of its port."""
+    p = params.get("params", params)
+    if "vit" in p:
+        return _vit_to_state_dict(p)
+    sd: Dict[str, torch.Tensor] = {}
+    for flax_name, name in _DENSE.items():
+        _dense_into(sd, name, p[flax_name])
+    _gru_into(sd, p["ScannedGRU_0"])
+    return sd
+
+
+def _vit_to_state_dict(p: Mapping) -> Dict[str, torch.Tensor]:
+    sd: Dict[str, torch.Tensor] = {}
+    for flax_name, name in _VIT_DENSE.items():
+        _dense_into(sd, name, _get(p, flax_name))
+    _gru_into(sd, p["ScannedGRU_0"])
+    if "log_std" in p:
+        sd["log_std"] = _t(p["log_std"])
+    sd.update(vit_encoder_state_dict(p["vit"], prefix="vit."))
+    return sd
+
+
+def vit_encoder_state_dict(vit: Mapping, prefix: str = ""
+                           ) -> Dict[str, torch.Tensor]:
+    """The ``ViTEncoder`` subtree (``patch_embed``, ``pos_embed``,
+    ``cls``, ``block{i}``, ``ln_f``) -> the port's ``ViTEncoder``
+    ``state_dict``, keys under ``prefix``."""
+    sd: Dict[str, torch.Tensor] = {}
+    _dense_into(sd, f"{prefix}patch_embed", vit["patch_embed"])
+    sd[f"{prefix}pos_embed"] = _t(vit["pos_embed"])
+    sd[f"{prefix}cls"] = _t(vit["cls"])
+    lns = [("ln_f", "ln_f")]
+    i = 0
+    while f"block{i}" in vit:
+        blk = vit[f"block{i}"]
+        for flax_name in _BLOCK_DENSE:
+            _dense_into(sd, f"{prefix}blocks.{i}."
+                        + flax_name.replace("/", "."), _get(blk, flax_name))
+        lns += [(f"block{i}/ln1", f"blocks.{i}.ln1"),
+                (f"block{i}/ln2", f"blocks.{i}.ln2")]
+        i += 1
+    for flax_name, name in lns:
+        node = _get(vit, flax_name)
+        sd[f"{prefix}{name}.weight"] = _t(node["scale"])
+        sd[f"{prefix}{name}.bias"] = _t(node["bias"])
     return sd

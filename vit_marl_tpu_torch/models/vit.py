@@ -1,0 +1,252 @@
+"""ViT encoder over the order-book image and the recurrent actor-critic
+that fuses it with the flat features.
+
+Port of ``vit_marl_tpu/models/vit.py`` on the path its defaults take:
+flat ``(B*N, W)`` rows (``rows_2d``), the unfused pre-LN ``Block`` and the
+short-sequence attention kernels (``ops/attention_kernel.py``) forward and
+backward.  The book image ``(levels, 3, 2)`` is a sequence of ``levels``
+tokens of 6 features; a float32 linear patch embed lifts them to width W,
+a CLS token leads, learned positions are added, and the CLS row of the
+last block, after a final LayerNorm, is the embedding.
+
+Numerics follow flax:
+
+- ``Dense(dtype=compute_dtype)``: input, weight and bias are cast to the
+  compute type and the output stays in it;
+- LayerNorm with eps 1e-6 computes in float32 and its output is cast to
+  the compute type; GELU is the tanh form;
+- parameters are float32; the residual stream is in the compute type.
+
+``remat`` recomputes each block's activations in the backward pass
+(``torch.utils.checkpoint``, as ``nn.remat(Block)``), so the attention
+forward runs twice per block in a PPO update.  Modes the JAX package has
+besides this path (``attn_kernel=False``, ``attn_bwd_kernel=False``, the
+fused blocks, ``attn_ln_fold``, ``rows_2d=False``, more than 32 tokens)
+are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from vit_marl_tpu_torch.models.distributions import Categorical, SquashedNormal
+from vit_marl_tpu_torch.models.rnn import ScannedGRU, _dense, _lecun_normal_
+from vit_marl_tpu_torch.ops.attention_kernel import MAX_TOKENS, short_attention
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    """Same fields and defaults as the JAX package's ``ViTConfig``."""
+
+    width: int = 192
+    depth: int = 12
+    heads: int = 3
+    mlp_ratio: int = 4
+    compute_dtype: str = "bfloat16"   # matmul dtype; params/outputs f32
+    remat: bool = True
+    fused_block: bool = False
+    fused_block_full: bool = False
+    rows_2d: bool = True
+    attn_kernel: bool = True
+    attn_bwd_kernel: bool = True
+    attn_env_block: int = 64          # accepted; the CUDA kernels take any B
+    attn_ln_fold: bool = False
+
+
+VIT_PRESETS = {
+    "micro": ViTConfig(width=64, depth=2, heads=2),
+    "tiny": ViTConfig(width=192, depth=12, heads=3),
+    "small": ViTConfig(width=384, depth=12, heads=6),
+    "base": ViTConfig(width=768, depth=12, heads=12),
+}
+
+_LATER = "is not ported yet (a later slice of the port)"
+
+
+def check_ported(cfg: ViTConfig) -> None:
+    """Raise ``NotImplementedError`` for a mode the port does not have."""
+    for name in ("fused_block", "fused_block_full", "attn_ln_fold"):
+        if getattr(cfg, name):
+            raise NotImplementedError(f"ViTConfig.{name}=True {_LATER}")
+    for name in ("attn_kernel", "attn_bwd_kernel", "rows_2d"):
+        if not getattr(cfg, name):
+            raise NotImplementedError(f"ViTConfig.{name}=False {_LATER}")
+
+
+class Dense(nn.Linear):
+    """flax ``Dense(dtype=...)``: input, weight and bias cast to the compute
+    type, output in it; lecun-normal weight, zero bias."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = dtype
+        with torch.no_grad():
+            _lecun_normal_(self.weight)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=float32)``: float32 statistics and output."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps)
+
+
+class MHA(nn.Module):
+    def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
+        super().__init__()
+        self.heads = cfg.heads
+        self.qkv = Dense(cfg.width, 3 * cfg.width, dtype)
+        self.proj = Dense(cfg.width, cfg.width, dtype)
+
+    def forward(self, x: torch.Tensor, n_tokens: int) -> torch.Tensor:
+        """``(B*N, W)`` rows -> ``(B*N, W)``; ``qkv`` lanes are
+        ``[q | k | v]`` with heads contiguous, the kernel's layout."""
+        return self.proj(short_attention(self.qkv(x), n_tokens, self.heads))
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block on flat rows."""
+
+    def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
+        super().__init__()
+        W = cfg.width
+        self.dtype = dtype
+        self.ln1 = nn.LayerNorm(W, eps=1e-6)
+        self.attn = MHA(cfg, dtype)
+        self.ln2 = nn.LayerNorm(W, eps=1e-6)
+        self.mlp1 = Dense(W, W * cfg.mlp_ratio, dtype)
+        self.mlp2 = Dense(W * cfg.mlp_ratio, W, dtype)
+
+    def forward(self, x: torch.Tensor, n_tokens: int,
+                cls_only: bool = False) -> torch.Tensor:
+        """``cls_only``: LN2 and the MLP on the CLS rows only, returning
+        ``(B, W)``; nothing else after the last block's attention reaches
+        the output."""
+        x = x + self.attn(_layer_norm(self.ln1, x).to(self.dtype), n_tokens)
+        if cls_only:
+            x = x.reshape(-1, n_tokens, x.shape[-1])[:, 0]
+        h = _layer_norm(self.ln2, x).to(self.dtype)
+        h = self.mlp2(F.gelu(self.mlp1(h), approximate="tanh"))
+        return x + h
+
+
+class ViTEncoder(nn.Module):
+    """Book image ``(..., levels, 3, 2)`` -> ``(..., width)`` float32."""
+
+    def __init__(self, cfg: ViTConfig, levels: int):
+        super().__init__()
+        check_ported(cfg)
+        if levels + 1 > MAX_TOKENS:
+            raise NotImplementedError(
+                f"{levels + 1} tokens: attention over more than "
+                f"{MAX_TOKENS} tokens {_LATER}")
+        # The float32 products around the bf16 blocks (patch embed, fusion,
+        # GRU, heads) run in full float32 as in the JAX package, and bf16
+        # products accumulate in float32: no TF32, no reduced-precision
+        # bf16 reductions.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.compute_dtype)
+        W = cfg.width
+        self.patch_embed = Dense(6, W)
+        self.pos_embed = nn.Parameter(0.02 * torch.randn(1, levels + 1, W))
+        self.cls = nn.Parameter(0.02 * torch.randn(1, 1, W))
+        self.blocks = nn.ModuleList(Block(cfg, self.dtype)
+                                    for _ in range(cfg.depth))
+        self.ln_f = nn.LayerNorm(W, eps=1e-6)
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        lead = image.shape[:-3]
+        levels = image.shape[-3]
+        W, N = self.cfg.width, levels + 1
+        # (levels, 3, 2) -> (levels, 6) row-major, as image.reshape in JAX
+        x = image.reshape(-1, levels, image.shape[-2] * image.shape[-1])
+        x = self.patch_embed(x.float()).to(self.dtype)
+        cls = self.cls.expand(x.shape[0], 1, W).to(self.dtype)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
+        x = x.reshape(-1, W)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        for i, block in enumerate(self.blocks):
+            last = i == len(self.blocks) - 1
+            if remat:
+                x = checkpoint(block, x, N, last, use_reentrant=False)
+            else:
+                x = block(x, N, last)
+        return _layer_norm(self.ln_f, x).reshape(lead + (W,))
+
+
+class GateFusion(nn.Module):
+    """Gated fusion of the vision and flat embeddings (float32)."""
+
+    def __init__(self, vision_dim: int, flat_dim: int, out_dim: int):
+        super().__init__()
+        self.v_proj = Dense(vision_dim, out_dim)
+        self.f_proj = Dense(flat_dim, out_dim)
+        self.gate = Dense(2 * out_dim, out_dim)
+
+    def forward(self, vision: torch.Tensor, flat: torch.Tensor
+                ) -> torch.Tensor:
+        v = self.v_proj(vision)
+        f = self.f_proj(flat)
+        gate = torch.sigmoid(self.gate(torch.cat([v, f], dim=-1)))
+        return gate * v + (1 - gate) * f
+
+
+class ViTActorCriticRNN(nn.Module):
+    """``{"obs", "vision_obs"}`` dicts of ``(T, B, ...)`` and ``(T, B)``
+    dones -> (hidden, pi, value): ViT CLS embedding and Dense flat
+    embedding, gated fusion, GRU, then the actor and critic heads of
+    ``ActorCriticRNN`` (orthogonal inits, same gains); ``log_std`` for a
+    continuous head."""
+
+    def __init__(self, obs_dim: int, levels: int, action_dim: int,
+                 vit: ViTConfig, fc_dim: int = 64, hidden_size: int = 64,
+                 action_low: Optional[torch.Tensor] = None,
+                 action_high: Optional[torch.Tensor] = None):
+        super().__init__()
+        if hidden_size != fc_dim:
+            raise ValueError(f"hidden_size ({hidden_size}) must equal "
+                             f"fc_dim ({fc_dim})")
+        self.vit = ViTEncoder(vit, levels)
+        self.flat_embed = _dense(obs_dim, fc_dim, math.sqrt(2))
+        self.fusion = GateFusion(vit.width, fc_dim, fc_dim)
+        self.gru = ScannedGRU(fc_dim)
+        self.actor_fc = _dense(fc_dim, hidden_size, 2.0)
+        self.actor_out = _dense(hidden_size, action_dim, 0.01)
+        self.critic_fc = _dense(fc_dim, fc_dim, 2.0)
+        self.critic_out = _dense(fc_dim, 1, 1.0)
+        self.continuous = action_low is not None
+        if self.continuous:
+            self.log_std = nn.Parameter(torch.zeros(action_dim))
+            self.register_buffer("action_low", torch.as_tensor(
+                action_low, dtype=torch.float32), persistent=False)
+            self.register_buffer("action_high", torch.as_tensor(
+                action_high, dtype=torch.float32), persistent=False)
+
+    def forward(self, hidden: torch.Tensor, obs, dones: torch.Tensor):
+        vision = self.vit(obs["vision_obs"])
+        flat = torch.relu(self.flat_embed(obs["obs"]))
+        emb = torch.relu(self.fusion(vision, flat))
+        hidden, emb = self.gru(hidden, emb, dones)
+        actor_out = self.actor_out(torch.relu(self.actor_fc(emb)))
+        if self.continuous:
+            pi = SquashedNormal(actor_out, self.log_std, self.action_low,
+                                self.action_high)
+        else:
+            pi = Categorical(actor_out)
+        value = self.critic_out(torch.relu(self.critic_fc(emb)))
+        return hidden, pi, value.squeeze(-1)

@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 from typing import Optional, Tuple
 
@@ -41,15 +40,13 @@ from vit_marl_tpu_torch.lob.book import (
     TS,
     BookState,
 )
+from vit_marl_tpu_torch.ops import nvcc
 
 AGG_STATS = 8    # buy_q, sell_q, buy_pqt, sell_pqt, a_q, a_pqt, dur, signed
 AGG_TOTALS = 2   # total_q, total_pq_tick
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "book_scan.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(nvcc.CSRC, "book_scan.cu")
+BUILD_DIR = nvcc.BUILD_DIR
 
 
 # --------------------------------------------------------------------------
@@ -291,26 +288,9 @@ _lib_lock = threading.Lock()
 
 
 def build_library() -> str:
-    """Compile ``csrc/book_scan.cu`` with nvcc into a shared library with a
-    plain C interface under ``BUILD_DIR``; returns its path.  Rebuilds when
-    the source is newer than the library."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, "libbook_scan.so")
-    if (os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(SOURCE)):
-        return out
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        nvcc = "nvcc"
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile ``csrc/book_scan.cu`` (see ``ops/nvcc.py``); returns the
+    library's path."""
+    return nvcc.build(SOURCE, "libbook_scan.so")
 
 
 def _library():

@@ -1,7 +1,9 @@
 """IPPO with recurrent policies, single device.
 
-Port of ``vit_marl_tpu/rl/ppo.py::make_train`` for GRU policies: one
-network, optimizer and hidden state per agent type; each update collects
+Port of ``vit_marl_tpu/rl/ppo.py::make_train`` for GRU policies
+(``gru``) and ViT-GRU policies over ``{"obs", "vision_obs"}`` dict
+observations (``vit_gru``), with discrete or continuous (``Box``) actions:
+one network, optimizer and hidden state per agent type; each update collects
 ``num_steps`` batched env steps (a Python loop where the reference scans),
 computes per-type GAE (a reverse loop) and runs per-type clipped-PPO epochs
 over shuffled minibatches of actors.  The optimizer is the reference's
@@ -14,27 +16,35 @@ Actors are env-major: actor ``k`` of a type is instance ``k % n`` of env
 ``k // n`` (``batchify``), so the per-env ``__all__`` done is repeated, not
 tiled, onto the actor axis (``global_done_for_actors``).
 
+Observations, transitions and minibatches are trees (a dict observation
+is indexed leaf by leaf).
+
 Not ported yet: eval, checkpoints and resume, the info/action metrics, the
-pipeline rollout, meshes and the vision networks.
+pipeline rollout, meshes, ``cnn_gru`` and continuous actions on ``gru``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
+from torch import nn
 
 from vit_marl_tpu_torch.config import MultiAgentConfig, TrainConfig
+from vit_marl_tpu_torch.env import spaces
 from vit_marl_tpu_torch.env.world import WorldEnv
 from vit_marl_tpu_torch.models.rnn import ActorCriticRNN, ScannedGRU
+from vit_marl_tpu_torch.models.vit import VIT_PRESETS, ViTActorCriticRNN
+from vit_marl_tpu_torch.utils.tree import tree_map
 
 Tensor = torch.Tensor
 
 
 class Transition(NamedTuple):
     """(ref: ippo_rnn_JAXMARL.py:119-128); leaves are ``(T, actors, ...)``
-    once stacked."""
+    once stacked; ``obs`` may be a dict of such leaves."""
 
     global_done: Tensor
     done: Tensor
@@ -45,9 +55,11 @@ class Transition(NamedTuple):
     obs: Tensor
 
 
-def batchify(x: Tensor, num_actors: int) -> Tensor:
-    """``(E, n, ...)`` -> ``(E * n, ...)``, env-major."""
-    return x.reshape((num_actors,) + tuple(x.shape[2:]))
+def batchify(x, num_actors: int):
+    """``(E, n, ...)`` -> ``(E * n, ...)``, env-major; leaf by leaf for a
+    dict observation."""
+    return tree_map(
+        lambda v: v.reshape((num_actors,) + tuple(v.shape[2:])), x)
 
 
 def global_done_for_actors(done_all: Tensor, n_per_type: int) -> Tensor:
@@ -90,7 +102,7 @@ def linear_schedule(lr: float, count: int, n_mb: int,
 class PPOLearner:
     """One agent type's network and optimizer state."""
 
-    def __init__(self, net: ActorCriticRNN, cfg: TrainConfig, i: int,
+    def __init__(self, net: nn.Module, cfg: TrainConfig, i: int,
                  num_updates: int):
         self.net = net
         self.lr = float(_per_type(cfg.lr, i))
@@ -152,7 +164,7 @@ class PPOLearner:
         for perm in perms:
             for j in range(num_minibatches):
                 idx = perm[j * mb:(j + 1) * mb]
-                batch = Transition(*(v[:, idx] for v in traj))
+                batch = tree_map(lambda v: v[:, idx], traj)
                 self.opt.zero_grad(set_to_none=True)
                 total, aux = self.loss(init_h[idx], batch, advantages[:, idx],
                                        targets[:, idx])
@@ -166,17 +178,47 @@ class PPOLearner:
         return dict(zip(names, ls))
 
 
-def make_networks(env: WorldEnv, cfg: TrainConfig) -> List[ActorCriticRNN]:
-    nets = []
-    for i in range(len(env.agent_types)):
-        kind = _per_type(cfg.network, i)
-        if kind != "gru":
-            raise NotImplementedError(f"network {kind!r} is not ported yet")
-        nets.append(ActorCriticRNN(
-            obs_dim=int(env.observation_spaces[i].shape[0]),
-            action_dim=int(env.action_spaces[i].n),
-            fc_dim=cfg.fc_dim, hidden_size=cfg.hidden_size).to(env.device))
-    return nets
+def make_network(cfg: TrainConfig, i: int, action_space, obs_space
+                 ) -> nn.Module:
+    """The policy network of agent type ``i`` (ref: ppo.py:131-172)."""
+    kind = _per_type(cfg.network, i)
+    continuous = isinstance(action_space, spaces.Box)
+    if continuous:
+        action_dim = int(action_space.shape[0])
+        low, high = action_space.low, action_space.high
+    else:
+        action_dim = int(action_space.n)
+        low = high = None
+    if kind == "vit_gru":
+        # the preset with the vit_* switches (ref: ppo.py:141-156);
+        # models/vit.py raises for a mode the port does not have
+        vit = dataclasses.replace(
+            VIT_PRESETS[cfg.vit_preset],
+            fused_block=cfg.vit_fused_block,
+            fused_block_full=cfg.vit_fused_block_full,
+            attn_kernel=cfg.vit_attn_kernel,
+            attn_bwd_kernel=cfg.vit_attn_bwd_kernel,
+            attn_env_block=cfg.vit_attn_env_block,
+            attn_ln_fold=cfg.vit_attn_ln_fold)
+        return ViTActorCriticRNN(
+            obs_dim=int(obs_space.spaces["obs"].shape[0]),
+            levels=int(obs_space.spaces["vision_obs"].shape[0]),
+            action_dim=action_dim, vit=vit, fc_dim=cfg.fc_dim,
+            hidden_size=cfg.hidden_size, action_low=low, action_high=high)
+    if kind != "gru":
+        raise NotImplementedError(f"network {kind!r} is not ported yet")
+    if continuous:
+        raise NotImplementedError(
+            "continuous actions on the gru network are not ported yet")
+    return ActorCriticRNN(obs_dim=int(obs_space.shape[0]),
+                          action_dim=action_dim, fc_dim=cfg.fc_dim,
+                          hidden_size=cfg.hidden_size)
+
+
+def make_networks(env: WorldEnv, cfg: TrainConfig) -> List[nn.Module]:
+    return [make_network(cfg, i, env.action_spaces[i],
+                         env.observation_spaces[i]).to(env.device)
+            for i in range(len(env.agent_types))]
 
 
 def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
@@ -197,6 +239,11 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
     num_updates = max(cfg.num_updates, 1)
     if any(a % cfg.num_minibatches for a in num_actors):
         raise ValueError("actors per type must divide into NUM_MINIBATCHES")
+    for i, sp in enumerate(env.observation_spaces):
+        if (isinstance(sp, spaces.Dict)
+                and _per_type(cfg.network, i) != "vit_gru"):
+            raise ValueError(f"agent type {i} emits dict observations; set "
+                             f"network[{i}] to 'vit_gru'")
 
     def train(seed: int = 0, n_updates: Optional[int] = None):
         torch.manual_seed(seed)
@@ -220,15 +267,17 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                 for _ in range(cfg.num_steps):
                     actions, values, log_probs = [], [], []
                     for i in range(n_types):
-                        obs_i = batchify(obs[i], num_actors[i])
+                        obs_i = tree_map(lambda v: v[None],
+                                         batchify(obs[i], num_actors[i]))
                         hstates[i], pi, value = nets[i](
-                            hstates[i], obs_i[None], dones[i][None])
+                            hstates[i], obs_i, dones[i][None])
                         action = pi.sample(gen)
                         log_probs.append(pi.log_prob(action)[0])
                         values.append(value[0])
                         actions.append(action[0])
                     env_actions = [
-                        a.reshape(cfg.num_envs, n) if n > 1 else a
+                        a.reshape((cfg.num_envs, n) + a.shape[1:])
+                        if n > 1 else a
                         for a, n in zip(actions, env.n_per_type)]
                     obs, state, reward, done, _ = env.step_vec(
                         state, env_actions, params, generator=gen)
@@ -247,11 +296,11 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
             t1 = time.perf_counter()
             metrics: Dict[str, float] = {"update_step": u}
             for i in range(n_types):
-                traj = Transition(*(torch.stack(v) for v in zip(*steps[i])))
+                traj = tree_map(lambda *v: torch.stack(v), *steps[i])
                 with torch.no_grad():
                     _, _, last_val = nets[i](
-                        hstates[i], batchify(obs[i], num_actors[i])[None],
-                        dones[i][None])
+                        hstates[i], tree_map(lambda v: v[None], batchify(
+                            obs[i], num_actors[i])), dones[i][None])
                     adv, tgt = compute_gae(traj, last_val[0],
                                            _per_type(cfg.gamma, i),
                                            _per_type(cfg.gae_lambda, i))
