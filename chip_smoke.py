@@ -28,16 +28,32 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, and
    backward through autograd) on inputs laid out for it beforehand, the
    yardstick of one library call, which the port never makes;
-4. 2-player training: ``make_train`` on ``configs/ippo_2player.yaml`` at
+4. fused blocks against plain: the four CUDA fused-block kernels (LN+QKV,
+   proj+MLP, the whole block, LN+QKV+attention) through the wrappers the
+   ViT calls, against their plain versions on the card at ViT-Small's
+   shapes (N=11, W=384, H=6, hidden 1,536) at B=1,024, 32,768 and a
+   ragged 1,000 images in bf16 (within two bf16 ulps of the element, rtol
+   1.6e-2, or two or three of the output's largest magnitude, see
+   ``block_tol``) and at B=1,024 and 1,000 in float32 (rtol 2e-5, atol
+   2e-5).
+   Times each kernel at B=32,768 and 1,024 (bf16), its plain version and
+   the port's unfused PyTorch sequence for the same function
+   (``F.layer_norm`` + ``F.linear`` + ``F.gelu`` +
+   ``scaled_dot_product_attention``), the yardstick; no single PyTorch
+   call computes these functions;
+5. 2-player training: ``make_train`` on ``configs/ippo_2player.yaml`` at
    its published widths and NUM_ENVS=4096 on the card for 2 updates;
    losses must be finite and the book scan's launch count must rise by
    exactly NUM_STEPS x updates;
-5. vision training: ``make_train`` on ``configs/ippo_vision_dual_ppo.yaml``
+6. vision training: ``make_train`` on ``configs/ippo_vision_dual_ppo.yaml``
    at its published widths (ViT-Small, NUM_ENVS=1024, NUM_STEPS=128) for
    2 updates; losses must be finite, the book scan must launch NUM_STEPS x
    updates times and the attention kernels exactly as often as the ViT's
    blocks run (with remat the forward runs twice per block in an update);
-6. summary: one JSON line describing the three kernels, then the last
+7. fused-mode vision training: the same, 2 updates in each of the three
+   fused-block modes (``VIT_ATTN_LN_FOLD``, ``VIT_FUSED_BLOCK``,
+   ``VIT_FUSED_BLOCK_FULL``), with the exact launch count of every kernel;
+8. summary: one JSON line describing the seven kernels, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it, the
@@ -47,6 +63,7 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -72,6 +89,40 @@ ATT_N, ATT_W, ATT_H = 11, 384, 6
 B_ROLLOUT, B_MINIBATCH = 1024, 32_768
 ATT_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
            "bfloat16": dict(rtol=8e-3, atol=1e-3)}
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
+MLP_RATIO = 4
+F32_BLOCK_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def block_tol(name, want):
+    """float32: rtol 2e-5, atol 2e-5.  bf16: two ulps of the element (rtol
+    1.6e-2), or ulps of the largest magnitude of the output (atol): the
+    fused functions round a chain of intermediates (qkv, attention, x1,
+    the MLP's sum), and a one-ulp flip in one of them, from another order
+    of summation, reaches the output; where the output cancels to near 0
+    (``x1 + mlp``, or ``P v`` over values of both signs) the error is an
+    ulp of the intermediates, at the scale of the rows.  Two ulps, and
+    three where the output ends in ``x1 + mlp`` (x1, the MLP's sum and
+    their sum each round once)."""
+    if want.element_size() == 4:
+        return dict(F32_BLOCK_TOL)
+    ulps = 3 if name in ("fused_proj_mlp", "fused_block_full") else 2
+    m = float(want.float().abs().max())
+    return dict(rtol=1.6e-2, atol=ulps * 2.0 ** (math.floor(math.log2(m)) - 7)
+                if m else 1e-2)
+
+
+# the fused-block kernels: wrapper name -> (TPU function, ViT mode whose
+# training launches it)
+BLOCK_KERNELS = {
+    "fused_ln_qkv": ("vit_marl_tpu/ops/block_kernel.py:88", "fused_block"),
+    "fused_proj_mlp": ("vit_marl_tpu/ops/block_kernel.py:169",
+                       "fused_block"),
+    "fused_block_full": ("vit_marl_tpu/ops/block_kernel.py:286",
+                         "fused_block_full"),
+    "fused_ln_qkv_attn": ("vit_marl_tpu/ops/block_kernel.py:408",
+                          "attn_ln_fold"),
+}
 
 
 def phase(name, t0):
@@ -225,27 +276,209 @@ def attention_phase(torch, attn, smi):
     }
 
 
-def vision_phase(torch, attn, bkern, make_train, load_yaml_config, dev,
-                 smi):
-    """Train the vision path for UPDATES updates on the card; check losses
-    and launch counts.  Returns the launch counts of the run."""
+def block_cost(name, B, N, W, hidden, itemsize):
+    """(bytes, bf16 product operations, float32 attention operations) of
+    one fused-block function: row inputs and weights read once, the output
+    written once (LayerNorm parameters and biases, float32, too)."""
+    rows = B * N
+    mm = {"fused_ln_qkv": 3 * W * W,
+          "fused_proj_mlp": W * W + 2 * W * hidden,
+          "fused_block_full": 4 * W * W + 2 * W * hidden,
+          "fused_ln_qkv_attn": 3 * W * W}[name]
+    row_io = {"fused_ln_qkv": W + 3 * W, "fused_proj_mlp": 3 * W,
+              "fused_block_full": 2 * W, "fused_ln_qkv_attn": 2 * W}[name]
+    vecs = {"fused_ln_qkv": 5 * W, "fused_proj_mlp": 4 * W + hidden,
+            "fused_block_full": 9 * W + hidden,
+            "fused_ln_qkv_attn": 5 * W}[name]
+    attn_ops = (4 * B * N * N * W
+                if name in ("fused_block_full", "fused_ln_qkv_attn") else 0)
+    nbytes = (rows * row_io + mm) * itemsize + 4 * vecs
+    return nbytes, 2 * rows * mm, attn_ops
+
+
+def block_bound(nbytes, mm_ops, attn_ops, dtype):
+    """Least time in ms: bytes over the memory rate, or the products over
+    the tensor cores' bf16 rate (float32 products, and the attention, over
+    the float32 rate), whichever is longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    mm_rate = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+    t_ops = (mm_ops / mm_rate + attn_ops / F32_FLOPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def block_phase(torch, blk, smi):
+    """Check the four fused-block kernels against their plain versions at
+    the vision path's shapes and time them beside the unfused PyTorch
+    sequence; returns their summary entries (without launches)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    N, W, H = ATT_N, ATT_W, ATT_H
+    D, hidden = W // H, MLP_RATIO * W
+
+    def rand(*shape, scale=1.0, loc=0.0, dtype=torch.float32):
+        return (loc + scale * torch.randn(shape, generator=gen,
+                                          device=dev)).to(dtype)
+
+    def params(dtype):
+        """ViT-Small block parameters: LayerNorms and biases float32,
+        weights (out, in) in the compute type."""
+        return dict(
+            g1=rand(W, scale=0.1, loc=1.0), b1=rand(W, scale=0.1),
+            wqkv=rand(3 * W, W, scale=W ** -0.5, dtype=dtype),
+            bqkv=rand(3 * W, scale=0.1),
+            wp=rand(W, W, scale=W ** -0.5, dtype=dtype), bp=rand(W, scale=0.1),
+            g2=rand(W, scale=0.1, loc=1.0), b2=rand(W, scale=0.1),
+            w1=rand(hidden, W, scale=W ** -0.5, dtype=dtype),
+            bm1=rand(hidden, scale=0.1),
+            w2=rand(W, hidden, scale=hidden ** -0.5, dtype=dtype),
+            bm2=rand(W, scale=0.1))
+
+    def calls(name, x, a, p):
+        """(kernel, plain version, unfused PyTorch sequence) on rows x (and
+        attention rows a for proj+MLP)."""
+        dt = x.dtype
+
+        def ln(t, g, b):
+            return F.layer_norm(t.float(), (W,), g, b, 1e-6).to(dt)
+
+        def attn_sdpa(qkv):
+            q, k, v = qkv.view(-1, N, 3, H, D).permute(2, 0, 3, 1, 4)
+            o = F.scaled_dot_product_attention(q, k, v)
+            return o.transpose(1, 2).reshape(-1, W)
+
+        def tail(att, res):
+            x1 = res + F.linear(att, p["wp"], p["bp"].to(dt))
+            h = F.gelu(F.linear(ln(x1, p["g2"], p["b2"]), p["w1"],
+                                p["bm1"].to(dt)), approximate="tanh")
+            return x1 + F.linear(h, p["w2"], p["bm2"].to(dt))
+
+        def qkv_seq(t):
+            return F.linear(ln(t, p["g1"], p["b1"]), p["wqkv"],
+                            p["bqkv"].to(dt))
+
+        head = (x, p["g1"], p["b1"], p["wqkv"], p["bqkv"])
+        rest = tuple(p[k] for k in ("wp", "bp", "g2", "b2", "w1", "bm1",
+                                    "w2", "bm2"))
+        if name == "fused_ln_qkv":
+            return (lambda: blk.fused_ln_qkv(*head),
+                    lambda: blk.ln_qkv_reference(*head),
+                    lambda: qkv_seq(x))
+        if name == "fused_proj_mlp":
+            return (lambda: blk.fused_proj_mlp(a, x, *rest),
+                    lambda: blk.proj_mlp_reference(a, x, *rest),
+                    lambda: tail(a, x))
+        if name == "fused_block_full":
+            return (lambda: blk.fused_block_full(*head, *rest, N, H),
+                    lambda: blk.full_block_reference(*head, *rest, N, H),
+                    lambda: tail(attn_sdpa(qkv_seq(x)), x))
+        return (lambda: blk.fused_ln_qkv_attn(*head, N, H),
+                lambda: blk.ln_qkv_attn_reference(*head, N, H),
+                lambda: attn_sdpa(qkv_seq(x)))
+
+    errs = {name: 0.0 for name in BLOCK_KERNELS}
+    p16, p32 = params(torch.bfloat16), params(torch.float32)
+    for B, dtype in [(B_ROLLOUT, torch.bfloat16), (B_MINIBATCH, torch.bfloat16),
+                     (1000, torch.bfloat16), (B_ROLLOUT, torch.float32),
+                     (1000, torch.float32)]:
+        dname = str(dtype)[6:]
+        p = p16 if dtype == torch.bfloat16 else p32
+        x = rand(B * N, W, dtype=dtype)
+        a = rand(B * N, W, dtype=dtype)
+        for name in BLOCK_KERNELS:
+            kern, plain, _ = calls(name, x, a, p)
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = block_tol(name, want)
+            torch.testing.assert_close(
+                got, want, **tol, msg=lambda m: f"{name} B={B} {dname}: {m}")
+            errs[name] = max(errs[name], err)
+            print(f"  {name} B={B} {dname}: max abs err {err:.3g} (tol "
+                  f"{tol})", flush=True)
+            del got, want
+        del x, a
+
+    rows = {}
+    x = rand(B_MINIBATCH * N, W, dtype=torch.bfloat16)
+    a = rand(B_MINIBATCH * N, W, dtype=torch.bfloat16)
+    for name in BLOCK_KERNELS:
+        kern, plain, seq = calls(name, x, a, p16)
+        ms, ms_min = time_launches(kern)
+        plain_ms, _ = time_launches(plain, batches=3, per_batch=3, warm=1)
+        seq_ms, _ = time_launches(seq)
+        cost = block_cost(name, B_MINIBATCH, N, W, hidden, 2)
+        bound_ms, bound_by = block_bound(*cost, "bfloat16")
+        rk, _, rseq = calls(name, x[:B_ROLLOUT * N], a[:B_ROLLOUT * N], p16)
+        roll_ms, _ = time_launches(rk)
+        roll_seq_ms, _ = time_launches(rseq)
+        roll_bound, _ = block_bound(
+            *block_cost(name, B_ROLLOUT, N, W, hidden, 2), "bfloat16")
+        plan = blk.tile_plan(name, torch.bfloat16, W, N, H, 3 * W, hidden)
+        print(f"  {name} B={B_MINIBATCH}: kernel {ms:.4f} ms (median of "
+              f"{BATCHES} batches of {PER_BATCH}, min {ms_min:.4f}); plain "
+              f"{plain_ms:.3f} ms; unfused sequence {seq_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({cost[0] / 1e6:.1f} MB, "
+              f"{cost[1] / 1e9:.1f} GFLOP bf16 + {cost[2] / 1e9:.2f} GFLOP "
+              f"f32); B={B_ROLLOUT}: kernel {roll_ms:.4f} ms, unfused "
+              f"{roll_seq_ms:.4f} ms, bound {roll_bound:.4f} ms; tile {plan} "
+              f"[{smi}]", flush=True)
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="vit_marl_tpu_torch/ops/csrc/fused_block.cu",
+            replaces=BLOCK_KERNELS[name][0],
+            tolerance={"float32": F32_BLOCK_TOL,
+                       "bfloat16": "rtol 1.6e-2, atol %d ulps of the "
+                                   "output's largest magnitude" % (
+                                       3 if name in ("fused_proj_mlp",
+                                                     "fused_block_full")
+                                       else 2)},
+            max_abs_err=errs[name], ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            unfused_ms=seq_ms, ms_rollout=roll_ms,
+            unfused_ms_rollout=roll_seq_ms, bound_ms_rollout=roll_bound)
+    return rows
+
+
+def counters(attn, bkern, blk):
+    """Every kernel's launch counter, by name: (get, reset) pairs."""
+    def attr(obj, field):
+        return (lambda: getattr(obj, field),
+                lambda: setattr(obj, field, 0))
+    out = {"book_scan": attr(bkern.process_step_aggs, "launches"),
+           "short_attention_fwd": attr(attn.short_attention, "launches_fwd"),
+           "short_attention_bwd": attr(attn.short_attention, "launches_bwd")}
+    for name in BLOCK_KERNELS:
+        out[name] = attr(getattr(blk, name), "launches")
+    return out
+
+
+def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
+                 smi, mode=None):
+    """Train the vision path for UPDATES updates on the card, with the
+    default blocks or in the fused-block ``mode``; check losses and the
+    launch count of every kernel.  Returns the counts of the run."""
+    import dataclasses
+
     from vit_marl_tpu_torch.models.vit import VIT_PRESETS
 
     ma, tc = load_yaml_config(VISION_CONFIG)
+    if mode is not None:
+        tc = dataclasses.replace(tc, **{f"vit_{mode}": True})
     depth = VIT_PRESETS[tc.vit_preset].depth
     train = make_train(ma, tc, device=dev)
-    attn.short_attention.launches_fwd = 0
-    attn.short_attention.launches_bwd = 0
-    bkern.process_step_aggs.launches = 0
+    count = counters(attn, bkern, blk)
+    for _, reset in count.values():
+        reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tt = time.perf_counter()
     out = train(tc.seed, n_updates=UPDATES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tt
-    got = {"book_scan": bkern.process_step_aggs.launches,
-           "short_attention_fwd": attn.short_attention.launches_fwd,
-           "short_attention_bwd": attn.short_attention.launches_bwd}
+    got = {k: get() for k, (get, _) in count.items()}
     for m in out["metrics"]:
         print("  " + " ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())),
               flush=True)
@@ -253,12 +486,21 @@ def vision_phase(torch, attn, bkern, make_train, load_yaml_config, dev,
         if bad:
             raise AssertionError(f"non-finite metrics: {bad}")
     passes = tc.update_epochs * tc.num_minibatches * UPDATES
-    want = {"book_scan": tc.num_steps * UPDATES,
-            # rollout: one forward per step and one for the last value;
-            # update: remat runs each block's forward twice per minibatch
-            "short_attention_fwd": depth * (tc.num_steps + 1) * UPDATES
-            + depth * 2 * passes,
-            "short_attention_bwd": depth * passes}
+    # rollout: one forward per step and one for the last value; update:
+    # remat runs each block's forward twice per minibatch
+    forward = depth * (tc.num_steps + 1) * UPDATES + depth * 2 * passes
+    want = {k: 0 for k in count}
+    want["book_scan"] = tc.num_steps * UPDATES
+    if mode is None:
+        want["short_attention_fwd"] = forward
+        want["short_attention_bwd"] = depth * passes
+    elif mode == "attn_ln_fold":
+        want["fused_ln_qkv_attn"] = forward
+        want["short_attention_bwd"] = depth * passes
+    elif mode == "fused_block":
+        want["fused_ln_qkv"] = want["fused_proj_mlp"] = forward
+    else:
+        want["fused_block_full"] = forward
     if got != want:
         raise AssertionError(f"launch counts {got}, want {want}")
     steps = tc.num_envs * tc.num_steps * UPDATES
@@ -266,11 +508,12 @@ def vision_phase(torch, attn, bkern, make_train, load_yaml_config, dev,
     split = "; ".join(f"update {int(m['update_step'])}: rollout "
                       f"{m['rollout_s']:.2f}s + PPO {m['update_s']:.2f}s"
                       for m in out["metrics"])
-    print(f"  ViT-{tc.vit_preset} depth {depth}, {UPDATES} updates x "
-          f"NUM_STEPS={tc.num_steps} x NUM_ENVS={tc.num_envs}: {steps} "
-          f"env-steps in {wall:.2f}s = {steps / wall:.0f} env-steps/s; "
-          f"{split}; peak memory {peak:.2f} GiB; launches {got} [{smi}]",
-          flush=True)
+    nonzero = {k: v for k, v in got.items() if v}
+    print(f"  ViT-{tc.vit_preset} depth {depth}, mode {mode or 'default'}, "
+          f"{UPDATES} updates x NUM_STEPS={tc.num_steps} x NUM_ENVS="
+          f"{tc.num_envs}: {steps} env-steps in {wall:.2f}s = "
+          f"{steps / wall:.0f} env-steps/s; {split}; peak memory "
+          f"{peak:.2f} GiB; launches {nonzero} [{smi}]", flush=True)
     return got
 
 
@@ -285,6 +528,7 @@ def main() -> int:
     from vit_marl_tpu_torch.config import EngineConfig, load_yaml_config
     from vit_marl_tpu_torch.lob.book import BookState
     from vit_marl_tpu_torch.ops import attention_kernel as attn
+    from vit_marl_tpu_torch.ops import block_kernel as blk
     from vit_marl_tpu_torch.ops import book_kernel as bkern
     from vit_marl_tpu_torch.rl.ppo import make_train
 
@@ -301,18 +545,18 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
     tb = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(m.build_library) for m in (bkern, attn)]
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(m.build_library) for m in (bkern, attn, blk)]
         libs = [f.result() for f in builds]
-    bkern._library()
-    attn._library()
+    for m in (bkern, attn, blk):
+        m._library()
     print(f"built {', '.join(os.path.relpath(x, ROOT) for x in libs)} in "
           f"{time.perf_counter() - tb:.2f}s", flush=True)
     phase("1 device", t0)
 
     # ---- phase 2: book scan against plain ----
-    # Launches made here only check and time the kernel; phases 4 and 5
-    # set the counts to 0 before they drive the paths.
+    # Launches made here only check and time the kernel; phases 5-7 set
+    # the counts to 0 before they drive the paths.
     t0 = time.perf_counter()
     tids = torch.tensor(AGENT_TIDS, dtype=torch.int32, device=dev)
     max_err = 0
@@ -418,20 +662,27 @@ def main() -> int:
     att = attention_phase(torch, attn, smi)
     phase("3 attention against plain", t0)
 
-    # ---- phase 4: 2-player training ----
+    # ---- phase 4: fused blocks against plain ----
     t0 = time.perf_counter()
-    bkern.process_step_aggs.launches = 0
-    attn.short_attention.launches_fwd = 0
-    attn.short_attention.launches_bwd = 0
+    fused = block_phase(torch, blk, smi)
+    phase("4 fused blocks against plain", t0)
+
+    # ---- phase 5: 2-player training ----
+    t0 = time.perf_counter()
+    count = counters(attn, bkern, blk)
+    for _, reset in count.values():
+        reset()
     torch.cuda.synchronize()
     tt = time.perf_counter()
     out = train(tc.seed, n_updates=UPDATES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tt
     launches = bkern.process_step_aggs.launches
-    if attn.short_attention.launches_fwd or attn.short_attention.launches_bwd:
+    others = {k: get() for k, (get, _) in count.items()
+              if k != "book_scan" and get()}
+    if others:
         raise AssertionError("the 2-player path (GRU policies) launched the "
-                             "attention kernels")
+                             f"ViT's kernels: {others}")
     for m in out["metrics"]:
         print("  " + " ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())),
               flush=True)
@@ -448,15 +699,23 @@ def main() -> int:
           f"{tc.num_envs}: {steps} env-steps in {wall:.2f}s = "
           f"{steps / wall:.0f} env-steps/s, book-scan launches {launches}, "
           f"obs {obs_shapes} [{smi}]", flush=True)
-    phase("4 2-player training", t0)
+    phase("5 2-player training", t0)
 
-    # ---- phase 5: vision training ----
+    # ---- phase 6: vision training ----
     t0 = time.perf_counter()
-    vision = vision_phase(torch, attn, bkern, make_train, load_yaml_config,
-                          dev, smi)
-    phase("5 vision training", t0)
+    vision = vision_phase(torch, attn, bkern, blk, make_train,
+                          load_yaml_config, dev, smi)
+    phase("6 vision training", t0)
 
-    # ---- phase 6: summary ----
+    # ---- phase 7: fused-mode vision training ----
+    t0 = time.perf_counter()
+    modes = {}
+    for mode in ("attn_ln_fold", "fused_block", "fused_block_full"):
+        modes[mode] = vision_phase(torch, attn, bkern, blk, make_train,
+                                   load_yaml_config, dev, smi, mode)
+    phase("7 fused-mode vision training", t0)
+
+    # ---- phase 8: summary ----
     print(json.dumps({"kernels": [{
         "name": "book_scan_aggs",
         "route": "cuda",
@@ -472,8 +731,11 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
-    }] + [dict(att[k], launches=vision[k]) for k in ("short_attention_fwd",
-                                                     "short_attention_bwd")]
+    }] + [dict(att[k], launches=vision[k],
+               launches_attn_ln_fold=modes["attn_ln_fold"][k])
+          for k in ("short_attention_fwd", "short_attention_bwd")]
+      + [dict(fused[k], launches=modes[BLOCK_KERNELS[k][1]][k],
+              launches_mode=BLOCK_KERNELS[k][1]) for k in BLOCK_KERNELS]
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,0 +1,239 @@
+"""The port's fused-block functions against the JAX package's kernels.
+
+The plain PyTorch versions of ``vit_marl_tpu_torch/ops/block_kernel.py``
+take the same numpy-made inputs (width W=64, 2 heads, N=11 tokens, MLP x4)
+as the Pallas kernels of ``vit_marl_tpu/ops/block_kernel.py`` in interpret
+mode, at shapes where each JAX call runs its kernel, not its XLA fallback:
+1,024 rows for ``fused_ln_qkv`` and ``fused_proj_mlp`` (its ``ROW_BLOCK``),
+16 images with ``env_block=8`` for ``fused_block_full`` and
+``fused_ln_qkv_attn`` (``full_block_ok`` / ``ln_qkv_attn_ok``).  float32
+agrees within rtol 1e-5 / atol 1e-5; bf16 within 2e-2 (the two frameworks
+round the sums of the products in another order, and the errors of the
+LayerNorm, the products and the GELU add up to about a bf16 ulp).
+
+The autograd backward of each wrapper matches ``jax.vjp`` of the JAX
+function in float32 within 1e-5 (``fused_ln_qkv_attn`` with the attention
+backward kernel and without), and passes ``gradcheck`` in float64.  On the
+CPU the wrappers run the plain versions and count no launch; the CUDA
+launchers refuse the shapes the kernels do not take before they touch a
+card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vit_marl_tpu.ops import block_kernel as jbk
+from vit_marl_tpu_torch.ops import block_kernel as bk
+
+W, H, N, RATIO = 64, 2, 11, 4
+EB, IMAGES = 8, 16
+TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a, dtype, weight=False):
+    """One numpy array -> (jax, torch, is a weight) of the same values in
+    ``dtype``; a weight goes to JAX as ``(in, out)`` and to the port as
+    ``(out, in)``."""
+    jdt, tdt = DTYPES[dtype]
+    t = torch.from_numpy(a).to(tdt)
+    j = jnp.asarray(t.float().numpy()).astype(jdt)
+    return j, (t.T.contiguous() if weight else t), weight
+
+
+def _f32(a):
+    return jnp.asarray(a), torch.from_numpy(a), False
+
+
+def _inputs(kind, dtype, seed):
+    """(jax args, torch args, which are weights) of one function; rows and
+    weights in ``dtype``, LayerNorm parameters and biases float32."""
+    rng = np.random.default_rng(seed)
+    rows = 1024 if kind in ("ln_qkv", "proj_mlp") else IMAGES * N
+
+    def normal(*shape, scale=1.0, loc=0.0):
+        return (loc + scale * rng.normal(size=shape)).astype(np.float32)
+
+    x = _pair(normal(rows, W), dtype)
+    ln = [_f32(normal(W, scale=0.1, loc=1.0)), _f32(normal(W, scale=0.1))]
+    qkv = [_pair(normal(W, 3 * W, scale=0.1), dtype, True),
+           _f32(normal(3 * W, scale=0.1))]
+    tail = [_pair(normal(W, W, scale=0.1), dtype, True),
+            _f32(normal(W, scale=0.1)),
+            _f32(normal(W, scale=0.1, loc=1.0)), _f32(normal(W, scale=0.1)),
+            _pair(normal(W, RATIO * W, scale=0.1), dtype, True),
+            _f32(normal(RATIO * W, scale=0.1)),
+            _pair(normal(RATIO * W, W, scale=0.1), dtype, True),
+            _f32(normal(W, scale=0.1))]
+    if kind == "ln_qkv":
+        pairs = [x] + ln + qkv
+    elif kind == "proj_mlp":
+        pairs = [_pair(normal(rows, W), dtype), x] + tail
+    elif kind == "full_block":
+        pairs = [x] + ln + qkv + tail
+    else:
+        pairs = [x] + ln + qkv
+    return tuple(map(list, zip(*pairs)))
+
+
+def _jax_fn(kind, bwd_kernel=True):
+    """The JAX function with its kernel engaged (interpret mode)."""
+    if kind == "ln_qkv":
+        return lambda *a: jbk.fused_ln_qkv(*a, True)
+    if kind == "proj_mlp":
+        return lambda *a: jbk.fused_proj_mlp(*a, True)
+    if kind == "full_block":
+        return lambda *a: jbk.fused_block_full(*a, N, H, EB, True)
+    return lambda *a: jbk.fused_ln_qkv_attn(*a, N, H, EB, True, bwd_kernel)
+
+
+def _port(kind, bwd_kernel=True):
+    """(plain version, differentiable wrapper) of the port."""
+    if kind == "ln_qkv":
+        return bk.ln_qkv_reference, bk.fused_ln_qkv
+    if kind == "proj_mlp":
+        return bk.proj_mlp_reference, bk.fused_proj_mlp
+    if kind == "full_block":
+        return (lambda *a: bk.full_block_reference(*a, N, H),
+                lambda *a: bk.fused_block_full(*a, N, H))
+    return (lambda *a: bk.ln_qkv_attn_reference(*a, N, H),
+            lambda *a: bk.fused_ln_qkv_attn(*a, N, H, bwd_kernel))
+
+
+def _kernel_engages(kind):
+    """The JAX call takes its Pallas kernel at the test's shapes."""
+    hidden = RATIO * W
+    if kind in ("ln_qkv", "proj_mlp"):
+        return 1024 % jbk.ROW_BLOCK == 0 and W <= jbk.MAX_WIDTH
+    if kind == "full_block":
+        return jbk.full_block_ok(IMAGES * N, N, W, H, hidden, EB)
+    return jbk.ln_qkv_attn_ok(IMAGES * N, N, W, H, EB)
+
+
+KINDS = ["ln_qkv", "proj_mlp", "full_block", "ln_qkv_attn"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_version_matches_pallas_kernel(kind, dtype):
+    assert _kernel_engages(kind)
+    jargs, targs, _ = _inputs(kind, dtype, seed=KINDS.index(kind))
+    want = _jax_fn(kind)(*jargs)
+    plain, wrapper = _port(kind)
+    got = plain(*targs)
+    assert got.dtype == DTYPES[dtype][1] and want.dtype == DTYPES[dtype][0]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+    # on the CPU the wrapper is the plain version, with no launch counted
+    fn = {"ln_qkv": bk.fused_ln_qkv, "proj_mlp": bk.fused_proj_mlp,
+          "full_block": bk.fused_block_full,
+          "ln_qkv_attn": bk.fused_ln_qkv_attn}[kind]
+    before = fn.launches
+    assert torch.equal(wrapper(*targs), got)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("kind,bwd_kernel", [
+    ("ln_qkv", True), ("proj_mlp", True), ("full_block", True),
+    ("ln_qkv_attn", True), ("ln_qkv_attn", False)],
+    ids=["ln_qkv", "proj_mlp", "full_block", "ln_qkv_attn-kernel-bwd",
+         "ln_qkv_attn-xla-bwd"])
+def test_backward_matches_jax_vjp(kind, bwd_kernel):
+    jargs, targs, weight = _inputs(kind, "float32",
+                                   seed=10 + KINDS.index(kind))
+    out, vjp = jax.vjp(_jax_fn(kind, bwd_kernel), *jargs)
+    # a cotangent of scale 1/32: the weight gradients, sums over 1,024
+    # rows, come out near unit scale
+    g = (np.random.default_rng(3).normal(size=out.shape) / 32).astype(
+        np.float32)
+    want = vjp(jnp.asarray(g))
+    xs = [t.clone().requires_grad_(True) for t in targs]
+    got = torch.autograd.grad(_port(kind, bwd_kernel)[1](*xs), xs,
+                              torch.from_numpy(g))
+    assert len(got) == len(want) == len(weight)
+    for t, j, is_w in zip(got, want, weight):
+        np.testing.assert_allclose(t.numpy().T if is_w else t.numpy(),
+                                   np.asarray(j), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_wrapper_gradcheck_float64(kind):
+    rng = np.random.default_rng(20)
+    w, n = 8, 3
+    rows = 2 * n
+
+    def t(*shape, loc=0.0):
+        return torch.from_numpy(loc + 0.3 * rng.normal(size=shape))
+
+    ln = [t(w, loc=1.0), t(w)]
+    qkv = [t(3 * w, w), t(3 * w)]
+    tail = [t(w, w), t(w), t(w, loc=1.0), t(w), t(2 * w, w), t(2 * w),
+            t(w, 2 * w), t(w)]
+    args = {"ln_qkv": [t(rows, w)] + ln + qkv,
+            "proj_mlp": [t(rows, w), t(rows, w)] + tail,
+            "full_block": [t(rows, w)] + ln + qkv + tail,
+            "ln_qkv_attn": [t(rows, w)] + ln + qkv}[kind]
+    fn = {"ln_qkv": bk.fused_ln_qkv, "proj_mlp": bk.fused_proj_mlp,
+          "full_block": lambda *a: bk.fused_block_full(*a, n, 2),
+          "ln_qkv_attn": lambda *a: bk.fused_ln_qkv_attn(*a, n, 2)}[kind]
+    args = [a.requires_grad_(True) for a in args]
+    assert torch.autograd.gradcheck(fn, args)
+
+
+def test_attention_reference_xla_matches_jax():
+    from vit_marl_tpu.ops.attention_kernel import _attention_reference
+    from vit_marl_tpu_torch.ops import attention_kernel as attn
+
+    qkv = np.random.default_rng(4).normal(size=(5 * N, 3 * W)).astype(
+        np.float32)
+    want = _attention_reference(jnp.asarray(qkv), N, H)
+    got = attn.attention_reference_xla(torch.from_numpy(qkv), N, H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["float32"])
+    jq, tq, _ = _pair(qkv, "bfloat16")
+    want = _attention_reference(jq, N, H)
+    got = attn.attention_reference_xla(tq, N, H)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("launch,args,match", [
+    (bk._launch_ln_qkv, dict(W=96, K=288), "W=96"),
+    (bk._launch_ln_qkv, dict(W=576, K=1728), "W=576"),
+    (bk._launch_proj_mlp, dict(W=64, hidden=96), "hidden=96"),
+    (bk._launch_full_block, dict(W=64, hidden=256, n=33, heads=2), "N=33"),
+    (bk._launch_ln_qkv_attn, dict(W=256, n=11, heads=1), "D=256"),
+    (bk._launch_ln_qkv_attn, dict(W=64, n=11, heads=16), "D=4")],
+    ids=["width-not-64", "width-over-512", "hidden", "tokens", "head-wide",
+         "head-narrow"])
+def test_launchers_refuse_unsupported_shapes(launch, args, match):
+    """Checked before anything reaches a card: a CUDA tensor of these
+    shapes raises; the plain version is never taken instead."""
+    Wd, n = args["W"], args.get("n", 1)
+    rows = 2 * n
+    x = torch.zeros(rows, Wd)
+    v = torch.zeros(Wd)
+    if launch is bk._launch_ln_qkv:
+        call = lambda: launch(x, v, v, torch.zeros(args["K"], Wd),
+                              torch.zeros(args["K"]))
+    elif launch is bk._launch_proj_mlp:
+        hd = args["hidden"]
+        call = lambda: launch(x, x, torch.zeros(Wd, Wd), v, v, v,
+                              torch.zeros(hd, Wd), torch.zeros(hd),
+                              torch.zeros(Wd, hd), v)
+    elif launch is bk._launch_full_block:
+        hd = args["hidden"]
+        call = lambda: launch(x, v, v, torch.zeros(3 * Wd, Wd),
+                              torch.zeros(3 * Wd), torch.zeros(Wd, Wd), v, v,
+                              v, torch.zeros(hd, Wd), torch.zeros(hd),
+                              torch.zeros(Wd, hd), v, n, args["heads"])
+    else:
+        call = lambda: launch(x, v, v, torch.zeros(3 * Wd, Wd),
+                              torch.zeros(3 * Wd), n, args["heads"])
+    with pytest.raises(NotImplementedError, match=match):
+        call()

@@ -11,7 +11,17 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   within one bf16 ulp of it (rtol 8e-3, atol 1e-3), since the plain
   version is the same float32 math rounded once.  Ragged B, heads
   contiguous in the lanes at H > 1.
+- Fused blocks (LN+QKV, proj+MLP, the whole block, LN+QKV+attention):
+  float32 within rtol 2e-5 / atol 2e-5 of the plain versions, bfloat16
+  within two bf16 ulps of the element or two (three for the blocks ending
+  in ``x1 + mlp``) of the output's largest magnitude (``block_tol``);
+  ragged B, every tile
+  plan (N = 5, 11, 17, 32; W = 64 to 512); the LN+QKV+attention backward
+  through the attention backward kernel; shapes the kernels do not take
+  raise ``NotImplementedError``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -20,6 +30,7 @@ import torch
 from vit_marl_tpu_torch.config import EngineConfig
 from vit_marl_tpu_torch.lob.book import BookState
 from vit_marl_tpu_torch.ops import attention_kernel as attn
+from vit_marl_tpu_torch.ops import block_kernel as blk
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 
 from torch_cases import TICK, TIDS, make_case
@@ -121,3 +132,107 @@ def test_attention_kernel_rejects_unsupported_shapes(cuda):
     flat = torch.zeros(8 * 48 + 1, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte aligned"):
         attn.short_attention(flat[1:].view(8, 48), 4, 1)
+
+
+def block_tol(kind, want):
+    """float32: rtol 2e-5, atol 2e-5.  bf16: two ulps of the element (rtol
+    1.6e-2) or ulps of the output's largest magnitude (atol): a one-ulp
+    flip of a rounded intermediate (qkv, attention, x1, the MLP's sum)
+    reaches the output, and where the output cancels to near 0 the error
+    is an ulp of the intermediate, at the scale of the rows; three ulps
+    where the output ends in x1 + mlp, two otherwise."""
+    if want.dtype == torch.float32:
+        return dict(rtol=2e-5, atol=2e-5)
+    ulps = 3 if kind in ("proj_mlp", "full_block") else 2
+    m = float(want.float().abs().max())
+    return dict(rtol=1.6e-2,
+                atol=ulps * 2.0 ** (math.floor(math.log2(m)) - 7))
+
+
+BLOCK_KINDS = ["ln_qkv", "proj_mlp", "full_block", "ln_qkv_attn"]
+
+
+def block_case(kind, B, N, W, H, dtype, device, seed, ratio=4):
+    """(kernel wrapper, plain version, args) of one fused-block function
+    on seeded normal inputs; weights in torch's (out, in) layout."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def t(*shape, scale=1.0, loc=0.0, dt=torch.float32):
+        return (loc + scale * torch.randn(shape, generator=gen,
+                                          device=device)).to(dt)
+
+    x = t(B * N, W, dt=dtype)
+    ln = [t(W, scale=0.1, loc=1.0), t(W, scale=0.1)]
+    qkv = [t(3 * W, W, scale=W ** -0.5, dt=dtype), t(3 * W, scale=0.1)]
+    tail = [t(W, W, scale=W ** -0.5, dt=dtype), t(W, scale=0.1),
+            t(W, scale=0.1, loc=1.0), t(W, scale=0.1),
+            t(ratio * W, W, scale=W ** -0.5, dt=dtype), t(ratio * W, scale=0.1),
+            t(W, ratio * W, scale=(ratio * W) ** -0.5, dt=dtype),
+            t(W, scale=0.1)]
+    if kind == "ln_qkv":
+        return blk.fused_ln_qkv, blk.ln_qkv_reference, [x] + ln + qkv
+    if kind == "proj_mlp":
+        return (blk.fused_proj_mlp, blk.proj_mlp_reference,
+                [t(B * N, W, dt=dtype), x] + tail)
+    if kind == "full_block":
+        return (lambda *a: blk.fused_block_full(*a, N, H),
+                lambda *a: blk.full_block_reference(*a, N, H),
+                [x] + ln + qkv + tail)
+    return (lambda *a: blk.fused_ln_qkv_attn(*a, N, H),
+            lambda *a: blk.ln_qkv_attn_reference(*a, N, H), [x] + ln + qkv)
+
+
+def _counter(kind):
+    return {"ln_qkv": blk.fused_ln_qkv, "proj_mlp": blk.fused_proj_mlp,
+            "full_block": blk.fused_block_full,
+            "ln_qkv_attn": blk.fused_ln_qkv_attn}[kind]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", BLOCK_KINDS)
+@pytest.mark.parametrize("B,N,W,H", [(37, 11, 384, 6), (5, 32, 512, 4),
+                                     (9, 5, 64, 2), (3, 17, 192, 3),
+                                     (1000, 11, 384, 6)])
+def test_block_kernels_match_plain(cuda, kind, dtype, B, N, W, H):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern, plain, args = block_case(kind, B, N, W, H, dtype, cuda, B + N + W)
+    fn = _counter(kind)
+    before = fn.launches
+    got = kern(*args)
+    assert fn.launches == before + 1
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, **block_tol(kind, want))
+
+
+def test_ln_qkv_attn_backward_runs_the_attention_kernel(cuda):
+    N, H, W = 11, 6, 384
+    _, _, args = block_case("ln_qkv_attn", 13, N, W, H, torch.float32, cuda,
+                            1)
+    args = [a.requires_grad_(True) for a in args]
+    g = torch.randn(13 * N, W, device=cuda)
+    b0 = attn.short_attention.launches_bwd
+    got = torch.autograd.grad(blk.fused_ln_qkv_attn(*args, N, H), args, g)
+    assert attn.short_attention.launches_bwd == b0 + 1
+    want = torch.autograd.grad(blk.ln_qkv_attn_reference(*args, N, H), args,
+                               g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_block_kernels_reject_unsupported_shapes(cuda):
+    _, _, args = block_case("full_block", 2, 11, 64, 2, torch.float32, cuda,
+                            2)
+    with pytest.raises(NotImplementedError, match="N=11, D=4"):
+        blk.fused_block_full(*args, 11, 16)
+    x = torch.zeros(22, 96, device=cuda)
+    v = torch.zeros(96, device=cuda)
+    with pytest.raises(NotImplementedError, match="W=96"):
+        blk.fused_ln_qkv(x, v, v, torch.zeros(288, 96, device=cuda),
+                         torch.zeros(288, device=cuda))
+    with pytest.raises(NotImplementedError, match="float16"):
+        blk.fused_ln_qkv(*[a.half() if a.dim() == 2 else a
+                           for a in args[:5]])

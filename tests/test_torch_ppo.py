@@ -11,7 +11,8 @@ restated here line for line (ppo.py:410-420, 442-485) around its optax
 chain.  GAE agrees within 1e-6, the updated weights within 1e-4 relative.
 CPU ``make_train`` runs, of the 2-player world and of the vision world
 (``configs/ippo_vision_dual_ppo.yaml`` cut to the micro preset and a few
-envs), give finite losses.
+envs, with the default blocks and in each fused-block mode), give finite
+losses.
 """
 
 import dataclasses
@@ -37,6 +38,7 @@ from vit_marl_tpu_torch.models.bridge import flax_to_state_dict
 from vit_marl_tpu_torch.models import vit as tvit
 from vit_marl_tpu_torch.models.rnn import ActorCriticRNN
 from vit_marl_tpu_torch.ops import attention_kernel as attn
+from vit_marl_tpu_torch.ops import block_kernel as bk
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 from vit_marl_tpu_torch.rl import ppo as tppo
 from vit_marl_tpu_torch.utils.tree import tree_map
@@ -271,6 +273,33 @@ def test_make_train_cpu_smoke_vision():
             attn.short_attention.launches_bwd) == before
     assert isinstance(out["networks"][1], tvit.ViTActorCriticRNN)
     assert len(out["metrics"]) == 2
+    for m in out["metrics"]:
+        assert all(np.isfinite(v) for v in m.values()), m
+        assert {"MM/total_loss", "EXE/total_loss"} <= set(m)
+
+
+@pytest.mark.parametrize("mode", ["VIT_FUSED_BLOCK_FULL", "VIT_FUSED_BLOCK",
+                                  "VIT_ATTN_LN_FOLD"])
+def test_make_train_cpu_smoke_vision_fused(mode):
+    """The vision world at the micro preset in a fused-block mode: the
+    plain versions of the fused functions on the CPU (no launch counted),
+    finite losses."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "configs", "ippo_vision_dual_ppo.yaml")
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    raw.update(NUM_ENVS=4, NUM_STEPS=4, UPDATE_EPOCHS=1, NUM_MINIBATCHES=2,
+               TOTAL_TIMESTEPS=16, VIT_PRESET="micro", **{mode: True})
+    raw["WORLD"].update({k.upper(): v for k, v in WORLD.items()})
+    ma, tc = tcfg.make_config(raw)
+    fns = (bk.fused_ln_qkv, bk.fused_proj_mlp, bk.fused_block_full,
+           bk.fused_ln_qkv_attn)
+    before = [f.launches for f in fns]
+    out = tppo.make_train(ma, tc, device="cpu")(seed=0)
+    assert [f.launches for f in fns] == before
+    vit = out["networks"][1].vit.cfg
+    assert getattr(vit, mode[4:].lower())
+    assert len(out["metrics"]) == 1
     for m in out["metrics"]:
         assert all(np.isfinite(v) for v in m.values()), m
         assert {"MM/total_loss", "EXE/total_loss"} <= set(m)

@@ -192,14 +192,114 @@ def test_squashed_normal_matches_jax():
                                rtol=1e-6, atol=1e-6)
 
 
+# every mode on top of rows_2d=False, the one layout still to port
 @pytest.mark.parametrize("mode", [
-    dict(attn_kernel=False), dict(attn_bwd_kernel=False),
-    dict(fused_block=True), dict(fused_block_full=True),
-    dict(attn_ln_fold=True), dict(rows_2d=False)])
+    dict(rows_2d=False), dict(rows_2d=False, attn_kernel=False),
+    dict(rows_2d=False, fused_block=True),
+    dict(rows_2d=False, fused_block_full=True),
+    dict(rows_2d=False, attn_ln_fold=True),
+    dict(rows_2d=False, attn_bwd_kernel=False)])
 def test_modes_not_ported_raise(mode):
     _, tc = _cfgs("float32", **mode)
     with pytest.raises(NotImplementedError, match="later slice"):
         tvit.ViTEncoder(tc, LEVELS)
+
+
+MODES = {"fused_block": dict(fused_block=True),
+         "fused_block_full": dict(fused_block_full=True),
+         "attn_ln_fold": dict(attn_ln_fold=True),
+         "xla_attention": dict(attn_kernel=False),
+         "xla_attention_bwd": dict(attn_bwd_kernel=False)}
+
+
+def _encoder_pair(dtype, mode, seed):
+    jc, tc = _cfgs(dtype, **MODES[mode])
+    img = np.random.default_rng(seed).normal(
+        size=(T, B, LEVELS, 3, 2)).astype(np.float32)
+    jenc = JViTEncoder(jc)
+    params = jax.device_get(jenc.init(jax.random.PRNGKey(seed),
+                                      jnp.asarray(img)))
+    enc = tvit.ViTEncoder(tc, LEVELS)
+    enc.load_state_dict(vit_encoder_state_dict(params["params"]),
+                        strict=True)
+    return jenc, params, enc, img
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_encoder_modes_match_flax(mode, dtype):
+    """Each block mode on weights bridged from its own flax tree (the
+    fused-family tree for the fused modes); same tolerances as above."""
+    jenc, params, enc, img = _encoder_pair(dtype, mode, 0)
+    if mode in ("fused_block", "fused_block_full", "attn_ln_fold"):
+        assert "qkv_kernel" in params["params"]["block0"]
+    want = jenc.apply(params, jnp.asarray(img))
+    with torch.no_grad():
+        got = enc(torch.from_numpy(img))
+    assert got.shape == (T, B, 64) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **ENCODER_TOL[dtype])
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_encoder_mode_gradients_match_flax(mode):
+    """float32: the gradient of a loss of the embedding with respect to
+    every parameter, through remat and the fused functions' backwards,
+    against jax.grad of the flax encoder (whose fused calls on the CPU
+    differentiate the same compositions), within 1e-5."""
+    jenc, params, enc, img = _encoder_pair("float32", mode, 1)
+    # a weight of scale 1/32 keeps the summed gradients near unit scale
+    w = (np.random.default_rng(2).normal(size=(T, B, 64)) / 32).astype(
+        np.float32)
+    grads = jax.grad(lambda p: jnp.sum(
+        jenc.apply(p, jnp.asarray(img)) * jnp.asarray(w)))(params)
+    want = vit_encoder_state_dict(jax.device_get(grads)["params"])
+    (enc(torch.from_numpy(img)) * torch.from_numpy(w)).sum().backward()
+    got = {k: p.grad for k, p in enc.named_parameters()}
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_actor_critic_modes_match_flax(mode, dtype):
+    jc, tc = _cfgs(dtype, **MODES[mode])
+    jnet = JViTActorCriticRNN(action_dim=ACT, vit=jc, continuous=True,
+                              action_low=jnp.asarray(LOW),
+                              action_high=jnp.asarray(HIGH))
+    obs, dones, h0 = _inputs(4)
+    params = jax.device_get(jnet.init(
+        jax.random.PRNGKey(4), JScannedGRU.initialize_carry(B, H),
+        (_jobs(obs), jnp.asarray(dones))))
+    net = tvit.ViTActorCriticRNN(OBS, LEVELS, ACT, tc,
+                                 action_low=torch.from_numpy(LOW),
+                                 action_high=torch.from_numpy(HIGH))
+    net.load_state_dict(flax_to_state_dict(params), strict=True)
+    jh, jpi, jv = jnet.apply(params, jnp.asarray(h0),
+                             (_jobs(obs), jnp.asarray(dones)))
+    with torch.no_grad():
+        th, tpi, tv = net(torch.from_numpy(h0), _tobs(obs),
+                          torch.from_numpy(dones))
+    tol = TOL[dtype]
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), **tol)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **tol)
+    np.testing.assert_allclose(tpi.mean.numpy(), np.asarray(jpi.mean), **tol)
+
+
+def test_fused_modes_keep_the_parameter_layout():
+    """One state_dict serves every mode: the fused-family tree and the
+    unfused tree of the same values bridge to equal tensors."""
+    from vit_marl_tpu.models.convert import convert_vit_params
+
+    _, params, enc, _ = _encoder_pair("float32", "fused_block_full", 5)
+    unfused = convert_vit_params(params, to_fused=False)
+    a = vit_encoder_state_dict(params["params"])
+    b = vit_encoder_state_dict(unfused["params"])
+    assert set(a) == set(b) == set(enc.state_dict())
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 def test_more_than_32_tokens_raise():

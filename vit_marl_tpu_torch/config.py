@@ -378,12 +378,15 @@ class TrainConfig:
     # that every YAML file loads to the same values in both packages.  What
     # each one does in the port:
     # - vit_attn_kernel / vit_attn_bwd_kernel: attention forward / backward
-    #   through the CUDA kernels of ops/attention_kernel.py.  Only True is
-    #   ported; False raises NotImplementedError in models/vit.py.
+    #   through the CUDA kernels of ops/attention_kernel.py; False runs the
+    #   XLA-form attention in plain ops (forward) or differentiates it
+    #   (backward).
     # - vit_attn_env_block: accepted and unused (the CUDA kernels take any
     #   batch of images).
-    # - vit_fused_block, vit_fused_block_full, vit_attn_ln_fold: the fused
-    #   block kernels, not ported; True raises NotImplementedError.
+    # - vit_attn_ln_fold: LN1+QKV+attention in one CUDA kernel; vit_fused_
+    #   block: LN1+QKV and proj+LN2+MLP kernels around the XLA-form
+    #   attention; vit_fused_block_full (before vit_fused_block): the whole
+    #   block in one kernel (ops/block_kernel.py).
     vit_fused_block: bool = False
     vit_fused_block_full: bool = False
     vit_attn_kernel: bool = True

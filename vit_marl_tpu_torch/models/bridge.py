@@ -14,7 +14,12 @@ Layout traps:
 - a flax ``LayerNorm`` names its weight ``scale``;
 - the ViT model names its flat embedding, so its unnamed head layers are
   ``Dense_0``..``Dense_3`` where ``ActorCriticRNN`` has ``Dense_1``..
-  ``Dense_4``.
+  ``Dense_4``;
+- the JAX ViT's fused modes (``fused_block``, ``fused_block_full``,
+  ``attn_ln_fold``) keep each block's parameters as flat leaves
+  (``ln1_scale``, ``qkv_kernel``, ...) instead of submodules.  The port has
+  one parameter layout for every mode, so both trees load into the same
+  ``state_dict``; a checkpoint needs no conversion between modes.
 """
 
 from __future__ import annotations
@@ -31,6 +36,22 @@ _VIT_DENSE = {"flat_embed": "flat_embed", "Dense_0": "actor_fc",
               "Dense_3": "critic_out", "fusion/v_proj": "fusion.v_proj",
               "fusion/f_proj": "fusion.f_proj", "fusion/gate": "fusion.gate"}
 _BLOCK_DENSE = ("attn/qkv", "attn/proj", "mlp1", "mlp2")
+# A fused-family block's flat leaf -> its path in the unfused tree (a copy
+# of the table in vit_marl_tpu/models/convert.py).
+_FUSED_FROM_UNFUSED = {
+    "ln1_scale": ("ln1", "scale"),
+    "ln1_bias": ("ln1", "bias"),
+    "qkv_kernel": ("attn", "qkv", "kernel"),
+    "qkv_bias": ("attn", "qkv", "bias"),
+    "proj_kernel": ("attn", "proj", "kernel"),
+    "proj_bias": ("attn", "proj", "bias"),
+    "ln2_scale": ("ln2", "scale"),
+    "ln2_bias": ("ln2", "bias"),
+    "mlp1_kernel": ("mlp1", "kernel"),
+    "mlp1_bias": ("mlp1", "bias"),
+    "mlp2_kernel": ("mlp2", "kernel"),
+    "mlp2_bias": ("mlp2", "bias"),
+}
 
 
 def _t(a) -> torch.Tensor:
@@ -41,6 +62,19 @@ def _get(tree: Mapping, path: str):
     for key in path.split("/"):
         tree = tree[key]
     return tree
+
+
+def _unfused_block(block: Mapping) -> Mapping:
+    """A block's tree in the unfused layout, whichever layout it has."""
+    if "qkv_kernel" not in block:
+        return block
+    out: Dict = {}
+    for leaf, path in _FUSED_FROM_UNFUSED.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = block[leaf]
+    return out
 
 
 def _dense_into(sd: Dict[str, torch.Tensor], name: str, node: Mapping):
@@ -86,24 +120,23 @@ def _vit_to_state_dict(p: Mapping) -> Dict[str, torch.Tensor]:
 def vit_encoder_state_dict(vit: Mapping, prefix: str = ""
                            ) -> Dict[str, torch.Tensor]:
     """The ``ViTEncoder`` subtree (``patch_embed``, ``pos_embed``,
-    ``cls``, ``block{i}``, ``ln_f``) -> the port's ``ViTEncoder``
-    ``state_dict``, keys under ``prefix``."""
+    ``cls``, ``block{i}`` in either layout, ``ln_f``) -> the port's
+    ``ViTEncoder`` ``state_dict``, keys under ``prefix``."""
     sd: Dict[str, torch.Tensor] = {}
     _dense_into(sd, f"{prefix}patch_embed", vit["patch_embed"])
     sd[f"{prefix}pos_embed"] = _t(vit["pos_embed"])
     sd[f"{prefix}cls"] = _t(vit["cls"])
-    lns = [("ln_f", "ln_f")]
+    lns = [(f"{prefix}ln_f", vit["ln_f"])]
     i = 0
     while f"block{i}" in vit:
-        blk = vit[f"block{i}"]
+        blk = _unfused_block(vit[f"block{i}"])
         for flax_name in _BLOCK_DENSE:
             _dense_into(sd, f"{prefix}blocks.{i}."
                         + flax_name.replace("/", "."), _get(blk, flax_name))
-        lns += [(f"block{i}/ln1", f"blocks.{i}.ln1"),
-                (f"block{i}/ln2", f"blocks.{i}.ln2")]
+        lns += [(f"{prefix}blocks.{i}.ln1", blk["ln1"]),
+                (f"{prefix}blocks.{i}.ln2", blk["ln2"])]
         i += 1
-    for flax_name, name in lns:
-        node = _get(vit, flax_name)
-        sd[f"{prefix}{name}.weight"] = _t(node["scale"])
-        sd[f"{prefix}{name}.bias"] = _t(node["bias"])
+    for name, node in lns:
+        sd[f"{name}.weight"] = _t(node["scale"])
+        sd[f"{name}.bias"] = _t(node["bias"])
     return sd

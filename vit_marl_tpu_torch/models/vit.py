@@ -1,13 +1,27 @@
 """ViT encoder over the order-book image and the recurrent actor-critic
 that fuses it with the flat features.
 
-Port of ``vit_marl_tpu/models/vit.py`` on the path its defaults take:
-flat ``(B*N, W)`` rows (``rows_2d``), the unfused pre-LN ``Block`` and the
-short-sequence attention kernels (``ops/attention_kernel.py``) forward and
-backward.  The book image ``(levels, 3, 2)`` is a sequence of ``levels``
-tokens of 6 features; a float32 linear patch embed lifts them to width W,
-a CLS token leads, learned positions are added, and the CLS row of the
-last block, after a final LayerNorm, is the embedding.
+Port of ``vit_marl_tpu/models/vit.py`` on flat ``(B*N, W)`` rows
+(``rows_2d``), in each of its block modes:
+
+- the defaults: the unfused pre-LN ``Block`` with the short-sequence
+  attention kernels (``ops/attention_kernel.py``) forward and backward;
+  ``attn_kernel=False`` runs the XLA-form attention in plain ops
+  (``attention_reference_xla``), ``attn_bwd_kernel=False`` differentiates
+  it in place of the backward kernel;
+- ``attn_ln_fold``: LN1, QKV and the attention in one kernel
+  (``ops/block_kernel.py::fused_ln_qkv_attn``), the rest in plain ops;
+- ``fused_block``: LN1+QKV and proj+LN2+MLP as two kernels
+  (``fused_ln_qkv``, ``fused_proj_mlp``) around the XLA-form attention;
+- ``fused_block_full`` (before ``fused_block``): the whole block in one
+  kernel (``fused_block_full``).
+
+The parameters are the same torch modules in every mode, so one
+``state_dict`` serves them all.  The book image ``(levels, 3, 2)`` is a
+sequence of ``levels`` tokens of 6 features; a float32 linear patch embed
+lifts them to width W, a CLS token leads, learned positions are added,
+and the CLS row of the last block, after a final LayerNorm, is the
+embedding.
 
 Numerics follow flax:
 
@@ -19,10 +33,8 @@ Numerics follow flax:
 
 ``remat`` recomputes each block's activations in the backward pass
 (``torch.utils.checkpoint``, as ``nn.remat(Block)``), so the attention
-forward runs twice per block in a PPO update.  Modes the JAX package has
-besides this path (``attn_kernel=False``, ``attn_bwd_kernel=False``, the
-fused blocks, ``attn_ln_fold``, ``rows_2d=False``, more than 32 tokens)
-are not ported yet and raise.
+forward runs twice per block in a PPO update.  ``rows_2d=False`` and more
+than 32 tokens are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -38,7 +50,20 @@ from torch.utils.checkpoint import checkpoint
 
 from vit_marl_tpu_torch.models.distributions import Categorical, SquashedNormal
 from vit_marl_tpu_torch.models.rnn import ScannedGRU, _dense, _lecun_normal_
-from vit_marl_tpu_torch.ops.attention_kernel import MAX_TOKENS, short_attention
+from vit_marl_tpu_torch.ops.attention_kernel import (
+    MAX_TOKENS,
+    attention_reference_xla,
+    short_attention,
+)
+from vit_marl_tpu_torch.ops.block_kernel import (
+    dense,
+    fused_block_full,
+    fused_ln_qkv,
+    fused_ln_qkv_attn,
+    fused_proj_mlp,
+    gelu,
+    layer_norm,
+)
 
 
 @dataclass(frozen=True)
@@ -72,12 +97,8 @@ _LATER = "is not ported yet (a later slice of the port)"
 
 def check_ported(cfg: ViTConfig) -> None:
     """Raise ``NotImplementedError`` for a mode the port does not have."""
-    for name in ("fused_block", "fused_block_full", "attn_ln_fold"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"ViTConfig.{name}=True {_LATER}")
-    for name in ("attn_kernel", "attn_bwd_kernel", "rows_2d"):
-        if not getattr(cfg, name):
-            raise NotImplementedError(f"ViTConfig.{name}=False {_LATER}")
+    if not cfg.rows_2d:
+        raise NotImplementedError(f"ViTConfig.rows_2d=False {_LATER}")
 
 
 class Dense(nn.Linear):
@@ -106,22 +127,30 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 class MHA(nn.Module):
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
         super().__init__()
-        self.heads = cfg.heads
+        self.cfg = cfg
         self.qkv = Dense(cfg.width, 3 * cfg.width, dtype)
         self.proj = Dense(cfg.width, cfg.width, dtype)
 
     def forward(self, x: torch.Tensor, n_tokens: int) -> torch.Tensor:
         """``(B*N, W)`` rows -> ``(B*N, W)``; ``qkv`` lanes are
         ``[q | k | v]`` with heads contiguous, the kernel's layout."""
-        return self.proj(short_attention(self.qkv(x), n_tokens, self.heads))
+        c = self.cfg
+        qkv = self.qkv(x)
+        if c.attn_kernel:
+            out = short_attention(qkv, n_tokens, c.heads,
+                                  bwd_kernel=c.attn_bwd_kernel)
+        else:
+            out = attention_reference_xla(qkv, n_tokens, c.heads)
+        return self.proj(out)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block on flat rows."""
+    """Pre-LN transformer block on flat rows, in the mode ``cfg`` names."""
 
     def __init__(self, cfg: ViTConfig, dtype: torch.dtype):
         super().__init__()
         W = cfg.width
+        self.cfg = cfg
         self.dtype = dtype
         self.ln1 = nn.LayerNorm(W, eps=1e-6)
         self.attn = MHA(cfg, dtype)
@@ -133,13 +162,56 @@ class Block(nn.Module):
                 cls_only: bool = False) -> torch.Tensor:
         """``cls_only``: LN2 and the MLP on the CLS rows only, returning
         ``(B, W)``; nothing else after the last block's attention reaches
-        the output."""
+        the output.  The fused-block modes ignore it and keep every row."""
+        c = self.cfg
+        if c.fused_block or c.fused_block_full:
+            return self._fused_block(x, n_tokens)
+        if c.attn_ln_fold:
+            return self._attn_ln_fold_block(x, n_tokens, cls_only)
         x = x + self.attn(_layer_norm(self.ln1, x).to(self.dtype), n_tokens)
         if cls_only:
             x = x.reshape(-1, n_tokens, x.shape[-1])[:, 0]
         h = _layer_norm(self.ln2, x).to(self.dtype)
         h = self.mlp2(F.gelu(self.mlp1(h), approximate="tanh"))
         return x + h
+
+    def _fused_params(self):
+        """The fused kernels' operands: LayerNorm parameters and biases in
+        float32, weights in the compute type."""
+        dt = self.dtype
+        a = self.attn
+        return (self.ln1.weight, self.ln1.bias, a.qkv.weight.to(dt),
+                a.qkv.bias, a.proj.weight.to(dt), a.proj.bias,
+                self.ln2.weight, self.ln2.bias, self.mlp1.weight.to(dt),
+                self.mlp1.bias, self.mlp2.weight.to(dt), self.mlp2.bias)
+
+    def _fused_block(self, x: torch.Tensor, n_tokens: int) -> torch.Tensor:
+        """``fused_block_full``: one kernel.  ``fused_block``: LN1+QKV and
+        proj+LN2+MLP kernels around the XLA-form attention."""
+        p = self._fused_params()
+        x = x.to(self.dtype)
+        if self.cfg.fused_block_full:
+            return fused_block_full(x, *p, n_tokens, self.cfg.heads)
+        attn = attention_reference_xla(fused_ln_qkv(x, *p[:4]), n_tokens,
+                                       self.cfg.heads)
+        return fused_proj_mlp(attn, x, *p[4:])
+
+    def _attn_ln_fold_block(self, x: torch.Tensor, n_tokens: int,
+                            cls_only: bool) -> torch.Tensor:
+        """LN1+QKV+attention in one kernel; the projection, residuals, LN2
+        and MLP in plain ops with the kernel tail's rounding, so the last
+        block can still keep the CLS rows only."""
+        g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, bm1, w2, bm2 = \
+            self._fused_params()
+        x = x.to(self.dtype)
+        attn = fused_ln_qkv_attn(x, g1, b1, wqkv, bqkv, n_tokens,
+                                 self.cfg.heads,
+                                 bwd_kernel=self.cfg.attn_bwd_kernel)
+        x1 = x + dense(attn, wp, bp)
+        if cls_only:
+            x1 = x1.reshape(-1, n_tokens, x1.shape[-1])[:, 0]
+        h = layer_norm(x1, g2, b2).to(self.dtype)
+        return x1 + dense(gelu(dense(h, w1, bm1)), w2, bm2)
 
 
 class ViTEncoder(nn.Module):
@@ -180,12 +252,17 @@ class ViTEncoder(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
         x = x.reshape(-1, W)
         remat = self.cfg.remat and torch.is_grad_enabled()
+        # the last block runs LN2 and the MLP on the CLS rows only, except
+        # in the fused-block modes, whose kernels take whole images
+        cls_short = not (self.cfg.fused_block or self.cfg.fused_block_full)
         for i, block in enumerate(self.blocks):
-            last = i == len(self.blocks) - 1
+            last = cls_short and i == len(self.blocks) - 1
             if remat:
                 x = checkpoint(block, x, N, last, use_reentrant=False)
             else:
                 x = block(x, N, last)
+        if not cls_short:
+            x = x.reshape(-1, N, W)[:, 0]
         return _layer_norm(self.ln_f, x).reshape(lead + (W,))
 
 

@@ -22,6 +22,11 @@ forward saves ``qkv`` (not the output) and its backward runs the backward
 kernel.  A CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises.  ``short_attention.launches_fwd`` and
 ``short_attention.launches_bwd`` count kernel launches.
+
+:func:`attention_reference_xla` is the JAX package's XLA attention, which
+rounds P to the input type; the ViT's modes without the kernels run it,
+and the fused blocks' backwards differentiate it, as the JAX package's
+do.
 """
 
 from __future__ import annotations
@@ -89,6 +94,32 @@ def short_attention_bwd_reference(qkv: torch.Tensor, g: torch.Tensor,
     dk = ds.transpose(-1, -2) @ qs
     dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4)  # (B,N,3,H,D)
     return dqkv.reshape(B * N, 3 * H * D).to(qkv.dtype)
+
+
+def attention_reference_xla(qkv: torch.Tensor, n_tokens: int,
+                            heads: int) -> torch.Tensor:
+    """A copy of the JAX package's XLA attention (``vit_marl_tpu/ops/
+    attention_kernel.py::_attention_reference``, the same math as
+    ``models/vit.py::attention_nhd``) on the flat layout, in its rounding:
+    q is scaled in the input type; each product ``q_d k_d`` is rounded to
+    the input type and the logits summed in float32; the float32 softmax
+    P is rounded to the input type; each product ``P v_d`` is rounded and
+    the sum taken in float32, then rounded once.  It materialises
+    ``(B, N, N, H, D)`` products, as the XLA code does.  Differentiable by
+    autograd; the JAX package's backwards of the fused blocks
+    differentiate it.
+    """
+    rows, w3 = qkv.shape
+    W = w3 // 3
+    D = W // heads
+    acc = torch.promote_types(qkv.dtype, torch.float32)
+    x = qkv.reshape(rows // n_tokens, n_tokens, 3, heads, D)
+    q = x[:, :, 0] * D ** -0.5                            # (B, N, H, D)
+    k, v = x[:, :, 1], x[:, :, 2]
+    logits = (q[:, :, None] * k[:, None]).to(acc).sum(-1)  # (B, Nq, Nk, H)
+    p = torch.softmax(logits, dim=2).to(qkv.dtype)
+    out = (p[..., None] * v[:, None]).to(acc).sum(2)        # (B, Nq, H, D)
+    return out.reshape(rows, W).to(qkv.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -204,11 +235,31 @@ def _device_type(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, n_tokens: int,
+                  heads: int) -> torch.Tensor:
+    """The backward of :func:`short_attention_reference` on either device:
+    the plain version for a CPU tensor, the backward kernel for a CUDA
+    one."""
+    if _device_type(qkv) == "cpu":
+        return short_attention_bwd_reference(qkv, g, n_tokens, heads)
+    return _launch_bwd(qkv, g, n_tokens, heads)
+
+
+def attention_xla_bwd(qkv: torch.Tensor, g: torch.Tensor, n_tokens: int,
+                      heads: int) -> torch.Tensor:
+    """Autograd of :func:`attention_reference_xla` at ``qkv``."""
+    with torch.enable_grad():
+        x = qkv.detach().requires_grad_(True)
+        (dqkv,) = torch.autograd.grad(
+            attention_reference_xla(x, n_tokens, heads), x, g)
+    return dqkv
+
+
 class _ShortAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, n_tokens, heads):
+    def forward(ctx, qkv, n_tokens, heads, bwd_kernel):
         ctx.save_for_backward(qkv)
-        ctx.n_tokens, ctx.heads = n_tokens, heads
+        ctx.n_tokens, ctx.heads, ctx.bwd_kernel = n_tokens, heads, bwd_kernel
         if _device_type(qkv) == "cpu":
             return short_attention_reference(qkv, n_tokens, heads)
         return _launch_fwd(qkv, n_tokens, heads)
@@ -216,21 +267,19 @@ class _ShortAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (qkv,) = ctx.saved_tensors
-        if _device_type(qkv) == "cpu":
-            dqkv = short_attention_bwd_reference(qkv, g, ctx.n_tokens,
-                                                 ctx.heads)
-        else:
-            dqkv = _launch_bwd(qkv, g, ctx.n_tokens, ctx.heads)
-        return dqkv, None, None
+        bwd = attention_bwd if ctx.bwd_kernel else attention_xla_bwd
+        return bwd(qkv, g, ctx.n_tokens, ctx.heads), None, None, None
 
 
-def short_attention(qkv: torch.Tensor, n_tokens: int,
-                    heads: int) -> torch.Tensor:
+def short_attention(qkv: torch.Tensor, n_tokens: int, heads: int,
+                    bwd_kernel: bool = True) -> torch.Tensor:
     """Attention over flat ``(B*N, 3W)`` qkv rows -> ``(B*N, W)`` rows in
     the input type; differentiable.  Any B; on the card N <= 32, D a
-    multiple of 8 up to 128, float32 or bfloat16."""
+    multiple of 8 up to 128, float32 or bfloat16.  ``bwd_kernel=False``
+    differentiates :func:`attention_reference_xla` instead of running the
+    backward kernel (``ViTConfig.attn_bwd_kernel``)."""
     _check_shape(qkv, n_tokens, heads)
-    return _ShortAttention.apply(qkv, n_tokens, heads)
+    return _ShortAttention.apply(qkv, n_tokens, heads, bwd_kernel)
 
 
 short_attention.launches_fwd = 0

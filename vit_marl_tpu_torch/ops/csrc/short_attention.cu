@@ -48,19 +48,15 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attention_body.cuh"
+
 namespace {
 
 constexpr int kMaxWarps = 8;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
+using attn_body::ld;
+using attn_body::st;
 
 __host__ __device__ __forceinline__ size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
@@ -104,36 +100,13 @@ __device__ __forceinline__ void store_tile(T* dst, int stride, const T* src,
   }
 }
 
-// P = softmax_j((q*scale) k^T) into the (N, N+1)-strided tile.  Lanes
-// cover the (i, j) pairs, then one lane per row.
+// P = softmax_j((q*scale) k^T) into the (N, N+1)-strided tile
+// (attention_body.cuh).
 template <typename T>
 __device__ __forceinline__ void softmax_tile(const T* q, const T* k, float* P,
                                              const Slice<T>& s, float scale,
                                              int lane) {
-  const int N = s.N, ld_p = N + 1;
-  for (int p = lane; p < N * N; p += 32) {
-    const int i = p / N, j = p - i * N;
-    const T* qi = q + i * s.ldr;
-    const T* kj = k + j * s.ldr;
-    float acc = 0.f;
-    for (int d = 0; d < s.D; ++d) acc += (ld(qi + d) * scale) * ld(kj + d);
-    P[i * ld_p + j] = acc;
-  }
-  __syncwarp();
-  if (lane < N) {
-    float* row = P + lane * ld_p;
-    float m = row[0];
-    for (int j = 1; j < N; ++j) m = fmaxf(m, row[j]);
-    float l = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      l += e;
-    }
-    const float inv = 1.f / l;
-    for (int j = 0; j < N; ++j) row[j] *= inv;
-  }
-  __syncwarp();
+  attn_body::head_softmax(q, k, s.ldr, s.ldr, s.N, s.D, scale, P, lane);
 }
 
 template <typename T>
@@ -159,14 +132,7 @@ __global__ void attn_fwd_kernel(const T* __restrict__ qkv,
     load_tile(v, x + 2 * W + h * D, W3, s, lane);
     __syncwarp();
     softmax_tile(q, k, P, s, scale, lane);
-    for (int d = lane; d < D; d += 32) {
-      for (int i = 0; i < N; ++i) {   // out_i = sum_j P_ij v_j
-        const float* p = P + i * (N + 1);
-        float acc = 0.f;
-        for (int j = 0; j < N; ++j) acc += p[j] * ld(v + j * s.ldr + d);
-        st(o + i * s.ldr + d, acc);
-      }
-    }
+    attn_body::head_pv(P, v, s.ldr, N, D, o, s.ldr, lane);
     __syncwarp();
     store_tile(y + h * D, W, o, s, lane);
     __syncwarp();

@@ -8,6 +8,7 @@ here includes PyTorch's headers, so a build takes seconds.
 
 from __future__ import annotations
 
+import glob
 import os
 import subprocess
 
@@ -20,12 +21,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 def build(source: str, lib_name: str) -> str:
     """Compile ``source`` into ``BUILD_DIR/lib_name``; returns its path.
-    Rebuilds when the source is newer than the library.  Concurrent builds
-    of different sources are safe (each writes its own temporary file)."""
+    Rebuilds when the source or a header of ``csrc/`` is newer than the
+    library.  Concurrent builds of different sources are safe (each writes
+    its own temporary file)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, lib_name)
-    if (os.path.exists(out)
-            and os.path.getmtime(out) >= os.path.getmtime(source)):
+    newest = max(os.path.getmtime(f) for f in
+                 [source, *glob.glob(os.path.join(CSRC, "*.cuh"))])
+    if os.path.exists(out) and os.path.getmtime(out) >= newest:
         return out
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
