@@ -8,7 +8,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 1. device: the card's name and power limit, and the nvcc builds of the
    kernels in ``vit_marl_tpu_torch/ops/csrc/`` (one nvcc per source, all
    started together);
-2. book scan against plain: the CUDA book scan against its plain PyTorch
+2. book scan against plain: the CUDA book scan in aggregate mode (kernel
+   1) against its plain PyTorch
    version at the 2-player path's shape (E=4096 envs, M=112 messages,
    S=128 slots, 2 traders) on seeded random books and streams in all four
    cancel modes, on a stream built by the port's own message builder, and
@@ -17,7 +18,14 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    back-to-back launches, so the card never waits on the host; median over
    batches) and the plain version, beside the least time the card could
    take (bytes moved over 3.35 TB/s);
-3. attention against plain: the CUDA short-attention forward and backward
+3. records scan against plain: the book scan in records mode (kernel 2,
+   the ``debug_mode`` trade log) against its plain version, bit-equal, at
+   E=4096, M=112, S=128 in all four cancel modes at rec_k 16 and 128, on
+   streams where some messages sweep a whole side (more than 16 fills),
+   and at a ragged E=1000; the trade logs built from the two versions'
+   records must be equal.  Times the kernel at rec_k 16 and 128, its plain
+   version and its bound, as phase 2 does;
+4. attention against plain: the CUDA short-attention forward and backward
    through the autograd wrapper the ViT calls, against the plain versions
    on the card, at the vision path's shapes (ViT-Small: N=11 tokens,
    W=384, H=6, bf16; B=1024 images in the rollout, 32,768 in a PPO
@@ -28,7 +36,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    ``torch.nn.functional.scaled_dot_product_attention`` (forward, and
    backward through autograd) on inputs laid out for it beforehand, the
    yardstick of one library call, which the port never makes;
-4. fused blocks against plain: the four CUDA fused-block kernels (LN+QKV,
+5. fused blocks against plain: the four CUDA fused-block kernels (LN+QKV,
    proj+MLP, the whole block, LN+QKV+attention) through the wrappers the
    ViT calls, against their plain versions on the card at ViT-Small's
    shapes (N=11, W=384, H=6, hidden 1,536) at B=1,024, 32,768 and a
@@ -41,19 +49,28 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    (``F.layer_norm`` + ``F.linear`` + ``F.gelu`` +
    ``scaled_dot_product_attention``), the yardstick; no single PyTorch
    call computes these functions;
-5. 2-player training: ``make_train`` on ``configs/ippo_2player.yaml`` at
+6. 2-player training: ``make_train`` on ``configs/ippo_2player.yaml`` at
    its published widths and NUM_ENVS=4096 on the card for 2 updates;
    losses must be finite and the book scan's launch count must rise by
    exactly NUM_STEPS x updates;
-6. vision training: ``make_train`` on ``configs/ippo_vision_dual_ppo.yaml``
+7. debug-mode training: the same config with ``WORLD.DEBUG_MODE=true``
+   (set through the port's ``--set`` parser) for 2 updates; losses must be
+   finite, the records scan must launch exactly NUM_STEPS x updates times
+   (rec_k 16) and the aggregate scan never, and the last step's trade log
+   must hold trades.  Then phase 6's training runs once more, so the
+   debug path's rate stands between two warm aggregate runs;
+8. vision training: ``make_train`` on ``configs/ippo_vision_dual_ppo.yaml``
    at its published widths (ViT-Small, NUM_ENVS=1024, NUM_STEPS=128) for
    2 updates; losses must be finite, the book scan must launch NUM_STEPS x
    updates times and the attention kernels exactly as often as the ViT's
    blocks run (with remat the forward runs twice per block in an update);
-7. fused-mode vision training: the same, 2 updates in each of the three
+9. vision simplest-case training: the same for
+   ``configs/ippo_vision_simplest.yaml`` (ViT-Small, 512 envs x 32 steps,
+   the discrete ``simplest_case`` execution agent alone);
+10. fused-mode vision training: phase 8, 2 updates in each of the three
    fused-block modes (``VIT_ATTN_LN_FOLD``, ``VIT_FUSED_BLOCK``,
    ``VIT_FUSED_BLOCK_FULL``), with the exact launch count of every kernel;
-8. summary: one JSON line describing the seven kernels, then the last
+11. summary: one JSON line describing the eight kernels, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it, the
@@ -71,10 +88,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import yaml
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "ippo_2player.yaml")
 VISION_CONFIG = os.path.join(ROOT, "configs", "ippo_vision_dual_ppo.yaml")
+SIMPLEST_CONFIG = os.path.join(ROOT, "configs", "ippo_vision_simplest.yaml")
+REC_KS = (16, 128)              # records per message: debug log, every slot
 E_MAIN, M_MAIN, S_MAIN = 4096, 112, 128
 AGENT_TIDS = (-100, -101)
 TICK = 100
@@ -136,6 +156,98 @@ def scan_bytes(E, M, S, n_agg):
     ins = E * M * 8 + E * 2 * 6 * S + E * 2 + n_agg
     outs = E * 2 * 6 * S + E * M * 4 + E * (8 * n_agg + 2)
     return 4 * (ins + outs)
+
+
+def records_bytes(E, M, S, rec_k, mode):
+    """Bytes the records scan must move: messages, book, previous prices
+    (and the uniforms in the random-cancel modes) read once; book, best
+    prices, records and fill counts written once (int32)."""
+    ins = E * M * 8 + E * 2 * 6 * S + E * 2 + (M * E if mode >= 2 else 0)
+    outs = E * 2 * 6 * S + E * M * 4 + E * M * rec_k * 4 + E * M
+    return 4 * (ins + outs)
+
+
+def records_phase(torch, bkern, smi, case, main_mode):
+    """Check the records scan against its plain version, and the trade logs
+    built from their records, at the main path's shape in every cancel
+    mode and at a ragged E; time it.  ``case(E, seed)`` gives (msgs, book,
+    prev, uniforms) on the card.  Returns the kernel's summary entry
+    (without launches)."""
+    from vit_marl_tpu_torch.config import EngineConfig
+    from vit_marl_tpu_torch.lob.book import init_trades
+    max_err = 0
+    cases = {}
+
+    def compare(cfg, msgs, book, prev, u, rec_k, label):
+        nonlocal max_err
+        got = bkern.process_step_records(cfg, msgs, book, prev, rec_k, u)
+        want = bkern.process_step_records_reference(cfg, msgs, book, prev,
+                                                    rec_k, u)
+        E = msgs.shape[0]
+        logs = [bkern.finalize_trade_log_from_records(
+            init_trades(cfg, E, msgs.device), r[2][0], msgs, r[2][1])
+            for r in (got, want)]
+        torch.cuda.synchronize()
+        pairs = [(got[0].data, want[0].data), (got[1][0], want[1][0]),
+                 (got[1][1], want[1][1]), (got[2][0], want[2][0]),
+                 (got[2][1], want[2][1]), tuple(logs)]
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+        max_err = max(max_err, err)
+        if err != 0:
+            raise AssertionError(f"records kernel != plain on {label}: "
+                                 f"max abs err {err}")
+        counts = want[2][1]
+        if int(counts.max()) <= 16:
+            raise AssertionError(f"{label}: no message filled more than 16 "
+                                 "orders")
+        n_logged = int((logs[0][:, :, 0] != -1).sum())
+        print(f"  {label}, rec_k={rec_k}: bit-equal, trade logs equal "
+              f"(E={E}, {int(counts.sum())} fills, most in one message "
+              f"{int(counts.max())}, {int((counts > rec_k).sum())} messages "
+              f"over rec_k, {n_logged} log rows)", flush=True)
+
+    for mode in range(4):
+        cfg = EngineConfig(n_orders=S_MAIN, cancel_mode=mode)
+        cases[mode] = case(E_MAIN, SEED + 10 + mode)
+        for rec_k in REC_KS:
+            compare(cfg, *cases[mode], rec_k,
+                    f"streams with sweeps, cancel mode {mode}")
+    cfg = EngineConfig(n_orders=S_MAIN, cancel_mode=main_mode)
+    ragged = case(1000, SEED + 14)
+    for rec_k in REC_KS:
+        compare(cfg, *ragged, rec_k, "streams with sweeps, E=1000")
+
+    msgs, book, prev, u = cases[main_mode]
+    rows = {}
+    for rec_k in REC_KS:
+        ms, ms_min = time_launches(lambda: bkern.process_step_records(
+            cfg, msgs, book, prev, rec_k, u))
+        plain = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            tp = time.perf_counter()
+            bkern.process_step_records_reference(cfg, msgs, book, prev,
+                                                 rec_k, u)
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - tp) * 1e3)
+        nbytes = records_bytes(E_MAIN, M_MAIN, S_MAIN, rec_k, main_mode)
+        rows[rec_k] = dict(ms=ms, plain_ms=float(np.median(plain)),
+                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        print(f"  rec_k={rec_k}: kernel {ms:.4f} ms per launch (median of "
+              f"{BATCHES} batches of {PER_BATCH}, min {ms_min:.4f}); plain "
+              f"{rows[rec_k]['plain_ms']:.2f} ms; bound "
+              f"{rows[rec_k]['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at "
+              f"3.35 TB/s) [{smi}]", flush=True)
+    main = rows[REC_KS[0]]
+    return dict(
+        name="book_scan_records", route="cuda",
+        source="vit_marl_tpu_torch/ops/csrc/book_scan.cu",
+        replaces="vit_marl_tpu/ops/book_kernel.py:479",
+        bit_equal=max_err == 0, max_abs_err=max_err, rec_k=REC_KS[0],
+        ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
+        ms_rec_k_128=rows[128]["ms"], plain_ms_rec_k_128=rows[128]["plain_ms"],
+        bound_ms_rec_k_128=rows[128]["bound_ms"])
 
 
 def time_launches(fn, batches=BATCHES, per_batch=PER_BATCH, warm=5):
@@ -448,6 +560,8 @@ def counters(attn, bkern, blk):
         return (lambda: getattr(obj, field),
                 lambda: setattr(obj, field, 0))
     out = {"book_scan": attr(bkern.process_step_aggs, "launches"),
+           "book_scan_records": attr(bkern.process_step_records,
+                                     "launches"),
            "short_attention_fwd": attr(attn.short_attention, "launches_fwd"),
            "short_attention_bwd": attr(attn.short_attention, "launches_bwd")}
     for name in BLOCK_KERNELS:
@@ -455,16 +569,85 @@ def counters(attn, bkern, blk):
     return out
 
 
+def debug_phase(torch, count, make_train, dev, smi, agg_train, agg_rate):
+    """Train ``configs/ippo_2player.yaml`` with ``WORLD.DEBUG_MODE=true``
+    (through the port's ``--set`` parser) for UPDATES updates; check losses,
+    the launch counts (records scan NUM_STEPS x updates, nothing else) and
+    the trade log in the final state.  Then trains the aggregate path of
+    phase 6 (``agg_train``, rate ``agg_rate`` there) once more, so the
+    debug run has a warm aggregate run on either side.  Returns the counts
+    of the debug run."""
+    from vit_marl_tpu_torch.config import make_config
+    from vit_marl_tpu_torch.utils.cli import apply_set_overrides
+
+    with open(CONFIG) as f:
+        raw = yaml.safe_load(f)
+    ma, tc = make_config(apply_set_overrides(raw, ["WORLD.DEBUG_MODE=true"]))
+    if not ma.world.debug_mode:
+        raise AssertionError("WORLD.DEBUG_MODE=true did not reach the world")
+    train = make_train(ma, tc, device=dev)
+    for _, reset in count.values():
+        reset()
+    torch.cuda.synchronize()
+    tt = time.perf_counter()
+    out = train(tc.seed, n_updates=UPDATES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - tt
+    got = {k: get() for k, (get, _) in count.items()}
+    for m in out["metrics"]:
+        print("  " + " ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())),
+              flush=True)
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"non-finite metrics: {bad}")
+    want = {k: 0 for k in count}
+    want["book_scan_records"] = tc.num_steps * UPDATES
+    if got != want:
+        raise AssertionError(f"debug-mode launch counts {got}, want {want}")
+    if train.env.rec_k != REC_KS[0]:
+        raise AssertionError(f"debug log keeps {train.env.rec_k} fills per "
+                             f"message, want {REC_KS[0]}")
+    trades = out["state"].world.trades
+    n_logged = int((trades[:, :, 0] != -1).sum())
+    if trades.shape != (tc.num_envs, ma.world.n_trades, 8) or not n_logged:
+        raise AssertionError(f"debug trade log {tuple(trades.shape)} holds "
+                             f"{n_logged} trades")
+    out_metrics = out["metrics"]
+    steps = tc.num_envs * tc.num_steps * UPDATES
+    del train, out, trades
+    torch.cuda.synchronize()
+    tt = time.perf_counter()
+    agg_out = agg_train(tc.seed, n_updates=UPDATES)
+    torch.cuda.synchronize()
+    agg_wall = time.perf_counter() - tt
+    print(f"  debug mode, rec_k={REC_KS[0]}: {UPDATES} updates x "
+          f"NUM_STEPS={tc.num_steps} x NUM_ENVS={tc.num_envs}: {steps} "
+          f"env-steps in {wall:.2f}s = {steps / wall:.0f} env-steps/s; "
+          f"{update_split(out_metrics)}; launches "
+          f"{ {k: v for k, v in got.items() if v} }; the last step's log "
+          f"holds {n_logged} trades [{smi}]", flush=True)
+    print(f"  aggregate path: {agg_rate:.0f} env-steps/s in phase 6, "
+          f"{steps / agg_wall:.0f} after the debug run; "
+          f"{update_split(agg_out['metrics'])} [{smi}]", flush=True)
+    return got
+
+
+def update_split(metrics):
+    return "; ".join(f"update {int(m['update_step'])}: rollout "
+                     f"{m['rollout_s']:.2f}s + PPO {m['update_s']:.2f}s"
+                     for m in metrics)
+
+
 def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
-                 smi, mode=None):
-    """Train the vision path for UPDATES updates on the card, with the
+                 smi, mode=None, config=VISION_CONFIG):
+    """Train a ViT config for UPDATES updates on the card, with the
     default blocks or in the fused-block ``mode``; check losses and the
     launch count of every kernel.  Returns the counts of the run."""
     import dataclasses
 
     from vit_marl_tpu_torch.models.vit import VIT_PRESETS
 
-    ma, tc = load_yaml_config(VISION_CONFIG)
+    ma, tc = load_yaml_config(config)
     if mode is not None:
         tc = dataclasses.replace(tc, **{f"vit_{mode}": True})
     depth = VIT_PRESETS[tc.vit_preset].depth
@@ -505,11 +688,10 @@ def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
         raise AssertionError(f"launch counts {got}, want {want}")
     steps = tc.num_envs * tc.num_steps * UPDATES
     peak = torch.cuda.max_memory_allocated() / 2**30
-    split = "; ".join(f"update {int(m['update_step'])}: rollout "
-                      f"{m['rollout_s']:.2f}s + PPO {m['update_s']:.2f}s"
-                      for m in out["metrics"])
+    split = update_split(out["metrics"])
     nonzero = {k: v for k, v in got.items() if v}
-    print(f"  ViT-{tc.vit_preset} depth {depth}, mode {mode or 'default'}, "
+    print(f"  {os.path.basename(config)}: "
+          f"ViT-{tc.vit_preset} depth {depth}, mode {mode or 'default'}, "
           f"{UPDATES} updates x NUM_STEPS={tc.num_steps} x NUM_ENVS="
           f"{tc.num_envs}: {steps} env-steps in {wall:.2f}s = "
           f"{steps / wall:.0f} env-steps/s; {split}; peak memory "
@@ -524,7 +706,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(1, os.path.join(ROOT, "tests"))
-    from torch_cases import make_case
+    from torch_cases import add_sweeps, make_case
     from vit_marl_tpu_torch.config import EngineConfig, load_yaml_config
     from vit_marl_tpu_torch.lob.book import BookState
     from vit_marl_tpu_torch.ops import attention_kernel as attn
@@ -555,8 +737,8 @@ def main() -> int:
     phase("1 device", t0)
 
     # ---- phase 2: book scan against plain ----
-    # Launches made here only check and time the kernel; phases 5-7 set
-    # the counts to 0 before they drive the paths.
+    # Launches made here and in phases 3-5 only check and time the
+    # kernels; phases 6-10 set the counts to 0 before they drive the paths.
     t0 = time.perf_counter()
     tids = torch.tensor(AGENT_TIDS, dtype=torch.int32, device=dev)
     max_err = 0
@@ -657,17 +839,29 @@ def main() -> int:
           f"({nbytes / 1e6:.1f} MB at 3.35 TB/s) [{smi}]", flush=True)
     phase("2 book scan against plain", t0)
 
-    # ---- phase 3: attention against plain ----
+    # ---- phase 3: records scan against plain ----
+    t0 = time.perf_counter()
+
+    def sweep_case(E, seed):
+        msgs, book, prev, u = case(E, seed)
+        swept = add_sweeps(msgs.cpu().numpy(), every=7, seed=seed)
+        return torch.from_numpy(swept).to(dev), book, prev, u
+
+    records = records_phase(torch, bkern, smi, sweep_case,
+                            int(ma.world.cancel_mode))
+    phase("3 records scan against plain", t0)
+
+    # ---- phase 4: attention against plain ----
     t0 = time.perf_counter()
     att = attention_phase(torch, attn, smi)
-    phase("3 attention against plain", t0)
+    phase("4 attention against plain", t0)
 
-    # ---- phase 4: fused blocks against plain ----
+    # ---- phase 5: fused blocks against plain ----
     t0 = time.perf_counter()
     fused = block_phase(torch, blk, smi)
-    phase("4 fused blocks against plain", t0)
+    phase("5 fused blocks against plain", t0)
 
-    # ---- phase 5: 2-player training ----
+    # ---- phase 6: 2-player training ----
     t0 = time.perf_counter()
     count = counters(attn, bkern, blk)
     for _, reset in count.values():
@@ -697,25 +891,38 @@ def main() -> int:
     steps = tc.num_envs * tc.num_steps * UPDATES
     print(f"  {UPDATES} updates x NUM_STEPS={tc.num_steps} x NUM_ENVS="
           f"{tc.num_envs}: {steps} env-steps in {wall:.2f}s = "
-          f"{steps / wall:.0f} env-steps/s, book-scan launches {launches}, "
-          f"obs {obs_shapes} [{smi}]", flush=True)
-    phase("5 2-player training", t0)
+          f"{steps / wall:.0f} env-steps/s; {update_split(out['metrics'])}; "
+          f"book-scan launches {launches}, obs {obs_shapes} [{smi}]",
+          flush=True)
+    phase("6 2-player training", t0)
 
-    # ---- phase 6: vision training ----
+    # ---- phase 7: debug-mode training ----
+    t0 = time.perf_counter()
+    dgot = debug_phase(torch, count, make_train, dev, smi, train,
+                       steps / wall)
+    phase("7 debug-mode training", t0)
+
+    # ---- phase 8: vision training ----
     t0 = time.perf_counter()
     vision = vision_phase(torch, attn, bkern, blk, make_train,
                           load_yaml_config, dev, smi)
-    phase("6 vision training", t0)
+    phase("8 vision training", t0)
 
-    # ---- phase 7: fused-mode vision training ----
+    # ---- phase 9: vision simplest-case training ----
+    t0 = time.perf_counter()
+    vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
+                 smi, config=SIMPLEST_CONFIG)
+    phase("9 vision simplest-case training", t0)
+
+    # ---- phase 10: fused-mode vision training ----
     t0 = time.perf_counter()
     modes = {}
     for mode in ("attn_ln_fold", "fused_block", "fused_block_full"):
         modes[mode] = vision_phase(torch, attn, bkern, blk, make_train,
                                    load_yaml_config, dev, smi, mode)
-    phase("7 fused-mode vision training", t0)
+    phase("10 fused-mode vision training", t0)
 
-    # ---- phase 8: summary ----
+    # ---- phase 11: summary ----
     print(json.dumps({"kernels": [{
         "name": "book_scan_aggs",
         "route": "cuda",
@@ -731,7 +938,9 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
-    }] + [dict(att[k], launches=vision[k],
+    }, dict(records, launches=dgot["book_scan_records"],
+            launches_per_update=dgot["book_scan_records"] // UPDATES)]
+      + [dict(att[k], launches=vision[k],
                launches_attn_ln_fold=modes["attn_ln_fold"][k])
           for k in ("short_attention_fwd", "short_attention_bwd")]
       + [dict(fused[k], launches=modes[BLOCK_KERNELS[k][1]][k],

@@ -26,6 +26,7 @@ from vit_marl_tpu import config as jcfg
 from vit_marl_tpu.data.lobster import load_data as j_load_data
 from vit_marl_tpu.env.world import WorldEnv as JWorldEnv
 from vit_marl_tpu.lob import book as jbk
+from vit_marl_tpu.ops.book_kernel import _per_message_uniforms
 from vit_marl_tpu_torch import config as tcfg
 from vit_marl_tpu_torch.data.lobster import load_data as t_load_data
 from vit_marl_tpu_torch.env import spaces as tspaces
@@ -158,15 +159,22 @@ def _reset_draws(jenv, keys):
     """The draws ``reset_env`` makes from each env's key."""
     n_types = len(jenv.agent_types)
 
+    # the execution agents' task directions; the market maker draws none
+    random_task = [getattr(a.cfg, "task", None) == "random"
+                   for a in jenv.agent_types]
+
     def one(k):
         ks = jax.random.split(k, n_types + 1)
         window = jax.random.randint(ks[-1], (), 0, jenv.n_windows)
-        task = jax.random.randint(ks[1], (), 0, 2)
-        return window, task
+        tasks = [jax.random.randint(ks[i], (), 0, 2) if r else None
+                 for i, r in enumerate(random_task)]
+        return window, tasks
 
-    window, task = jax.vmap(one)(keys)
+    window, tasks = jax.vmap(one)(keys)
     return ResetDraws(window=torch.from_numpy(np.array(window)),
-                      agents=(None, torch.from_numpy(np.array(task))))
+                      agents=tuple(None if t is None
+                                   else torch.from_numpy(np.array(t))
+                                   for t in tasks))
 
 
 def _step_draws(jenv, key):
@@ -185,8 +193,15 @@ def _step_draws(jenv, key):
         return jax.random.permutation(sk, jenv.num_action_msgs_per_step)
 
     shuffle = jax.vmap(perm)(step_keys)
+    uniforms = None
+    if jenv.wcfg.cancel_mode >= jcfg.CancelMode.CANCEL_UNIFORM:
+        # the engine's per-message draws from each env's engine key
+        # (world.py:399-400, book_kernel.py:448-461)
+        engine_keys = jax.vmap(jax.random.split)(step_keys)[:, 1]
+        uniforms = torch.from_numpy(np.array(_per_message_uniforms(
+            engine_keys, jenv.num_msgs_per_step)))
     return StepDraws(shuffle=torch.from_numpy(np.array(shuffle)),
-                     uniforms=None, reset=_reset_draws(jenv, reset_keys))
+                     uniforms=uniforms, reset=_reset_draws(jenv, reset_keys))
 
 
 def _book(world):
@@ -203,6 +218,9 @@ def _assert_state_equal(jst, tst):
               "time", "order_id_counter"):
         np.testing.assert_array_equal(np.asarray(getattr(jw, f)),
                                       getattr(tw, f).numpy(), err_msg=f)
+    if tw.trades is not None:
+        np.testing.assert_array_equal(np.asarray(jw.trades),
+                                      tw.trades.numpy(), err_msg="trades")
     for f in ("mid_price", "delta_time"):
         np.testing.assert_allclose(np.asarray(getattr(jw, f)),
                                    getattr(tw, f).numpy(), rtol=1e-5,
@@ -283,7 +301,8 @@ def _run_steps(jenv, tenv, n_steps):
     jobs, jst = jax.vmap(jenv.reset, in_axes=(0, None))(keys, jp)
     tobs, tst = tenv.reset(_reset_draws(jenv, keys), tp)
     _assert_state_equal(jst, tst)
-    for i in range(2):
+    n_types = len(tenv.agent_types)
+    for i in range(n_types):
         _assert_close(jobs[i], tobs[i], f"reset obs {i}")
 
     rng = np.random.default_rng(n_steps)
@@ -299,7 +318,7 @@ def _run_steps(jenv, tenv, n_steps):
             tst, [torch.from_numpy(a) for a in acts], tp,
             draws=_step_draws(jenv, sk))
         _assert_state_equal(jst, tst)
-        for i in range(2):
+        for i in range(n_types):
             _assert_close(jobs[i], tobs[i], f"step {t} obs {i}")
             _assert_close(jrew[i], trew[i], f"step {t} reward {i}")
             np.testing.assert_array_equal(np.asarray(jdone["agents"][i]),

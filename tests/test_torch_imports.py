@@ -33,5 +33,6 @@ def test_no_jax_imports(path):
 def test_the_walk_sees_the_package():
     assert len(FILES) > 15
     for mod in ("ops/book_kernel.py", "ops/attention_kernel.py",
-                "ops/block_kernel.py", "models/vit.py"):
+                "ops/block_kernel.py", "models/vit.py", "utils/cli.py",
+                "env/world.py", "env/execution.py"):
         assert any(p.endswith(mod) for p in FILES), mod

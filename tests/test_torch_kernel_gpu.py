@@ -5,7 +5,9 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
 
 - Book scan: every output bit-equal, including ragged batches (E not a
   multiple of the kernel's 4 envs per block) and every supported book
-  capacity.
+  capacity; in records mode at rec_k 16 and 128 with messages of more
+  than 16 fills, and the trade log built from the kernel's records equal
+  to the one built on the CPU from the plain version's.
 - Short attention, forward and backward, through the autograd wrapper:
   float32 within rtol 1e-5 / atol 1e-6 of the plain version; bfloat16
   within one bf16 ulp of it (rtol 8e-3, atol 1e-3), since the plain
@@ -33,7 +35,7 @@ from vit_marl_tpu_torch.ops import attention_kernel as attn
 from vit_marl_tpu_torch.ops import block_kernel as blk
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 
-from torch_cases import TICK, TIDS, make_case
+from torch_cases import TICK, TIDS, add_sweeps, make_case
 
 pytestmark = pytest.mark.gpu
 
@@ -67,6 +69,48 @@ def test_kernel_bit_equal_to_plain(cuda, mode, E, S):
     for g, w in zip(got[1] + got[2], want[1] + want[2]):
         assert torch.equal(g, w)
     assert int(want[2][1][:, 0].sum()) > 0
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("rec_k", [16, 128])
+@pytest.mark.parametrize("E", [128, 1000, 4096])
+def test_records_kernel_bit_equal_to_plain(cuda, mode, rec_k, E):
+    M, S = 40, 128
+    book, msgs, prev = make_case(E, M, S, seed=7 * mode + E, fill=0.7)
+    msgs = add_sweeps(msgs, every=5, seed=mode)
+    u = np.random.default_rng(mode).random((M, E), dtype=np.float32)
+    args = (EngineConfig(n_orders=S, cancel_mode=mode),
+            torch.from_numpy(msgs).to(cuda),
+            BookState(torch.from_numpy(book).to(cuda)),
+            torch.from_numpy(prev).to(cuda), rec_k,
+            torch.from_numpy(u).to(cuda))
+    before = bkern.process_step_records.launches
+    got = bkern.process_step_records(*args)
+    assert bkern.process_step_records.launches == before + 1
+    want = bkern.process_step_records_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].data, want[0].data)
+    for g, w in zip(got[1] + got[2], want[1] + want[2]):
+        assert torch.equal(g, w)
+    counts = want[2][1]
+    assert int(counts.max()) > 16
+    log = bkern.finalize_trade_log_from_records(
+        torch.full((E, 256, 8), -1, dtype=torch.int32, device=cuda),
+        got[2][0], args[1], got[2][1])
+    want_log = bkern.finalize_trade_log_from_records(
+        torch.full((E, 256, 8), -1, dtype=torch.int32), want[2][0].cpu(),
+        args[1].cpu(), counts.cpu())
+    assert torch.equal(log.cpu(), want_log)
+
+
+def test_records_kernel_rejects_bad_rec_k(cuda):
+    book, msgs, prev = make_case(4, 8, 32, seed=1)
+    for rec_k in (0, 33):
+        with pytest.raises(ValueError, match="rec_k"):
+            bkern.process_step_records(
+                EngineConfig(n_orders=32), torch.from_numpy(msgs).to(cuda),
+                BookState(torch.from_numpy(book).to(cuda)),
+                torch.from_numpy(prev).to(cuda), rec_k)
 
 
 def test_kernel_rejects_unsupported_capacity(cuda):

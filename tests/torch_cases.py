@@ -51,3 +51,18 @@ def make_case(E, M, S, seed, fill=0.6, tids=TIDS):
     msgs[kind == 6] = 0
     prev = np.stack([np.full(E, mid + 700), np.full(E, mid - 700)], 1)
     return book, msgs.astype(np.int32), prev.astype(np.int32)
+
+
+def add_sweeps(msgs, every=3, seed=0):
+    """Turn the first message of every ``every``-th env into a limit order
+    that crosses the whole opposite side: one message with as many fills
+    as that side holds orders (more than 16 at the usual fill)."""
+    rng = np.random.default_rng(seed)
+    msgs = msgs.copy()
+    rows = np.arange(0, msgs.shape[0], every)
+    side = rng.choice([-1, 1], rows.shape[0])
+    msgs[rows, 0, 0] = 1
+    msgs[rows, 0, 1] = side
+    msgs[rows, 0, 2] = 10**6
+    msgs[rows, 0, 3] = np.where(side == 1, 3_000_000, 1_000_000)
+    return msgs

@@ -108,15 +108,16 @@ class TradeSummary(NamedTuple):
 
 def summarize_trades(trades: Tensor, trader_id: Tensor, tick: int
                      ) -> TradeSummary:
-    """:class:`TradeSummary` from ``(E, n_trades, 8)`` trade logs for one
-    ``(E,)`` trader id each.  Not on the main path (the book scan produces
-    the sums); kept to hold the scan's sums against a trade log."""
+    """:class:`TradeSummary` from ``(..., n_trades, 8)`` trade logs for one
+    trader id each, ``trader_id`` of shape ``(...)``.  The ``debug_mode``
+    step reads its rewards' sums from the trade log through this; the main
+    path takes them from the book scan."""
     executed = torch.where((trades[..., TradeCol.PRICE] >= 0)[..., None],
                            trades, 0)
     q_signed = executed[..., TradeCol.QUANT]
     q = q_signed.abs()
     p = executed[..., TradeCol.PRICE]
-    tid = trader_id[:, None]
+    tid = trader_id[..., None]
     is_pass = tid == executed[..., TradeCol.PASS_TID]
     is_agr = tid == executed[..., TradeCol.AGR_TID]
     mine = is_pass | is_agr

@@ -4,16 +4,18 @@ ported paths.
 Port of ``vit_marl_tpu/env/execution.py`` in ``fixed_steps`` episodes,
 batched over ``(E, n)``:
 
-- actions ``fixed_quants_complex`` (13 discrete) and ``policy_blending``
+- actions ``fixed_quants_complex`` (13 discrete), ``simplest_case`` (3
+  discrete: no trade, far touch, near touch) and ``policy_blending``
   (continuous ``Box(3,)`` blend over the top-3 own-side levels, with the
   ``blend_aggressive`` option);
-- rewards ``normal`` and ``dual_ppo``;
-- observations ``engineered`` (12) and ``execution_policy`` (28), and the
-  ``{"obs", "vision_obs"}`` dict with the normalized ``(levels, 3, 2)``
-  book image when ``use_vision_obs`` is set.
+- rewards ``normal``, ``simplest_case`` and ``dual_ppo``;
+- observations ``engineered`` (12), ``simplest_case`` (3) and
+  ``execution_policy`` (28), and the ``{"obs", "vision_obs"}`` dict with
+  the normalized ``(levels, 3, 2)`` book image when ``use_vision_obs`` is
+  set.
 
 The other spaces of the reference (TWAP, fixed prices, fixed quants,
-simplest case, finish fast) are not ported yet and raise.
+fixed quants 1msg, basic, finish fast) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -40,16 +42,17 @@ _QUANT_ARRAY = [
 
 class ExecutionAgent:
     def __init__(self, cfg: ExecutionConfig, wcfg: WorldConfig):
-        if cfg.action_space not in ("fixed_quants_complex",
+        if cfg.action_space not in ("fixed_quants_complex", "simplest_case",
                                     "policy_blending"):
             raise NotImplementedError(
                 f"execution action_space={cfg.action_space!r} is not "
                 "ported yet")
-        if cfg.observation_space not in ("engineered", "execution_policy"):
+        if cfg.observation_space not in ("engineered", "simplest_case",
+                                         "execution_policy"):
             raise NotImplementedError(
                 f"execution observation_space={cfg.observation_space!r} "
                 "is not ported yet")
-        if cfg.reward_space not in ("normal", "dual_ppo"):
+        if cfg.reward_space not in ("normal", "simplest_case", "dual_ppo"):
             raise NotImplementedError(
                 f"execution reward_space={cfg.reward_space!r} is not "
                 "ported yet")
@@ -125,6 +128,15 @@ class ExecutionAgent:
         is_sell = state.is_sell_task[..., None] != 0
         return torch.where(is_sell, sell, buy).to(torch.int32)
 
+    @staticmethod
+    def _cap_quants(quants: Tensor, first_row: Tensor, state: ExecState
+                    ) -> Tensor:
+        """Quantities over the task's remainder become ``first_row *
+        remainder`` (ref: execution.py:140-146, vision_env.py:906-913)."""
+        quant_left = (state.task_to_execute - state.quant_executed)[..., None]
+        return torch.where(quants.sum(dim=-1, keepdim=True) <= quant_left,
+                           quants, first_row * quant_left).to(torch.int32)
+
     def _quants_fixed_quants_complex(self, action: Tensor, world: WorldState,
                                      state: ExecState
                                      ) -> Tuple[Tensor, Tensor]:
@@ -133,10 +145,19 @@ class ExecutionAgent:
         qa = torch.tensor(_QUANT_ARRAY, dtype=torch.int32,
                           device=action.device)
         quants = qa[action.long()] * self.cfg.fixed_quant_value  # (E, n, 4)
-        quant_left = (state.task_to_execute - state.quant_executed)[..., None]
-        quants = torch.where(quants.sum(dim=-1, keepdim=True) <= quant_left,
-                             quants, qa[1] * quant_left).to(torch.int32)
-        return quants, prices
+        return self._cap_quants(quants, qa[1], state), prices
+
+    def _quants_simplest(self, action: Tensor, world: WorldState,
+                         state: ExecState) -> Tuple[Tensor, Tensor]:
+        """0 = no trade, 1 = far touch, 2 = near touch; (quants, prices)
+        ``(E, n, 2)`` (ref: execution.py:188-197, vision_env.py:1145-1211).
+        Over the remainder the far-touch row ``[fq, 0]`` scales it, so the
+        order is ``fq`` times the remainder, as in the reference."""
+        prices = self._task_prices(world, state)[..., [0, 2]]   # (FT, NT)
+        fq = self.cfg.fixed_quant_value
+        qa = torch.tensor([[0, 0], [fq, 0], [0, fq]], dtype=torch.int32,
+                          device=action.device)
+        return self._cap_quants(qa[action.long()], qa[1], state), prices
 
     def _quants_policy_blending(self, action: Tensor, world: WorldState,
                                 state: ExecState) -> Tuple[Tensor, Tensor]:
@@ -187,6 +208,8 @@ class ExecutionAgent:
         if self.cfg.action_space == "policy_blending":
             quants, prices = self._quants_policy_blending(action, world,
                                                           state)
+        elif self.cfg.action_space == "simplest_case":
+            quants, prices = self._quants_simplest(action, world, state)
         else:
             quants, prices = self._quants_fixed_quants_complex(action, world,
                                                                state)
@@ -220,8 +243,10 @@ class ExecutionAgent:
                    params: ExecParams, bestasks: Tensor, bestbids: Tensor,
                    summary: common.TradeSummary
                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """Doom trade + the ``normal`` or ``dual_ppo`` reward
-        (ref: exec_env.py:1698-1930, vision_env.py:2063-2240)."""
+        """Doom trade + the ``normal``, ``simplest_case`` or ``dual_ppo``
+        reward (ref: exec_env.py:1698-1930, vision_env.py:2063-2240).
+        Returns the scaled reward (``simplest_case``: over the task size)
+        and the extras."""
         cfg, wcfg = self.cfg, self.wcfg
         tick = wcfg.tick_size
         col = lambda v: v[:, None]                     # noqa: E731
@@ -293,6 +318,18 @@ class ExecutionAgent:
                                     drift)
             reward_lam1 = direction * common.mul_sub(revenue, init_tick,
                                                      agent_quant)
+            if cfg.reward_space == "simplest_case":
+                # (ref: execution.py:496-510) sum((p - init_price) * |q|)
+                # without int32 wrap: fill prices are on the tick grid, so
+                # split init_price into ticks (exact integers) and the
+                # sub-tick rest (exact in float32)
+                sign = torch.where(is_sell, 1.0, -1.0)
+                iq = torch.floor(state.init_price / tick).to(torch.int32)
+                frac = state.init_price - iq.to(torch.float32) * tick
+                diff_ticks = revenue - iq * agent_quant
+                reward = sign * common.mul_sub(
+                    diff_ticks.to(torch.float32) * tick, frac, agent_quant)
+                reward = reward / cfg.task_size
         extras = {
             "reward": reward,
             "agentQuant": agent_quant,
@@ -351,6 +388,8 @@ class ExecutionAgent:
         (ref: execution.py:741-760)."""
         if self.cfg.observation_space == "execution_policy":
             obs = self._obs_execution_policy(world, state)
+        elif self.cfg.observation_space == "simplest_case":
+            obs = self._obs_simplest(world, state)
         else:
             obs = self._obs_engineered(world, state)
         if not self.cfg.use_vision_obs:
@@ -401,6 +440,30 @@ class ExecutionAgent:
                 "step_counter": 30, "remaining_ratio": 1,
             }
             obs = {k: (v - means.get(k, 0)) / stds[k] for k, v in obs.items()}
+        return common.flatten_obs_dict(obs)
+
+    def _obs_simplest(self, world: WorldState, state: ExecState) -> Tensor:
+        """Time left, quantity left and mid price, ``(E, n, 3)`` float32
+        (ref: execution.py:574-592, vision_env.py:2344-2379).  As in the
+        reference, the time used is read in seconds against
+        ``episode_time`` whatever the episode type."""
+        shape = state.quant_executed.shape
+        used = world.time - world.init_time
+        left = (self.wcfg.episode_time - (used[:, 0] + used[:, 1] / 1e9)
+                ) / self.wcfg.episode_time
+        obs = {
+            "percent_time_remaining": left[:, None].expand(shape),
+            "percent_remaining_quant":
+                (state.task_to_execute - state.quant_executed)
+                / state.task_to_execute,
+            "mid_price": world.mid_price[:, None].expand(shape),
+        }
+        if self.cfg.normalize:
+            means = {"percent_time_remaining": 0.5,
+                     "percent_remaining_quant": 0.5, "mid_price": 7_560_000}
+            stds = {"percent_time_remaining": 1, "percent_remaining_quant": 1,
+                    "mid_price": 1e3}
+            obs = {k: (v - means[k]) / stds[k] for k, v in obs.items()}
         return common.flatten_obs_dict(obs)
 
     def normalize_vision_obs(self, raw: Tensor, world: WorldState
@@ -497,7 +560,8 @@ class ExecutionAgent:
 
     def observation_space(self):
         """(ref: execution.py:778-792)"""
-        dim = 28 if self.cfg.observation_space == "execution_policy" else 12
+        dim = {"execution_policy": 28, "simplest_case": 3}.get(
+            self.cfg.observation_space, 12)
         flat = spaces.Box(-10_000, 10_000, (dim,))
         if self.cfg.use_vision_obs:
             vision = spaces.Box(-100, 1e8, (self.cfg.vision_levels, 3, 2))

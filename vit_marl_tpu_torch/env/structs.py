@@ -4,8 +4,9 @@ Port of ``vit_marl_tpu/env/structs.py``.  Every leaf carries the env batch
 as its leading axis (the JAX package adds it with ``vmap``); per-agent
 leaves are ``(E, n)`` for ``n`` instances of a type.  The book is one
 ``(E, 2, 6, S)`` tensor (:class:`vit_marl_tpu_torch.lob.book.BookState`
-layout).  The port's world state carries no trade log: the main path folds
-every fill into per-trader sums inside the book scan and never reads one.
+layout).  The world state carries the step's ``(E, n_trades, 8)`` trade
+log only in ``debug_mode``: the main path folds every fill into
+per-trader sums inside the book scan and never builds one.
 """
 
 from __future__ import annotations
@@ -52,6 +53,8 @@ class WorldState(LoadedState):
     order_id_counter: Tensor
     mid_price: Tensor       # float32
     delta_time: Tensor      # float32
+    # (E, n_trades, 8) int32 trade log of the last step; debug_mode only
+    trades: Optional[Tensor] = None
 
 
 @dataclass

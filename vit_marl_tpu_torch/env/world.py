@@ -6,10 +6,16 @@ package writes one env and adds the batch with ``vmap``; here every stage
 takes the whole ``(E, ...)`` batch.  One step:
 
   data msgs -> per-type action + cancel messages -> central order ids and
-  shuffle -> [cancels, actions, data] -> book scan (aggregate mode: best
-  prices and per-trader trade sums, ops/book_kernel.py) -> rewards ->
-  world and agent state updates -> dones -> observations (done agents
-  zeroed) -> auto-reset of the envs whose agents are all done.
+  shuffle -> [cancels, actions, data] -> book scan (ops/book_kernel.py)
+  -> rewards -> world and agent state updates -> dones -> observations
+  (done agents zeroed) -> auto-reset of the envs whose agents are all
+  done.
+
+The book scan runs in aggregate mode (best prices and per-trader trade
+sums) unless ``debug_mode`` is on.  Then it runs in records mode, the
+step's trade log is built from the records and carried in the world
+state and ``info["world"]``, and the rewards read their trade sums from
+the log, as the JAX package's ``debug_mode`` step does.
 
 Randomness enters as :class:`StepDraws` / :class:`ResetDraws`; without
 them the env draws from the caller's ``torch.Generator``.  The streams
@@ -25,7 +31,7 @@ import torch
 from vit_marl_tpu_torch.config import CancelMode, MsgCol, MultiAgentConfig
 from vit_marl_tpu_torch.data.lobster import LoadedData
 from vit_marl_tpu_torch.env import base as env_base
-from vit_marl_tpu_torch.env.common import summary_from_aggs
+from vit_marl_tpu_torch.env.common import summarize_trades, summary_from_aggs
 from vit_marl_tpu_torch.env.execution import ExecutionAgent
 from vit_marl_tpu_torch.env.mm import MarketMakingAgent
 from vit_marl_tpu_torch.env.structs import (
@@ -36,7 +42,12 @@ from vit_marl_tpu_torch.env.structs import (
     WorldState,
 )
 from vit_marl_tpu_torch.lob import book as bk
-from vit_marl_tpu_torch.ops.book_kernel import process_step_aggs
+from vit_marl_tpu_torch.ops.book_kernel import (
+    REC_K,
+    finalize_trade_log_from_records,
+    process_step_aggs,
+    process_step_records,
+)
 from vit_marl_tpu_torch.utils.device import resolve_device
 from vit_marl_tpu_torch.utils.tree import tree_map
 
@@ -53,9 +64,8 @@ class WorldEnv:
                  data: Optional[LoadedData] = None, device=None):
         self.device = resolve_device(device)
         self.wcfg = ma_config.world
-        if self.wcfg.ep_type != "fixed_steps" or self.wcfg.debug_mode:
-            raise NotImplementedError(
-                "only fixed_steps episodes without debug_mode are ported")
+        if self.wcfg.ep_type != "fixed_steps":
+            raise NotImplementedError("only fixed_steps episodes are ported")
         self.agent_types = [AGENT_REGISTRY[a.agent_kind](a, self.wcfg)
                             for a in ma_config.agents]
         self.n_per_type = tuple(ma_config.n_agents_per_type)
@@ -135,7 +145,9 @@ class WorldEnv:
                 (E,), self.wcfg.order_id_counter_start, dtype=torch.int32,
                 device=load.book.device),
             mid_price=(best_bid[:, 0] + best_ask[:, 0]) / 2,
-            delta_time=torch.zeros(E, device=load.book.device))
+            delta_time=torch.zeros(E, device=load.book.device),
+            trades=(bk.init_trades(self.wcfg, E, load.book.device)
+                    if self.wcfg.debug_mode else None))
         obs_list, state_list = [], []
         for agent, ap, d in zip(self.agent_types, params.agents,
                                 draws.agents):
@@ -188,9 +200,11 @@ class WorldEnv:
 
     def _post_engine(self, state: MultiAgentState, params: MultiAgentParams,
                      book: bk.BookState, bestasks: Tensor, bestbids: Tensor,
-                     combined: Tensor, new_id_counter: Tensor, summaries):
+                     combined: Tensor, new_id_counter: Tensor, summaries,
+                     trades: Optional[Tensor] = None):
         """Stages E-K: rewards, state updates, dones, infos, observations
-        (ref: marl_env.py:420-662)."""
+        (ref: marl_env.py:420-662).  ``trades``: the step's trade log, in
+        ``debug_mode`` only."""
         world = state.world
         final_time = combined[:, -1, -2:]
         rewards, extras_list = [], []
@@ -206,7 +220,8 @@ class WorldEnv:
             step_counter=world.step_counter + 1,
             mid_price=(bestbids[:, -1, 0] + bestasks[:, -1, 0]) / 2,
             delta_time=(final_time[:, 0] + final_time[:, 1] / 1e9
-                        - world.time[:, 0] - world.time[:, 1] / 1e9))
+                        - world.time[:, 0] - world.time[:, 1] / 1e9),
+            trades=trades)
 
         new_agent_states, dones_list, infos_list = [], [], []
         for i, agent in enumerate(self.agent_types):
@@ -230,6 +245,10 @@ class WorldEnv:
             "delta_time": new_world.delta_time,
             "current_step": new_world.step_counter,
         }
+        if self.wcfg.debug_mode:
+            world_info.update(
+                trades=trades, total_msgs=combined,
+                lob_state=bk.get_l2_state(self.wcfg, 10, new_world.books))
         info = {"world": world_info, "agents": infos_list}
 
         obs_list = []
@@ -243,6 +262,38 @@ class WorldEnv:
 
             obs_list.append(tree_map(zero_done, obs))
         return obs_list, new_state, rewards, dones, info
+
+    @property
+    def rec_k(self) -> int:
+        """Fills recorded per message in ``debug_mode``: ``REC_K`` in the
+        deterministic cancel modes, as the JAX package's records kernel
+        keeps; every fill (``n_orders``) in the random-cancel modes, where
+        the JAX package builds its debug log with the uncapped XLA scan
+        (ref: world.py:340-356)."""
+        if self.wcfg.cancel_mode >= CancelMode.CANCEL_UNIFORM:
+            return self.wcfg.n_orders
+        return min(REC_K, self.wcfg.n_orders)
+
+    def _debug_scan(self, combined: Tensor, books: bk.BookState,
+                    prev: Tensor, params: MultiAgentParams,
+                    uniforms: Optional[Tensor]):
+        """The ``debug_mode`` engine stage (ref: world.py:426-434): the
+        records scan, the step's trade log, and each agent instance's
+        trade sums read from the log (ref: mm.py:304-306,
+        execution.py:411-413).  Returns (book, (bestasks, bestbids),
+        per-type summaries, trades)."""
+        E = combined.shape[0]
+        book, best, (records, counts) = process_step_records(
+            self.wcfg, combined, books, prev, self.rec_k, uniforms)
+        trades = finalize_trade_log_from_records(
+            bk.init_trades(self.wcfg, E, combined.device), records,
+            combined, counts)
+        summaries = []
+        for p, n in zip(params.agents, self.n_per_type):
+            summaries.append(summarize_trades(
+                trades[:, None].expand(E, n, -1, -1),
+                p.trader_id[None, :].expand(E, n), self.wcfg.tick_size))
+        return book, best, summaries, trades
 
     def step_vec(self, state: MultiAgentState, actions: Sequence[Tensor],
                  params: MultiAgentParams,
@@ -269,20 +320,26 @@ class WorldEnv:
 
         prev = torch.stack([state.world.best_asks[:, -1, 0],
                             state.world.best_bids[:, -1, 0]], dim=1)
-        tids = torch.cat([p.trader_id for p in params.agents])
-        book, (bestasks, bestbids), (per_agent, totals) = process_step_aggs(
-            self.wcfg, combined, state.world.books, tids, prev,
-            self.wcfg.tick_size, draws.uniforms)
-        summaries, off = [], 0
-        for n in self.n_per_type:
-            summaries.append(summary_from_aggs(
-                per_agent[:, off:off + n],
-                totals[:, None, :].expand(E, n, totals.shape[-1])))
-            off += n
+        if self.wcfg.debug_mode:
+            book, (bestasks, bestbids), summaries, trades = self._debug_scan(
+                combined, state.world.books, prev, params, draws.uniforms)
+        else:
+            trades = None
+            tids = torch.cat([p.trader_id for p in params.agents])
+            book, (bestasks, bestbids), (per_agent, totals) = \
+                process_step_aggs(self.wcfg, combined, state.world.books,
+                                  tids, prev, self.wcfg.tick_size,
+                                  draws.uniforms)
+            summaries, off = [], 0
+            for n in self.n_per_type:
+                summaries.append(summary_from_aggs(
+                    per_agent[:, off:off + n],
+                    totals[:, None, :].expand(E, n, totals.shape[-1])))
+                off += n
 
         obs_st, st_st, rewards, dones, infos = self._post_engine(
             state, params, book, bestasks, bestbids, combined,
-            new_id_counter, summaries)
+            new_id_counter, summaries, trades)
 
         # vectorised auto-reset (ref: marl_env.py:737-766)
         obs_re, st_re = self.reset(draws.reset, params)

@@ -65,6 +65,14 @@ def init_book(cfg: EngineConfig, n_envs: int,
                                 EMPTY_SLOT, dtype=torch.int32, device=device))
 
 
+def init_trades(cfg: EngineConfig, n_envs: int, device: torch.device
+                ) -> torch.Tensor:
+    """Empty ``(E, n_trades, 8)`` trade logs: every row -1
+    (ref: ``vit_marl_tpu/lob/book.py::init_trades``)."""
+    return torch.full((n_envs, cfg.n_trades, 8), EMPTY_SLOT,
+                      dtype=torch.int32, device=device)
+
+
 def best_bid_and_ask_incl_quants(cfg: EngineConfig, book: BookState
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``((E, 2) [ask_p, ask_q], (E, 2) [bid_p, bid_q])`` int32

@@ -1,22 +1,29 @@
-"""Book scan in aggregate mode: one step's messages against a batch of books.
+"""Book scan: one step's messages against a batch of books.
 
-Replaces the TPU kernel ``vit_marl_tpu/ops/book_kernel.py::
-pallas_process_step_aggs`` (body ``_make_kernel``, aggregate mode).  Per
-env, the step's M messages run in order against the book: (type, side)
-dispatch, the cancel fallback chain, matching by prefix sum over the
-crossing slots, the hole-arena insert, the forward-filled best ask/bid
-after every message, and exact int32 per-trader trade sums in tick units
-(the ``TradeSummary`` contract of ``env/common.py::summary_from_aggs``).
+Per env, the step's M messages run in order against the book: (type,
+side) dispatch, the cancel fallback chain, matching by prefix sum over the
+crossing slots, the hole-arena insert, and the forward-filled best
+ask/bid after every message.  Two modes, as in the TPU kernel's body
+``vit_marl_tpu/ops/book_kernel.py::_make_kernel``:
 
-Two implementations of one function:
+- aggregate mode (the training path; replaces ``pallas_process_step_aggs``):
+  exact int32 per-trader trade sums in tick units, the ``TradeSummary``
+  contract of ``env/common.py::summary_from_aggs``;
+- records mode (the ``debug_mode`` path; replaces ``pallas_process_step``):
+  each message's fills, rank-compacted in slot order, from which
+  :func:`finalize_trade_log_from_records` builds the trade log.
 
-- :func:`process_step_aggs_reference`, plain PyTorch on ``(E, S)`` tensors,
-  a line-by-line transcription of the Pallas kernel;
-- ``csrc/book_scan.cu``, the CUDA kernel (one warp per env).
+Each mode has two implementations of one function:
 
-:func:`process_step_aggs` is the wrapper the environment calls.  A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``process_step_aggs.launches`` counts kernel launches.
+- a plain PyTorch version on ``(E, S)`` tensors, a transcription of the
+  Pallas kernel (:func:`process_step_aggs_reference`,
+  :func:`process_step_records_reference`; one shared scan body);
+- a CUDA kernel in ``csrc/book_scan.cu`` (one warp per env).
+
+:func:`process_step_aggs` and :func:`process_step_records` are the
+wrappers the environment calls.  A CPU tensor takes the plain version; a
+CUDA tensor launches the kernel or raises.  Each wrapper's ``launches``
+counts its kernel's launches.
 """
 
 from __future__ import annotations
@@ -44,6 +51,9 @@ from vit_marl_tpu_torch.ops import nvcc
 
 AGG_STATS = 8    # buy_q, sell_q, buy_pqt, sell_pqt, a_q, a_pqt, dur, signed
 AGG_TOTALS = 2   # total_q, total_pq_tick
+REC_K = 16       # records per message the debug log keeps in modes 0 and 1
+N_REC_PLANES = 4  # price, -side * matched quant, passive oid, passive tid
+EMPTY_RECORD = (EMPTY_SLOT, 0, 0, 0)
 
 SOURCE = os.path.join(nvcc.CSRC, "book_scan.cu")
 BUILD_DIR = nvcc.BUILD_DIR
@@ -72,12 +82,17 @@ def _isum(x: torch.Tensor) -> torch.Tensor:
     return x.sum(dim=-1, dtype=torch.int32)
 
 
-def process_step_aggs_reference(cfg: EngineConfig, msgs: torch.Tensor,
-                                book: BookState, tids: torch.Tensor,
-                                prev_prices: torch.Tensor, tick: int,
-                                uniforms: Optional[torch.Tensor] = None):
-    """Plain PyTorch book scan; same arguments and results as
-    :func:`process_step_aggs`.
+def _scan_reference(cfg: EngineConfig, msgs: torch.Tensor, book: BookState,
+                    prev_prices: torch.Tensor,
+                    uniforms: Optional[torch.Tensor], on_fills):
+    """The scan both plain versions share: every message of ``msgs`` in
+    order against ``book``, as the Pallas kernel's body ``_make_kernel``
+    runs it.  After matching message ``m`` it calls ``on_fills(m, s, tid,
+    Xp, Xo, Xt, matched, was, total_matched)`` with the message's side and
+    trader id ``(E,)``, the matched side's price, oid and tid planes and
+    the matched quantities ``(E, S)``, ``was = matched > 0`` and their sum
+    ``(E,)``.  Returns the canonical book and the ``(E, M, 4)`` best
+    prices and quantities.
 
     Every integer result is bit-equal to the Pallas kernel: the arithmetic
     is int32 with wraparound, ``//`` is floor division, and the
@@ -92,17 +107,13 @@ def process_step_aggs_reference(cfg: EngineConfig, msgs: torch.Tensor,
     include_inits = cfg.cancel_mode >= CancelMode.INCLUDE_INITS
     cancel_uniform = cfg.cancel_mode >= CancelMode.CANCEL_UNIFORM
     cancel_large = cfg.cancel_mode >= CancelMode.CANCEL_UNIFORM_AND_LARGE
-    n_agg = tids.shape[0]
     iota = torch.arange(S, device=dev, dtype=torch.int32)[None, :]
     rows = torch.arange(E, device=dev)
 
     bk = book.data.clone()                    # (E, 2, 6, S)
-    acc = torch.zeros((E, AGG_STATS * n_agg + AGG_TOTALS), dtype=torch.int32,
-                      device=dev)
     bidask = torch.empty((E, M, 4), dtype=torch.int32, device=dev)
     prev_a = prev_prices[:, 0].to(torch.int32)
     prev_b = prev_prices[:, 1].to(torch.int32)
-    tids = tids.to(device=dev, dtype=torch.int32)
 
     for m in range(M):
         msg = msgs[:, m].to(torch.int32)
@@ -180,33 +191,7 @@ def process_step_aggs_reference(cfg: EngineConfig, msgs: torch.Tensor,
         total_matched = _isum(matched)
         was = matched > 0
 
-        if n_agg:
-            mpt = matched * torch.div(Xp, tick, rounding_mode="floor")
-            mt = matched * Xt
-            s_pos = col(s == 1)
-
-            def rsum(mask, v):
-                return _isum(torch.where(mask, v, 0))
-
-            n_acc = acc.shape[1]
-            acc[:, n_acc - 2] += total_matched
-            acc[:, n_acc - 1] += rsum(was, mpt)
-            for k in range(n_agg):
-                tk = tids[k]
-                pmask = was & (Xt == tk)
-                agr_rows = was & col(tid == tk)
-                involved = pmask | agr_rows
-                buy_rows = (s_pos & agr_rows) | (~s_pos & pmask)
-                sell_rows = (s_pos & pmask) | (~s_pos & agr_rows)
-                o = AGG_STATS * k
-                acc[:, o + 0] += rsum(buy_rows, matched)
-                acc[:, o + 1] += rsum(sell_rows, matched)
-                acc[:, o + 2] += rsum(buy_rows, mpt)
-                acc[:, o + 3] += rsum(sell_rows, mpt)
-                acc[:, o + 4] += rsum(involved, matched)
-                acc[:, o + 5] += rsum(involved, mpt)
-                acc[:, o + 6] += rsum(involved, mt)
-                acc[:, o + 7] += -s * rsum(involved, matched)
+        on_fills(m, s, tid, Xp, Xo, Xt, matched, was, total_matched)
 
         Xq = Xq - matched
         Xp = torch.where(was & (Xq <= 0), EMPTY_SLOT, Xp)
@@ -272,11 +257,94 @@ def process_step_aggs_reference(cfg: EngineConfig, msgs: torch.Tensor,
 
     # canonicalise: every plane of a hole reads EMPTY_SLOT
     hole = bk[:, :, PRICE:PRICE + 1] == EMPTY_SLOT          # (E, 2, 1, S)
-    bk = torch.where(hole, EMPTY_SLOT, bk)
+    return BookState(torch.where(hole, EMPTY_SLOT, bk)), bidask
+
+
+def process_step_aggs_reference(cfg: EngineConfig, msgs: torch.Tensor,
+                                book: BookState, tids: torch.Tensor,
+                                prev_prices: torch.Tensor, tick: int,
+                                uniforms: Optional[torch.Tensor] = None):
+    """Plain PyTorch book scan in aggregate mode; same arguments and
+    results as :func:`process_step_aggs`, bit-equal to the Pallas kernel
+    (see :func:`_scan_reference`)."""
+    E = msgs.shape[0]
+    n_agg = tids.shape[0]
+    acc = torch.zeros((E, AGG_STATS * n_agg + AGG_TOTALS), dtype=torch.int32,
+                      device=msgs.device)
+    tids = tids.to(device=msgs.device, dtype=torch.int32)
+
+    def on_fills(m, s, tid, Xp, Xo, Xt, matched, was, total_matched):
+        col = lambda v: v[:, None]                          # noqa: E731
+        if n_agg:
+            mpt = matched * torch.div(Xp, tick, rounding_mode="floor")
+            mt = matched * Xt
+            s_pos = col(s == 1)
+
+            def rsum(mask, v):
+                return _isum(torch.where(mask, v, 0))
+
+            n_acc = acc.shape[1]
+            acc[:, n_acc - 2] += total_matched
+            acc[:, n_acc - 1] += rsum(was, mpt)
+            for k in range(n_agg):
+                tk = tids[k]
+                pmask = was & (Xt == tk)
+                agr_rows = was & col(tid == tk)
+                involved = pmask | agr_rows
+                buy_rows = (s_pos & agr_rows) | (~s_pos & pmask)
+                sell_rows = (s_pos & pmask) | (~s_pos & agr_rows)
+                o = AGG_STATS * k
+                acc[:, o + 0] += rsum(buy_rows, matched)
+                acc[:, o + 1] += rsum(sell_rows, matched)
+                acc[:, o + 2] += rsum(buy_rows, mpt)
+                acc[:, o + 3] += rsum(sell_rows, mpt)
+                acc[:, o + 4] += rsum(involved, matched)
+                acc[:, o + 5] += rsum(involved, mpt)
+                acc[:, o + 6] += rsum(involved, mt)
+                acc[:, o + 7] += -s * rsum(involved, matched)
+
+    book, bidask = _scan_reference(cfg, msgs, book, prev_prices, uniforms,
+                                   on_fills)
     per_agent = acc[:, :AGG_STATS * n_agg].reshape(E, n_agg, AGG_STATS)
     totals = acc[:, AGG_STATS * n_agg:]
-    return (BookState(bk), (bidask[:, :, 0:2], bidask[:, :, 2:4]),
-            (per_agent, totals))
+    return (book, (bidask[:, :, 0:2], bidask[:, :, 2:4]), (per_agent, totals))
+
+
+def process_step_records_reference(cfg: EngineConfig, msgs: torch.Tensor,
+                                   book: BookState,
+                                   prev_prices: torch.Tensor,
+                                   rec_k: int = REC_K,
+                                   uniforms: Optional[torch.Tensor] = None):
+    """Plain PyTorch book scan in records mode; same arguments and results
+    as :func:`process_step_records` (the records branch of the Pallas
+    kernel, ``_make_kernel`` with ``want_records``).
+
+    Message ``m``'s fills are ranked in slot order; fill ``r`` (1-based)
+    with ``r <= rec_k`` becomes row ``r - 1`` of ``records[:, m]``:
+    (price, ``-side * matched``, passive oid, passive tid).  The other rows
+    are empty, ``(EMPTY_SLOT, 0, 0, 0)``.  ``fill_counts[:, m]`` is the
+    number of fills, uncapped.
+    """
+    E, M, _ = msgs.shape
+    dev = msgs.device
+    records = torch.empty((E, M, rec_k, N_REC_PLANES), dtype=torch.int32,
+                          device=dev)
+    counts = torch.empty((E, M), dtype=torch.int32, device=dev)
+    empty = torch.tensor(EMPTY_RECORD, dtype=torch.int32, device=dev)
+
+    def on_fills(m, s, tid, Xp, Xo, Xt, matched, was, total_matched):
+        rank = was.to(torch.int32).cumsum(dim=-1, dtype=torch.int32)
+        counts[:, m] = rank[:, -1]
+        # fills past rec_k go to a spare row that is dropped
+        idx = torch.where(was & (rank <= rec_k), rank - 1, rec_k).long()
+        vals = torch.stack([Xp, -s[:, None] * matched, Xo, Xt], dim=-1)
+        rows = empty.repeat(E, rec_k + 1, 1)
+        rows.scatter_(1, idx[..., None].expand(-1, -1, N_REC_PLANES), vals)
+        records[:, m] = rows[:, :rec_k]
+
+    book, bidask = _scan_reference(cfg, msgs, book, prev_prices, uniforms,
+                                   on_fills)
+    return (book, (bidask[:, :, 0:2], bidask[:, :, 2:4]), (records, counts))
 
 
 # --------------------------------------------------------------------------
@@ -302,6 +370,9 @@ def _library():
             lib.book_scan_aggs.argtypes = [p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, i, i, i, p]
             lib.book_scan_aggs.restype = i
+            lib.book_scan_records.argtypes = [p, p, p, p, p, p, p, p,
+                                              i, i, i, i, i, i, i, p]
+            lib.book_scan_records.restype = i
             lib.book_scan_error_string.argtypes = [i]
             lib.book_scan_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -314,29 +385,45 @@ def _check(t: torch.Tensor, name: str, shape, dtype, device):
                          f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _kernel_inputs(cfg: EngineConfig, msgs, book: BookState, prev, uniforms):
+    """Checked, contiguous int32 inputs of both kernels and the uniforms'
+    pointer (None outside the random-cancel modes)."""
+    E, M, _ = msgs.shape
+    S = book.data.shape[-1]
+    dev = msgs.device
+    if S not in (32, 64, 128, 256):
+        raise ValueError(f"book capacity {S}: the CUDA kernel takes "
+                         "n_orders in (32, 64, 128, 256)")
+    msgs = msgs.to(torch.int32).contiguous()
+    book_in = book.data.contiguous()
+    prev = prev.to(torch.int32).contiguous()
+    _check(book_in, "book", (E, 2, 6, S), torch.int32, dev)
+    _check(prev, "prev_prices", (E, 2), torch.int32, dev)
+    u_ptr = None
+    if cfg.cancel_mode >= CancelMode.CANCEL_UNIFORM:
+        uniforms = uniforms.contiguous()
+        _check(uniforms, "uniforms", (M, E), torch.float32, dev)
+        u_ptr = uniforms.data_ptr()
+    return msgs, book_in, prev, uniforms, u_ptr
+
+
+def _raise_on(err: int, lib, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.book_scan_error_string(err).decode())
+
+
 def _launch(cfg: EngineConfig, msgs, book: BookState, tids, prev, tick,
             uniforms):
     E, M, _ = msgs.shape
     S = book.data.shape[-1]
     n_agg = tids.shape[0]
     dev = msgs.device
-    if S not in (32, 64, 128, 256):
-        raise ValueError(f"book capacity {S}: the CUDA kernel takes "
-                         "n_orders in (32, 64, 128, 256)")
     if tick <= 0:
         raise ValueError(f"tick must be positive, got {tick}")
-    msgs = msgs.to(torch.int32).contiguous()
-    book_in = book.data.contiguous()
-    prev = prev.to(torch.int32).contiguous()
+    msgs, book_in, prev, uniforms, u_ptr = _kernel_inputs(
+        cfg, msgs, book, prev, uniforms)
     tids = tids.to(device=dev, dtype=torch.int32).contiguous()
-    _check(book_in, "book", (E, 2, 6, S), torch.int32, dev)
-    _check(prev, "prev_prices", (E, 2), torch.int32, dev)
-    if cfg.cancel_mode >= CancelMode.CANCEL_UNIFORM:
-        uniforms = uniforms.contiguous()
-        _check(uniforms, "uniforms", (M, E), torch.float32, dev)
-        u_ptr = uniforms.data_ptr()
-    else:
-        u_ptr = None
     book_out = torch.empty_like(book_in)
     bidask = torch.empty((E, M, 4), dtype=torch.int32, device=dev)
     n_acc = AGG_STATS * n_agg + AGG_TOTALS
@@ -349,13 +436,57 @@ def _launch(cfg: EngineConfig, msgs, book: BookState, tids, prev, tick,
             tids.data_ptr(), u_ptr, book_out.data_ptr(), bidask.data_ptr(),
             aggs.data_ptr(), E, M, S, n_agg, int(cfg.cancel_mode),
             int(cfg.init_id), int(tick), int(cfg.maxint), stream)
-    if err != 0:
-        raise RuntimeError("book_scan_aggs launch failed: "
-                           + lib.book_scan_error_string(err).decode())
+    _raise_on(err, lib, "book_scan_aggs")
     process_step_aggs.launches += 1
     per_agent = aggs[:, :AGG_STATS * n_agg].reshape(E, n_agg, AGG_STATS)
     return (BookState(book_out), (bidask[:, :, 0:2], bidask[:, :, 2:4]),
             (per_agent, aggs[:, AGG_STATS * n_agg:]))
+
+
+def _launch_records(cfg: EngineConfig, msgs, book: BookState, prev,
+                    rec_k: int, uniforms):
+    E, M, _ = msgs.shape
+    S = book.data.shape[-1]
+    dev = msgs.device
+    msgs, book_in, prev, uniforms, u_ptr = _kernel_inputs(
+        cfg, msgs, book, prev, uniforms)
+    book_out = torch.empty_like(book_in)
+    bidask = torch.empty((E, M, 4), dtype=torch.int32, device=dev)
+    records = torch.empty((E, M, rec_k, N_REC_PLANES), dtype=torch.int32,
+                          device=dev)
+    counts = torch.empty((E, M), dtype=torch.int32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.book_scan_records(
+            msgs.data_ptr(), book_in.data_ptr(), prev.data_ptr(), u_ptr,
+            book_out.data_ptr(), bidask.data_ptr(), records.data_ptr(),
+            counts.data_ptr(), E, M, S, rec_k, int(cfg.cancel_mode),
+            int(cfg.init_id), int(cfg.maxint), stream)
+    _raise_on(err, lib, "book_scan_records")
+    process_step_records.launches += 1
+    return (BookState(book_out), (bidask[:, :, 0:2], bidask[:, :, 2:4]),
+            (records, counts))
+
+
+def _default_prev(msgs: torch.Tensor, prev_prices):
+    if prev_prices is None:
+        return torch.full((msgs.shape[0], 2), EMPTY_SLOT, dtype=torch.int32,
+                          device=msgs.device)
+    return prev_prices
+
+
+def _route(cfg: EngineConfig, msgs: torch.Tensor, uniforms) -> bool:
+    """True for the plain version (a CPU tensor), False for the kernel (a
+    CUDA tensor); raises on any other device or missing uniforms."""
+    if cfg.cancel_mode >= CancelMode.CANCEL_UNIFORM and uniforms is None:
+        raise ValueError("cancel_mode >= CANCEL_UNIFORM needs uniforms: "
+                         "(M, E) float32 draws in [0, 1)")
+    if msgs.device.type == "cpu":
+        return True
+    if msgs.device.type != "cuda":
+        raise ValueError(f"unsupported device {msgs.device}")
+    return False
 
 
 def process_step_aggs(cfg: EngineConfig, msgs: torch.Tensor, book: BookState,
@@ -381,19 +512,102 @@ def process_step_aggs(cfg: EngineConfig, msgs: torch.Tensor, book: BookState,
       (book', (bestasks (E, M, 2), bestbids (E, M, 2)) forward-filled,
        (per_agent (E, n_agg, 8), totals (E, 2))), all int32.
     """
-    E = msgs.shape[0]
-    if prev_prices is None:
-        prev_prices = torch.full((E, 2), EMPTY_SLOT, dtype=torch.int32,
-                                 device=msgs.device)
-    if cfg.cancel_mode >= CancelMode.CANCEL_UNIFORM and uniforms is None:
-        raise ValueError("cancel_mode >= CANCEL_UNIFORM needs uniforms: "
-                         "(M, E) float32 draws in [0, 1)")
-    if msgs.device.type == "cpu":
+    prev_prices = _default_prev(msgs, prev_prices)
+    if _route(cfg, msgs, uniforms):
         return process_step_aggs_reference(cfg, msgs, book, tids,
                                            prev_prices, tick, uniforms)
-    if msgs.device.type != "cuda":
-        raise ValueError(f"unsupported device {msgs.device}")
     return _launch(cfg, msgs, book, tids, prev_prices, tick, uniforms)
 
 
 process_step_aggs.launches = 0
+
+
+def process_step_records(cfg: EngineConfig, msgs: torch.Tensor,
+                         book: BookState,
+                         prev_prices: Optional[torch.Tensor] = None,
+                         rec_k: int = REC_K,
+                         uniforms: Optional[torch.Tensor] = None
+                         ) -> Tuple[BookState,
+                                    Tuple[torch.Tensor, torch.Tensor],
+                                    Tuple[torch.Tensor, torch.Tensor]]:
+    """Process one step's messages and record every message's fills: the
+    counterpart of ``vit_marl_tpu/ops/book_kernel.py::pallas_process_step``
+    (the ``debug_mode`` trade log).
+
+    Args: as :func:`process_step_aggs`, without trader ids; ``rec_k``
+    (1 to S) is the number of fills recorded per message.
+
+    Returns:
+      (book', (bestasks (E, M, 2), bestbids (E, M, 2)) forward-filled,
+       (records (E, M, rec_k, 4), fill_counts (E, M))), all int32.  Row
+      ``r`` of ``records[e, m]`` is the message's fill of rank ``r + 1``
+      in slot order, (price, -side * quant, passive oid, passive tid);
+      rows from ``min(fill_counts[e, m], rec_k)`` on are
+      ``(EMPTY_SLOT, 0, 0, 0)``.  ``fill_counts`` is not capped, so a
+      message with more than ``rec_k`` fills shows as such.
+    """
+    S = book.data.shape[-1]
+    if not 1 <= rec_k <= S:
+        raise ValueError(f"rec_k must be in [1, n_orders={S}], got {rec_k}")
+    prev_prices = _default_prev(msgs, prev_prices)
+    if _route(cfg, msgs, uniforms):
+        return process_step_records_reference(cfg, msgs, book, prev_prices,
+                                              rec_k, uniforms)
+    return _launch_records(cfg, msgs, book, prev_prices, rec_k, uniforms)
+
+
+process_step_records.launches = 0
+
+
+def finalize_trade_log_from_records(trades0: torch.Tensor,
+                                    records: torch.Tensor,
+                                    msgs: torch.Tensor,
+                                    fill_counts: torch.Tensor
+                                    ) -> torch.Tensor:
+    """The ``(E, n_trades, 8)`` trade log from the records of
+    :func:`process_step_records` and the step's messages (port of
+    ``vit_marl_tpu/ops/book_kernel.py::finalize_trade_log_from_records``,
+    batched over envs).
+
+    Rows of ``trades0`` with a price other than ``EMPTY_SLOT`` stay; the
+    step's fills follow them in message order, then rank order, as
+    ``[price, quant, pass_oid, agr_oid, time_s, time_ns, pass_tid,
+    agr_tid]``.  A message contributes at most ``rec_k`` fills.  When the
+    fills overflow the log, its last row holds the step's last fill.
+    """
+    E, M, K, _ = records.shape
+    cap = trades0.shape[1]
+    dev = records.device
+    flat = records.reshape(E, M * K, N_REC_PLANES)
+    counts = torch.clamp(fill_counts.to(torch.int32), max=K)
+    cm = counts.cumsum(dim=1, dtype=torch.int32)           # (E, M)
+    total = cm[:, -1:]                                     # (E, 1)
+    tc0 = (trades0[:, :, 0] != EMPTY_SLOT).sum(dim=1, dtype=torch.int32)
+    t = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+    new_rank = t - tc0[:, None]                            # (E, cap)
+
+    def rank_to_src(r):
+        # the first message whose cumulative count exceeds r
+        m_of = torch.searchsorted(cm, r, right=True).to(torch.int32)
+        m_c = torch.clamp(m_of, max=M - 1)
+        before = torch.where(
+            m_of > 0, torch.gather(cm, 1, (m_of - 1).clamp(min=0).long()), 0)
+        return m_c * K + (r - before), m_c
+
+    src, msg_idx = rank_to_src(new_rank)
+    overflow = total + tc0[:, None] > cap                  # (E, 1)
+    last_src, last_m = rank_to_src((total - 1).expand(E, cap).contiguous())
+    is_last_slot = (t == cap - 1) & overflow
+    src = torch.where(is_last_slot, last_src, src)
+    msg_idx = torch.where(is_last_slot, last_m, msg_idx)
+    have_new = (((new_rank >= 0) & (new_rank < total))
+                | (is_last_slot & (total > 0)))
+    src_c = torch.clamp(src, 0, M * K - 1).long()
+    planes = torch.gather(flat, 1, src_c[..., None].expand(-1, -1, 4))
+    msg_of = torch.gather(msgs.to(torch.int32), 1,
+                          msg_idx.long()[..., None].expand(-1, -1, 8))
+    rows = torch.stack([
+        planes[..., 0], planes[..., 1], planes[..., 2], msg_of[..., 4],
+        msg_of[..., 6], msg_of[..., 7], planes[..., 3], msg_of[..., 5],
+    ], dim=-1)
+    return torch.where(have_new[..., None], rows, trades0)

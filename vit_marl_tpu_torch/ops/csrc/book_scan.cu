@@ -1,14 +1,19 @@
-// Book scan in aggregate mode for NVIDIA Hopper (sm_90a).
+// Book scan for NVIDIA Hopper (sm_90a), in aggregate and records modes.
 //
-// Replaces the TPU kernel vit_marl_tpu/ops/book_kernel.py::
-// pallas_process_step_aggs (body _make_kernel, aggregate mode,
-// book_kernel.py:85-445).  Per env, the step's M messages run in order
-// against the book: (type, side) dispatch, the cancel fallback chain,
-// matching by prefix sum, the hole-arena insert, the forward-filled best
-// ask/bid after every message, and exact int32 per-trader trade sums in
-// tick units.  The plain PyTorch version of the same function is
-// vit_marl_tpu_torch/ops/book_kernel.py::process_step_aggs_reference; the
-// two are bit-equal.
+// Replaces the TPU kernel body vit_marl_tpu/ops/book_kernel.py::
+// _make_kernel (book_kernel.py:85-445) in its two uses:
+// - aggregate mode, pallas_process_step_aggs (the training path): exact
+//   int32 per-trader trade sums in tick units;
+// - records mode, pallas_process_step (the debug_mode trade log): each
+//   message's fills, rank-compacted in slot order, as (price, -side *
+//   quant, passive oid, passive tid), at most rec_k per message, and each
+//   message's uncapped fill count.
+// Per env, the step's M messages run in order against the book: (type,
+// side) dispatch, the cancel fallback chain, matching by prefix sum, the
+// hole-arena insert and the forward-filled best ask/bid after every
+// message.  The plain PyTorch versions of the same functions are
+// vit_marl_tpu_torch/ops/book_kernel.py::process_step_aggs_reference and
+// process_step_records_reference; kernel and plain version are bit-equal.
 //
 // Design.  The TPU kernel puts slots on sublanes and 128 envs on lanes.
 // Here one warp owns one env: lane l holds slots [l*SPL, l*SPL + SPL) of
@@ -18,18 +23,26 @@
 // is a local search plus __reduce_min_sync / __reduce_max_sync; the
 // insert's one-slot shifts pass the boundary slot with one shuffle.
 // Messages are read straight from global memory (every lane reads the
-// same 32 bytes, one broadcast transaction).  Per-trader sums accumulate
-// per lane in shared memory and are reduced across the warp once, after
-// the loop: int32 addition wraps, so the order does not change the result.
-// All int32 arithmetic that the reference lets wrap is done in uint32.
+// same 32 bytes, one broadcast transaction).  In aggregate mode,
+// per-trader sums accumulate per lane in shared memory and are reduced
+// across the warp once, after the loop: int32 addition wraps, so the
+// order does not change the result.  In records mode a warp prefix of the
+// per-lane fill counts gives each fill its rank, and the lane holding it
+// writes the record straight to global memory as one 16-byte store; the
+// lanes then fill the rows past the message's fills with empty records.
+// The TPU kernel's staging of records in VMEM groups with double-buffered
+// DMA has no counterpart: it exists for VMEM, not for the function.  All
+// int32 arithmetic that the reference lets wrap is done in uint32.
 //
 // Bound at the main-path shape (E = 4096, M = 112, S = 128, two traders):
-// the function must read the messages (14.7 MB) and the book (25.2 MB) and
-// write the book (25.2 MB), the best prices (7.3 MB) and the sums: about
-// 72 MB, 22 us at 3.35 TB/s.  The real limit is the serial chain of 112
-// dependent messages per env, each a few dozen warp reductions: the
-// kernel is latency-bound on that chain, and 4096 envs give 4096 warps to
-// hide it.  No single PyTorch call computes this function.
+// aggregate mode must read the messages (14.7 MB) and the book (25.2 MB)
+// and write the book (25.2 MB), the best prices (7.3 MB) and the sums:
+// about 72 MB, 22 us at 3.35 TB/s.  Records mode at rec_k = 16 writes
+// 117.4 MB of records and 1.8 MB of counts instead of the sums: about
+// 192 MB, 57 us.  The real limit is the serial chain of 112 dependent
+// messages per env, each a few dozen warp reductions: the kernel is
+// latency-bound on that chain, and 4096 envs give 4096 warps to hide it.
+// No single PyTorch call computes either function.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -131,14 +144,22 @@ __device__ __forceinline__ int cdf_pick(const bool (&cand)[SPL],
   return warp_min(loc);
 }
 
+// Records-mode outputs of one message: its rec_k rows and its fill count.
+struct RecOut {
+  int4* rows;
+  int* count;
+  int rec_k;
+};
+
 // One message in the (X, Y) frame: X is matched against, Y is the side the
 // cancel targets and the remainder rests on.  BID: Y is the bid side.
-template <int SPL, bool BID>
+// REC: records mode (writes `rec`); else aggregate mode (adds to `acc`).
+template <int SPL, bool BID, bool REC>
 __device__ __forceinline__ void step(Side<SPL>& X, Side<SPL>& Y,
                                      const Msg& msg, bool is_lim,
                                      bool is_cancel, float u,
                                      const Params& p, unsigned* acc,
-                                     int lane) {
+                                     const RecOut& rec, int lane) {
   constexpr int S = SPL * 32;
   const int base = lane * SPL;
 
@@ -216,8 +237,29 @@ __device__ __forceinline__ void step(Side<SPL>& X, Side<SPL>& Y,
   }
   const int total_matched = warp_sum(tm);
 
-  // ---- per-trader sums (book_kernel.py:287-326), per lane ----
-  if (__any_sync(kFull, any_local)) {
+  if constexpr (REC) {
+    // ---- records (book_kernel.py:241-285): rank = fills up to the slot
+    int c = 0;
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) c += matched[j] > 0 ? 1 : 0;
+    const int incl = warp_scan(c, lane);
+    const int n_fills = __shfl_sync(kFull, incl, 31);
+    const int neg_s = wneg(msg.side);
+    int r = incl - c;
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) {
+      if (matched[j] > 0) {
+        ++r;
+        if (r <= rec.rec_k)
+          rec.rows[r - 1] = make_int4(X.f[PRICE][j], wmul(neg_s, matched[j]),
+                                      X.f[OID][j], X.f[TID][j]);
+      }
+    }
+    for (int k = n_fills + lane; k < rec.rec_k; k += 32)
+      rec.rows[k] = make_int4(kEmpty, 0, 0, 0);
+    if (lane == 0) *rec.count = n_fills;
+  } else if (__any_sync(kFull, any_local)) {
+    // ---- per-trader sums (book_kernel.py:287-326), per lane ----
     const bool s_pos = msg.side == 1;
     const int neg_s = wneg(msg.side);
     int mpt[SPL];
@@ -341,12 +383,16 @@ __device__ __forceinline__ void step(Side<SPL>& X, Side<SPL>& Y,
   }
 }
 
-template <int SPL>
+// REC: records mode, writing `records` (E, M, rec_k) and `counts` (E, M);
+// else aggregate mode, writing `aggs`.
+template <int SPL, bool REC>
 __global__ void __launch_bounds__(kWarps * 32)
 book_scan_kernel(const int* __restrict__ msgs, const int* __restrict__ book_in,
                  const int* __restrict__ prev, const float* __restrict__ uniforms,
                  int* __restrict__ book_out, int* __restrict__ bidask,
-                 int* __restrict__ aggs, int E, int M, int maxint, Params p) {
+                 int* __restrict__ aggs, int4* __restrict__ records,
+                 int* __restrict__ counts, int rec_k, int E, int M, int maxint,
+                 Params p) {
   constexpr int S = SPL * 32;
   extern __shared__ unsigned smem_acc[];
   const int lane = threadIdx.x & 31;
@@ -382,10 +428,14 @@ book_scan_kernel(const int* __restrict__ msgs, const int* __restrict__ book_in,
     const bool is_lim = index == 0 || index == 1;
     const bool is_cancel = index == 2 || index == 3;
     const bool bid_frame = index == 1 || index == 3;
+    const RecOut rec{REC ? records + ((size_t)e * M + m) * rec_k : nullptr,
+                     REC ? counts + (size_t)e * M + m : nullptr, rec_k};
     if (bid_frame)
-      step<SPL, true>(ask, bid, msg, is_lim, is_cancel, u, p, acc, lane);
+      step<SPL, true, REC>(ask, bid, msg, is_lim, is_cancel, u, p, acc, rec,
+                           lane);
     else
-      step<SPL, false>(bid, ask, msg, is_lim, is_cancel, u, p, acc, lane);
+      step<SPL, false, REC>(bid, ask, msg, is_lim, is_cancel, u, p, acc, rec,
+                            lane);
 
     // ---- best ask/bid with quantities, forward-filled ----
     int la = INT_MAX, lbp = INT_MIN;
@@ -436,22 +486,46 @@ book_scan_kernel(const int* __restrict__ msgs, const int* __restrict__ book_in,
     }
 }
 
-template <int SPL>
+template <int SPL, bool REC>
 cudaError_t launch(const int* msgs, const int* book_in, const int* prev,
                    const float* uniforms, int* book_out, int* bidask,
-                   int* aggs, int E, int M, int maxint, const Params& p,
-                   cudaStream_t stream) {
+                   int* aggs, int4* records, int* counts, int rec_k, int E,
+                   int M, int maxint, const Params& p, cudaStream_t stream) {
   const size_t smem = (size_t)kWarps * p.n_acc * 32 * sizeof(unsigned);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        book_scan_kernel<SPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        book_scan_kernel<SPL, REC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((E + kWarps - 1) / kWarps), block(kWarps * 32);
-  book_scan_kernel<SPL><<<grid, block, smem, stream>>>(
-      msgs, book_in, prev, uniforms, book_out, bidask, aggs, E, M, maxint, p);
+  book_scan_kernel<SPL, REC><<<grid, block, smem, stream>>>(
+      msgs, book_in, prev, uniforms, book_out, bidask, aggs, records, counts,
+      rec_k, E, M, maxint, p);
   return cudaGetLastError();
+}
+
+template <bool REC>
+int launch_s(int S, const int* msgs, const int* book_in, const int* prev,
+             const float* uniforms, int* book_out, int* bidask, int* aggs,
+             int4* records, int* counts, int rec_k, int E, int M, int maxint,
+             const Params& p, cudaStream_t st) {
+  switch (S) {
+    case 32:
+      return launch<1, REC>(msgs, book_in, prev, uniforms, book_out, bidask,
+                            aggs, records, counts, rec_k, E, M, maxint, p, st);
+    case 64:
+      return launch<2, REC>(msgs, book_in, prev, uniforms, book_out, bidask,
+                            aggs, records, counts, rec_k, E, M, maxint, p, st);
+    case 128:
+      return launch<4, REC>(msgs, book_in, prev, uniforms, book_out, bidask,
+                            aggs, records, counts, rec_k, E, M, maxint, p, st);
+    case 256:
+      return launch<8, REC>(msgs, book_in, prev, uniforms, book_out, bidask,
+                            aggs, records, counts, rec_k, E, M, maxint, p, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -471,23 +545,28 @@ extern "C" int book_scan_aggs(const int* msgs, const int* book_in,
   if (E <= 0) return 0;
   const Params p{cancel_mode, init_id, tick, n_agg,
                  kAggStats * n_agg + kAggTotals, tids};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (S) {
-    case 32:
-      return launch<1>(msgs, book_in, prev, uniforms, book_out, bidask, aggs,
-                       E, M, maxint, p, st);
-    case 64:
-      return launch<2>(msgs, book_in, prev, uniforms, book_out, bidask, aggs,
-                       E, M, maxint, p, st);
-    case 128:
-      return launch<4>(msgs, book_in, prev, uniforms, book_out, bidask, aggs,
-                       E, M, maxint, p, st);
-    case 256:
-      return launch<8>(msgs, book_in, prev, uniforms, book_out, bidask, aggs,
-                       E, M, maxint, p, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_s<false>(S, msgs, book_in, prev, uniforms, book_out, bidask,
+                         aggs, nullptr, nullptr, 0, E, M, maxint, p,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// Records mode: as book_scan_aggs without trader ids and sums; records
+// (E, M, rec_k, 4) [price, -side * quant, passive oid, passive tid], rows
+// past a message's fills (EMPTY, 0, 0, 0), 16-byte aligned; fill_counts
+// (E, M), uncapped.  1 <= rec_k <= S.
+extern "C" int book_scan_records(const int* msgs, const int* book_in,
+                                 const int* prev, const float* uniforms,
+                                 int* book_out, int* bidask, int* records,
+                                 int* fill_counts, int E, int M, int S,
+                                 int rec_k, int cancel_mode, int init_id,
+                                 int maxint, void* stream) {
+  if (E <= 0) return 0;
+  if (rec_k < 1 || rec_k > S) return (int)cudaErrorInvalidValue;
+  const Params p{cancel_mode, init_id, 1, 0, 0, nullptr};
+  return launch_s<true>(S, msgs, book_in, prev, uniforms, book_out, bidask,
+                        nullptr, reinterpret_cast<int4*>(records),
+                        fill_counts, rec_k, E, M, maxint, p,
+                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* book_scan_error_string(int err) {

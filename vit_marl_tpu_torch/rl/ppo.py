@@ -19,8 +19,11 @@ tiled, onto the actor axis (``global_done_for_actors``).
 Observations, transitions and minibatches are trees (a dict observation
 is indexed leaf by leaf).
 
-Not ported yet: eval, checkpoints and resume, the info/action metrics, the
-pipeline rollout, meshes, ``cnn_gru`` and continuous actions on ``gru``.
+Not ported yet, and refused by :func:`check_ported` or ``make_network``:
+eval, checkpoints and resume, the pipeline rollout, meshes, log backends
+other than ``print``/``none``, ``cnn_gru`` and continuous actions on
+``gru``.  The info/action metrics (``LOG_ENV_INFO``, on by default) are
+not emitted.
 """
 
 from __future__ import annotations
@@ -221,6 +224,29 @@ def make_networks(env: WorldEnv, cfg: TrainConfig) -> List[nn.Module]:
             for i in range(len(env.agent_types))]
 
 
+def check_ported(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for a trainer option the port would
+    otherwise accept and drop without a word: a device mesh, periodic
+    eval, checkpoints or resume, the pipelined rollout, and log backends
+    other than ``print`` and ``none``."""
+    refused = {
+        "MESH_SHAPE": tuple(cfg.mesh_shape) != (),
+        "EVAL_EVERY": cfg.eval_every > 0,
+        "CHECKPOINT_DIR": bool(cfg.checkpoint_dir),
+        "RESUME": cfg.resume,
+        "ROLLOUT_MODE": cfg.rollout_mode == "pipeline",
+        "LOG_BACKEND": cfg.log_backend not in ("print", "none"),
+    }
+    bad = [k for k, v in refused.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"{', '.join(bad)}: not ported yet (mesh_shape="
+            f"{tuple(cfg.mesh_shape)}, eval_every={cfg.eval_every}, "
+            f"checkpoint_dir={cfg.checkpoint_dir!r}, resume={cfg.resume}, "
+            f"rollout_mode={cfg.rollout_mode!r}, "
+            f"log_backend={cfg.log_backend!r})")
+
+
 def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                env: Optional[WorldEnv] = None, device=None,
                log=None):
@@ -232,6 +258,7 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
     ``cfg.num_updates`` updates.  ``log``, if given, receives each update's
     metrics dict.
     """
+    check_ported(cfg)
     env = env or WorldEnv(ma_config, device=device)
     dev = env.device
     n_types = len(env.agent_types)

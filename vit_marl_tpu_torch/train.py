@@ -4,6 +4,8 @@ Usage:
   python -m vit_marl_tpu_torch.train --config configs/ippo_2player.yaml
   python -m vit_marl_tpu_torch.train --config configs/ippo_2player.yaml \
       --set NUM_ENVS=512 --set TOTAL_TIMESTEPS=196608
+  python -m vit_marl_tpu_torch.train --config configs/ippo_2player.yaml \
+      --set WORLD.DEBUG_MODE=true
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU.
 """
@@ -13,26 +15,15 @@ from __future__ import annotations
 import argparse
 import time
 
-
-def apply_set_overrides(raw: dict, overrides) -> dict:
-    """``KEY=VALUE`` overrides onto the top level of a raw config; values
-    parse as YAML scalars (``1e6`` stays a string, which ``make_config``
-    coerces to the field's type)."""
-    import yaml
-
-    for item in overrides:
-        if "=" not in item:
-            raise SystemExit(f"--set expects KEY=VALUE, got {item!r}")
-        key, val = item.split("=", 1)
-        raw[key.strip()] = yaml.safe_load(val)
-    return raw
+from vit_marl_tpu_torch.utils.cli import apply_set_overrides
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", default=None, help="YAML run config")
     p.add_argument("--set", action="append", default=[],
-                   metavar="KEY=VALUE", help="override a top-level key")
+                   metavar="KEY=VALUE",
+                   help="override a config key; A.B=VALUE reaches a section")
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu on request)")
     p.add_argument("--seed", type=int, default=None)
@@ -59,7 +50,9 @@ def main(argv=None):
         print(f"[update {m['update_step']}] "
               + " ".join(f"{k}={m[k]:.4g}" for k in keys), flush=True)
 
-    train = make_train(ma_config, train_config, device=args.device, log=log)
+    train = make_train(ma_config, train_config, device=args.device,
+                       log=None if train_config.log_backend == "none"
+                       else log)
     env = train.env
     print(f"device: {env.device} world: msgs/step={env.num_msgs_per_step} "
           f"train: envs={train_config.num_envs} "
