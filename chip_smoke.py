@@ -29,13 +29,20 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    through the autograd wrapper the ViT calls, against the plain versions
    on the card, at the vision path's shapes (ViT-Small: N=11 tokens,
    W=384, H=6, bf16; B=1024 images in the rollout, 32,768 in a PPO
-   minibatch), at a ragged B=1000 in bf16 and float32, and at H=2, D=32.
-   float32 within rtol 1e-5 / atol 1e-6, bf16 within one bf16 ulp (rtol
-   8e-3, atol 1e-3); the float32 backward also against autograd of the
-   plain forward.  Times both kernels, the plain versions and
-   ``torch.nn.functional.scaled_dot_product_attention`` (forward, and
-   backward through autograd) on inputs laid out for it beforehand, the
-   yardstick of one library call, which the port never makes;
+   minibatch), at a ragged B=1000 in bf16 and float32, at H=2, D=32, and
+   at every padding of the bf16 route (N in 1, 11, 16, 17, 32; D in 8,
+   24, 64, 128; B down to 3) on both routes (bf16: tensor cores, float32:
+   CUDA cores; each launch must go to its dtype's route).  float32 within
+   rtol 1e-5 / atol 1e-6, bf16 within one bf16 ulp (rtol 8e-3, atol
+   1e-3); the float32 backward also against autograd of the plain
+   forward.  Times both kernels (the forward at B=32,768 and 1,024) beside
+   their times before the redesign, their device times alone (replays of
+   a CUDA graph of launches, no host issue in the window) and the host's
+   issue time per call at B=1,024, the plain versions and
+   ``torch.nn.functional.scaled_dot_product_attention`` (forward at both
+   batches, and backward through autograd) on inputs laid out for it
+   beforehand, the yardstick of one library call, which the port never
+   makes;
 5. fused blocks against plain: the four CUDA fused-block kernels (LN+QKV,
    proj+MLP, the whole block, LN+QKV+attention) through the wrappers the
    ViT calls, against their plain versions on the card at ViT-Small's
@@ -63,7 +70,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    at its published widths (ViT-Small, NUM_ENVS=1024, NUM_STEPS=128) for
    2 updates; losses must be finite, the book scan must launch NUM_STEPS x
    updates times and the attention kernels exactly as often as the ViT's
-   blocks run (with remat the forward runs twice per block in an update);
+   blocks run (with remat the forward runs twice per block in an update),
+   every launch on the bf16 tensor-core route;
 9. vision simplest-case training: the same for
    ``configs/ippo_vision_simplest.yaml`` (ViT-Small, 512 envs x 32 steps,
    the discrete ``simplest_case`` execution agent alone);
@@ -109,6 +117,15 @@ ATT_N, ATT_W, ATT_H = 11, 384, 6
 B_ROLLOUT, B_MINIBATCH = 1024, 32_768
 ATT_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
            "bfloat16": dict(rtol=8e-3, atol=1e-3)}
+# (B, N, H, D) the bf16 route pads: N to 16 or 32 tokens, D to a multiple
+# of 16; ragged B and a B below the persistent grid (3 images)
+ATT_PAD_SHAPES = [((1000, 3, 37, 130)[i % 4], n, (1, 2, 3)[i % 3], d)
+                  for i, (n, d) in enumerate(
+                      (n, d) for n in (1, 11, 16, 17, 32)
+                      for d in (8, 24, 64, 128))]
+# the attention kernels' times before their redesign (chip_smoke.py,
+# NVIDIA H100 80GB HBM3, 700 W): forward at B=32,768 and 1,024, backward
+ATT_EARLIER_MS = {"fwd": 1.1845, "fwd_rollout": 0.0472, "bwd": 2.9990}
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 MLP_RATIO = 4
 F32_BLOCK_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -271,6 +288,45 @@ def time_launches(fn, batches=BATCHES, per_batch=PER_BATCH, warm=5):
     return float(np.median(per)), float(min(per))
 
 
+def graph_ms(fn, batches=BATCHES, per_batch=PER_BATCH):
+    """Median device ms per call over replays of a CUDA graph of
+    ``per_batch`` calls: no host issue inside the timed window."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(per_batch):
+            fn()
+    per = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        per.append(a.elapsed_time(b) / per_batch)
+    del graph
+    return float(np.median(per))
+
+
+def host_ms(fn, calls=PER_BATCH):
+    """Host ms per call to issue ``calls`` calls back to back."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
 def attention_cost(B, N, W, H, itemsize, backward):
     """(bytes, float ops) the attention must move and do: qkv (and g) read
     once, the output (dqkv) written once; 4 N^2 D H operations per image
@@ -336,6 +392,37 @@ def attention_phase(torch, attn, smi):
                   "forward", got, want, dtype)
         del x, g, got
 
+    # every padding of the bf16 route, and the same shapes on the float32
+    # route; each launch must take its dtype's route
+    for dtype, route in [(torch.bfloat16, "mma"), (torch.float32, "simt")]:
+        before = route_counts(attn)
+        for B, n, h, d in ATT_PAD_SHAPES:
+            x = rand((B * n, 3 * h * d), dtype).requires_grad_(True)
+            g = rand((B * n, h * d), dtype)
+            out = attn.short_attention(x, n, h)
+            (got,) = torch.autograd.grad(out, x, g)
+            out = out.detach()
+            torch.cuda.synchronize()
+            for kind, a, b in [
+                    ("fwd", out, attn.short_attention_reference(
+                        x.detach(), n, h)),
+                    ("bwd", got, attn.short_attention_bwd_reference(
+                        x.detach(), g, n, h))]:
+                err = float((a.float() - b.float()).abs().max())
+                torch.testing.assert_close(
+                    a, b, **ATT_TOL[str(dtype)[6:]],
+                    msg=lambda m: f"{kind} B={B} N={n} H={h} D={d}: {m}")
+                errs[kind] = max(errs[kind], err)
+        grew = {k: v - before[k] for k, v in route_counts(attn).items()}
+        want = {k: 0 for k in grew}
+        want[f"fwd_{route}"] = want[f"bwd_{route}"] = len(ATT_PAD_SHAPES)
+        if grew != want:
+            raise AssertionError(f"{dtype} launches by route {grew}, want "
+                                 f"{want}")
+        print(f"  {len(ATT_PAD_SHAPES)} padded shapes, forward and "
+              f"backward, {str(dtype)[6:]} on the {route} route: within "
+              f"{ATT_TOL[str(dtype)[6:]]}", flush=True)
+
     # timing at the PPO minibatch's shape (and the forward at the
     # rollout's), bf16, as the ViT-Small path launches them
     B, D = B_MINIBATCH, W // H
@@ -346,6 +433,7 @@ def attention_phase(torch, attn, smi):
     ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl)
     x_roll = x[:B_ROLLOUT * N]
+    q_roll, k_roll, v_roll = (t[:B_ROLLOUT] for t in (q, k, v))
     rows = {}
     for kind, kern, plain, lib, backward in [
             ("fwd", lambda: attn.short_attention(x, N, H),
@@ -361,15 +449,30 @@ def attention_phase(torch, attn, smi):
         nbytes, flops = attention_cost(B, N, W, H, 2, backward)
         bound_ms, bound_by = bound(nbytes, flops)
         rows[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          device_ms=graph_ms(kern))
         print(f"  {kind} B={B}: kernel {ms:.4f} ms (median of {BATCHES} "
-              f"batches of {PER_BATCH}, min {ms_min:.4f}); plain "
-              f"{plain_ms:.3f} ms; SDPA {lib_ms:.4f} ms; bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP) [{smi}]", flush=True)
-    roll_ms, _ = time_launches(lambda: attn.short_attention(x_roll, N, H))
+              f"batches of {PER_BATCH}, min {ms_min:.4f}; before the "
+              f"redesign {ATT_EARLIER_MS[kind]} ms); device time "
+              f"{rows[kind]['device_ms']:.4f} ms (CUDA graph of "
+              f"{PER_BATCH}); plain {plain_ms:.3f} ms; SDPA {lib_ms:.4f} "
+              f"ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP) [{smi}]",
+              flush=True)
+
+    def roll():
+        return attn.short_attention(x_roll, N, H)
+
+    roll_ms, roll_min = time_launches(roll)
+    roll_dev, roll_host = graph_ms(roll), host_ms(roll)
+    roll_lib_ms, _ = time_launches(
+        lambda: F.scaled_dot_product_attention(q_roll, k_roll, v_roll))
     roll_bound, _ = bound(*attention_cost(B_ROLLOUT, N, W, H, 2, False))
-    print(f"  fwd B={B_ROLLOUT}: kernel {roll_ms:.4f} ms; bound "
+    print(f"  fwd B={B_ROLLOUT}: kernel {roll_ms:.4f} ms (min "
+          f"{roll_min:.4f}; before the redesign "
+          f"{ATT_EARLIER_MS['fwd_rollout']} ms); device time "
+          f"{roll_dev:.4f} ms (CUDA graph of {PER_BATCH}); host issue "
+          f"{roll_host:.4f} ms per call; SDPA {roll_lib_ms:.4f} ms; bound "
           f"{roll_bound:.4f} ms [{smi}]", flush=True)
     common = dict(route="cuda",
                   source="vit_marl_tpu_torch/ops/csrc/short_attention.cu",
@@ -379,7 +482,9 @@ def attention_phase(torch, attn, smi):
             name="short_attention_fwd", **common,
             replaces="vit_marl_tpu/ops/attention_kernel.py:253",
             max_abs_err=errs["fwd"], kernel_ms=rows["fwd"]["ms"],
-            ms_rollout=roll_ms, bound_ms_rollout=roll_bound, **rows["fwd"]),
+            ms_rollout=roll_ms, bound_ms_rollout=roll_bound,
+            library_ms_rollout=roll_lib_ms, device_ms_rollout=roll_dev,
+            host_ms_rollout=roll_host, **rows["fwd"]),
         "short_attention_bwd": dict(
             name="short_attention_bwd", **common,
             replaces="vit_marl_tpu/ops/attention_kernel.py:286",
@@ -554,6 +659,13 @@ def block_phase(torch, blk, smi):
     return rows
 
 
+def route_counts(attn):
+    """The attention kernels' launches by direction and route."""
+    return {f"{kind}_{route}": getattr(attn.short_attention,
+                                       f"launches_{kind}_{route}")
+            for kind in ("fwd", "bwd") for route in ("mma", "simt")}
+
+
 def counters(attn, bkern, blk):
     """Every kernel's launch counter, by name: (get, reset) pairs."""
     def attr(obj, field):
@@ -655,6 +767,7 @@ def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
     count = counters(attn, bkern, blk)
     for _, reset in count.values():
         reset()
+    routes = route_counts(attn)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tt = time.perf_counter()
@@ -686,6 +799,13 @@ def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
         want["fused_block_full"] = forward
     if got != want:
         raise AssertionError(f"launch counts {got}, want {want}")
+    routes = {k: v - routes[k] for k, v in route_counts(attn).items()}
+    want_routes = {k: 0 for k in routes}
+    want_routes["fwd_mma"] = want["short_attention_fwd"]
+    want_routes["bwd_mma"] = want["short_attention_bwd"]
+    if routes != want_routes:
+        raise AssertionError(f"the bf16 ViT's attention launches by route "
+                             f"{routes}, want {want_routes}")
     steps = tc.num_envs * tc.num_steps * UPDATES
     peak = torch.cuda.max_memory_allocated() / 2**30
     split = update_split(out["metrics"])

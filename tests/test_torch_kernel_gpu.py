@@ -9,10 +9,12 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   than 16 fills, and the trade log built from the kernel's records equal
   to the one built on the CPU from the plain version's.
 - Short attention, forward and backward, through the autograd wrapper:
-  float32 within rtol 1e-5 / atol 1e-6 of the plain version; bfloat16
-  within one bf16 ulp of it (rtol 8e-3, atol 1e-3), since the plain
-  version is the same float32 math rounded once.  Ragged B, heads
-  contiguous in the lanes at H > 1.
+  float32 (the CUDA-core route) within rtol 1e-5 / atol 1e-6 of the
+  plain version; bfloat16 (the tensor-core route) within one bf16 ulp of
+  it (rtol 8e-3, atol 1e-3), since the plain version is the same float32
+  math rounded once.  Ragged B, B below the persistent grid, every
+  padding of N (to 16 or 32) and D (to a multiple of 16), heads
+  contiguous in the lanes at H > 1; each dtype launches its own route.
 - Fused blocks (LN+QKV, proj+MLP, the whole block, LN+QKV+attention):
   float32 within rtol 2e-5 / atol 2e-5 of the plain versions, bfloat16
   within two bf16 ulps of the element or two (three for the blocks ending
@@ -23,6 +25,7 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   raise ``NotImplementedError``.
 """
 
+import itertools
 import math
 
 import numpy as np
@@ -127,11 +130,18 @@ ATTN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),
             torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
 
 
+# Shapes the bf16 route pads: N to 16 or 32 tokens, D to a multiple of
+# 16; ragged B (1000, 37, 130) and B below the persistent grid (3).
+PAD_SHAPES = [((1000, 3, 37, 130)[i % 4], N, (1, 2, 3)[i % 3], D)
+              for i, (N, D) in enumerate(itertools.product(
+                  (1, 11, 16, 17, 32), (8, 24, 64, 128)))]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,N,H,D", [(37, 11, 2, 32), (1000, 11, 6, 64),
                                      (3, 5, 6, 64), (65, 32, 2, 128),
-                                     (9, 1, 3, 8)])
+                                     (9, 1, 3, 8)] + PAD_SHAPES)
 def test_attention_kernels_match_plain(cuda, dtype, B, N, H, D):
     rng = np.random.default_rng(B + N + H)
     x = torch.from_numpy(rng.normal(size=(B * N, 3 * H * D)).astype(
@@ -149,6 +159,28 @@ def test_attention_kernels_match_plain(cuda, dtype, B, N, H, D):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, **ATTN_TOL[dtype])
     torch.testing.assert_close(dx, want_dx, **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "mma"),
+                                         (torch.float32, "simt")])
+def test_attention_route_follows_the_dtype(cuda, dtype, route):
+    """bf16 launches the tensor-core kernels, float32 the CUDA-core ones;
+    each launch counts once on its route and once in the totals."""
+    names = [f"launches_{d}_{r}" for d in ("fwd", "bwd")
+             for r in ("mma", "simt")] + ["launches_fwd", "launches_bwd"]
+    before = {n: getattr(attn.short_attention, n) for n in names}
+    x = torch.randn(7 * 11, 3 * 128, device=cuda).to(dtype)
+    x.requires_grad_(True)
+    (dx,) = torch.autograd.grad(attn.short_attention(x, 11, 2), x,
+                                torch.randn(7 * 11, 128, device=cuda)
+                                .to(dtype))
+    torch.cuda.synchronize()
+    grew = {n for n in names if getattr(attn.short_attention, n) != before[n]}
+    assert grew == {f"launches_fwd_{route}", f"launches_bwd_{route}",
+                    "launches_fwd", "launches_bwd"}
+    assert all(getattr(attn.short_attention, n) == before[n] + 1
+               for n in grew)
+    assert dx.dtype == dtype
 
 
 def test_attention_backward_is_the_gradient_of_the_forward(cuda):

@@ -14,14 +14,18 @@ Two implementations of each direction:
 
 - :func:`short_attention_reference` / :func:`short_attention_bwd_reference`,
   plain PyTorch;
-- ``csrc/short_attention.cu``, the CUDA kernels (one block per image, one
-  warp per head).
+- ``csrc/short_attention.cu``, the CUDA kernels, on one of two routes
+  chosen by the dtype alone: bfloat16 takes the tensor-core route
+  (``mma``: ``mma.sync`` tiles, persistent warps that load the next
+  (image, head) while they compute this one), float32 the CUDA-core route
+  (``simt``: one block per image, one warp per head, float32 FMAs).
 
 :func:`short_attention` is the differentiable wrapper the ViT calls: its
 forward saves ``qkv`` (not the output) and its backward runs the backward
 kernel.  A CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises.  ``short_attention.launches_fwd`` and
-``short_attention.launches_bwd`` count kernel launches.
+``short_attention.launches_bwd`` count kernel launches, and
+``short_attention.launches_{fwd,bwd}_{mma,simt}`` count them by route.
 
 :func:`attention_reference_xla` is the JAX package's XLA attention, which
 rounds P to the input type; the ViT's modes without the kernels run it,
@@ -31,6 +35,7 @@ do.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import threading
@@ -41,7 +46,8 @@ from vit_marl_tpu_torch.ops import nvcc
 
 SOURCE = os.path.join(nvcc.CSRC, "short_attention.cu")
 MAX_TOKENS = 32
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' route for each dtype: tensor cores or CUDA cores
+ROUTES = {torch.bfloat16: "mma", torch.float32: "simt"}
 
 
 def _split(qkv: torch.Tensor, n_tokens: int, heads: int):
@@ -142,10 +148,13 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(build_library())
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.short_attention_fwd.argtypes = [p, p, i, i, i, i, f, i, p]
-            lib.short_attention_fwd.restype = i
-            lib.short_attention_bwd.argtypes = [p, p, p, i, i, i, i, f, i, p]
-            lib.short_attention_bwd.restype = i
+            for route in ROUTES.values():
+                fwd = getattr(lib, f"short_attention_fwd_{route}")
+                fwd.argtypes = [p, p, i, i, i, i, f, p]
+                fwd.restype = i
+                bwd = getattr(lib, f"short_attention_bwd_{route}")
+                bwd.argtypes = [p, p, p, i, i, i, i, f, p]
+                bwd.restype = i
             lib.short_attention_error_string.argtypes = [i]
             lib.short_attention_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -165,16 +174,16 @@ def _check_shape(qkv: torch.Tensor, n_tokens: int, heads: int):
 
 
 def _kernel_args(qkv: torch.Tensor, n_tokens: int, heads: int, name: str):
-    """Checks for the CUDA kernels; returns (B, D, dtype code)."""
+    """Checks for the CUDA kernels; returns (B, D, route)."""
     B, D = _check_shape(qkv, n_tokens, heads)
-    if qkv.dtype not in _DTYPES:
+    if qkv.dtype not in ROUTES:
         raise ValueError(f"{name}: the CUDA kernel takes float32 or "
                          f"bfloat16, got {qkv.dtype}")
     if not 1 <= n_tokens <= MAX_TOKENS or D % 8 or not 8 <= D <= 128:
         raise ValueError(f"{name}: the CUDA kernel takes N <= {MAX_TOKENS} "
                          f"and D a multiple of 8 up to 128, got N="
                          f"{n_tokens}, D={D}")
-    return B, D, _DTYPES[qkv.dtype]
+    return B, D, ROUTES[qkv.dtype]
 
 
 def _check_aligned(*tensors: torch.Tensor) -> None:
@@ -182,6 +191,18 @@ def _check_aligned(*tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
+
+
+def _count(name: str) -> None:
+    setattr(short_attention, name, getattr(short_attention, name) + 1)
+
+
+def _on_device(device: torch.device):
+    """Makes ``device`` current for a launch; nothing to do when it is
+    (the common case, which then skips the context's host time)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -192,25 +213,26 @@ def _raise_on(err: int, name: str) -> None:
 
 
 def _launch_fwd(qkv: torch.Tensor, n_tokens: int, heads: int):
-    B, D, code = _kernel_args(qkv, n_tokens, heads, "short_attention_fwd")
+    B, D, route = _kernel_args(qkv, n_tokens, heads, "short_attention_fwd")
     qkv = qkv.contiguous()
     _check_aligned(qkv)
     out = torch.empty((qkv.shape[0], qkv.shape[1] // 3), dtype=qkv.dtype,
                       device=qkv.device)
     lib = _library()
-    with torch.cuda.device(qkv.device):
+    with _on_device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.short_attention_fwd(qkv.data_ptr(), out.data_ptr(), B,
-                                      n_tokens, heads, D, D ** -0.5, code,
-                                      stream)
-    _raise_on(err, "short_attention_fwd")
+        err = getattr(lib, f"short_attention_fwd_{route}")(
+            qkv.data_ptr(), out.data_ptr(), B, n_tokens, heads, D,
+            D ** -0.5, stream)
+    _raise_on(err, f"short_attention_fwd_{route}")
     short_attention.launches_fwd += 1
+    _count(f"launches_fwd_{route}")
     return out
 
 
 def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, n_tokens: int,
                 heads: int):
-    B, D, code = _kernel_args(qkv, n_tokens, heads, "short_attention_bwd")
+    B, D, route = _kernel_args(qkv, n_tokens, heads, "short_attention_bwd")
     qkv = qkv.contiguous()
     g = g.to(qkv.dtype).contiguous()
     if g.shape != (qkv.shape[0], qkv.shape[1] // 3) or g.device != qkv.device:
@@ -219,13 +241,14 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, n_tokens: int,
     _check_aligned(qkv, g)
     dqkv = torch.empty_like(qkv)
     lib = _library()
-    with torch.cuda.device(qkv.device):
+    with _on_device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.short_attention_bwd(qkv.data_ptr(), g.data_ptr(),
-                                      dqkv.data_ptr(), B, n_tokens, heads, D,
-                                      D ** -0.5, code, stream)
-    _raise_on(err, "short_attention_bwd")
+        err = getattr(lib, f"short_attention_bwd_{route}")(
+            qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B, n_tokens,
+            heads, D, D ** -0.5, stream)
+    _raise_on(err, f"short_attention_bwd_{route}")
     short_attention.launches_bwd += 1
+    _count(f"launches_bwd_{route}")
     return dqkv
 
 
@@ -233,6 +256,15 @@ def _device_type(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
+
+
+def attention_fwd(qkv: torch.Tensor, n_tokens: int,
+                  heads: int) -> torch.Tensor:
+    """:func:`short_attention_reference` on either device: the plain
+    version for a CPU tensor, the forward kernel for a CUDA one."""
+    if _device_type(qkv) == "cpu":
+        return short_attention_reference(qkv, n_tokens, heads)
+    return _launch_fwd(qkv, n_tokens, heads)
 
 
 def attention_bwd(qkv: torch.Tensor, g: torch.Tensor, n_tokens: int,
@@ -260,9 +292,7 @@ class _ShortAttention(torch.autograd.Function):
     def forward(ctx, qkv, n_tokens, heads, bwd_kernel):
         ctx.save_for_backward(qkv)
         ctx.n_tokens, ctx.heads, ctx.bwd_kernel = n_tokens, heads, bwd_kernel
-        if _device_type(qkv) == "cpu":
-            return short_attention_reference(qkv, n_tokens, heads)
-        return _launch_fwd(qkv, n_tokens, heads)
+        return attention_fwd(qkv, n_tokens, heads)
 
     @staticmethod
     def backward(ctx, g):
@@ -277,10 +307,19 @@ def short_attention(qkv: torch.Tensor, n_tokens: int, heads: int,
     the input type; differentiable.  Any B; on the card N <= 32, D a
     multiple of 8 up to 128, float32 or bfloat16.  ``bwd_kernel=False``
     differentiates :func:`attention_reference_xla` instead of running the
-    backward kernel (``ViTConfig.attn_bwd_kernel``)."""
+    backward kernel (``ViTConfig.attn_bwd_kernel``).  Where no gradient
+    can flow (``no_grad``, as in the rollout, or ``qkv`` without
+    ``requires_grad``) the forward runs without the autograd Function,
+    whose host time per call would be most of a small launch's."""
     _check_shape(qkv, n_tokens, heads)
-    return _ShortAttention.apply(qkv, n_tokens, heads, bwd_kernel)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _ShortAttention.apply(qkv, n_tokens, heads, bwd_kernel)
+    return attention_fwd(qkv, n_tokens, heads)
 
 
 short_attention.launches_fwd = 0
 short_attention.launches_bwd = 0
+short_attention.launches_fwd_mma = 0
+short_attention.launches_fwd_simt = 0
+short_attention.launches_bwd_mma = 0
+short_attention.launches_bwd_simt = 0
