@@ -9,22 +9,30 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    kernels in ``vit_marl_tpu_torch/ops/csrc/`` (one nvcc per source, all
    started together);
 2. book scan against plain: the CUDA book scan in aggregate mode (kernel
-   1) against its plain PyTorch
-   version at the 2-player path's shape (E=4096 envs, M=112 messages,
-   S=128 slots, 2 traders) on seeded random books and streams in all four
-   cancel modes, on a stream built by the port's own message builder, and
-   at E=1000; every output must be bit-equal.  All of it goes through the
-   wrapper the environment calls.  Times the kernel (CUDA events around
-   back-to-back launches, so the card never waits on the host; median over
-   batches) and the plain version, beside the least time the card could
-   take (bytes moved over 3.35 TB/s);
+   1) against its plain PyTorch version at the 2-player path's shape
+   (E=4096 envs, M=112 messages, S=128 slots, 2 traders) on seeded random
+   books and streams in all four cancel modes, on corner books and
+   streams (``tests/torch_cases.py::make_corner_case``: live quantities of
+   0 and below, stale planes in holes, shared INIT_ID and zero order ids,
+   crossing quantities whose prefix sums wrap int32, every (type, side))
+   in all four cancel modes, on a stream built by the port's own message
+   builder, and at E=1000; every output must be bit-equal.  All of it goes
+   through the wrapper the environment calls.  Prints the kernel's launch
+   plan (registers a thread, resident warps an SM, waves at each E) and
+   times it (CUDA events around back-to-back launches, so the card never
+   waits on the host; median over batches) at E=4096, 1024 (the vision
+   path) and 512 (the vision simplest-case path), at E=4096 with a cold L2
+   (launches rotate over three input sets, 120 MB of inputs), and the
+   plain version, beside the least time the card could take (bytes moved
+   over 3.35 TB/s);
 3. records scan against plain: the book scan in records mode (kernel 2,
    the ``debug_mode`` trade log) against its plain version, bit-equal, at
    E=4096, M=112, S=128 in all four cancel modes at rec_k 16 and 128, on
    streams where some messages sweep a whole side (more than 16 fills),
-   and at a ragged E=1000; the trade logs built from the two versions'
-   records must be equal.  Times the kernel at rec_k 16 and 128, its plain
-   version and its bound, as phase 2 does;
+   on corner streams with sweeps in all four modes, and at a ragged
+   E=1000; the trade logs built from the two versions' records must be
+   equal.  Times the kernel at rec_k 16 and 128, its plain version and its
+   bound, as phase 2 does;
 4. attention against plain: the CUDA short-attention forward and backward
    through the autograd wrapper the ViT calls, against the plain versions
    on the card, at the vision path's shapes (ViT-Small: N=11 tokens,
@@ -104,6 +112,9 @@ VISION_CONFIG = os.path.join(ROOT, "configs", "ippo_vision_dual_ppo.yaml")
 SIMPLEST_CONFIG = os.path.join(ROOT, "configs", "ippo_vision_simplest.yaml")
 REC_KS = (16, 128)              # records per message: debug log, every slot
 E_MAIN, M_MAIN, S_MAIN = 4096, 112, 128
+# the book scan's batch on each path: (path, launches an update)
+SCAN_LAUNCHES = {4096: ("2-player", 128), 1024: ("vision", 128),
+                 512: ("vision simplest", 32)}
 AGENT_TIDS = (-100, -101)
 TICK = 100
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
@@ -187,8 +198,9 @@ def records_bytes(E, M, S, rec_k, mode):
 def records_phase(torch, bkern, smi, case, main_mode):
     """Check the records scan against its plain version, and the trade logs
     built from their records, at the main path's shape in every cancel
-    mode and at a ragged E; time it.  ``case(E, seed)`` gives (msgs, book,
-    prev, uniforms) on the card.  Returns the kernel's summary entry
+    mode (random and corner streams) and at a ragged E; time it.
+    ``case(E, seed, corners=False)`` gives (msgs, book, prev, uniforms) on
+    the card.  Returns the kernel's summary entry
     (without launches)."""
     from vit_marl_tpu_torch.config import EngineConfig
     from vit_marl_tpu_torch.lob.book import init_trades
@@ -226,15 +238,25 @@ def records_phase(torch, bkern, smi, case, main_mode):
     for mode in range(4):
         cfg = EngineConfig(n_orders=S_MAIN, cancel_mode=mode)
         cases[mode] = case(E_MAIN, SEED + 10 + mode)
+        corners = case(E_MAIN, SEED + 20 + mode, corners=True)
         for rec_k in REC_KS:
             compare(cfg, *cases[mode], rec_k,
                     f"streams with sweeps, cancel mode {mode}")
+            compare(cfg, *corners, rec_k,
+                    f"corner streams with sweeps, cancel mode {mode}")
+        del corners
     cfg = EngineConfig(n_orders=S_MAIN, cancel_mode=main_mode)
     ragged = case(1000, SEED + 14)
     for rec_k in REC_KS:
         compare(cfg, *ragged, rec_k, "streams with sweeps, E=1000")
 
     msgs, book, prev, u = cases[main_mode]
+    plan = bkern.launch_plan(S_MAIN, None, msgs.device)
+    sms = torch.cuda.get_device_properties(msgs.device).multi_processor_count
+    print(f"  launch plan: {plan['registers']} registers a thread, "
+          f"{plan['spill_bytes']} spill bytes, {plan['warps_per_sm']} warps "
+          f"an SM: {-(-E_MAIN // (plan['warps_per_sm'] * sms))} wave(s) at "
+          f"E={E_MAIN}", flush=True)
     rows = {}
     for rec_k in REC_KS:
         ms, ms_min = time_launches(lambda: bkern.process_step_records(
@@ -263,6 +285,7 @@ def records_phase(torch, bkern, smi, case, main_mode):
         bit_equal=max_err == 0, max_abs_err=max_err, rec_k=REC_KS[0],
         ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
         bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
+        registers=plan["registers"], warps_per_sm=plan["warps_per_sm"],
         ms_rec_k_128=rows[128]["ms"], plain_ms_rec_k_128=rows[128]["plain_ms"],
         bound_ms_rec_k_128=rows[128]["bound_ms"])
 
@@ -826,7 +849,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(1, os.path.join(ROOT, "tests"))
-    from torch_cases import add_sweeps, make_case
+    from torch_cases import add_sweeps, make_case, make_corner_case
     from vit_marl_tpu_torch.config import EngineConfig, load_yaml_config
     from vit_marl_tpu_torch.lob.book import BookState
     from vit_marl_tpu_torch.ops import attention_kernel as attn
@@ -854,6 +877,8 @@ def main() -> int:
         m._library()
     print(f"built {', '.join(os.path.relpath(x, ROOT) for x in libs)} in "
           f"{time.perf_counter() - tb:.2f}s", flush=True)
+    for line in bkern.ptxas_report():
+        print(f"  ptxas: {line}", flush=True)
     phase("1 device", t0)
 
     # ---- phase 2: book scan against plain ----
@@ -882,9 +907,9 @@ def main() -> int:
         print(f"  {label}: bit-equal (E={msgs.shape[0]}, "
               f"{n_fill} shares filled)", flush=True)
 
-    def case(E, seed):
-        book, msgs, prev = make_case(E, M_MAIN, S_MAIN, seed,
-                                     tids=AGENT_TIDS)
+    def case(E, seed, corners=False):
+        make = make_corner_case if corners else make_case
+        book, msgs, prev = make(E, M_MAIN, S_MAIN, seed, tids=AGENT_TIDS)
         u = np.random.default_rng(seed).random((M_MAIN, E), dtype=np.float32)
         return (torch.from_numpy(msgs).to(dev),
                 BookState(torch.from_numpy(book).to(dev)),
@@ -896,6 +921,8 @@ def main() -> int:
         cfg = EngineConfig(n_orders=S_MAIN, cancel_mode=mode)
         cases[mode] = case(E_MAIN, SEED + mode)
         compare(cfg, *cases[mode], f"random streams, cancel mode {mode}")
+        compare(cfg, *case(E_MAIN, SEED + 5 + mode, corners=True),
+                f"corner streams, cancel mode {mode}")
     cfg = EngineConfig(n_orders=S_MAIN, cancel_mode=1)
     compare(cfg, *case(1000, SEED + 4), "random streams, E=1000")
 
@@ -927,6 +954,14 @@ def main() -> int:
     # kernels.
     msgs, book, prev, u = cases[int(ma.world.cancel_mode)]
     cfg = EngineConfig(n_orders=S_MAIN, cancel_mode=ma.world.cancel_mode)
+    plan = bkern.launch_plan(S_MAIN, len(AGENT_TIDS), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = {E: -(-E // (plan["warps_per_sm"] * sms))
+             for E in SCAN_LAUNCHES}
+    print(f"  launch plan: {plan['registers']} registers a thread, "
+          f"{plan['spill_bytes']} spill bytes, {plan['dynamic_smem']} B of "
+          f"shared memory a block, {plan['warps_per_sm']} warps an SM on "
+          f"{sms} SMs: waves {waves}", flush=True)
 
     def launch():
         return bkern.process_step_aggs(cfg, msgs, book, tids, prev, TICK, u)
@@ -952,18 +987,53 @@ def main() -> int:
     plain_ms = float(np.median(plain))
     nbytes = scan_bytes(E_MAIN, M_MAIN, S_MAIN, len(AGENT_TIDS))
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    print(f"  kernel {kernel_ms:.4f} ms per launch (median of {BATCHES} "
-          f"batches of {PER_BATCH} back-to-back launches, min "
+    print(f"  E={E_MAIN}: kernel {kernel_ms:.4f} ms per launch (median of "
+          f"{BATCHES} batches of {PER_BATCH} back-to-back launches, min "
           f"{kernel_min:.4f}); host issue {host_ms:.4f} ms per call; "
           f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
-          f"({nbytes / 1e6:.1f} MB at 3.35 TB/s) [{smi}]", flush=True)
+          f"({nbytes / 1e6:.1f} MB at 3.35 TB/s); "
+          f"{SCAN_LAUNCHES[E_MAIN][1]} launches an update "
+          f"({SCAN_LAUNCHES[E_MAIN][0]}) [{smi}]", flush=True)
+    scan_rows = {E_MAIN: dict(ms=kernel_ms, bound_ms=bound_ms,
+                              waves=waves[E_MAIN])}
+    for E in [x for x in SCAN_LAUNCHES if x != E_MAIN]:
+        m_, b_, p_, u_ = case(E, SEED + E)
+
+        def launch_e():
+            return bkern.process_step_aggs(cfg, m_, b_, tids, p_, TICK, u_)
+
+        ms, ms_min = time_launches(launch_e)
+        dev_ms = graph_ms(launch_e)
+        bnd = scan_bytes(E, M_MAIN, S_MAIN, len(AGENT_TIDS)) \
+            / HBM_BYTES_PER_S * 1e3
+        scan_rows[E] = dict(ms=ms, bound_ms=bnd, waves=waves[E],
+                            device_ms=dev_ms)
+        print(f"  E={E}: kernel {ms:.4f} ms per launch (min {ms_min:.4f}); "
+              f"on the card alone {dev_ms:.4f} ms (CUDA graph of "
+              f"{PER_BATCH}; the wrapper's time is the host's where that is "
+              f"longer); bound {bnd:.4f} ms; {SCAN_LAUNCHES[E][1]} launches "
+              f"an update ({SCAN_LAUNCHES[E][0]}) [{smi}]", flush=True)
+    sets = [case(E_MAIN, SEED + 40 + i) for i in range(3)]
+    turn = iter(range(10**9))
+
+    def cold():
+        m_, b_, p_, u_ = sets[next(turn) % len(sets)]
+        return bkern.process_step_aggs(cfg, m_, b_, tids, p_, TICK, u_)
+
+    cold_ms, cold_min = time_launches(cold)
+    del sets
+    inputs = sum(t.numel() * 4 for t in (msgs, book.data, prev, u))
+    print(f"  E={E_MAIN}, cold L2 (launches rotate over 3 input sets of "
+          f"{inputs / 1e6:.1f} MB, beyond the 50 MB L2): kernel "
+          f"{cold_ms:.4f} ms per launch (min {cold_min:.4f}) [{smi}]",
+          flush=True)
     phase("2 book scan against plain", t0)
 
     # ---- phase 3: records scan against plain ----
     t0 = time.perf_counter()
 
-    def sweep_case(E, seed):
-        msgs, book, prev, u = case(E, seed)
+    def sweep_case(E, seed, corners=False):
+        msgs, book, prev, u = case(E, seed, corners)
         swept = add_sweeps(msgs.cpu().numpy(), every=7, seed=seed)
         return torch.from_numpy(swept).to(dev), book, prev, u
 
@@ -1058,6 +1128,16 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "ms_cold_l2": cold_ms,
+        "ms_by_envs": {str(E): r["ms"] for E, r in scan_rows.items()},
+        "device_ms_by_envs": {str(E): r["device_ms"]
+                              for E, r in scan_rows.items()
+                              if "device_ms" in r},
+        "bound_ms_by_envs": {str(E): r["bound_ms"]
+                             for E, r in scan_rows.items()},
+        "waves_by_envs": {str(E): r["waves"] for E, r in scan_rows.items()},
+        "registers": plan["registers"],
+        "warps_per_sm": plan["warps_per_sm"],
     }, dict(records, launches=dgot["book_scan_records"],
             launches_per_update=dgot["book_scan_records"] // UPDATES)]
       + [dict(att[k], launches=vision[k],

@@ -35,7 +35,7 @@ from vit_marl_tpu_torch.env.common import summary_from_aggs
 from vit_marl_tpu_torch.lob.book import BookState
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 
-from torch_cases import TICK, TIDS, make_case
+from torch_cases import TICK, TIDS, make_case, make_corner_case
 
 FIELDS = ("price", "quant", "oid", "tid", "time_s", "time_ns")
 
@@ -68,10 +68,12 @@ def engine_keys(mode, E):
             else None)
 
 
-@pytest.mark.parametrize("mode", [0, 1, 2, 3])
-def test_plain_scan_matches_pallas_interpret(mode):
-    E, M, S = 128, 24, 32
-    book, msgs, prev = make_case(E, M, S, seed=mode)
+def check_pallas_interpret(mode, book, msgs, prev):
+    """The port's plain scan against ``pallas_process_step_aggs`` in
+    interpret mode on one case; returns the port's per-agent sums and
+    totals."""
+    E, M = msgs.shape[:2]
+    S = book.shape[-1]
     keys = engine_keys(mode, E)
     jb, (ja, jbb), (jag, jtot) = pallas_process_step_aggs(
         JEngineConfig(n_orders=S, cancel_mode=mode), jnp.asarray(msgs),
@@ -84,15 +86,41 @@ def test_plain_scan_matches_pallas_interpret(mode):
     np.testing.assert_array_equal(np.asarray(jbb), tbb.numpy())
     np.testing.assert_array_equal(np.asarray(jag), tag.numpy())
     np.testing.assert_array_equal(np.asarray(jtot), ttot.numpy())
+    return tag, ttot
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_plain_scan_matches_pallas_interpret(mode):
+    E, M, S = 128, 24, 32
+    book, msgs, prev = make_case(E, M, S, seed=mode)
+    tag, ttot = check_pallas_interpret(mode, book, msgs, prev)
     # non-vacuous: fills happened and involved both traders
     assert int(ttot[:, 0].sum()) > 0
     assert (tag[:, :, 4].sum(dim=0) > 0).all()
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3])
-def test_plain_scan_matches_xla_engine(mode):
-    E, M, S = 6, 32, 32
-    book, msgs, prev = make_case(E, M, S, seed=10 + mode, fill=0.8)
+def test_plain_scan_matches_pallas_interpret_on_corners(mode):
+    """Books with live quantities of 0 and below, stale planes in holes,
+    shared INIT_ID and zero order ids, quantities whose crossing prefix
+    sums wrap int32, and messages of every (type, side)
+    (``torch_cases.make_corner_case``)."""
+    E, M, S = 128, 24, 32
+    book, msgs, prev = make_corner_case(E, M, S, seed=60 + mode)
+    tag, ttot = check_pallas_interpret(mode, book, msgs, prev)
+    # non-vacuous: fills happened (sums may wrap) and involved both traders
+    assert (ttot[:, 0] != 0).any()
+    assert (tag[:, :, 4] != 0).any(dim=0).all()
+
+
+def check_xla_engine(mode, book, msgs, prev, wipe_holes=False):
+    """The port's plain scan against the vmapped XLA engine, its forward
+    fill and ``summarize_trades`` over its trade log, on one case; returns
+    the port's trade summary.  ``wipe_holes``: every plane of a hole in the
+    engine's book reads EMPTY before the comparison (the engine leaves the
+    stale planes of an input book's holes as they are)."""
+    E, M = msgs.shape[:2]
+    S = book.shape[-1]
     cfg = JEngineConfig(n_orders=S, n_trades=2048, cancel_mode=mode)
     keys = jax.random.split(jax.random.PRNGKey(3), E)
     xbook, (xa, xb) = jax.jit(jax.vmap(partial(
@@ -109,7 +137,10 @@ def test_plain_scan_matches_xla_engine(mode):
     xb = jax.vmap(ffill_best_prices)(xb, jnp.asarray(prev[:, 1]))
     u = _per_message_uniforms(keys, M) if mode >= 2 else None
     tb, (ta, tbb), (tag, ttot) = run_port(mode, book, msgs, prev, u)
-    np.testing.assert_array_equal(book_array(xbook), tb.data.numpy())
+    xarr = book_array(xbook)
+    if wipe_holes:
+        xarr = np.where(xarr[:, :, :1] == -1, -1, xarr)
+    np.testing.assert_array_equal(xarr, tb.data.numpy())
     np.testing.assert_array_equal(np.asarray(xa), ta.numpy())
     np.testing.assert_array_equal(np.asarray(xb), tbb.numpy())
     got = summary_from_aggs(tag, ttot[:, None, :].expand(E, len(TIDS), 2))
@@ -124,6 +155,26 @@ def test_plain_scan_matches_xla_engine(mode):
                                           err_msg=name)
             np.testing.assert_array_equal(np.asarray(w), p.numpy(),
                                           err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_plain_scan_matches_xla_engine(mode):
+    E, M, S = 6, 32, 32
+    book, msgs, prev = make_case(E, M, S, seed=10 + mode, fill=0.8)
+    got = check_xla_engine(mode, book, msgs, prev)
+    assert int(got.agent_quant_abs.sum()) > 0
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_plain_scan_matches_xla_engine_on_corners(mode):
+    """As above on the corners both JAX engines share
+    (``make_corner_case(..., shared=True)``: stale planes in holes, INIT_ID
+    and zero order ids, an ask at 2^31 - 1, every (type, side))."""
+    E, M, S = 8, 32, 32
+    book, msgs, prev = make_corner_case(E, M, S, seed=70 + mode, fill=0.8,
+                                        shared=True)
+    got = check_xla_engine(mode, book, msgs, prev, wipe_holes=True)
     assert int(got.agent_quant_abs.sum()) > 0
 
 

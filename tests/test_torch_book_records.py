@@ -43,7 +43,8 @@ from vit_marl_tpu_torch.lob.book import BookState
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 
 from test_torch_book_kernel import book_array, engine_keys, jax_book
-from torch_cases import add_sweeps, make_case
+from torch_cases import (add_sweeps, dispatch_index, make_case,
+                         make_corner_case)
 
 
 def run_port(mode, book, msgs, prev, rec_k, uniforms=None):
@@ -69,17 +70,12 @@ def jax_log(trades0, recs, msgs, counts):
         jnp.asarray(trades0), recs, jnp.asarray(msgs), counts))
 
 
-@pytest.mark.parametrize("mode,sweep,rec_k", [
-    (0, False, 16), (1, False, 16), (2, False, 16), (3, False, 16),
-    (1, True, 16), (1, True, 32)],
-    ids=["mode0", "mode1", "mode2", "mode3", "sweep_rec_k16",
-         "sweep_rec_k32"])
-def test_plain_records_match_pallas_interpret(mode, sweep, rec_k):
-    E, M, S = 128, 24 if not sweep else 12, 32
-    book, msgs, prev = make_case(E, M, S, seed=20 + mode,
-                                 fill=0.8 if sweep else 0.6)
-    if sweep:
-        msgs = add_sweeps(msgs, seed=mode)
+def check_records_pallas(mode, book, msgs, prev, rec_k):
+    """The port's plain records scan, and the logs finalized from its
+    records, against ``pallas_process_step`` in interpret mode on one case;
+    returns the fill counts."""
+    E, M = msgs.shape[:2]
+    S = book.shape[-1]
     keys = engine_keys(mode, E)
     jb, (ja, jbb), (jrec, jcnt) = pallas_process_step(
         JEngineConfig(n_orders=S, cancel_mode=mode), jnp.asarray(msgs),
@@ -104,26 +100,53 @@ def test_plain_records_match_pallas_interpret(mode, sweep, rec_k):
     n = np.minimum(jcnt, rec_k)[..., None]
     past = np.arange(rec_k)[None, None, :] >= n
     assert (trec[past] == np.array(bkern.EMPTY_RECORD)).all()
-    # non-vacuous: fills happened, and the sweeps overflowed rec_k = 16
-    assert jcnt.sum() > 0
-    if sweep:
-        assert jcnt.max() > 16
-        assert (jcnt > rec_k).any() == (rec_k == 16)
     # the finalized logs, with room to spare and overflowing the log
     for cap in (96, 8):
         t0 = empty_log(E, cap)
         np.testing.assert_array_equal(
             jax_log(t0, jrec, msgs, jcnt),
             port_log(t0, torch.from_numpy(trec), msgs, tcnt))
+    return jcnt
+
+
+@pytest.mark.parametrize("mode,sweep,rec_k", [
+    (0, False, 16), (1, False, 16), (2, False, 16), (3, False, 16),
+    (1, True, 16), (1, True, 32)],
+    ids=["mode0", "mode1", "mode2", "mode3", "sweep_rec_k16",
+         "sweep_rec_k32"])
+def test_plain_records_match_pallas_interpret(mode, sweep, rec_k):
+    E, M, S = 128, 24 if not sweep else 12, 32
+    book, msgs, prev = make_case(E, M, S, seed=20 + mode,
+                                 fill=0.8 if sweep else 0.6)
+    if sweep:
+        msgs = add_sweeps(msgs, seed=mode)
+    jcnt = check_records_pallas(mode, book, msgs, prev, rec_k)
+    # non-vacuous: fills happened, and the sweeps overflowed rec_k = 16
+    assert jcnt.sum() > 0
+    if sweep:
+        assert jcnt.max() > 16
+        assert (jcnt > rec_k).any() == (rec_k == 16)
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3])
-def test_plain_records_and_log_match_xla_engine(mode):
+def test_plain_records_match_pallas_interpret_on_corners(mode):
+    """``torch_cases.make_corner_case`` books and streams with sweeps; a
+    message that is no limit order fills where crossing prefix sums wrap
+    int32."""
+    E, M, S = 128, 16, 32
+    book, msgs, prev = make_corner_case(E, M, S, seed=80 + mode)
+    msgs = add_sweeps(msgs, every=5, seed=mode)
+    jcnt = check_records_pallas(mode, book, msgs, prev, 16)
+    assert jcnt.max() > 16
+    assert (jcnt[dispatch_index(msgs) >= 2] > 0).any()
+
+
+def check_records_xla(mode, book, msgs, prev, wipe_holes=False):
     """With ``rec_k = S`` nothing is truncated: the finalized log equals the
-    XLA engine's, which records every fill."""
-    E, M, S = 6, 32, 32
-    book, msgs, prev = make_case(E, M, S, seed=30 + mode, fill=0.8)
-    msgs = add_sweeps(msgs, every=2, seed=mode)
+    XLA engine's, which records every fill.  ``wipe_holes``: every plane
+    of a hole in the engine's book reads EMPTY before the comparison."""
+    E, M = msgs.shape[:2]
+    S = book.shape[-1]
     cfg = JEngineConfig(n_orders=S, n_trades=1024, cancel_mode=mode)
     keys = jax.random.split(jax.random.PRNGKey(5), E)
     xbook, (xa, xb) = jax.jit(jax.vmap(partial(
@@ -133,7 +156,10 @@ def test_plain_records_and_log_match_xla_engine(mode):
     xb = jax.vmap(ffill_best_prices)(xb, jnp.asarray(prev[:, 1]))
     u = _per_message_uniforms(keys, M) if mode >= 2 else None
     tb, (ta, tbb), (trec, tcnt) = run_port(mode, book, msgs, prev, S, u)
-    np.testing.assert_array_equal(book_array(xbook), tb.data.numpy())
+    xarr = book_array(xbook)
+    if wipe_holes:
+        xarr = np.where(xarr[:, :, :1] == -1, -1, xarr)
+    np.testing.assert_array_equal(xarr, tb.data.numpy())
     np.testing.assert_array_equal(np.asarray(xa), ta.numpy())
     np.testing.assert_array_equal(np.asarray(xb), tbb.numpy())
     xlog = np.asarray(xbook.trades)
@@ -142,6 +168,27 @@ def test_plain_records_and_log_match_xla_engine(mode):
     np.testing.assert_array_equal(n_trades, tcnt.numpy().sum(1))
     np.testing.assert_array_equal(
         xlog, port_log(empty_log(E, cfg.n_trades), trec, msgs, tcnt))
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_plain_records_and_log_match_xla_engine(mode):
+    """With ``rec_k = S`` nothing is truncated: the finalized log equals the
+    XLA engine's, which records every fill."""
+    E, M, S = 6, 32, 32
+    book, msgs, prev = make_case(E, M, S, seed=30 + mode, fill=0.8)
+    msgs = add_sweeps(msgs, every=2, seed=mode)
+    check_records_xla(mode, book, msgs, prev)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_plain_records_and_log_match_xla_engine_on_corners(mode):
+    """As above on the corners both JAX engines share
+    (``make_corner_case(..., shared=True)``)."""
+    E, M, S = 8, 32, 32
+    book, msgs, prev = make_corner_case(E, M, S, seed=90 + mode, fill=0.8,
+                                        shared=True)
+    msgs = add_sweeps(msgs, every=2, seed=mode)
+    check_records_xla(mode, book, msgs, prev, wipe_holes=True)
 
 
 def test_finalize_keeps_earlier_rows_and_fills_the_last_slot():

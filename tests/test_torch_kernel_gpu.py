@@ -7,7 +7,13 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   multiple of the kernel's 4 envs per block) and every supported book
   capacity; in records mode at rec_k 16 and 128 with messages of more
   than 16 fills, and the trade log built from the kernel's records equal
-  to the one built on the CPU from the plain version's.
+  to the one built on the CPU from the plain version's.  On corner books
+  and streams (``torch_cases.make_corner_case``) in both modes, at every
+  capacity, with M that the kernel's 16-message staging chunks do not
+  divide (7, 23, 40) and that they do (112), for 0-3 traders (1 and 2 are
+  the aggregate kernel's templates, 0 and 3 its general path), and rec_k
+  1, 16 and S; envs with and without the corners take the kernel's
+  shortcuts and its full path.
 - Short attention, forward and backward, through the autograd wrapper:
   float32 (the CUDA-core route) within rtol 1e-5 / atol 1e-6 of the
   plain version; bfloat16 (the tensor-core route) within one bf16 ulp of
@@ -38,7 +44,8 @@ from vit_marl_tpu_torch.ops import attention_kernel as attn
 from vit_marl_tpu_torch.ops import block_kernel as blk
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 
-from torch_cases import TICK, TIDS, add_sweeps, make_case
+from torch_cases import (TICK, TIDS, add_sweeps, dispatch_index,
+                         make_case, make_corner_case)
 
 pytestmark = pytest.mark.gpu
 
@@ -104,6 +111,95 @@ def test_records_kernel_bit_equal_to_plain(cuda, mode, rec_k, E):
         torch.full((E, 256, 8), -1, dtype=torch.int32), want[2][0].cpu(),
         args[1].cpu(), counts.cpu())
     assert torch.equal(log.cpu(), want_log)
+
+
+CORNER_SHAPES = [(130, 40, 32), (67, 7, 64), (129, 112, 128), (33, 23, 256)]
+CORNER_TIDS = (-42, -43, -44)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("n_agg", [0, 1, 2, 3])
+@pytest.mark.parametrize("E,M,S", CORNER_SHAPES)
+def test_kernel_bit_equal_on_corners(cuda, mode, n_agg, E, M, S):
+    book, msgs, prev = make_corner_case(E, M, S, seed=11 * mode + S + n_agg,
+                                        tids=CORNER_TIDS)
+    u = np.random.default_rng(mode).random((M, E), dtype=np.float32)
+    args = (EngineConfig(n_orders=S, cancel_mode=mode),
+            torch.from_numpy(msgs).to(cuda),
+            BookState(torch.from_numpy(book).to(cuda)),
+            torch.tensor(CORNER_TIDS[:n_agg], dtype=torch.int32,
+                         device=cuda),
+            torch.from_numpy(prev).to(cuda), TICK,
+            torch.from_numpy(u).to(cuda))
+    before = bkern.process_step_aggs.launches
+    got = bkern.process_step_aggs(*args)
+    assert bkern.process_step_aggs.launches == before + 1
+    want = bkern.process_step_aggs_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].data, want[0].data)
+    for g, w in zip(got[1] + got[2], want[1] + want[2]):
+        assert g.shape == w.shape and torch.equal(g, w)
+    if n_agg:
+        assert (want[2][1][:, 0] != 0).any()
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("rec_k", [1, 16, None], ids=["1", "16", "S"])
+@pytest.mark.parametrize("E,M,S", CORNER_SHAPES)
+def test_records_kernel_bit_equal_on_corners(cuda, mode, rec_k, E, M, S):
+    rec_k = rec_k or S
+    book, msgs, prev = make_corner_case(E, M, S, seed=13 * mode + S + rec_k)
+    msgs = add_sweeps(msgs, every=9, seed=mode)
+    u = np.random.default_rng(mode).random((M, E), dtype=np.float32)
+    args = (EngineConfig(n_orders=S, cancel_mode=mode),
+            torch.from_numpy(msgs).to(cuda),
+            BookState(torch.from_numpy(book).to(cuda)),
+            torch.from_numpy(prev).to(cuda), rec_k,
+            torch.from_numpy(u).to(cuda))
+    got = bkern.process_step_records(*args)
+    want = bkern.process_step_records_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].data, want[0].data)
+    for g, w in zip(got[1] + got[2], want[1] + want[2]):
+        assert torch.equal(g, w)
+    # the trap of a shortcut by message type: with wrapping prefix sums a
+    # message that is no limit order fills
+    counts = want[2][1].cpu().numpy()
+    assert (counts[dispatch_index(msgs) >= 2] > 0).any()
+
+
+def test_kernel_takes_unaligned_inputs(cuda):
+    """Messages and books at an address that is no multiple of 16 bytes
+    (the kernel's 16-byte loads): the wrapper copies them first."""
+    E, M, S = 9, 20, 64
+    book, msgs, prev = make_case(E, M, S, seed=3)
+    flat_m = torch.zeros(msgs.size + 1, dtype=torch.int32, device=cuda)
+    flat_m[1:] = torch.from_numpy(msgs.ravel()).to(cuda)
+    flat_b = torch.zeros(book.size + 1, dtype=torch.int32, device=cuda)
+    flat_b[1:] = torch.from_numpy(book.ravel()).to(cuda)
+    m_view = flat_m[1:].view(E, M, 8)
+    b_view = BookState(flat_b[1:].view(E, 2, 6, S))
+    assert m_view.data_ptr() % 16 and b_view.data.data_ptr() % 16
+    args = (EngineConfig(n_orders=S), m_view, b_view,
+            torch.tensor(TIDS, dtype=torch.int32, device=cuda),
+            torch.from_numpy(prev).to(cuda), TICK)
+    got = bkern.process_step_aggs(*args)
+    want = bkern.process_step_aggs_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].data, want[0].data)
+    for g, w in zip(got[1] + got[2], want[1] + want[2]):
+        assert torch.equal(g, w)
+
+
+def test_launch_plan_fits_one_wave_at_the_main_shape(cuda):
+    """At S=128 the aggregate kernels for 1 and 2 traders and the records
+    kernel keep 8 blocks of 4 warps on an SM, so 4096 envs run in one wave
+    on 132 SMs; the plan is worked out once per (S, mode, n_agg, device)."""
+    for n_agg in (None, 1, 2):
+        plan = bkern.launch_plan(128, n_agg, cuda)
+        assert plan["blocks_per_sm"] == 8, plan
+        assert plan["warps_per_sm"] == 32, plan
+        assert bkern.launch_plan(128, n_agg, cuda) is plan
 
 
 def test_records_kernel_rejects_bad_rec_k(cuda):

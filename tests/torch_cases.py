@@ -66,3 +66,80 @@ def add_sweeps(msgs, every=3, seed=0):
     msgs[rows, 0, 2] = 10**6
     msgs[rows, 0, 3] = np.where(side == 1, 3_000_000, 1_000_000)
     return msgs
+
+
+MAX_INT32 = 2**31 - 1
+INIT_ID = -2
+
+
+def make_corner_case(E, M, S, seed, fill=0.6, tids=TIDS, shared=False):
+    """``make_case`` with the corners of the scan's semantics added:
+
+    - every env: holes whose other planes hold stale values; live orders
+      with the INIT_ID order id -2 or with order id 0; a quarter of the
+      messages of any (type, side) in {-1..6} x {-2..2} ({-1, 1} with
+      ``shared``), unknown ones among them (they dispatch to index 0, a
+      limit order) and (0, 0) padding; envs 2, 10, 18, ...: the last live
+      ask at price 2^31 - 1 (the ask side's empty marker in the best quote);
+    - unless ``shared``: some messages of quantity 0 or below; envs 0, 4,
+      8, ...: live slots of quantity 0 or below; envs 1, 5, 9, ...:
+      quantities of 2^29 to 2^31 - 1 on half the live slots and on a third
+      of the messages, so prefix sums of crossing quantities wrap int32
+      and a message that is no limit order can fill.
+
+    With ``shared`` the case keeps to the corners on which the JAX
+    package's two engines, its Pallas kernel and its XLA scan
+    (``vit_marl_tpu/lob/engine.py``) with the trade summary of its log,
+    agree (the XLA scan leaves stale planes in holes, which the kernel
+    wipes); the others follow the Pallas kernel.  A side other than +-1
+    signs a fill's quantity in the log as ``-side * quant`` but not in the
+    kernel's sums.  Envs without those corners keep positive quantities
+    that sum far below 2^31."""
+    rng = np.random.default_rng(seed + 1000)
+    book, msgs, prev = make_case(E, M, S, seed, fill=fill, tids=tids)
+    book, msgs = book.astype(np.int64), msgs.astype(np.int64)
+    env = np.arange(E)
+    live = book[:, :, 0, :] != -1                          # (E, 2, S)
+    shape = (E, 2, S)
+    for f in range(1, 6):
+        stale = (~live) & (rng.random(shape) < 0.7)
+        book[:, :, f, :] = np.where(stale, rng.integers(-5, 10**6, shape),
+                                    book[:, :, f, :])
+    r = rng.random(shape)
+    book[:, :, 2, :] = np.where(live & (r < 0.15), INIT_ID,
+                                np.where(live & (r > 0.93), 0,
+                                         book[:, :, 2, :]))
+    for e in env[env % 8 == 2]:
+        asks = np.flatnonzero(live[e, 0])
+        if asks.size:
+            book[e, 0, 0, asks[-1]] = MAX_INT32
+    odd = rng.random((E, M)) < 0.25
+    msgs[..., 0] = np.where(odd, rng.integers(-1, 7, (E, M)), msgs[..., 0])
+    sides = rng.choice([-1, 1], (E, M)) if shared else rng.integers(
+        -2, 3, (E, M))
+    msgs[..., 1] = np.where(odd, sides, msgs[..., 1])
+    if not shared:
+        low = (env % 4 == 0)[:, None, None] & live & (rng.random(shape) < .2)
+        book[:, :, 1, :] = np.where(low, rng.integers(-300, 1, shape),
+                                    book[:, :, 1, :])
+        wrap = (env % 4 == 1)[:, None, None] & live & (rng.random(shape) < .5)
+        book[:, :, 1, :] = np.where(
+            wrap, rng.integers(2**29, MAX_INT32, shape), book[:, :, 1, :])
+        big = (env % 4 == 1)[:, None] & (rng.random((E, M)) < 0.3)
+        msgs[..., 2] = np.where(big, rng.integers(2**30, MAX_INT32, (E, M)),
+                                msgs[..., 2])
+        small = rng.random((E, M)) < 0.05
+        msgs[..., 2] = np.where(small, rng.integers(-50, 1, (E, M)),
+                                msgs[..., 2])
+    return book.astype(np.int32), msgs.astype(np.int32), prev
+
+
+def dispatch_index(msgs):
+    """(E, M) dispatch index of each message (0 sell limit or unknown, 1
+    buy limit, 2 / 3 cancel on the ask / bid side, 4 padding), as the
+    scan's (type, side) dispatch gives it."""
+    t, s = msgs[..., 0], msgs[..., 1]
+    return np.select([((s == 1) & (t == 1)) | ((s == -1) & (t == 4)),
+                      (s == -1) & ((t == 2) | (t == 3)),
+                      (s == 1) & ((t == 2) | (t == 3)),
+                      (s == 0) & (t == 0)], [1, 2, 3, 4], 0)

@@ -18,7 +18,8 @@ Each mode has two implementations of one function:
 - a plain PyTorch version on ``(E, S)`` tensors, a transcription of the
   Pallas kernel (:func:`process_step_aggs_reference`,
   :func:`process_step_records_reference`; one shared scan body);
-- a CUDA kernel in ``csrc/book_scan.cu`` (one warp per env).
+- a CUDA kernel in ``csrc/book_scan.cu`` (one warp per env; its source
+  note has the design and what bounds it).
 
 :func:`process_step_aggs` and :func:`process_step_records` are the
 wrappers the environment calls.  A CPU tensor takes the plain version; a
@@ -29,7 +30,9 @@ counts its kernel's launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+import re
 import threading
 from typing import Optional, Tuple
 
@@ -356,13 +359,36 @@ _lib_lock = threading.Lock()
 
 
 def build_library() -> str:
-    """Compile ``csrc/book_scan.cu`` (see ``ops/nvcc.py``); returns the
-    library's path."""
-    return nvcc.build(SOURCE, "libbook_scan.so")
+    """Compile ``csrc/book_scan.cu`` (see ``ops/nvcc.py``) with ``-Xptxas
+    -v``; returns the library's path."""
+    return nvcc.build(SOURCE, "libbook_scan.so", ("-Xptxas", "-v"))
+
+
+def ptxas_report() -> list:
+    """ptxas's line for each kernel of the built library: its template
+    arguments ``<SPL, KIND>`` (KIND -1 records mode, else the aggregate
+    kernel's n_agg, 0 for any), registers, spills and shared memory."""
+    with open(build_library() + ".log") as f:
+        text = f.read()
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Function properties for \S*book_scan_kernel"
+                      r"ILi(\d+)ELi(n?\d+)E", line)
+        if m:
+            name = f"<{m.group(1)}, {m.group(2).replace('n', '-')}>"
+        elif name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            used = line.split(":", 1)[1].strip()
+            out.append(f"book_scan_kernel{name}: {used}; {spill}")
+            name = None
+    return out
 
 
 def _library():
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build_library())
@@ -373,10 +399,35 @@ def _library():
             lib.book_scan_records.argtypes = [p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, i, i, p]
             lib.book_scan_records.restype = i
+            lib.book_scan_plan.argtypes = [i, i, p]
+            lib.book_scan_plan.restype = i
             lib.book_scan_error_string.argtypes = [i]
             lib.book_scan_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(S: int, n_agg: Optional[int], device) -> dict:
+    """How the kernel for book capacity ``S`` runs on ``device``: records
+    mode for ``n_agg=None``, else the aggregate kernel for ``n_agg``
+    traders.  Registers and spill bytes a thread, dynamic shared bytes a
+    block of 4 warps, resident blocks and warps an SM, from the CUDA
+    runtime; worked out once per (S, mode, n_agg, device)."""
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = lib.book_scan_plan(S, -1 if n_agg is None else n_agg, out)
+    _raise_on(err, lib, "book_scan_plan")
+    return dict(registers=out[0], spill_bytes=out[1], dynamic_smem=out[2],
+                blocks_per_sm=out[3], warps_per_sm=4 * out[3])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernel reads the
+    messages and the book with 16-byte loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device):
@@ -394,8 +445,8 @@ def _kernel_inputs(cfg: EngineConfig, msgs, book: BookState, prev, uniforms):
     if S not in (32, 64, 128, 256):
         raise ValueError(f"book capacity {S}: the CUDA kernel takes "
                          "n_orders in (32, 64, 128, 256)")
-    msgs = msgs.to(torch.int32).contiguous()
-    book_in = book.data.contiguous()
+    msgs = _aligned(msgs.to(torch.int32))
+    book_in = _aligned(book.data)
     prev = prev.to(torch.int32).contiguous()
     _check(book_in, "book", (E, 2, 6, S), torch.int32, dev)
     _check(prev, "prev_prices", (E, 2), torch.int32, dev)

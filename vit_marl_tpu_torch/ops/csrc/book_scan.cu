@@ -2,12 +2,12 @@
 //
 // Replaces the TPU kernel body vit_marl_tpu/ops/book_kernel.py::
 // _make_kernel (book_kernel.py:85-445) in its two uses:
-// - aggregate mode, pallas_process_step_aggs (the training path): exact
-//   int32 per-trader trade sums in tick units;
-// - records mode, pallas_process_step (the debug_mode trade log): each
-//   message's fills, rank-compacted in slot order, as (price, -side *
-//   quant, passive oid, passive tid), at most rec_k per message, and each
-//   message's uncapped fill count.
+// - aggregate mode, pallas_process_step_aggs (book_kernel.py:580, the
+//   training path): exact int32 per-trader trade sums in tick units;
+// - records mode, pallas_process_step (book_kernel.py:479, the debug_mode
+//   trade log): each message's fills, rank-compacted in slot order, as
+//   (price, -side * quant, passive oid, passive tid), at most rec_k per
+//   message, and each message's uncapped fill count.
 // Per env, the step's M messages run in order against the book: (type,
 // side) dispatch, the cancel fallback chain, matching by prefix sum, the
 // hole-arena insert and the forward-filled best ask/bid after every
@@ -15,47 +15,89 @@
 // vit_marl_tpu_torch/ops/book_kernel.py::process_step_aggs_reference and
 // process_step_records_reference; kernel and plain version are bit-equal.
 //
-// Design.  The TPU kernel puts slots on sublanes and 128 envs on lanes.
-// Here one warp owns one env: lane l holds slots [l*SPL, l*SPL + SPL) of
-// all 12 book planes in registers for the whole scan (SPL = S / 32, 4 at
-// the main path's S = 128).  A prefix sum over the slots is a local scan
-// plus a __shfl_up_sync scan of the lane totals; "first/last slot where"
-// is a local search plus __reduce_min_sync / __reduce_max_sync; the
-// insert's one-slot shifts pass the boundary slot with one shuffle.
-// Messages are read straight from global memory (every lane reads the
-// same 32 bytes, one broadcast transaction).  In aggregate mode,
-// per-trader sums accumulate per lane in shared memory and are reduced
-// across the warp once, after the loop: int32 addition wraps, so the
-// order does not change the result.  In records mode a warp prefix of the
-// per-lane fill counts gives each fill its rank, and the lane holding it
-// writes the record straight to global memory as one 16-byte store; the
-// lanes then fill the rows past the message's fills with empty records.
-// The TPU kernel's staging of records in VMEM groups with double-buffered
-// DMA has no counterpart: it exists for VMEM, not for the function.  All
-// int32 arithmetic that the reference lets wrap is done in uint32.
+// What bounds it.  At the main path's shape (E = 4096, M = 112, S = 128,
+// two traders) aggregate mode must read the messages (14.7 MB) and the
+// book (25.2 MB) and write the book, the best prices (7.3 MB) and the
+// sums: about 72 MB, 22 us at 3.35 TB/s; records mode at rec_k = 16 about
+// 192 MB, 57 us.  The real limit is the chain of 112 dependent messages
+// per env.  The first version of this kernel (one warp per env, all 12
+// book planes in registers, messages read from global memory inside the
+// loop) measured on an H100 80GB HBM3 at 700 W: 99 registers, so 16 warps
+// an SM and two waves at E = 4096; 218-964 SASS instructions on one pass
+// through the message loop, with 36 warp reductions and 54 shuffles in
+// it; 0.3747 ms at E = 4096, 0.1341 at 1024 and 0.1234 at 512; 0.25 ms
+// at E = 4096 on a stream of padding alone, the global loads of each
+// message on the chain.  This design measures 0.208 ms at E = 4096, 0.088
+// at 1024 and 0.081 at 512 on the same card (PERF.md): 0.067 ms of it on
+// padding alone (0.02 ms of set-up and book traffic, the rest each
+// message's bare loop), and at E = 4096 some 460 issue cycles a
+// warp-message, with eight warps to a scheduler.  Timed copies with one
+// part cut out put half the time in the insert of a resting order, a
+// sixth in its shift of the orders behind it (most inserts on the main
+// path's streams shift a run of orders up to the next hole), and a
+// seventh in the per-trader sums.
 //
-// Bound at the main-path shape (E = 4096, M = 112, S = 128, two traders):
-// aggregate mode must read the messages (14.7 MB) and the book (25.2 MB)
-// and write the book (25.2 MB), the best prices (7.3 MB) and the sums:
-// about 72 MB, 22 us at 3.35 TB/s.  Records mode at rec_k = 16 writes
-// 117.4 MB of records and 1.8 MB of counts instead of the sums: about
-// 192 MB, 57 us.  The real limit is the serial chain of 112 dependent
-// messages per env, each a few dozen warp reductions: the kernel is
-// latency-bound on that chain, and 4096 envs give 4096 warps to hide it.
+// Design.  One warp owns one env; lane l owns slots [l*SPL, l*SPL + SPL)
+// (SPL = S / 32, 4 at S = 128).
+// - Registers hold the planes every message reads: PRICE and QUANT of both
+//   sides.  OID, TID, TS and TNS live in shared memory, laid out so that a
+//   lane reads its SPL slots of a plane with 16-byte loads; an insert that
+//   shifts orders moves them there a slot a lane, and a __syncwarp opens
+//   every message.  This keeps the registers to what one wave needs
+//   (__launch_bounds__ asks for 8 blocks of 4 warps an SM at S <= 128, 64
+//   registers; a few bytes spill).
+// - No global memory on the chain: each warp stages its message stream
+//   (and the uniforms of the random-cancel modes) through a two-stage ring
+//   of 16-message chunks in shared memory with cp.async, one 16-byte copy
+//   a lane; the next chunk loads while this one runs.  The lanes decode the
+//   chunk's (type, side) dispatch together, one message a lane, before the
+//   chain reads it.  Best quotes (and records mode's fill counts) are
+//   staged per chunk and leave as one coalesced 16-byte store a message.
+// - Fewer instructions and levels per message: a non-cancel message skips
+//   the cancel pass when every live slot of the env's input book had a
+//   positive quantity (a per-env flag taken at load; every step of the scan
+//   keeps it true), and a non-limit message skips matching when, besides,
+//   the matched side's live quantities sum below 2^31 (a saturating upper
+//   bound that grows with every insert), so no crossing prefix sum can
+//   wrap; elsewhere they run in full, the TPU kernel's branch-free
+//   semantics.  A limit order that crosses nothing skips the prefix scan
+//   (one vote).  An insert finds its place with two reductions (the last
+//   order before it and the first after; a gap between them is a hole it
+//   takes) and two more only where it shifts orders.  A side's best quote
+//   follows a cancel or an insert by arithmetic where the result is sure
+//   and is worked out anew (two reductions) otherwise.  Ranks of fills and
+//   the random-cancel CDF count by ballot and popcount.
+// - Sums in registers: the aggregate kernel is templated on n_agg for 1 and
+//   2 traders (a general kernel takes any other n_agg, its sums in shared
+//   memory).  Lane i keeps sum i.  A message with fills reduces what its
+//   sums need across the warp: three reductions a trader its fills involve
+//   (its eight sums follow from them), one vote a trader they do not.
+//   int32 addition wraps, so the order does not change the result.  The
+//   tick division is a multiply by a 32-bit reciprocal worked out on the
+//   host.
+// - Records mode writes its rows with streaming stores (written once,
+//   never read here).
+// All int32 arithmetic that the reference lets wrap is done in uint32.
 // No single PyTorch call computes either function.
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
 constexpr int kEmpty = -1;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;                 // envs (warps) per block
+constexpr int kChunk = 16;                // messages a ring stage holds
+constexpr int kStages = 2;
 constexpr int kAggStats = 8;
 constexpr int kAggTotals = 2;
-enum { PRICE = 0, QUANT, OID, TID, TS, TNS, NF };
+constexpr int kRecords = -1;              // KIND of the records mode
+constexpr unsigned kWrap = 1u << 31;      // a quantity sum that may wrap
+enum { OID = 0, TID, TS, TNS, NPL };      // planes in shared memory
+enum { F_BID = 1, F_LIM = 2, F_CANCEL = 4 };  // a decoded message's flags
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -67,13 +109,6 @@ __device__ __forceinline__ int wmul(int a, int b) {
   return (int)((unsigned)a * (unsigned)b);
 }
 __device__ __forceinline__ int wneg(int a) { return (int)(0u - (unsigned)a); }
-
-// floor division for b > 0 (Python / JAX `//`)
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  if ((a % b != 0) && (a < 0)) --q;
-  return q;
-}
 
 __device__ __forceinline__ int warp_min(int v) {
   return __reduce_min_sync(kFull, v);
@@ -94,438 +129,890 @@ __device__ __forceinline__ int warp_scan(int v, int lane) {
   return v;
 }
 
-template <int SPL>
-struct Side {
-  int f[NF][SPL];
-};
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-struct Msg {
-  int type, side, quant, price, oid, tid, ts, tns;
+// A lane's SPL consecutive ints, with the widest aligned accesses.
+template <int SPL>
+__device__ __forceinline__ void load_slots(const int* p, int (&v)[SPL]) {
+  if constexpr (SPL % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < SPL; j += 4) {
+      const int4 t = *reinterpret_cast<const int4*>(p + j);
+      v[j] = t.x; v[j + 1] = t.y; v[j + 2] = t.z; v[j + 3] = t.w;
+    }
+  } else if constexpr (SPL == 2) {
+    const int2 t = *reinterpret_cast<const int2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+template <int SPL>
+__device__ __forceinline__ void store_slots(int* p, const int (&v)[SPL]) {
+  if constexpr (SPL % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < SPL; j += 4)
+      *reinterpret_cast<int4*>(p + j) =
+          make_int4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  } else if constexpr (SPL == 2) {
+    *reinterpret_cast<int2*>(p) = make_int2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// One warp's shared memory, in ints: the four planes of both sides
+// [side][plane][slot], the message ring [stage][message][8], the uniforms'
+// ring [stage][message], the staged best quotes [message][4] and fill
+// counts [message]; the aggregate kernels append their trader ids (the
+// general one its sums first).
+template <int SPL>
+struct Layout {
+  static constexpr int S = SPL * 32;
+  static constexpr int ring = 2 * NPL * S;
+  static constexpr int uring = ring + kStages * kChunk * 8;
+  static constexpr int quotes = uring + kStages * kChunk;
+  static constexpr int counts = quotes + kChunk * 4;
+  static constexpr int fixed = counts + kChunk;
+  static_assert(fixed % 4 == 0, "warp regions stay 16-byte aligned");
 };
 
 struct Params {
-  int cancel_mode, init_id, tick, n_agg, n_acc;
+  int cancel_mode, init_id, maxint, n_agg, n_acc;
+  unsigned tick_m;   // floor division by tick: ceil(2^tick_sh / tick)
+  int tick_sh;
+};
+
+struct Args {
+  const int* msgs;
+  const int* book_in;
+  const int* prev;
   const int* tids;
+  const float* uniforms;
+  int* book_out;
+  int* bidask;
+  int* aggs;
+  int4* records;
+  int* counts;
+  int rec_k, E, M, extra;  // extra: ints a warp adds to its Layout
+  Params p;
+};
+
+// floor(a / tick) for tick > 0 (Python / JAX `//`): |a| maps to a value
+// below 2^31 (~a for a < 0), whose quotient by tick is exact as a multiply
+// by ceil(2^(31 + s) / tick), s = ceil(log2 tick), and a shift.
+__device__ __forceinline__ int floordiv(int a, const Params& p) {
+  const unsigned ua = a >= 0 ? (unsigned)a : ~(unsigned)a;
+  const unsigned q =
+      (unsigned)(((unsigned long long)ua * p.tick_m) >> p.tick_sh);
+  return a >= 0 ? (int)q : (int)~q;
+}
+
+// A staged message: the fields every step reads, and where the rest (oid,
+// tid, ts, tns) lie in shared memory, read where a step needs them.
+struct Msg {
+  int flags, side, quant, price;
+  const int* rest;
 };
 
 // Uniform pick among candidate slots, by order id (book_kernel.py:193-211).
 // Returns the first live slot holding the picked id, or S.
 template <int SPL>
 __device__ __forceinline__ int cdf_pick(const bool (&cand)[SPL],
-                                        const Side<SPL>& Y,
+                                        const int (&yo)[SPL],
                                         const bool (&occ)[SPL], float u,
                                         int lane) {
   constexpr int S = SPL * 32;
   const int base = lane * SPL;
-  int cnt = 0;
+  const unsigned lower = (1u << lane) - 1u;
+  int total = 0, run = 0;
 #pragma unroll
-  for (int j = 0; j < SPL; ++j) cnt += cand[j] ? 1 : 0;
-  const int total = warp_sum(cnt);
+  for (int j = 0; j < SPL; ++j) {
+    const unsigned b = __ballot_sync(kFull, cand[j]);
+    total += __popc(b);
+    run += __popc(b & lower);
+  }
   if (total == 0) return S;
   const float uu = __fmul_rn(u, fmaxf((float)total, 1.0f));
-  int run = warp_scan(cnt, lane) - cnt;
   int first_hit = S;
 #pragma unroll
   for (int j = 0; j < SPL; ++j) {
     run += cand[j] ? 1 : 0;
-    if (first_hit == S && (float)run > uu) first_hit = base + j;
+    first_hit = (first_hit == S) & ((float)run > uu) ? base + j : first_hit;
   }
   int pick = warp_min(first_hit);
-  if (pick == S) pick = 0;   // f32 corner: no hit -> slot 0 (book_kernel.py:199-206)
+  // f32 corner: no hit -> slot 0 (book_kernel.py:199-206)
+  if (pick == S) pick = 0;
   int chosen = 0;
 #pragma unroll
   for (int j = 0; j < SPL; ++j)
-    if (base + j == pick && cand[j]) chosen = Y.f[OID][j];
-  chosen = warp_sum(chosen);
+    chosen = (base + j == pick) & cand[j] ? yo[j] : chosen;
+  chosen = __shfl_sync(kFull, chosen, pick / SPL);
   int loc = S;
 #pragma unroll
   for (int j = SPL - 1; j >= 0; --j)
-    if (Y.f[OID][j] == chosen && occ[j]) loc = base + j;
+    loc = (yo[j] == chosen) & occ[j] ? base + j : loc;
   return warp_min(loc);
 }
 
-// Records-mode outputs of one message: its rec_k rows and its fill count.
-struct RecOut {
-  int4* rows;
-  int* count;
-  int rec_k;
+// The scan's warp-uniform state, the same in every lane: the forward-
+// filled best quotes of the last message as its output row [ask_p, ask_q,
+// bid_p, bid_q], each side's raw best price (EMPTY when it has none), and
+// a saturating bound on each side's live quantities.
+enum { ST_QUOTE = 0, ST_BEST = 4, ST_QSUM = 6 };
+
+// Per-warp state the steps share.
+template <int SPL>
+struct Env {
+  int P[2][SPL], Q[2][SPL];   // PRICE and QUANT of [ask, bid]
+  int* planes;                // this warp's [side][plane][slot]
+  int st[8];                  // the scan's state (ST_*)
+  bool pos;                   // every live quantity > 0
+  // aggregate mode: lane i keeps sum i (KIND 1, 2); the general kernel
+  // keeps them in shared memory (acc_s); trader ids in shared memory
+  unsigned acc;
+  int* acc_s;
+  const int* tids_s;
 };
 
-// One message in the (X, Y) frame: X is matched against, Y is the side the
-// cancel targets and the remainder rests on.  BID: Y is the bid side.
-// REC: records mode (writes `rec`); else aggregate mode (adds to `acc`).
-template <int SPL, bool BID, bool REC>
-__device__ __forceinline__ void step(Side<SPL>& X, Side<SPL>& Y,
-                                     const Msg& msg, bool is_lim,
-                                     bool is_cancel, float u,
-                                     const Params& p, unsigned* acc,
-                                     const RecOut& rec, int lane) {
+// A message's fills into the per-trader sums (book_kernel.py:287-326).
+// With `pm` a trader's resting orders that filled, its eight sums take
+// three warp reductions: A = sum pm q, B = sum pm q (price // tick) and
+// C = sum pm q tid.  Where it is the aggressor every fill involves it,
+// and sums over all fills stand in (W = sum q, D = sum q tid, made once a
+// message, and T = sum q (price // tick), the price-tick total):
+//   buy_q = s_pos ? Wq : A,  sell_q = s_pos ? A : Wq    (Wq = agr ? W : 0)
+//   buy_pqt = s_pos ? Wp : B, sell_pqt = s_pos ? B : Wp (Wp = agr ? T : 0)
+//   a_q = agr ? W : A, a_pqt = agr ? T : B, dur = agr ? D : C,
+//   signed = -side * a_q.
+template <int SPL, int KIND>
+__device__ __forceinline__ void add_sums(Env<SPL>& env, const int* Xpl,
+                                         const int (&XP)[SPL],
+                                         const int (&matched)[SPL],
+                                         int total_matched, const Msg& msg,
+                                         const Params& p, int lane) {
+  const int n_agg = KIND > 0 ? KIND : p.n_agg;
+  const int n_acc = KIND > 0 ? kAggStats * KIND + kAggTotals : p.n_acc;
+  if (KIND == 0 && n_agg == 0) return;   // the reference keeps no sums
   constexpr int S = SPL * 32;
   const int base = lane * SPL;
-
-  // ---- cancel pass on Y (identity unless cancelling) ----
-  const int c_quant = is_cancel ? msg.quant : 0;
-  const int c_oid = is_cancel ? msg.oid : 0;
-  bool occ_y0[SPL];
-  int loc = S;
-#pragma unroll
-  for (int j = SPL - 1; j >= 0; --j) {
-    occ_y0[j] = Y.f[PRICE][j] != kEmpty;
-    if (Y.f[OID][j] == c_oid && occ_y0[j]) loc = base + j;
-  }
-  int cidx = warp_min(loc);
-  if (p.cancel_mode >= 1 && cidx >= S) {
-    loc = S;
-#pragma unroll
-    for (int j = SPL - 1; j >= 0; --j)
-      if (Y.f[PRICE][j] == msg.price && Y.f[OID][j] <= p.init_id &&
-          Y.f[QUANT][j] >= c_quant && occ_y0[j])
-        loc = base + j;
-    cidx = warp_min(loc);
-  }
-  if (p.cancel_mode >= 2 && cidx >= S) {
-    bool cand[SPL];
-#pragma unroll
-    for (int j = 0; j < SPL; ++j)
-      cand[j] = Y.f[PRICE][j] == msg.price && Y.f[QUANT][j] >= c_quant &&
-                occ_y0[j] && Y.f[OID][j] != 0;
-    cidx = cdf_pick<SPL>(cand, Y, occ_y0, u, lane);
-  }
-  if (p.cancel_mode >= 3 && cidx >= S) {
-    bool cand[SPL];
-#pragma unroll
-    for (int j = 0; j < SPL; ++j)
-      cand[j] = Y.f[PRICE][j] == msg.price && occ_y0[j] &&
-                Y.f[OID][j] != 0;
-    cidx = cdf_pick<SPL>(cand, Y, occ_y0, u, lane);
-  }
-  if (cidx < S) {
-#pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      if (base + j == cidx) {
-        const int nq = wsub(Y.f[QUANT][j], c_quant);
-        Y.f[QUANT][j] = nq;
-        if (nq <= 0) Y.f[PRICE][j] = kEmpty;
-      }
-    }
-  }
-
-  // ---- limit pass: match against X ----
-  const int lim_quant = is_lim ? msg.quant : 0;
-  bool cross[SPL];
-  int q[SPL];
-  int lsum = 0;
+  int xt[SPL];
+  load_slots<SPL>(Xpl + TID * S + base, xt);
+  int mp[SPL];
+  int tpq = 0;
 #pragma unroll
   for (int j = 0; j < SPL; ++j) {
-    const int xp = X.f[PRICE][j];
-    cross[j] = xp != kEmpty && (BID ? xp <= msg.price : xp >= msg.price);
-    q[j] = cross[j] ? X.f[QUANT][j] : 0;
-    lsum = wadd(lsum, q[j]);
+    mp[j] = matched[j] > 0 ? wmul(matched[j], floordiv(XP[j], p)) : 0;
+    tpq = wadd(tpq, mp[j]);
   }
-  int cum = wsub(warp_scan(lsum, lane), lsum);
-  int matched[SPL];
-  int tm = 0;
-  bool any_local = false;
-#pragma unroll
-  for (int j = 0; j < SPL; ++j) {
-    cum = wadd(cum, q[j]);
-    int x = wsub(lim_quant, wsub(cum, q[j]));
-    x = min(max(x, 0), q[j]);
-    matched[j] = cross[j] ? x : 0;
-    tm = wadd(tm, matched[j]);
-    any_local |= matched[j] != 0;
+  tpq = warp_sum(tpq);
+  if constexpr (KIND > 0) {
+    env.acc += lane == n_acc - 2 ? (unsigned)total_matched : 0u;
+    env.acc += lane == n_acc - 1 ? (unsigned)tpq : 0u;
+  } else if (lane == 0) {
+    env.acc_s[n_acc - 2] = wadd(env.acc_s[n_acc - 2], total_matched);
+    env.acc_s[n_acc - 1] = wadd(env.acc_s[n_acc - 1], tpq);
   }
-  const int total_matched = warp_sum(tm);
-
-  if constexpr (REC) {
-    // ---- records (book_kernel.py:241-285): rank = fills up to the slot
-    int c = 0;
+  const bool s_pos = msg.side == 1;
+  const int tid = msg.rest[1];
+  int W = 0, D = 0;
+  bool have_wd = false;
 #pragma unroll
-    for (int j = 0; j < SPL; ++j) c += matched[j] > 0 ? 1 : 0;
-    const int incl = warp_scan(c, lane);
-    const int n_fills = __shfl_sync(kFull, incl, 31);
-    const int neg_s = wneg(msg.side);
-    int r = incl - c;
-#pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      if (matched[j] > 0) {
-        ++r;
-        if (r <= rec.rec_k)
-          rec.rows[r - 1] = make_int4(X.f[PRICE][j], wmul(neg_s, matched[j]),
-                                      X.f[OID][j], X.f[TID][j]);
-      }
-    }
-    for (int k = n_fills + lane; k < rec.rec_k; k += 32)
-      rec.rows[k] = make_int4(kEmpty, 0, 0, 0);
-    if (lane == 0) *rec.count = n_fills;
-  } else if (__any_sync(kFull, any_local)) {
-    // ---- per-trader sums (book_kernel.py:287-326), per lane ----
-    const bool s_pos = msg.side == 1;
-    const int neg_s = wneg(msg.side);
-    int mpt[SPL];
-    unsigned tot_q = 0, tot_pq = 0;
-#pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      mpt[j] = wmul(matched[j], floordiv(X.f[PRICE][j], p.tick));
-      tot_q += (unsigned)matched[j];
-      if (matched[j] > 0) tot_pq += (unsigned)mpt[j];
-    }
-    acc[(p.n_acc - 2) * 32] += tot_q;
-    acc[(p.n_acc - 1) * 32] += tot_pq;
-    for (int k = 0; k < p.n_agg; ++k) {
-      const int tk = p.tids[k];
-      const bool agr = msg.tid == tk;
-      unsigned v[kAggStats] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int k = 0; k < (KIND > 0 ? KIND : 1); ++k) {
+    for (int kk = k; kk < (KIND > 0 ? k + 1 : n_agg); ++kk) {
+      const int tk = env.tids_s[kk];
+      const bool agr = tid == tk;
+      bool pm[SPL];
+      bool inv_any = false;
 #pragma unroll
       for (int j = 0; j < SPL; ++j) {
         const bool was = matched[j] > 0;
-        const bool pmask = was && X.f[TID][j] == tk;
-        const bool agr_row = was && agr;
-        const bool inv = pmask || agr_row;
-        const bool buy = (s_pos && agr_row) || (!s_pos && pmask);
-        const bool sell = (s_pos && pmask) || (!s_pos && agr_row);
-        const unsigned mq = (unsigned)matched[j];
-        const unsigned mp = (unsigned)mpt[j];
-        if (buy) { v[0] += mq; v[2] += mp; }
-        if (sell) { v[1] += mq; v[3] += mp; }
-        if (inv) {
-          v[4] += mq;
-          v[5] += mp;
-          v[6] += (unsigned)wmul(matched[j], X.f[TID][j]);
-          v[7] += (unsigned)wmul(neg_s, matched[j]);
-        }
+        pm[j] = was & (xt[j] == tk);
+        inv_any |= pm[j] | (was & agr);
       }
+      if (!__any_sync(kFull, inv_any)) continue;   // every sum adds 0
+      int a = 0, b = 0, c = 0;
 #pragma unroll
-      for (int i = 0; i < kAggStats; ++i)
-        acc[(kAggStats * k + i) * 32] += v[i];
+      for (int j = 0; j < SPL; ++j) {
+        a = wadd(a, pm[j] ? matched[j] : 0);
+        b = wadd(b, pm[j] ? mp[j] : 0);
+        c = wadd(c, pm[j] ? wmul(matched[j], xt[j]) : 0);
+      }
+      a = warp_sum(a);
+      b = warp_sum(b);
+      if (agr) {
+        if (!have_wd) {
+          int w = 0, d = 0;
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) {
+            const bool was = matched[j] > 0;
+            w = wadd(w, was ? matched[j] : 0);
+            d = wadd(d, was ? wmul(matched[j], xt[j]) : 0);
+          }
+          W = warp_sum(w);
+          D = warp_sum(d);
+          have_wd = true;
+        }
+      } else {
+        c = warp_sum(c);
+      }
+      const int wq = agr ? W : 0, wp = agr ? tpq : 0;
+      const int iq = agr ? W : a;
+      const int v[kAggStats] = {s_pos ? wq : a, s_pos ? a : wq,
+                                s_pos ? wp : b, s_pos ? b : wp,
+                                iq, agr ? tpq : b, agr ? D : c,
+                                wmul(wneg(msg.side), iq)};
+      if constexpr (KIND > 0) {
+        // lane 8 kk + i keeps sum i of trader kk
+        const int i = lane & 7;
+        const int lo = (i & 1) ? v[1] : v[0], hi = (i & 1) ? v[3] : v[2];
+        const int lo2 = (i & 1) ? v[5] : v[4], hi2 = (i & 1) ? v[7] : v[6];
+        const int q4 = (i & 2) ? hi : lo, q8 = (i & 2) ? hi2 : lo2;
+        env.acc += (lane >> 3) == kk ? (unsigned)((i & 4) ? q8 : q4) : 0u;
+      } else if (lane == 0) {
+#pragma unroll
+        for (int i = 0; i < kAggStats; ++i)
+          env.acc_s[kAggStats * kk + i] =
+              wadd(env.acc_s[kAggStats * kk + i], v[i]);
+      }
+    }
+  }
+}
+
+// A side's new raw best price and quantity into the state: the output
+// row keeps the last price a side had (forward fill), quantity 0 while it
+// has none.
+__device__ __forceinline__ void set_best(int (&st)[8], int side, int b,
+                                         int q) {
+  st[ST_BEST + side] = b;
+  if (b != kEmpty) st[ST_QUOTE + 2 * side] = b;
+  st[ST_QUOTE + 2 * side + 1] = b == kEmpty ? 0 : q;
+}
+
+// Raw best price of a side and the quantity resting there: the ask's
+// lowest price (EMPTY when none or when it is maxint), the bid's highest
+// (EMPTY marks no bid); into the state.
+template <int SPL, bool ASK>
+__device__ __forceinline__ void best_quote(const int (&P)[SPL],
+                                           const int (&Q)[SPL], int maxint,
+                                           int (&st)[8]) {
+  int l = ASK ? INT_MAX : INT_MIN;
+#pragma unroll
+  for (int j = 0; j < SPL; ++j)
+    l = ASK ? min(l, P[j] == kEmpty ? maxint : P[j]) : max(l, P[j]);
+  int b = ASK ? warp_min(l) : warp_max(l);
+  if (ASK && b == maxint) b = kEmpty;
+  int q = 0;
+#pragma unroll
+  for (int j = 0; j < SPL; ++j) q = wadd(q, P[j] == b ? Q[j] : 0);
+  set_best(st, ASK ? 0 : 1, b, warp_sum(q));
+}
+
+// One message in the (X, Y) frame: X is matched against, Y is the side the
+// cancel targets and the remainder rests on.  BID: Y is the bid side.
+// Returns a bit per side whose best quote must be worked out anew (1 ask,
+// 2 bid); in records mode writes the message's rec_k `rows` and its fill
+// count to *n_fills.
+template <int SPL, bool BID, int KIND>
+__device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
+                                         float u, const Params& p,
+                                         int4* rows, int rec_k, int* n_fills,
+                                         int lane) {
+  constexpr int S = SPL * 32;
+  constexpr int YS = BID ? 1 : 0, XS = 1 - YS;
+  const int base = lane * SPL;
+  int (&YP)[SPL] = env.P[YS];
+  int (&YQ)[SPL] = env.Q[YS];
+  int (&XP)[SPL] = env.P[XS];
+  int (&XQ)[SPL] = env.Q[XS];
+  int* Ypl = env.planes + YS * NPL * S;
+  const int* Xpl = env.planes + XS * NPL * S;
+  const bool is_lim = msg.flags & F_LIM;
+  const bool is_cancel = msg.flags & F_CANCEL;
+  unsigned changed = 0;
+
+  // ---- cancel pass on Y (identity for a non-cancel message while every
+  // live quantity is positive: it can only reduce a quantity by 0) ----
+  if (is_cancel || !env.pos) {
+    const int c_quant = is_cancel ? msg.quant : 0;
+    const int c_oid = is_cancel ? msg.rest[0] : 0;
+    int yo[SPL];
+    load_slots<SPL>(Ypl + OID * S + base, yo);
+    bool occ[SPL];
+    int loc = S;
+#pragma unroll
+    for (int j = SPL - 1; j >= 0; --j) {
+      occ[j] = YP[j] != kEmpty;
+      loc = (yo[j] == c_oid) & occ[j] ? base + j : loc;
+    }
+    int cidx = warp_min(loc);
+    if (p.cancel_mode >= 1 && cidx >= S) {
+      loc = S;
+#pragma unroll
+      for (int j = SPL - 1; j >= 0; --j)
+        loc = (YP[j] == msg.price) & (yo[j] <= p.init_id) &
+                      (YQ[j] >= c_quant) & occ[j]
+                  ? base + j
+                  : loc;
+      cidx = warp_min(loc);
+    }
+    if (p.cancel_mode >= 2 && cidx >= S) {
+      bool cand[SPL];
+#pragma unroll
+      for (int j = 0; j < SPL; ++j)
+        cand[j] = (YP[j] == msg.price) & (YQ[j] >= c_quant) & occ[j] &
+                  (yo[j] != 0);
+      cidx = cdf_pick<SPL>(cand, yo, occ, u, lane);
+    }
+    if (p.cancel_mode >= 3 && cidx >= S) {
+      bool cand[SPL];
+#pragma unroll
+      for (int j = 0; j < SPL; ++j)
+        cand[j] = (YP[j] == msg.price) & occ[j] & (yo[j] != 0);
+      cidx = cdf_pick<SPL>(cand, yo, occ, u, lane);
+    }
+    if (cidx < S) {
+      int pold = 0;
+      bool gone = false;
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const bool at = base + j == cidx;
+        const int nq = wsub(YQ[j], c_quant);
+        pold = at ? YP[j] : pold;
+        gone |= at & (nq <= 0);
+        YQ[j] = at ? nq : YQ[j];
+        YP[j] = at & (nq <= 0) ? kEmpty : YP[j];
+      }
+      // Y's best quote: a slot off the best price leaves it as it is (a
+      // bid side with no hole and only prices below -1 aside, where a
+      // wiped slot's -1 becomes the highest); a slot at the best price
+      // that stays only takes c_quant off its quantity; else anew.
+      pold = __shfl_sync(kFull, pold, cidx / SPL);
+      gone = __any_sync(kFull, gone);
+      const int b = env.st[ST_BEST + YS];
+      if (pold != b) {
+        if (BID && b < kEmpty) changed |= 1u << YS;
+      } else if (!gone) {
+        set_best(env.st, YS, b,
+                 wsub(env.st[ST_QUOTE + 2 * YS + 1], c_quant));
+      } else {
+        changed |= 1u << YS;
+      }
     }
   }
 
+  // ---- limit pass: match against X (identity for a non-limit message
+  // while quantities are positive and sum below 2^31) ----
+  const int lim_quant = is_lim ? msg.quant : 0;
+  int total_matched = 0;
+  int fills = 0;
+  if (is_lim || !env.pos ||
+      (unsigned)env.st[ST_QSUM + XS] >= kWrap) {
+    bool cross[SPL];
+    bool any_cross = false;
 #pragma unroll
-  for (int j = 0; j < SPL; ++j) {
-    X.f[QUANT][j] = wsub(X.f[QUANT][j], matched[j]);
-    if (matched[j] > 0 && X.f[QUANT][j] <= 0) X.f[PRICE][j] = kEmpty;
+    for (int j = 0; j < SPL; ++j) {
+      const int xp = XP[j];
+      cross[j] = (xp != kEmpty) & (BID ? xp <= msg.price : xp >= msg.price);
+      any_cross |= cross[j];
+    }
+    if (__any_sync(kFull, any_cross)) {
+      int q[SPL];
+      int lsum = 0;
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        q[j] = cross[j] ? XQ[j] : 0;
+        lsum = wadd(lsum, q[j]);
+      }
+      int cum = wsub(warp_scan(lsum, lane), lsum);
+      int matched[SPL];
+      int tm = 0;
+      bool any_local = false;
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        cum = wadd(cum, q[j]);
+        int x = wsub(lim_quant, wsub(cum, q[j]));
+        x = min(max(x, 0), q[j]);
+        matched[j] = cross[j] ? x : 0;
+        tm = wadd(tm, matched[j]);
+        any_local |= matched[j] != 0;
+      }
+      total_matched = warp_sum(tm);
+      if (__any_sync(kFull, any_local)) {
+        if constexpr (KIND == kRecords) {
+          // ---- records (book_kernel.py:241-285): rank = fills up to the
+          // slot, counted by ballot
+          const unsigned lower = (1u << lane) - 1u;
+          int r = 0;
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) {
+            const unsigned b = __ballot_sync(kFull, matched[j] > 0);
+            fills += __popc(b);
+            r += __popc(b & lower);
+          }
+          const int neg_s = wneg(msg.side);
+#pragma unroll
+          for (int j = 0; j < SPL; ++j) {
+            if (matched[j] > 0) {
+              ++r;
+              if (r <= rec_k)
+                __stcs(rows + r - 1,
+                       make_int4(XP[j], wmul(neg_s, matched[j]),
+                                 Xpl[OID * S + base + j],
+                                 Xpl[TID * S + base + j]));
+            }
+          }
+        } else {
+          add_sums<SPL, KIND>(env, Xpl, XP, matched, total_matched, msg, p,
+                              lane);
+        }
+#pragma unroll
+        for (int j = 0; j < SPL; ++j) {
+          XQ[j] = wsub(XQ[j], matched[j]);
+          XP[j] = (matched[j] > 0) & (XQ[j] <= 0) ? kEmpty : XP[j];
+        }
+        changed |= 1u << XS;
+      }
+    }
+  }
+  if constexpr (KIND == kRecords) {
+    // records are written once and never read here: streaming stores
+    for (int k = fills + lane; k < rec_k; k += 32)
+      __stcs(rows + k, make_int4(kEmpty, 0, 0, 0));
+    *n_fills = fills;
   }
 
   // ---- insert the remainder into Y (book_kernel.py:332-374) ----
   const int add_q = max(0, wsub(lim_quant, total_matched));
-  if (add_q <= 0) return;
+  if (add_q <= 0) return changed;
+  const int4 rest = *reinterpret_cast<const int4*>(msg.rest);
   const int nk = BID ? wneg(msg.price) : msg.price;
-  bool hole[SPL], before[SPL];
+  // an order rests before the new one if its price is better, or equal
+  // and its time no later
   int l_fw = S, l_lb = -1;
+  {
+    int ys[SPL], yn[SPL];
+    load_slots<SPL>(Ypl + TS * S + base, ys);
+    load_slots<SPL>(Ypl + TNS * S + base, yn);
 #pragma unroll
-  for (int j = 0; j < SPL; ++j) {
-    const int yp = Y.f[PRICE][j];
-    const bool occ = yp != kEmpty;
-    hole[j] = !occ;
-    const int pk = BID ? wneg(yp) : yp;
-    const int ys = Y.f[TS][j], yn = Y.f[TNS][j];
-    before[j] = occ && (pk < nk || (pk == nk && (ys < msg.ts ||
-                                                 (ys == msg.ts && yn <= msg.tns))));
-    const bool worse = occ && !before[j];
-    if (worse && l_fw == S) l_fw = base + j;
-    if (before[j]) l_lb = base + j;
+    for (int j = SPL - 1; j >= 0; --j) {
+      const int yp = YP[j];
+      const int pk = BID ? wneg(yp) : yp;
+      const bool before =
+          (pk < nk) | ((pk == nk) & ((ys[j] < rest.z) |
+                                     ((ys[j] == rest.z) & (yn[j] <= rest.w))));
+      l_fw = (yp != kEmpty) & !before ? base + j : l_fw;
+      l_lb = (yp != kEmpty) & before & (l_lb < 0) ? base + j : l_lb;
+    }
   }
   const int fw = warp_min(l_fw);
   const int lb = warp_max(l_lb);
-  int l_pos_a = S, l_ha = S, l_hb = -1;
+  // A slot strictly between the last order before and the first order
+  // after the new one is neither, so a hole: the first of them takes it.
+  const bool case_a = lb + 1 < fw;
+  const int pos_a = lb + 1;
+  int first_ha = S, last_hb = -1;
+  if (!case_a) {
+    int l_ha = S, l_hb = -1;
 #pragma unroll
-  for (int j = 0; j < SPL; ++j) {
-    const int i = base + j;
-    if (hole[j] && i > lb && i < fw && l_pos_a == S) l_pos_a = i;
-    if (hole[j] && i >= fw && l_ha == S) l_ha = i;
-    if (hole[j] && i <= lb) l_hb = i;
+    for (int j = SPL - 1; j >= 0; --j) {
+      const bool hole = YP[j] == kEmpty;
+      l_ha = hole & (base + j >= fw) ? base + j : l_ha;
+      l_hb = hole & (base + j <= lb) & (l_hb < 0) ? base + j : l_hb;
+    }
+    first_ha = warp_min(l_ha);
+    last_hb = warp_max(l_hb);
   }
-  const int pos_a = warp_min(l_pos_a);
-  const int first_ha = warp_min(l_ha);
-  const int last_hb = warp_max(l_hb);
-  const bool case_a = pos_a < S;
   const bool case_bh = first_ha < S;
   const bool case_c = last_hb >= 0;
-  const int ha = case_bh ? first_ha : S - 1;
-  const int hb = case_c ? last_hb : 0;
-  const bool use_b = !case_a && (case_bh || !case_c);
-  const int fw_b = case_bh ? fw : min(fw, S - 1);
-  const int vals[NF] = {msg.price, add_q, msg.oid, msg.tid, msg.ts, msg.tns};
+  env.st[ST_QSUM + YS] =
+      (int)min((unsigned)env.st[ST_QSUM + YS] + (unsigned)add_q, kWrap);
+
+  // The best quote of Y after the insert: while a hole takes the order,
+  // Y's live (price, quantity) pairs are the old ones and the new order,
+  // so the best moves only to (or adds to) the new price.  Worked out anew
+  // where the cancel pass left Y's best to be worked out anew, where no
+  // hole is left to take the order (the last slot drops out), and for a
+  // bid side whose best is EMPTY (holes count as -1 there, and this
+  // insert may take the last).
+  const bool held = case_a | case_bh | case_c;
+  const int b = env.st[ST_BEST + YS];
+  if (held && !(changed & (1u << YS)) && (!BID || b != kEmpty)) {
+    const int pr = msg.price;
+    if (BID ? pr > b : (pr != kEmpty && pr != p.maxint &&
+                        (b == kEmpty || pr < b)))
+      set_best(env.st, YS, pr, add_q);
+    else if (pr == b && pr != kEmpty)
+      set_best(env.st, YS, b, wadd(env.st[ST_QUOTE + 2 * YS + 1], add_q));
+  } else {
+    changed |= 1u << YS;
+  }
 
   if (case_a) {
 #pragma unroll
-    for (int f = 0; f < NF; ++f)
-#pragma unroll
-      for (int j = 0; j < SPL; ++j)
-        if (base + j == pos_a) Y.f[f][j] = vals[f];
-  } else if (use_b) {
-    // shift (fw_b, ha] right by one slot, new order at fw_b
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const int up = __shfl_up_sync(kFull, Y.f[f][SPL - 1], 1);
-#pragma unroll
-      for (int j = SPL - 1; j >= 0; --j) {
-        const int i = base + j;
-        const int left = j ? Y.f[f][j - 1] : up;
-        if (i > fw_b && i <= ha) Y.f[f][j] = left;
-        if (i == fw_b) Y.f[f][j] = vals[f];
-      }
+    for (int j = 0; j < SPL; ++j) {
+      const bool at = base + j == pos_a;
+      YP[j] = at ? msg.price : YP[j];
+      YQ[j] = at ? add_q : YQ[j];
     }
-  } else {
-    // shift [hb, lb) left by one slot, new order at lb
-#pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const int down = __shfl_down_sync(kFull, Y.f[f][0], 1);
+    if (lane == pos_a / SPL) {
+      Ypl[OID * S + pos_a] = rest.x;
+      Ypl[TID * S + pos_a] = rest.y;
+      Ypl[TS * S + pos_a] = rest.z;
+      Ypl[TNS * S + pos_a] = rest.w;
+    }
+    return changed;
+  }
+  // shift (fw_b, ha] right by one slot with the new order at fw_b, or
+  // [hb, lb) left by one with the new order at lb
+  const bool right = !case_c || case_bh;
+  const int lo = right ? (case_bh ? fw : min(fw, S - 1)) : last_hb;
+  const int hi = right ? (case_bh ? first_ha : S - 1) : lb;
+  if (right) {
+    // slot i in (lo, hi] takes slot i - 1; lane 0's first slot never moves
+    auto shift = [&](int (&v)[SPL], int val) {
+      int prev = __shfl_up_sync(kFull, v[SPL - 1], 1);
 #pragma unroll
       for (int j = 0; j < SPL; ++j) {
-        const int i = base + j;
-        const int right = (j < SPL - 1) ? Y.f[f][j + 1] : down;
-        if (i >= hb && i < lb) Y.f[f][j] = right;
-        if (i == lb) Y.f[f][j] = vals[f];
+        const int i = base + j, old = v[j];
+        v[j] = i == lo ? val : (i > lo) & (i <= hi) ? prev : old;
+        prev = old;
       }
+    };
+    shift(YP, msg.price);
+    shift(YQ, add_q);
+  } else {
+    // slot i in [lo, hi) takes slot i + 1; lane 31's last slot never moves
+    auto shift = [&](int (&v)[SPL], int val) {
+      int next = __shfl_down_sync(kFull, v[0], 1);
+#pragma unroll
+      for (int j = SPL - 1; j >= 0; --j) {
+        const int i = base + j, old = v[j];
+        v[j] = i == hi ? val : (i >= lo) & (i < hi) ? next : old;
+        next = old;
+      }
+    };
+    shift(YP, msg.price);
+    shift(YQ, add_q);
+  }
+  // The shared planes: lane t moves the four planes of one slot of a
+  // group of 32 slots of the range (most ranges are shorter), a group's
+  // reads before its writes, groups from the far end.
+  if (right) {   // slots (lo, hi] take their left neighbour
+    for (int top = hi; top > lo; top -= 32) {
+      const int i = top - lane;
+      int v[NPL];
+#pragma unroll
+      for (int f = 0; f < NPL; ++f) v[f] = i > lo ? Ypl[f * S + i - 1] : 0;
+      __syncwarp();
+#pragma unroll
+      for (int f = 0; f < NPL; ++f)
+        if (i > lo) Ypl[f * S + i] = v[f];
+    }
+  } else {       // slots [lo, hi) take their right neighbour
+    for (int bot = lo; bot < hi; bot += 32) {
+      const int i = bot + lane;
+      int v[NPL];
+#pragma unroll
+      for (int f = 0; f < NPL; ++f) v[f] = i < hi ? Ypl[f * S + i + 1] : 0;
+      __syncwarp();
+#pragma unroll
+      for (int f = 0; f < NPL; ++f)
+        if (i < hi) Ypl[f * S + i] = v[f];
     }
   }
+  if (lane < NPL)
+    Ypl[lane * S + (right ? lo : hi)] = lane == OID ? rest.x
+                                        : lane == TID ? rest.y
+                                        : lane == TS ? rest.z : rest.w;
+  return changed;
 }
 
-// REC: records mode, writing `records` (E, M, rec_k) and `counts` (E, M);
-// else aggregate mode, writing `aggs`.
-template <int SPL, bool REC>
-__global__ void __launch_bounds__(kWarps * 32)
-book_scan_kernel(const int* __restrict__ msgs, const int* __restrict__ book_in,
-                 const int* __restrict__ prev, const float* __restrict__ uniforms,
-                 int* __restrict__ book_out, int* __restrict__ bidask,
-                 int* __restrict__ aggs, int4* __restrict__ records,
-                 int* __restrict__ counts, int rec_k, int E, int M, int maxint,
-                 Params p) {
+// KIND: kRecords (records mode: `records` (E, M, rec_k), `counts` (E, M));
+// else aggregate mode with n_agg = KIND traders, or any n_agg for KIND 0.
+template <int SPL, int KIND>
+__global__ void __launch_bounds__(kWarps * 32, SPL <= 4 ? 8 : 4)
+book_scan_kernel(const Args a) {
   constexpr int S = SPL * 32;
-  extern __shared__ unsigned smem_acc[];
+  using L = Layout<SPL>;
+  extern __shared__ int4 smem4[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int e = blockIdx.x * kWarps + warp;
-  if (e >= E) return;   // whole warp; the kernel has no block barrier
+  if (e >= a.E) return;   // whole warp; the kernel has no block barrier
+  const Params& p = a.p;
   const int base = lane * SPL;
-  unsigned* acc = smem_acc + (size_t)warp * p.n_acc * 32 + lane;
-  for (int k = 0; k < p.n_acc; ++k) acc[k * 32] = 0u;
+  int* w = reinterpret_cast<int*>(smem4) + warp * (L::fixed + a.extra);
+  const int M = a.M;
+  const int n_chunks = (M + kChunk - 1) / kChunk;
+  const bool want_u = p.cancel_mode >= 2;
 
-  Side<SPL> ask, bid;
-  const int* bk = book_in + (size_t)e * 2 * NF * S;
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-#pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      ask.f[f][j] = bk[f * S + base + j];
-      bid.f[f][j] = bk[(NF + f) * S + base + j];
-    }
-  int prev_a = prev[2 * e], prev_b = prev[2 * e + 1];
+  auto issue = [&](int c) {
+    const int m0 = c * kChunk, cnt = min(kChunk, M - m0);
+    int* dst = w + L::ring + (c & 1) * kChunk * 8;
+    if (lane < 2 * cnt)
+      cp_async16(dst + lane * 4,
+                 a.msgs + ((size_t)e * M + m0) * 8 + lane * 4);
+    if (want_u && lane < cnt)
+      cp_async4(w + L::uring + (c & 1) * kChunk + lane,
+                a.uniforms + (size_t)(m0 + lane) * a.E + e);
+  };
 
-  for (int m = 0; m < M; ++m) {
-    const int* mp = msgs + ((size_t)e * M + m) * 8;
-    const Msg msg{mp[0], mp[1], mp[2], mp[3], mp[4], mp[5], mp[6], mp[7]};
-    const float u = p.cancel_mode >= 2 ? uniforms[(size_t)m * E + e] : 0.0f;
-    const int t = msg.type, s = msg.side;
-    // (type, side) dispatch (book_kernel.py:141-150): unknown -> index 0
-    int index = 0;
-    if ((s == 1 && t == 1) || (s == -1 && t == 4)) index += 1;
-    if ((s == -1 && t == 2) || (s == -1 && t == 3)) index += 2;
-    if ((s == 1 && t == 2) || (s == 1 && t == 3)) index += 3;
-    if (s == 0 && t == 0) index += 4;
-    const bool is_lim = index == 0 || index == 1;
-    const bool is_cancel = index == 2 || index == 3;
-    const bool bid_frame = index == 1 || index == 3;
-    const RecOut rec{REC ? records + ((size_t)e * M + m) * rec_k : nullptr,
-                     REC ? counts + (size_t)e * M + m : nullptr, rec_k};
-    if (bid_frame)
-      step<SPL, true, REC>(ask, bid, msg, is_lim, is_cancel, u, p, acc, rec,
-                           lane);
-    else
-      step<SPL, false, REC>(bid, ask, msg, is_lim, is_cancel, u, p, acc, rec,
-                            lane);
-
-    // ---- best ask/bid with quantities, forward-filled ----
-    int la = INT_MAX, lbp = INT_MIN;
-#pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      const int ap = ask.f[PRICE][j];
-      la = min(la, ap == kEmpty ? maxint : ap);
-      lbp = max(lbp, bid.f[PRICE][j]);
-    }
-    int best_a = warp_min(la);
-    if (best_a == maxint) best_a = kEmpty;
-    int best_b = warp_max(lbp);
-    int aq = 0, bq = 0;
-#pragma unroll
-    for (int j = 0; j < SPL; ++j) {
-      if (ask.f[PRICE][j] == best_a) aq = wadd(aq, ask.f[QUANT][j]);
-      if (bid.f[PRICE][j] == best_b) bq = wadd(bq, bid.f[QUANT][j]);
-    }
-    aq = warp_sum(aq);
-    bq = warp_sum(bq);
-    if (best_a == kEmpty) { best_a = prev_a; aq = 0; }
-    if (best_b == kEmpty) { best_b = prev_b; bq = 0; }
-    if (lane == 0) {
-      int* out = bidask + ((size_t)e * M + m) * 4;
-      out[0] = best_a;
-      out[1] = aq;
-      out[2] = best_b;
-      out[3] = bq;
-    }
-    prev_a = best_a;
-    prev_b = best_b;
+  // the four shared planes of both sides and the first chunk, one group
+  const int* bk = a.book_in + (size_t)e * 2 * 6 * S;
+  for (int i = lane; i < 2 * NPL * S / 4; i += 32) {
+    const int flat = 4 * i, sf = flat / S, slot = flat % S;
+    cp_async16(w + flat, bk + ((sf / NPL) * 6 + 2 + sf % NPL) * S + slot);
   }
+  issue(0);
+  cp_commit();
 
-  for (int k = 0; k < p.n_acc; ++k) {
-    const unsigned v = __reduce_add_sync(kFull, acc[k * 32]);
-    if (lane == 0) aggs[(size_t)e * p.n_acc + k] = (int)v;
+  Env<SPL> env;
+  env.planes = w;
+  load_slots<SPL>(bk + 0 * S + base, env.P[0]);
+  load_slots<SPL>(bk + 1 * S + base, env.Q[0]);
+  load_slots<SPL>(bk + 6 * S + base, env.P[1]);
+  load_slots<SPL>(bk + 7 * S + base, env.Q[1]);
+  {
+    bool ok = true;
+    unsigned lo[2] = {0, 0}, hi[2] = {0, 0};
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const bool live = env.P[s][j] != kEmpty;
+        ok &= !live | (env.Q[s][j] > 0);
+        lo[s] += live ? (unsigned)env.Q[s][j] & 0xffffu : 0u;
+        hi[s] += live ? (unsigned)env.Q[s][j] >> 16 : 0u;
+      }
+    env.pos = __all_sync(kFull, ok);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const unsigned long long sum =
+          ((unsigned long long)__reduce_add_sync(kFull, hi[s]) << 16) +
+          __reduce_add_sync(kFull, lo[s]);
+      env.st[ST_QSUM + s] = (int)(sum < kWrap ? (unsigned)sum : kWrap);
+    }
+  }
+  env.acc = 0;
+  env.acc_s = w + L::fixed;
+  env.tids_s = w + L::fixed + (KIND == 0 ? p.n_acc : 0);
+  if constexpr (KIND >= 0) {
+    if (KIND == 0)
+      for (int i = lane; i < p.n_acc; i += 32) env.acc_s[i] = 0;
+    for (int k = lane; k < p.n_agg; k += 32)
+      w[L::fixed + (KIND == 0 ? p.n_acc : 0) + k] = a.tids[k];
+  }
+  best_quote<SPL, true>(env.P[0], env.Q[0], p.maxint, env.st);
+  best_quote<SPL, false>(env.P[1], env.Q[1], p.maxint, env.st);
+  // the first message's forward fill starts from prev, not from the input
+  // book's best (set after that message, below)
+  env.st[ST_QUOTE + 0] = a.prev[2 * e];
+  env.st[ST_QUOTE + 2] = a.prev[2 * e + 1];
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int m0 = c * kChunk, cnt = min(kChunk, M - m0);
+    if (c + 1 < n_chunks) issue(c + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncwarp();
+    int* ring = w + L::ring + (c & 1) * kChunk * 8;
+    if (lane < cnt) {
+      // (type, side) dispatch (book_kernel.py:141-150): unknown -> index 0
+      const int t = ring[lane * 8], s = ring[lane * 8 + 1];
+      int index = 0;
+      if ((s == 1 && t == 1) || (s == -1 && t == 4)) index = 1;
+      if (s == -1 && (t == 2 || t == 3)) index = 2;
+      if (s == 1 && (t == 2 || t == 3)) index = 3;
+      if (s == 0 && t == 0) index = 4;
+      ring[lane * 8] = (index == 1 || index == 3 ? F_BID : 0) |
+                       (index <= 1 ? F_LIM : 0) |
+                       (index == 2 || index == 3 ? F_CANCEL : 0);
+    }
+    __syncwarp();
+    for (int k = 0; k < cnt; ++k) {
+      // an insert's shift writes other lanes' slots of the shared planes
+      __syncwarp();
+      const int4 head = *reinterpret_cast<const int4*>(ring + k * 8);
+      const Msg msg{head.x, head.y, head.z, head.w, ring + k * 8 + 4};
+      const float u = want_u ? reinterpret_cast<const float*>(
+                                   w + L::uring)[(c & 1) * kChunk + k]
+                             : 0.0f;
+      int4* rows = KIND == kRecords
+                       ? a.records + ((size_t)e * M + m0 + k) * a.rec_k
+                       : nullptr;
+      int n_fills = 0;
+      const unsigned anew =
+          (msg.flags & F_BID)
+              ? step<SPL, true, KIND>(env, msg, u, p, rows, a.rec_k, &n_fills,
+                                      lane)
+              : step<SPL, false, KIND>(env, msg, u, p, rows, a.rec_k,
+                                       &n_fills, lane);
+      if (anew & 1u)
+        best_quote<SPL, true>(env.P[0], env.Q[0], p.maxint, env.st);
+      if (anew & 2u)
+        best_quote<SPL, false>(env.P[1], env.Q[1], p.maxint, env.st);
+      if (m0 + k == 0) {
+#pragma unroll
+        for (int sd = 0; sd < 2; ++sd)
+          if (env.st[ST_BEST + sd] != kEmpty)
+            env.st[ST_QUOTE + 2 * sd] = env.st[ST_BEST + sd];
+      }
+      if (lane == 0) {
+        reinterpret_cast<int4*>(w + L::quotes)[k] =
+            make_int4(env.st[ST_QUOTE], env.st[ST_QUOTE + 1],
+                      env.st[ST_QUOTE + 2], env.st[ST_QUOTE + 3]);
+        if constexpr (KIND == kRecords) w[L::counts + k] = n_fills;
+      }
+    }
+    __syncwarp();
+    if (lane < cnt) {
+      reinterpret_cast<int4*>(a.bidask)[(size_t)e * M + m0 + lane] =
+          reinterpret_cast<const int4*>(w + L::quotes)[lane];
+      if constexpr (KIND == kRecords)
+        a.counts[(size_t)e * M + m0 + lane] = w[L::counts + lane];
+    }
+  }
+  cp_wait<0>();
+
+  if constexpr (KIND > 0) {
+    if (lane < kAggStats * KIND + kAggTotals)
+      a.aggs[(size_t)e * (kAggStats * KIND + kAggTotals) + lane] =
+          (int)env.acc;
+  } else if constexpr (KIND == 0) {
+    __syncwarp();
+    for (int i = lane; i < p.n_acc; i += 32)
+      a.aggs[(size_t)e * p.n_acc + i] = env.acc_s[i];
   }
   // canonicalise: every plane of a hole reads EMPTY (book_kernel.py:435-442)
-  int* ob = book_out + (size_t)e * 2 * NF * S;
+  int* ob = a.book_out + (size_t)e * 2 * 6 * S;
 #pragma unroll
-  for (int f = 0; f < NF; ++f)
+  for (int s = 0; s < 2; ++s) {
+    bool hole[SPL];
+    int v[SPL];
 #pragma unroll
     for (int j = 0; j < SPL; ++j) {
-      const bool ha = ask.f[PRICE][j] == kEmpty;
-      const bool hb = bid.f[PRICE][j] == kEmpty;
-      ob[f * S + base + j] = ha ? kEmpty : ask.f[f][j];
-      ob[(NF + f) * S + base + j] = hb ? kEmpty : bid.f[f][j];
+      hole[j] = env.P[s][j] == kEmpty;
+      v[j] = hole[j] ? kEmpty : env.Q[s][j];
     }
+    store_slots<SPL>(ob + (s * 6 + 0) * S + base, env.P[s]);
+    store_slots<SPL>(ob + (s * 6 + 1) * S + base, v);
+#pragma unroll
+    for (int f = 0; f < NPL; ++f) {
+      load_slots<SPL>(w + (s * NPL + f) * S + base, v);
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) v[j] = hole[j] ? kEmpty : v[j];
+      store_slots<SPL>(ob + (s * 6 + 2 + f) * S + base, v);
+    }
+  }
 }
 
-template <int SPL, bool REC>
-cudaError_t launch(const int* msgs, const int* book_in, const int* prev,
-                   const float* uniforms, int* book_out, int* bidask,
-                   int* aggs, int4* records, int* counts, int rec_k, int E,
-                   int M, int maxint, const Params& p, cudaStream_t stream) {
-  const size_t smem = (size_t)kWarps * p.n_acc * 32 * sizeof(unsigned);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        book_scan_kernel<SPL, REC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((E + kWarps - 1) / kWarps), block(kWarps * 32);
-  book_scan_kernel<SPL, REC><<<grid, block, smem, stream>>>(
-      msgs, book_in, prev, uniforms, book_out, bidask, aggs, records, counts,
-      rec_k, E, M, maxint, p);
+// Ints a warp adds to its Layout: the aggregate kernels' trader ids, and
+// the general one's sums before them.
+constexpr int extra_ints(int kind, int n_agg, int n_acc) {
+  return kind == kRecords ? 0 : ((kind == 0 ? n_acc : 0) + n_agg + 3) / 4 * 4;
+}
+
+// The dynamic shared memory a block asks for, allowed past 48 KB where it
+// goes there (only the general kernel with many traders does).
+template <int SPL, int KIND>
+cudaError_t block_smem(int extra, size_t* smem) {
+  *smem = (size_t)kWarps * (Layout<SPL>::fixed + extra) * sizeof(int);
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(book_scan_kernel<SPL, KIND>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
+}
+
+template <int SPL, int KIND>
+cudaError_t launch(Args a, cudaStream_t stream) {
+  a.extra = extra_ints(KIND, a.p.n_agg, a.p.n_acc);
+  size_t smem;
+  const cudaError_t err = block_smem<SPL, KIND>(a.extra, &smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.E + kWarps - 1) / kWarps), block(kWarps * 32);
+  book_scan_kernel<SPL, KIND><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <bool REC>
-int launch_s(int S, const int* msgs, const int* book_in, const int* prev,
-             const float* uniforms, int* book_out, int* bidask, int* aggs,
-             int4* records, int* counts, int rec_k, int E, int M, int maxint,
-             const Params& p, cudaStream_t st) {
-  switch (S) {
-    case 32:
-      return launch<1, REC>(msgs, book_in, prev, uniforms, book_out, bidask,
-                            aggs, records, counts, rec_k, E, M, maxint, p, st);
-    case 64:
-      return launch<2, REC>(msgs, book_in, prev, uniforms, book_out, bidask,
-                            aggs, records, counts, rec_k, E, M, maxint, p, st);
-    case 128:
-      return launch<4, REC>(msgs, book_in, prev, uniforms, book_out, bidask,
-                            aggs, records, counts, rec_k, E, M, maxint, p, st);
-    case 256:
-      return launch<8, REC>(msgs, book_in, prev, uniforms, book_out, bidask,
-                            aggs, records, counts, rec_k, E, M, maxint, p, st);
+// The launch plan of one instantiation: out = {registers a thread, local
+// bytes a thread (spills), dynamic shared bytes a block, blocks an SM}.
+template <int SPL, int KIND>
+cudaError_t plan(int n_agg, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, book_scan_kernel<SPL, KIND>);
+  size_t smem = 0;
+  if (err == cudaSuccess)
+    err = block_smem<SPL, KIND>(
+        extra_ints(KIND, n_agg, kAggStats * n_agg + kAggTotals), &smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, book_scan_kernel<SPL, KIND>, kWarps * 32, smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  return err;
+}
+
+// kind: kRecords, or the aggregate kernel's KIND for n_agg (1, 2, else 0).
+template <int SPL>
+int dispatch(int kind, bool want_plan, const Args& a, int n_agg, int* out,
+             cudaStream_t st) {
+  switch (kind) {
+    case kRecords:
+      return want_plan ? plan<SPL, kRecords>(n_agg, out)
+                       : launch<SPL, kRecords>(a, st);
+    case 1:
+      return want_plan ? plan<SPL, 1>(n_agg, out) : launch<SPL, 1>(a, st);
+    case 2:
+      return want_plan ? plan<SPL, 2>(n_agg, out) : launch<SPL, 2>(a, st);
     default:
-      return (int)cudaErrorInvalidValue;
+      return want_plan ? plan<SPL, 0>(n_agg, out) : launch<SPL, 0>(a, st);
   }
+}
+
+int dispatch_s(int S, int kind, bool want_plan, const Args& a, int n_agg,
+               int* out, cudaStream_t st) {
+  switch (S) {
+    case 32: return dispatch<1>(kind, want_plan, a, n_agg, out, st);
+    case 64: return dispatch<2>(kind, want_plan, a, n_agg, out, st);
+    case 128: return dispatch<4>(kind, want_plan, a, n_agg, out, st);
+    case 256: return dispatch<8>(kind, want_plan, a, n_agg, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int agg_kind(int n_agg) { return n_agg == 1 || n_agg == 2 ? n_agg : 0; }
+
+Params make_params(int cancel_mode, int init_id, int maxint, int n_agg,
+                   int tick) {
+  int s = 0;
+  while ((1ll << s) < (long long)tick) ++s;   // ceil(log2 tick)
+  const unsigned long long num = 1ull << (31 + s);
+  const unsigned m = (unsigned)((num + (unsigned)tick - 1) / (unsigned)tick);
+  return Params{cancel_mode, init_id, maxint, n_agg,
+                kAggStats * n_agg + kAggTotals, m, 31 + s};
 }
 
 }  // namespace
@@ -534,20 +1021,22 @@ int launch_s(int S, const int* msgs, const int* book_in, const int* prev,
 // msgs (E, M, 8); book_in/book_out (E, 2, 6, S) [env, ask/bid, field, slot];
 // prev (E, 2); tids (n_agg,); uniforms (M, E) float32, read only when
 // cancel_mode >= 2; bidask (E, M, 4) [ask_p, ask_q, bid_p, bid_q];
-// aggs (E, 8 * n_agg + 2).  Launches on `stream`, does not synchronise,
-// returns the cudaError_t of the launch.
+// aggs (E, 8 * n_agg + 2).  msgs, book_in, book_out and bidask 16-byte
+// aligned; tick > 0.  Launches on `stream`, does not synchronise, returns
+// the cudaError_t of the launch.
 extern "C" int book_scan_aggs(const int* msgs, const int* book_in,
                               const int* prev, const int* tids,
                               const float* uniforms, int* book_out,
                               int* bidask, int* aggs, int E, int M, int S,
                               int n_agg, int cancel_mode, int init_id,
                               int tick, int maxint, void* stream) {
-  if (E <= 0) return 0;
-  const Params p{cancel_mode, init_id, tick, n_agg,
-                 kAggStats * n_agg + kAggTotals, tids};
-  return launch_s<false>(S, msgs, book_in, prev, uniforms, book_out, bidask,
-                         aggs, nullptr, nullptr, 0, E, M, maxint, p,
-                         static_cast<cudaStream_t>(stream));
+  if (E <= 0 || M <= 0) return 0;
+  if (tick <= 0) return (int)cudaErrorInvalidValue;
+  const Args a{msgs, book_in, prev, tids, uniforms, book_out, bidask, aggs,
+               nullptr, nullptr, 0, E, M, 0,
+               make_params(cancel_mode, init_id, maxint, n_agg, tick)};
+  return dispatch_s(S, agg_kind(n_agg), false, a, n_agg, nullptr,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // Records mode: as book_scan_aggs without trader ids and sums; records
@@ -560,13 +1049,24 @@ extern "C" int book_scan_records(const int* msgs, const int* book_in,
                                  int* fill_counts, int E, int M, int S,
                                  int rec_k, int cancel_mode, int init_id,
                                  int maxint, void* stream) {
-  if (E <= 0) return 0;
+  if (E <= 0 || M <= 0) return 0;
   if (rec_k < 1 || rec_k > S) return (int)cudaErrorInvalidValue;
-  const Params p{cancel_mode, init_id, 1, 0, 0, nullptr};
-  return launch_s<true>(S, msgs, book_in, prev, uniforms, book_out, bidask,
-                        nullptr, reinterpret_cast<int4*>(records),
-                        fill_counts, rec_k, E, M, maxint, p,
-                        static_cast<cudaStream_t>(stream));
+  const Args a{msgs, book_in, prev, nullptr, uniforms, book_out, bidask,
+               nullptr, reinterpret_cast<int4*>(records), fill_counts,
+               rec_k, E, M, 0,
+               make_params(cancel_mode, init_id, maxint, 0, 1)};
+  return dispatch_s(S, kRecords, false, a, 0, nullptr,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The launch plan of the kernel that book_scan_records (n_agg < 0) or
+// book_scan_aggs (n_agg >= 0) launches at capacity S: out[4] = {registers
+// a thread, spill bytes a thread, dynamic shared bytes a block, resident
+// blocks of 4 warps an SM}.
+extern "C" int book_scan_plan(int S, int n_agg, int* out) {
+  const Args a{};
+  return dispatch_s(S, n_agg < 0 ? kRecords : agg_kind(n_agg), true, a,
+                    n_agg < 0 ? 0 : n_agg, out, nullptr);
 }
 
 extern "C" const char* book_scan_error_string(int err) {
