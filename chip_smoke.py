@@ -251,12 +251,16 @@ def records_phase(torch, bkern, smi, case, main_mode):
         compare(cfg, *ragged, rec_k, "streams with sweeps, E=1000")
 
     msgs, book, prev, u = cases[main_mode]
-    plan = bkern.launch_plan(S_MAIN, None, msgs.device)
     sms = torch.cuda.get_device_properties(msgs.device).multi_processor_count
-    print(f"  launch plan: {plan['registers']} registers a thread, "
-          f"{plan['spill_bytes']} spill bytes, {plan['warps_per_sm']} warps "
-          f"an SM: {-(-E_MAIN // (plan['warps_per_sm'] * sms))} wave(s) at "
-          f"E={E_MAIN}", flush=True)
+    plans = {}
+    for rec_k in REC_KS:
+        plan = plans[rec_k] = bkern.launch_plan(S_MAIN, None, msgs.device,
+                                                rec_k)
+        print(f"  launch plan, rec_k={rec_k}: {plan['registers']} registers "
+              f"a thread, {plan['spill_bytes']} spill bytes, "
+              f"{plan['warps_per_sm']} warps an SM: "
+              f"{-(-E_MAIN // (plan['warps_per_sm'] * sms))} wave(s) at "
+              f"E={E_MAIN}", flush=True)
     rows = {}
     for rec_k in REC_KS:
         ms, ms_min = time_launches(lambda: bkern.process_step_records(
@@ -285,9 +289,12 @@ def records_phase(torch, bkern, smi, case, main_mode):
         bit_equal=max_err == 0, max_abs_err=max_err, rec_k=REC_KS[0],
         ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
         bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
-        registers=plan["registers"], warps_per_sm=plan["warps_per_sm"],
+        registers=plans[REC_KS[0]]["registers"],
+        warps_per_sm=plans[REC_KS[0]]["warps_per_sm"],
         ms_rec_k_128=rows[128]["ms"], plain_ms_rec_k_128=rows[128]["plain_ms"],
-        bound_ms_rec_k_128=rows[128]["bound_ms"])
+        bound_ms_rec_k_128=rows[128]["bound_ms"],
+        registers_rec_k_128=plans[128]["registers"],
+        warps_per_sm_rec_k_128=plans[128]["warps_per_sm"])
 
 
 def time_launches(fn, batches=BATCHES, per_batch=PER_BATCH, warm=5):
@@ -877,8 +884,14 @@ def main() -> int:
         m._library()
     print(f"built {', '.join(os.path.relpath(x, ROOT) for x in libs)} in "
           f"{time.perf_counter() - tb:.2f}s", flush=True)
-    for line in bkern.ptxas_report():
-        print(f"  ptxas: {line}", flush=True)
+    for S in (32, 64, 128, 256):
+        for n_agg, rec_k in ((None, 16), (None, S), (1, 1), (2, 1), (3, 1)):
+            plan = bkern.launch_plan(S, n_agg, dev, rec_k)
+            print(f"  book scan launch plan, S={S}, "
+                  + (f"records, rec_k={rec_k}" if n_agg is None
+                     else f"n_agg={n_agg}") + ": "
+                  + ", ".join(f"{k} {v}" for k, v in plan.items()),
+                  flush=True)
     phase("1 device", t0)
 
     # ---- phase 2: book scan against plain ----

@@ -13,7 +13,8 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   divide (7, 23, 40) and that they do (112), for 0-3 traders (1 and 2 are
   the aggregate kernel's templates, 0 and 3 its general path), and rec_k
   1, 16 and S; envs with and without the corners take the kernel's
-  shortcuts and its full path.
+  shortcuts and its full path, and a cancel of negative quantity that
+  lifts a side's quantity sum past 2^31 takes it off the shortcut.
 - Short attention, forward and backward, through the autograd wrapper:
   float32 (the CUDA-core route) within rtol 1e-5 / atol 1e-6 of the
   plain version; bfloat16 (the tensor-core route) within one bf16 ulp of
@@ -45,7 +46,7 @@ from vit_marl_tpu_torch.ops import block_kernel as blk
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 
 from torch_cases import (TICK, TIDS, add_sweeps, dispatch_index,
-                         make_case, make_corner_case)
+                         make_case, make_corner_case, plant_negative_cancel)
 
 pytestmark = pytest.mark.gpu
 
@@ -168,6 +169,46 @@ def test_records_kernel_bit_equal_on_corners(cuda, mode, rec_k, E, M, S):
     assert (counts[dispatch_index(msgs) >= 2] > 0).any()
 
 
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("records", [False, True], ids=["aggs", "records"])
+def test_kernel_bit_equal_after_a_negative_cancel(cuda, mode, records):
+    """Positive live quantities whose sum is short of 2^31 until a cancel
+    of negative quantity lifts it past; the next cancel, on the other side
+    and crossing every slot, then fills (its prefix sums wrap), so the
+    kernel may not skip its match (``torch_cases.plant_negative_cancel``,
+    on either side, at the stream's start and at its end)."""
+    E, M, S = 16, 23, 64
+    book, msgs, prev = make_case(E, M, S, seed=5 + mode)
+    ats = [0 if e % 4 < 2 else M - 2 for e in range(E)]
+    for e in range(E):
+        plant_negative_cancel(book, msgs, e, e % 2, ats[e])
+    u = np.random.default_rng(mode).random((M, E), dtype=np.float32)
+    cfg = EngineConfig(n_orders=S, cancel_mode=mode)
+    msgs_t = torch.from_numpy(msgs).to(cuda)
+    book_t = BookState(torch.from_numpy(book).to(cuda))
+    prev_t = torch.from_numpy(prev).to(cuda)
+    u_t = torch.from_numpy(u).to(cuda)
+    if records:
+        args = (cfg, msgs_t, book_t, prev_t, S, u_t)
+        got = bkern.process_step_records(*args)
+        want = bkern.process_step_records_reference(*args)
+    else:
+        args = (cfg, msgs_t, book_t,
+                torch.tensor(TIDS, dtype=torch.int32, device=cuda), prev_t,
+                TICK, u_t)
+        got = bkern.process_step_aggs(*args)
+        want = bkern.process_step_aggs_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].data, want[0].data)
+    for g, w in zip(got[1] + got[2], want[1] + want[2]):
+        assert torch.equal(g, w)
+    # the planted cancel fills where it opens the stream
+    filled = bkern.process_step_records_reference(
+        cfg, msgs_t.cpu(), BookState(book_t.data.cpu()), prev_t.cpu(), S,
+        u_t.cpu())[2][1]
+    assert all(int(filled[e, 1]) > 0 for e in range(E) if ats[e] == 0)
+
+
 def test_kernel_takes_unaligned_inputs(cuda):
     """Messages and books at an address that is no multiple of 16 bytes
     (the kernel's 16-byte loads): the wrapper copies them first."""
@@ -200,6 +241,18 @@ def test_launch_plan_fits_one_wave_at_the_main_shape(cuda):
         assert plan["blocks_per_sm"] == 8, plan
         assert plan["warps_per_sm"] == 32, plan
         assert bkern.launch_plan(128, n_agg, cuda) is plan
+
+
+def test_records_kernel_for_wide_rows_keeps_its_state_in_registers(cuda):
+    """Rows of more than 96 records take a records kernel of their own,
+    held to fewer blocks an SM so that nothing spills; narrower rows keep
+    the one-wave kernel (the records tests above at rec_k 128, and at
+    rec_k = S for S >= 128, run the wide one)."""
+    narrow = bkern.launch_plan(128, None, cuda, 96)
+    wide = bkern.launch_plan(128, None, cuda, 97)
+    assert narrow["blocks_per_sm"] == 8, narrow
+    assert wide["blocks_per_sm"] < 8 and wide["spill_bytes"] == 0, wide
+    assert bkern.launch_plan(128, None, cuda, 128) == wide
 
 
 def test_records_kernel_rejects_bad_rec_k(cuda):

@@ -85,7 +85,10 @@ def make_corner_case(E, M, S, seed, fill=0.6, tids=TIDS, shared=False):
       8, ...: live slots of quantity 0 or below; envs 1, 5, 9, ...:
       quantities of 2^29 to 2^31 - 1 on half the live slots and on a third
       of the messages, so prefix sums of crossing quantities wrap int32
-      and a message that is no limit order can fill.
+      and a message that is no limit order can fill; envs 3, 7, 11, ...:
+      positive quantities whose sum is short of 2^31 until a cancel of
+      negative quantity lifts it past (``plant_negative_cancel``, the bid
+      side in envs 3, 11, ..., the ask side in envs 7, 15, ...).
 
     With ``shared`` the case keeps to the corners on which the JAX
     package's two engines, its Pallas kernel and its XLA scan
@@ -131,7 +134,34 @@ def make_corner_case(E, M, S, seed, fill=0.6, tids=TIDS, shared=False):
         small = rng.random((E, M)) < 0.05
         msgs[..., 2] = np.where(small, rng.integers(-50, 1, (E, M)),
                                 msgs[..., 2])
+        for e in env[env % 4 == 3]:
+            plant_negative_cancel(book, msgs, e, 1 if e % 8 == 3 else 0)
     return book.astype(np.int32), msgs.astype(np.int32), prev
+
+
+def plant_negative_cancel(book, msgs, e, x, at=0):
+    """Env ``e``: side ``x`` (0 ask, 1 bid) of the book gets live
+    quantities that sum to 2^31 - 2^20, the second live slot holding most
+    of it; message ``at`` cancels -2^30 from the first live slot (by a
+    unique order id), which lifts that side's crossing prefix sums past
+    2^31; message ``at + 1`` is a cancel on the other side priced to cross
+    every slot of side ``x``, so the wrapped prefix sums make it fill the
+    slots behind the second.  Needs three live slots on side ``x`` and
+    ``at + 2 <= M``; does nothing otherwise."""
+    slots = np.flatnonzero(book[e, x, 0] != -1)
+    if slots.size < 3 or at + 2 > msgs.shape[1]:
+        return
+    q = book[e, x, 1]
+    q[slots] = np.maximum(q[slots], 1)
+    rest = int(q[slots].sum() - q[slots[1]])
+    q[slots[1]] = 2**31 - 2**20 - rest
+    oid = 900_000_000 + e
+    book[e, x, 2, slots[0]] = oid
+    side = 1 if x == 1 else -1        # the side a cancel of side x names
+    msgs[e, at] = (2, side, -2**30, book[e, x, 0, slots[0]], oid,
+                   oid, 34_300 + at, 0)
+    msgs[e, at + 1] = (2, -side, 1, 1 if x == 1 else MAX_INT32 - 1,
+                       123_456_789, 123_456_789, 34_301 + at, 0)
 
 
 def dispatch_index(msgs):

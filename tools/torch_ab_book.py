@@ -4,6 +4,7 @@
     python3 tools/torch_ab_book.py PARENT_TREE . . PARENT_TREE
     python3 tools/torch_ab_book.py --kernels-only .
     python3 tools/torch_ab_book.py --ablate
+    python3 tools/torch_ab_book.py --variants
 
 Each argument is the root of a checkout (a ``git archive`` of another
 commit unpacked in a directory that ``.gitignore`` lists, or ``.``).  For
@@ -46,6 +47,16 @@ insert's shift of the orders behind it, the whole insert, the per-trader
 sums): what each part costs; the copies compute wrong results and exist
 only to be timed.  It also times the kernel on streams of padding alone
 (M=1 and M=112): its fixed cost and each message's own.
+
+``--variants`` builds copies of this checkout's ``book_scan.cu`` with one
+design choice made otherwise (one shift for both directions of an
+insert; which rec_k take the records kernel for wide rows, and how many
+blocks an SM that kernel keeps), checks each bit-equal to the plain
+version (kernel 1 on a corner stream, kernel 2 at rec_k=128 on a corner
+stream with sweeps, both at E=4096) and times each, the whole kernel
+first and last: kernel 1 at E=4096 and kernel 2 at rec_k 16 to 128,
+through the wrapper and on the card alone, with each copy's launch
+plans.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ E_SHAPES = (4096, 2048, 1024, 512)
 M, S = 112, 128
 TIDS = (-100, -101)
 TICK = 100
+REC_KS = (16, 32, 48, 64, 96, 128)   # --variants: rows of kernel 2
 SMS, SCHEDULERS = 132, 4
 WARPS = 4                       # warps a block, in every tree so far
 COLLECTIVES = ("SHFL", "REDUX", "VOTE", "MATCH")
@@ -428,66 +440,243 @@ ABLATIONS = [
 ]
 
 
-def ablate() -> None:
+# (label, text in book_scan.cu, what takes its place) for --variants:
+# copies that compute the same function
+VARIANTS = [
+    ("one shift for both directions", """  if (right) {
+    // slot i in (lo, hi] takes slot i - 1; lane 0's first slot never moves
+    auto shift = [&](int (&v)[SPL], int val) {
+      int prev = __shfl_up_sync(kFull, v[SPL - 1], 1);
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int i = base + j, old = v[j];
+        v[j] = i == lo ? val : (i > lo) & (i <= hi) ? prev : old;
+        prev = old;
+      }
+    };
+    shift(YP, msg.price);
+    shift(YQ, add_q);
+  } else {
+    // slot i in [lo, hi) takes slot i + 1; lane 31's last slot never moves
+    auto shift = [&](int (&v)[SPL], int val) {
+      int next = __shfl_down_sync(kFull, v[0], 1);
+#pragma unroll
+      for (int j = SPL - 1; j >= 0; --j) {
+        const int i = base + j, old = v[j];
+        v[j] = i == hi ? val : (i >= lo) & (i < hi) ? next : old;
+        next = old;
+      }
+    };
+    shift(YP, msg.price);
+    shift(YQ, add_q);
+  }
+  // The shared planes: lane t moves the four planes of one slot of a
+  // group of 32 slots of the range (most ranges are shorter), a group's
+  // reads before its writes, groups from the far end.
+  if (right) {   // slots (lo, hi] take their left neighbour
+    for (int top = hi; top > lo; top -= 32) {
+      const int i = top - lane;
+      int v[NPL];
+#pragma unroll
+      for (int f = 0; f < NPL; ++f) v[f] = i > lo ? Ypl[f * S + i - 1] : 0;
+      __syncwarp();
+#pragma unroll
+      for (int f = 0; f < NPL; ++f)
+        if (i > lo) Ypl[f * S + i] = v[f];
+    }
+  } else {       // slots [lo, hi) take their right neighbour
+    for (int bot = lo; bot < hi; bot += 32) {
+      const int i = bot + lane;
+      int v[NPL];
+#pragma unroll
+      for (int f = 0; f < NPL; ++f) v[f] = i < hi ? Ypl[f * S + i + 1] : 0;
+      __syncwarp();
+#pragma unroll
+      for (int f = 0; f < NPL; ++f)
+        if (i < hi) Ypl[f * S + i] = v[f];
+    }
+  }
+""", """  {
+    const int at = right ? lo : hi;
+    auto shift = [&](int (&v)[SPL], int val) {
+      int prev = __shfl_up_sync(kFull, v[SPL - 1], 1);
+      const int next = __shfl_down_sync(kFull, v[0], 1);
+#pragma unroll
+      for (int j = 0; j < SPL; ++j) {
+        const int i = base + j, old = v[j];
+        const int nb = right ? prev : (j + 1 < SPL ? v[j + 1] : next);
+        const bool mv = right ? (i > lo) & (i <= hi) : (i >= lo) & (i < hi);
+        v[j] = i == at ? val : mv ? nb : old;
+        prev = old;
+      }
+    };
+    shift(YP, msg.price);
+    shift(YQ, add_q);
+  }
+  {
+    const int d = right ? -1 : 1;
+    for (int g = 0; g < hi - lo; g += 32) {
+      const int i = right ? hi - g - lane : lo + g + lane;
+      const bool mv = right ? i > lo : i < hi;
+      int v[NPL];
+#pragma unroll
+      for (int f = 0; f < NPL; ++f) v[f] = mv ? Ypl[f * S + i + d] : 0;
+      __syncwarp();
+#pragma unroll
+      for (int f = 0; f < NPL; ++f)
+        if (mv) Ypl[f * S + i] = v[f];
+    }
+  }
+"""),
+    ("narrow rows at every rec_k (8 blocks an SM)",
+     "constexpr int kWideRows = 96;", "constexpr int kWideRows = 256;"),
+    ("wide rows at every rec_k (4 blocks an SM)",
+     "constexpr int kWideRows = 96;", "constexpr int kWideRows = 0;"),
+    ("wide rows at 6 blocks an SM",
+     "SPL <= 4 && KIND != kRecordsWide ? 8 : 4)",
+     "SPL <= 4 ? (KIND != kRecordsWide ? 8 : 6) : 4)"),
+]
+
+
+WHOLE = ("whole kernel", "", "")
+
+
+def copy_kernels(source, edits, bkern, nvcc):
+    """Yield (label, changed) after loading into ``bkern`` a copy of
+    ``book_scan.cu`` with each (label, old, new) edit in turn (an empty
+    ``old``: the source as it is)."""
+    tmp = tempfile.mkdtemp(prefix="book_copies_")
+    try:
+        for n, (label, old, new) in enumerate(edits):
+            if old and source.count(old) != 1:
+                raise SystemExit(f"{label}: {old[:60]!r} not once in the "
+                                 "source")
+            path = os.path.join(tmp, "book_scan.cu")
+            with open(path, "w") as f:
+                f.write(source.replace(old, new) if old else source)
+            lib = nvcc.build(path, f"libbook_copy_{n}.so")
+            bkern._lib = None
+            bkern.build_library = lambda lib=lib: lib
+            bkern.launch_plan.cache_clear()
+            yield label, bool(old)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def setup():
+    """This checkout's modules, the card's line and the timers."""
     sys.path.insert(0, HERE)
     sys.path.insert(1, os.path.join(HERE, "tests"))
-    import numpy as np
     import torch
 
-    from torch_cases import make_case
-    from vit_marl_tpu_torch.config import EngineConfig
-    from vit_marl_tpu_torch.lob.book import BookState
     from vit_marl_tpu_torch.ops import book_kernel as bkern
     from vit_marl_tpu_torch.ops import nvcc
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_ab_book: no CUDA device available")
-    dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    timers = timing()
     with open(bkern.SOURCE) as f:
         source = f.read()
+    return torch, bkern, nvcc, smi, timing(), source
+
+
+def variants() -> None:
+    torch, bkern, nvcc, smi, timers, source = setup()
+    import numpy as np
+
+    from torch_cases import add_sweeps, make_case, make_corner_case
+    from vit_marl_tpu_torch.config import EngineConfig
+    from vit_marl_tpu_torch.lob.book import BookState
+
+    dev = torch.device("cuda")
+    E = 4096
+    cfg = EngineConfig(n_orders=S, cancel_mode=1)
+    tids = torch.tensor(TIDS, dtype=torch.int32, device=dev)
+
+    def on_card(book, msgs, prev):
+        return (torch.from_numpy(msgs).to(dev),
+                BookState(torch.from_numpy(book).to(dev)),
+                torch.from_numpy(prev).to(dev))
+
+    main = on_card(*make_case(E, M, S, 30 + E, tids=TIDS))
+    book, msgs, prev = make_case(E, M, S, 40, tids=TIDS)
+    sweeps = on_card(book, add_sweeps(msgs, every=7, seed=40), prev)
+    c_book, c_msgs, c_prev = make_corner_case(E, M, S, 50, tids=TIDS)
+    corner = on_card(c_book, c_msgs, c_prev)
+    corner_sw = on_card(c_book, add_sweeps(c_msgs, every=7, seed=50),
+                        c_prev)
+    want_1 = bkern.process_step_aggs_reference(
+        cfg, *corner[:2], tids, corner[2], TICK)
+    want_2 = bkern.process_step_records_reference(cfg, *corner_sw, 128)
+    flat = lambda out: [out[0].data, *out[1], *out[2]]   # noqa: E731
+    for label, _ in copy_kernels(source, [WHOLE, *VARIANTS, WHOLE],
+                                 bkern, nvcc):
+        got_1 = bkern.process_step_aggs(cfg, *corner[:2], tids, corner[2],
+                                        TICK)
+        got_2 = bkern.process_step_records(cfg, *corner_sw, 128)
+        same = all(torch.equal(g, w) for g, w in zip(
+            flat(got_1) + flat(got_2), flat(want_1) + flat(want_2)))
+        plans = [(f"kernel 2 at rec_k={k}",
+                  bkern.launch_plan(S, None, dev, k)) for k in REC_KS]
+        print(f"{label}: bit-equal {same}; " + "; ".join(
+            f"{name} {p['registers']} registers, {p['spill_bytes']} spill "
+            f"bytes, {p['warps_per_sm']} warps an SM" for name, p in
+            [("kernel 1", bkern.launch_plan(S, 2, dev)), *plans]),
+            flush=True)
+        if not same:
+            raise SystemExit(f"{label}: not bit-equal to the plain version")
+        runs = [("kernel 1, E=4096", lambda: bkern.process_step_aggs(
+            cfg, *main[:2], tids, main[2], TICK))]
+        for rec_k in REC_KS:
+            runs.append((f"kernel 2, E=4096, rec_k={rec_k}",
+                         lambda rec_k=rec_k: bkern.process_step_records(
+                             cfg, *sweeps, rec_k)))
+        for name, fn in runs:
+            ms, _ = timers.time_launches(fn)
+            print(f"  {label}, {name}: {ms:.4f} ms through the wrapper, "
+                  f"{timers.graph_ms(fn):.4f} ms on the card alone [{smi}]",
+                  flush=True)
+
+
+def ablate() -> None:
+    torch, bkern, nvcc, smi, timers, source = setup()
+
+    from torch_cases import make_case
+    from vit_marl_tpu_torch.config import EngineConfig
+    from vit_marl_tpu_torch.lob.book import BookState
+
+    dev = torch.device("cuda")
     book, msgs, prev = make_case(4096, M, S, 30 + 4096, tids=TIDS)
     args = (EngineConfig(n_orders=S, cancel_mode=1),
             torch.from_numpy(msgs).to(dev),
             BookState(torch.from_numpy(book).to(dev)),
             torch.tensor(TIDS, dtype=torch.int32, device=dev),
             torch.from_numpy(prev).to(dev), TICK, None)
-    tmp = tempfile.mkdtemp(prefix="book_ablate_")
-    try:
-        for n, (label, old, new) in enumerate([("whole kernel", "", "")]
-                                              + ABLATIONS):
-            if old and source.count(old) != 1:
-                raise SystemExit(f"--ablate: {old!r} not once in the source")
-            path = os.path.join(tmp, "book_scan.cu")
-            with open(path, "w") as f:
-                f.write(source.replace(old, new) if old else source)
-            lib = nvcc.build(path, f"libbook_ablate_{n}.so")
-            bkern._lib = None
-            bkern.build_library = lambda lib=lib: lib
-            ms = timers.graph_ms(lambda: bkern.process_step_aggs(*args))
-            print(f"kernel 1, E=4096, {label}: {ms:.4f} ms on the card alone "
-                  f"[{smi}]", flush=True)
-            if old:
-                continue
-            for pad_m in (1, M):
-                pad = (args[0], torch.zeros((4096, pad_m, 8),
-                                            dtype=torch.int32, device=dev),
-                       *args[2:])
-                ms = timers.graph_ms(lambda: bkern.process_step_aggs(*pad))
-                print(f"kernel 1, E=4096, padding alone, M={pad_m}: "
-                      f"{ms:.4f} ms on the card alone [{smi}]", flush=True)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    for label, changed in copy_kernels(source, [WHOLE, *ABLATIONS],
+                                       bkern, nvcc):
+        ms = timers.graph_ms(lambda: bkern.process_step_aggs(*args))
+        print(f"kernel 1, E=4096, {label}: {ms:.4f} ms on the card alone "
+              f"[{smi}]", flush=True)
+        if changed:
+            continue
+        for pad_m in (1, M):
+            pad = (args[0], torch.zeros((4096, pad_m, 8), dtype=torch.int32,
+                                        device=dev), *args[2:])
+            ms = timers.graph_ms(lambda: bkern.process_step_aggs(*pad))
+            print(f"kernel 1, E=4096, padding alone, M={pad_m}: "
+                  f"{ms:.4f} ms on the card alone [{smi}]", flush=True)
 
 
 def main() -> int:
     args = sys.argv[1:]
     if args == ["--ablate"]:
         ablate()
+        return 0
+    if args == ["--variants"]:
+        variants()
         return 0
     if len(args) >= 2 and args[0] == "--one":
         one(args[-1], "--kernels-only" in args)

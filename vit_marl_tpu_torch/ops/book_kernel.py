@@ -32,7 +32,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import re
 import threading
 from typing import Optional, Tuple
 
@@ -359,30 +358,9 @@ _lib_lock = threading.Lock()
 
 
 def build_library() -> str:
-    """Compile ``csrc/book_scan.cu`` (see ``ops/nvcc.py``) with ``-Xptxas
-    -v``; returns the library's path."""
-    return nvcc.build(SOURCE, "libbook_scan.so", ("-Xptxas", "-v"))
-
-
-def ptxas_report() -> list:
-    """ptxas's line for each kernel of the built library: its template
-    arguments ``<SPL, KIND>`` (KIND -1 records mode, else the aggregate
-    kernel's n_agg, 0 for any), registers, spills and shared memory."""
-    with open(build_library() + ".log") as f:
-        text = f.read()
-    out, name, spill = [], None, ""
-    for line in text.splitlines():
-        m = re.search(r"Function properties for \S*book_scan_kernel"
-                      r"ILi(\d+)ELi(n?\d+)E", line)
-        if m:
-            name = f"<{m.group(1)}, {m.group(2).replace('n', '-')}>"
-        elif name and "spill" in line:
-            spill = line.strip()
-        elif name and "Used" in line:
-            used = line.split(":", 1)[1].strip()
-            out.append(f"book_scan_kernel{name}: {used}; {spill}")
-            name = None
-    return out
+    """Compile ``csrc/book_scan.cu`` (see ``ops/nvcc.py``); returns the
+    library's path."""
+    return nvcc.build(SOURCE, "libbook_scan.so")
 
 
 def _library():
@@ -394,12 +372,12 @@ def _library():
             lib = ctypes.CDLL(build_library())
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.book_scan_aggs.argtypes = [p, p, p, p, p, p, p, p,
-                                           i, i, i, i, i, i, i, i, p]
+                                           i, i, i, i, i, i, i, i, i, p]
             lib.book_scan_aggs.restype = i
             lib.book_scan_records.argtypes = [p, p, p, p, p, p, p, p,
-                                              i, i, i, i, i, i, i, p]
+                                              i, i, i, i, i, i, i, i, p]
             lib.book_scan_records.restype = i
-            lib.book_scan_plan.argtypes = [i, i, p]
+            lib.book_scan_plan.argtypes = [i, i, i, p]
             lib.book_scan_plan.restype = i
             lib.book_scan_error_string.argtypes = [i]
             lib.book_scan_error_string.restype = ctypes.c_char_p
@@ -408,16 +386,20 @@ def _library():
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(S: int, n_agg: Optional[int], device) -> dict:
+def launch_plan(S: int, n_agg: Optional[int], device, rec_k: int = 1) -> dict:
     """How the kernel for book capacity ``S`` runs on ``device``: records
-    mode for ``n_agg=None``, else the aggregate kernel for ``n_agg``
-    traders.  Registers and spill bytes a thread, dynamic shared bytes a
-    block of 4 warps, resident blocks and warps an SM, from the CUDA
-    runtime; worked out once per (S, mode, n_agg, device)."""
+    mode for ``n_agg=None`` (the kernel that ``rec_k`` takes: rows wider
+    than 96 records have a kernel of their own), else the aggregate kernel
+    for ``n_agg`` traders.  Registers and spill bytes a thread, dynamic
+    shared bytes a block of 4 warps (what each launch asks for), resident
+    blocks and warps an SM, from the CUDA runtime; worked out once per
+    (S, mode, n_agg, rec_k, device), before the kernel's first launch
+    there."""
     lib = _library()
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
-        err = lib.book_scan_plan(S, -1 if n_agg is None else n_agg, out)
+        err = lib.book_scan_plan(S, -1 if n_agg is None else n_agg, rec_k,
+                                 out)
     _raise_on(err, lib, "book_scan_plan")
     return dict(registers=out[0], spill_bytes=out[1], dynamic_smem=out[2],
                 blocks_per_sm=out[3], warps_per_sm=4 * out[3])
@@ -480,13 +462,14 @@ def _launch(cfg: EngineConfig, msgs, book: BookState, tids, prev, tick,
     n_acc = AGG_STATS * n_agg + AGG_TOTALS
     aggs = torch.empty((E, n_acc), dtype=torch.int32, device=dev)
     lib = _library()
+    smem = launch_plan(S, n_agg, dev)["dynamic_smem"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.book_scan_aggs(
             msgs.data_ptr(), book_in.data_ptr(), prev.data_ptr(),
             tids.data_ptr(), u_ptr, book_out.data_ptr(), bidask.data_ptr(),
             aggs.data_ptr(), E, M, S, n_agg, int(cfg.cancel_mode),
-            int(cfg.init_id), int(tick), int(cfg.maxint), stream)
+            int(cfg.init_id), int(tick), int(cfg.maxint), smem, stream)
     _raise_on(err, lib, "book_scan_aggs")
     process_step_aggs.launches += 1
     per_agent = aggs[:, :AGG_STATS * n_agg].reshape(E, n_agg, AGG_STATS)
@@ -507,13 +490,14 @@ def _launch_records(cfg: EngineConfig, msgs, book: BookState, prev,
                           device=dev)
     counts = torch.empty((E, M), dtype=torch.int32, device=dev)
     lib = _library()
+    smem = launch_plan(S, None, dev, rec_k)["dynamic_smem"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.book_scan_records(
             msgs.data_ptr(), book_in.data_ptr(), prev.data_ptr(), u_ptr,
             book_out.data_ptr(), bidask.data_ptr(), records.data_ptr(),
             counts.data_ptr(), E, M, S, rec_k, int(cfg.cancel_mode),
-            int(cfg.init_id), int(cfg.maxint), stream)
+            int(cfg.init_id), int(cfg.maxint), smem, stream)
     _raise_on(err, lib, "book_scan_records")
     process_step_records.launches += 1
     return (BookState(book_out), (bidask[:, :, 0:2], bidask[:, :, 2:4]),

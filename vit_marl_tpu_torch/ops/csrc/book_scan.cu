@@ -45,7 +45,11 @@
 //   shifts orders moves them there a slot a lane, and a __syncwarp opens
 //   every message.  This keeps the registers to what one wave needs
 //   (__launch_bounds__ asks for 8 blocks of 4 warps an SM at S <= 128, 64
-//   registers; a few bytes spill).
+//   registers; spills take 16 bytes of local memory a thread in
+//   aggregate mode, 56 in records mode).
+//   Records rows of more than 96 entries take a records kernel held to 4
+//   blocks (96 registers, no spills, two waves at E = 4096): each message
+//   then writes so many rows that the spills cost more than the wave.
 // - No global memory on the chain: each warp stages its message stream
 //   (and the uniforms of the random-cancel modes) through a two-stage ring
 //   of 16-message chunks in shared memory with cp.async, one 16-byte copy
@@ -58,12 +62,13 @@
 //   positive quantity (a per-env flag taken at load; every step of the scan
 //   keeps it true), and a non-limit message skips matching when, besides,
 //   the matched side's live quantities sum below 2^31 (a saturating upper
-//   bound that grows with every insert), so no crossing prefix sum can
-//   wrap; elsewhere they run in full, the TPU kernel's branch-free
-//   semantics.  A limit order that crosses nothing skips the prefix scan
-//   (one vote).  An insert finds its place with two reductions (the last
-//   order before it and the first after; a gap between them is a hole it
-//   takes) and two more only where it shifts orders.  A side's best quote
+//   bound that grows with every insert and every cancel of negative
+//   quantity), so no crossing prefix sum can wrap; elsewhere they run in
+//   full, the TPU kernel's branch-free semantics.  A limit order that
+//   crosses nothing skips the prefix scan (one vote).  An insert finds its
+//   place with two reductions (the last order before it and the first
+//   after; a gap between them is a hole it takes) and two more only where
+//   it shifts orders.  A side's best quote
 //   follows a cancel or an insert by arithmetic where the result is sure
 //   and is worked out anew (two reductions) otherwise.  Ranks of fills and
 //   the random-cancel CDF count by ballot and popcount.
@@ -95,6 +100,8 @@ constexpr int kStages = 2;
 constexpr int kAggStats = 8;
 constexpr int kAggTotals = 2;
 constexpr int kRecords = -1;              // KIND of the records mode
+constexpr int kRecordsWide = -2;          // its kernel for wide rows
+constexpr int kWideRows = 96;             // rec_k past which rows are wide
 constexpr unsigned kWrap = 1u << 31;      // a quantity sum that may wrap
 enum { OID = 0, TID, TS, TNS, NPL };      // planes in shared memory
 enum { F_BID = 1, F_LIM = 2, F_CANCEL = 4 };  // a decoded message's flags
@@ -398,6 +405,15 @@ __device__ __forceinline__ void add_sums(Env<SPL>& env, const int* Xpl,
   }
 }
 
+// A side's bound on its live quantities grows by `add` (at most 2^31),
+// saturating at kWrap.
+__device__ __forceinline__ void raise_qsum(int (&st)[8], int side,
+                                           unsigned add) {
+  const unsigned long long q =
+      (unsigned long long)(unsigned)st[ST_QSUM + side] + add;
+  st[ST_QSUM + side] = (int)(q < kWrap ? (unsigned)q : kWrap);
+}
+
 // A side's new raw best price and quantity into the state: the output
 // row keeps the last price a side had (forward fill), quantity 0 while it
 // has none.
@@ -502,6 +518,8 @@ __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
         YQ[j] = at ? nq : YQ[j];
         YP[j] = at & (nq <= 0) ? kEmpty : YP[j];
       }
+      // a cancel of negative quantity adds to the slot's
+      if (c_quant < 0) raise_qsum(env.st, YS, 0u - (unsigned)c_quant);
       // Y's best quote: a slot off the best price leaves it as it is (a
       // bid side with no hole and only prices below -1 aside, where a
       // wiped slot's -1 becomes the highest); a slot at the best price
@@ -558,7 +576,7 @@ __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
       }
       total_matched = warp_sum(tm);
       if (__any_sync(kFull, any_local)) {
-        if constexpr (KIND == kRecords) {
+        if constexpr (KIND < 0) {
           // ---- records (book_kernel.py:241-285): rank = fills up to the
           // slot, counted by ballot
           const unsigned lower = (1u << lane) - 1u;
@@ -594,7 +612,7 @@ __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
       }
     }
   }
-  if constexpr (KIND == kRecords) {
+  if constexpr (KIND < 0) {
     // records are written once and never read here: streaming stores
     for (int k = fills + lane; k < rec_k; k += 32)
       __stcs(rows + k, make_int4(kEmpty, 0, 0, 0));
@@ -644,8 +662,7 @@ __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
   }
   const bool case_bh = first_ha < S;
   const bool case_c = last_hb >= 0;
-  env.st[ST_QSUM + YS] =
-      (int)min((unsigned)env.st[ST_QSUM + YS] + (unsigned)add_q, kWrap);
+  raise_qsum(env.st, YS, (unsigned)add_q);
 
   // The best quote of Y after the insert: while a hole takes the order,
   // Y's live (price, quantity) pairs are the old ones and the new order,
@@ -747,10 +764,15 @@ __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
   return changed;
 }
 
-// KIND: kRecords (records mode: `records` (E, M, rec_k), `counts` (E, M));
-// else aggregate mode with n_agg = KIND traders, or any n_agg for KIND 0.
+// KIND: kRecords or kRecordsWide (records mode: `records` (E, M, rec_k),
+// `counts` (E, M)); else aggregate mode with n_agg = KIND traders, or any
+// n_agg for KIND 0.  At S <= 128 the kernels keep 8 blocks an SM (one wave
+// at E = 4096), but for rows of more than 96 records: held to 4 blocks,
+// the records kernel keeps its state in registers where at 8 it spills,
+// and past rec_k = 96 its spills cost more than a second wave (PERF.md).
 template <int SPL, int KIND>
-__global__ void __launch_bounds__(kWarps * 32, SPL <= 4 ? 8 : 4)
+__global__ void __launch_bounds__(kWarps * 32,
+                                  SPL <= 4 && KIND != kRecordsWide ? 8 : 4)
 book_scan_kernel(const Args a) {
   constexpr int S = SPL * 32;
   using L = Layout<SPL>;
@@ -857,7 +879,7 @@ book_scan_kernel(const Args a) {
       const float u = want_u ? reinterpret_cast<const float*>(
                                    w + L::uring)[(c & 1) * kChunk + k]
                              : 0.0f;
-      int4* rows = KIND == kRecords
+      int4* rows = KIND < 0
                        ? a.records + ((size_t)e * M + m0 + k) * a.rec_k
                        : nullptr;
       int n_fills = 0;
@@ -881,14 +903,14 @@ book_scan_kernel(const Args a) {
         reinterpret_cast<int4*>(w + L::quotes)[k] =
             make_int4(env.st[ST_QUOTE], env.st[ST_QUOTE + 1],
                       env.st[ST_QUOTE + 2], env.st[ST_QUOTE + 3]);
-        if constexpr (KIND == kRecords) w[L::counts + k] = n_fills;
+        if constexpr (KIND < 0) w[L::counts + k] = n_fills;
       }
     }
     __syncwarp();
     if (lane < cnt) {
       reinterpret_cast<int4*>(a.bidask)[(size_t)e * M + m0 + lane] =
           reinterpret_cast<const int4*>(w + L::quotes)[lane];
-      if constexpr (KIND == kRecords)
+      if constexpr (KIND < 0)
         a.counts[(size_t)e * M + m0 + lane] = w[L::counts + lane];
     }
   }
@@ -929,41 +951,29 @@ book_scan_kernel(const Args a) {
 // Ints a warp adds to its Layout: the aggregate kernels' trader ids, and
 // the general one's sums before them.
 constexpr int extra_ints(int kind, int n_agg, int n_acc) {
-  return kind == kRecords ? 0 : ((kind == 0 ? n_acc : 0) + n_agg + 3) / 4 * 4;
+  return kind < 0 ? 0 : ((kind == 0 ? n_acc : 0) + n_agg + 3) / 4 * 4;
 }
 
-// The dynamic shared memory a block asks for, allowed past 48 KB where it
-// goes there (only the general kernel with many traders does).
-template <int SPL, int KIND>
-cudaError_t block_smem(int extra, size_t* smem) {
-  *smem = (size_t)kWarps * (Layout<SPL>::fixed + extra) * sizeof(int);
-  if (*smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(book_scan_kernel<SPL, KIND>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)*smem);
-}
-
-template <int SPL, int KIND>
-cudaError_t launch(Args a, cudaStream_t stream) {
-  a.extra = extra_ints(KIND, a.p.n_agg, a.p.n_acc);
-  size_t smem;
-  const cudaError_t err = block_smem<SPL, KIND>(a.extra, &smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.E + kWarps - 1) / kWarps), block(kWarps * 32);
-  book_scan_kernel<SPL, KIND><<<grid, block, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// The launch plan of one instantiation: out = {registers a thread, local
-// bytes a thread (spills), dynamic shared bytes a block, blocks an SM}.
+// The launch plan of one instantiation, made once per (S, mode, n_agg,
+// device) by the wrapper before its first launch: out = {registers a
+// thread, local bytes a thread (spills), dynamic shared bytes a block,
+// blocks an SM}.  Allows the dynamic shared memory past 48 KB where it goes
+// there (only the general kernel with many traders does).
 template <int SPL, int KIND>
 cudaError_t plan(int n_agg, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, book_scan_kernel<SPL, KIND>);
-  size_t smem = 0;
+  const size_t smem =
+      (size_t)kWarps *
+      (Layout<SPL>::fixed +
+       extra_ints(KIND, n_agg, kAggStats * n_agg + kAggTotals)) *
+      sizeof(int);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(book_scan_kernel<SPL, KIND>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+  cudaFuncAttributes attr{};
   if (err == cudaSuccess)
-    err = block_smem<SPL, KIND>(
-        extra_ints(KIND, n_agg, kAggStats * n_agg + kAggTotals), &smem);
+    err = cudaFuncGetAttributes(&attr, book_scan_kernel<SPL, KIND>);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -975,35 +985,52 @@ cudaError_t plan(int n_agg, int* out) {
   return err;
 }
 
-// kind: kRecords, or the aggregate kernel's KIND for n_agg (1, 2, else 0).
+// A launch with the dynamic shared memory of its plan.
+template <int SPL, int KIND>
+cudaError_t launch(Args a, int smem, cudaStream_t stream) {
+  a.extra = extra_ints(KIND, a.p.n_agg, a.p.n_acc);
+  const dim3 grid((a.E + kWarps - 1) / kWarps), block(kWarps * 32);
+  book_scan_kernel<SPL, KIND><<<grid, block, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// kind: kRecords, kRecordsWide, or the aggregate kernel's KIND for n_agg
+// (1, 2, else 0).  With `a` null, makes the plan for n_agg into out; else
+// launches.
 template <int SPL>
-int dispatch(int kind, bool want_plan, const Args& a, int n_agg, int* out,
+int dispatch(int kind, const Args* a, int n_agg, int* out, int smem,
              cudaStream_t st) {
   switch (kind) {
     case kRecords:
-      return want_plan ? plan<SPL, kRecords>(n_agg, out)
-                       : launch<SPL, kRecords>(a, st);
+      return a ? launch<SPL, kRecords>(*a, smem, st)
+               : plan<SPL, kRecords>(n_agg, out);
+    case kRecordsWide:
+      return a ? launch<SPL, kRecordsWide>(*a, smem, st)
+               : plan<SPL, kRecordsWide>(n_agg, out);
     case 1:
-      return want_plan ? plan<SPL, 1>(n_agg, out) : launch<SPL, 1>(a, st);
+      return a ? launch<SPL, 1>(*a, smem, st) : plan<SPL, 1>(n_agg, out);
     case 2:
-      return want_plan ? plan<SPL, 2>(n_agg, out) : launch<SPL, 2>(a, st);
+      return a ? launch<SPL, 2>(*a, smem, st) : plan<SPL, 2>(n_agg, out);
     default:
-      return want_plan ? plan<SPL, 0>(n_agg, out) : launch<SPL, 0>(a, st);
+      return a ? launch<SPL, 0>(*a, smem, st) : plan<SPL, 0>(n_agg, out);
   }
 }
 
-int dispatch_s(int S, int kind, bool want_plan, const Args& a, int n_agg,
-               int* out, cudaStream_t st) {
+int dispatch_s(int S, int kind, const Args* a, int n_agg, int* out, int smem,
+               cudaStream_t st) {
   switch (S) {
-    case 32: return dispatch<1>(kind, want_plan, a, n_agg, out, st);
-    case 64: return dispatch<2>(kind, want_plan, a, n_agg, out, st);
-    case 128: return dispatch<4>(kind, want_plan, a, n_agg, out, st);
-    case 256: return dispatch<8>(kind, want_plan, a, n_agg, out, st);
+    case 32: return dispatch<1>(kind, a, n_agg, out, smem, st);
+    case 64: return dispatch<2>(kind, a, n_agg, out, smem, st);
+    case 128: return dispatch<4>(kind, a, n_agg, out, smem, st);
+    case 256: return dispatch<8>(kind, a, n_agg, out, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int agg_kind(int n_agg) { return n_agg == 1 || n_agg == 2 ? n_agg : 0; }
+int records_kind(int rec_k) {
+  return rec_k > kWideRows ? kRecordsWide : kRecords;
+}
 
 Params make_params(int cancel_mode, int init_id, int maxint, int n_agg,
                    int tick) {
@@ -1022,20 +1049,21 @@ Params make_params(int cancel_mode, int init_id, int maxint, int n_agg,
 // prev (E, 2); tids (n_agg,); uniforms (M, E) float32, read only when
 // cancel_mode >= 2; bidask (E, M, 4) [ask_p, ask_q, bid_p, bid_q];
 // aggs (E, 8 * n_agg + 2).  msgs, book_in, book_out and bidask 16-byte
-// aligned; tick > 0.  Launches on `stream`, does not synchronise, returns
-// the cudaError_t of the launch.
+// aligned; tick > 0; smem the dynamic shared bytes of the kernel's plan
+// (book_scan_plan, made first).  Launches on `stream`, does not
+// synchronise, returns the cudaError_t of the launch.
 extern "C" int book_scan_aggs(const int* msgs, const int* book_in,
                               const int* prev, const int* tids,
                               const float* uniforms, int* book_out,
                               int* bidask, int* aggs, int E, int M, int S,
                               int n_agg, int cancel_mode, int init_id,
-                              int tick, int maxint, void* stream) {
+                              int tick, int maxint, int smem, void* stream) {
   if (E <= 0 || M <= 0) return 0;
   if (tick <= 0) return (int)cudaErrorInvalidValue;
   const Args a{msgs, book_in, prev, tids, uniforms, book_out, bidask, aggs,
                nullptr, nullptr, 0, E, M, 0,
                make_params(cancel_mode, init_id, maxint, n_agg, tick)};
-  return dispatch_s(S, agg_kind(n_agg), false, a, n_agg, nullptr,
+  return dispatch_s(S, agg_kind(n_agg), &a, n_agg, nullptr, smem,
                     static_cast<cudaStream_t>(stream));
 }
 
@@ -1048,25 +1076,25 @@ extern "C" int book_scan_records(const int* msgs, const int* book_in,
                                  int* book_out, int* bidask, int* records,
                                  int* fill_counts, int E, int M, int S,
                                  int rec_k, int cancel_mode, int init_id,
-                                 int maxint, void* stream) {
+                                 int maxint, int smem, void* stream) {
   if (E <= 0 || M <= 0) return 0;
   if (rec_k < 1 || rec_k > S) return (int)cudaErrorInvalidValue;
   const Args a{msgs, book_in, prev, nullptr, uniforms, book_out, bidask,
                nullptr, reinterpret_cast<int4*>(records), fill_counts,
                rec_k, E, M, 0,
                make_params(cancel_mode, init_id, maxint, 0, 1)};
-  return dispatch_s(S, kRecords, false, a, 0, nullptr,
+  return dispatch_s(S, records_kind(rec_k), &a, 0, nullptr, smem,
                     static_cast<cudaStream_t>(stream));
 }
 
-// The launch plan of the kernel that book_scan_records (n_agg < 0) or
-// book_scan_aggs (n_agg >= 0) launches at capacity S: out[4] = {registers
-// a thread, spill bytes a thread, dynamic shared bytes a block, resident
-// blocks of 4 warps an SM}.
-extern "C" int book_scan_plan(int S, int n_agg, int* out) {
-  const Args a{};
-  return dispatch_s(S, n_agg < 0 ? kRecords : agg_kind(n_agg), true, a,
-                    n_agg < 0 ? 0 : n_agg, out, nullptr);
+// The launch plan of the kernel that book_scan_records (n_agg < 0, for
+// rec_k) or book_scan_aggs (n_agg >= 0) launches at capacity S, on the
+// current device: out[4] = {registers a thread, spill bytes a thread,
+// dynamic shared bytes a block, resident blocks of 4 warps an SM}.  Made
+// once before the kernel's first launch on the device.
+extern "C" int book_scan_plan(int S, int n_agg, int rec_k, int* out) {
+  return dispatch_s(S, n_agg < 0 ? records_kind(rec_k) : agg_kind(n_agg),
+                    nullptr, n_agg < 0 ? 0 : n_agg, out, 0, nullptr);
 }
 
 extern "C" const char* book_scan_error_string(int err) {

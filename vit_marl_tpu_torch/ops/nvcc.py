@@ -19,13 +19,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
-def build(source: str, lib_name: str, extra_flags=()) -> str:
+def build(source: str, lib_name: str) -> str:
     """Compile ``source`` into ``BUILD_DIR/lib_name``; returns its path.
     Rebuilds when the source or a header of ``csrc/`` is newer than the
     library.  Concurrent builds of different sources are safe (each writes
-    its own temporary file).  ``extra_flags`` go to nvcc as given; what it
-    prints is kept beside the library as ``lib_name + ".log"`` (with
-    ``-Xptxas -v``: each kernel's registers, spills and shared memory)."""
+    its own temporary file)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, lib_name)
     newest = max(os.path.getmtime(f) for f in
@@ -37,13 +35,10 @@ def build(source: str, lib_name: str, extra_flags=()) -> str:
     if not os.path.exists(nvcc):
         nvcc = "nvcc"
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-o", tmp, source]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    with open(f"{tmp}.log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(f"{tmp}.log", f"{out}.log")
     os.replace(tmp, out)
     return out
