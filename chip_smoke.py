@@ -7,7 +7,10 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 
 1. device: the card's name and power limit, and the nvcc builds of the
    kernels in ``vit_marl_tpu_torch/ops/csrc/`` (one nvcc per source, all
-   started together);
+   started together); the book scan's launch plans, and the tile plan,
+   registers, spill bytes and clusters a wave of the bf16 tensor-core
+   kernels of ``fused_proj_mlp`` and ``fused_block_full`` at ViT-Small's
+   shapes;
 2. book scan against plain: the CUDA book scan in aggregate mode (kernel
    1) against its plain PyTorch version at the 2-player path's shape
    (E=4096 envs, M=112 messages, S=128 slots, 2 traders) on seeded random
@@ -54,13 +57,17 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 5. fused blocks against plain: the four CUDA fused-block kernels (LN+QKV,
    proj+MLP, the whole block, LN+QKV+attention) through the wrappers the
    ViT calls, against their plain versions on the card at ViT-Small's
-   shapes (N=11, W=384, H=6, hidden 1,536) at B=1,024, 32,768 and a
-   ragged 1,000 images in bf16 (within two bf16 ulps of the element, rtol
-   1.6e-2, or two or three of the output's largest magnitude, see
+   shapes (N=11, W=384, H=6, hidden 1,536) at B=1,024, 32,768, a ragged
+   1,000 and a ragged 5,003 images (more tiles than one persistent wave,
+   a last tile part full) in bf16 (within two bf16 ulps of the element,
+   rtol 1.6e-2, or two or three of the output's largest magnitude, see
    ``block_tol``) and at B=1,024 and 1,000 in float32 (rtol 2e-5, atol
-   2e-5).
-   Times each kernel at B=32,768 and 1,024 (bf16), its plain version and
-   the port's unfused PyTorch sequence for the same function
+   2e-5); bf16 ``fused_proj_mlp`` and ``fused_block_full`` must launch
+   on their tensor-core route, float32 on the CUDA-core one (launches by
+   route printed).
+   Times each kernel at B=32,768 and 1,024 (bf16) through the wrapper and
+   on the card alone (replays of a CUDA graph), its plain version and the
+   port's unfused PyTorch sequence for the same function
    (``F.layer_norm`` + ``F.linear`` + ``F.gelu`` +
    ``scaled_dot_product_attention``), the yardstick; no single PyTorch
    call computes these functions;
@@ -85,7 +92,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    the discrete ``simplest_case`` execution agent alone);
 10. fused-mode vision training: phase 8, 2 updates in each of the three
    fused-block modes (``VIT_ATTN_LN_FOLD``, ``VIT_FUSED_BLOCK``,
-   ``VIT_FUSED_BLOCK_FULL``), with the exact launch count of every kernel;
+   ``VIT_FUSED_BLOCK_FULL``), with the exact launch count of every kernel,
+   every launch of ``fused_proj_mlp`` and ``fused_block_full`` on the
+   bf16 tensor-core route;
 11. summary: one JSON line describing the eight kernels, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -162,6 +171,8 @@ def block_tol(name, want):
 
 # the fused-block kernels: wrapper name -> (TPU function, ViT mode whose
 # training launches it)
+# the fused-block kernels with a bf16 tensor-core route
+TC_KERNELS = ("fused_proj_mlp", "fused_block_full")
 BLOCK_KERNELS = {
     "fused_ln_qkv": ("vit_marl_tpu/ops/block_kernel.py:88", "fused_block"),
     "fused_proj_mlp": ("vit_marl_tpu/ops/block_kernel.py:169",
@@ -627,9 +638,10 @@ def block_phase(torch, blk, smi):
 
     errs = {name: 0.0 for name in BLOCK_KERNELS}
     p16, p32 = params(torch.bfloat16), params(torch.float32)
+    routes0 = block_route_counts(blk)
     for B, dtype in [(B_ROLLOUT, torch.bfloat16), (B_MINIBATCH, torch.bfloat16),
-                     (1000, torch.bfloat16), (B_ROLLOUT, torch.float32),
-                     (1000, torch.float32)]:
+                     (1000, torch.bfloat16), (5003, torch.bfloat16),
+                     (B_ROLLOUT, torch.float32), (1000, torch.float32)]:
         dname = str(dtype)[6:]
         p = p16 if dtype == torch.bfloat16 else p32
         x = rand(B * N, W, dtype=dtype)
@@ -647,6 +659,13 @@ def block_phase(torch, blk, smi):
                   f"{tol})", flush=True)
             del got, want
         del x, a
+    routes = {k: v - routes0[k] for k, v in block_route_counts(blk).items()}
+    want_routes = {f"{name}_{route}": n for name in TC_KERNELS
+                   for route, n in (("wgmma", 4), ("simt", 2))}
+    print(f"  fused-block launches by route: {routes}", flush=True)
+    if routes != want_routes:
+        raise AssertionError(f"fused-block launches by route {routes}, want "
+                             f"{want_routes}")
 
     rows = {}
     x = rand(B_MINIBATCH * N, W, dtype=torch.bfloat16)
@@ -654,23 +673,31 @@ def block_phase(torch, blk, smi):
     for name in BLOCK_KERNELS:
         kern, plain, seq = calls(name, x, a, p16)
         ms, ms_min = time_launches(kern)
+        dev_ms = graph_ms(kern)
         plain_ms, _ = time_launches(plain, batches=3, per_batch=3, warm=1)
         seq_ms, _ = time_launches(seq)
         cost = block_cost(name, B_MINIBATCH, N, W, hidden, 2)
         bound_ms, bound_by = block_bound(*cost, "bfloat16")
         rk, _, rseq = calls(name, x[:B_ROLLOUT * N], a[:B_ROLLOUT * N], p16)
         roll_ms, _ = time_launches(rk)
+        roll_dev_ms = graph_ms(rk)
         roll_seq_ms, _ = time_launches(rseq)
         roll_bound, _ = block_bound(
             *block_cost(name, B_ROLLOUT, N, W, hidden, 2), "bfloat16")
-        plan = blk.tile_plan(name, torch.bfloat16, W, N, H, 3 * W, hidden)
+        if name in TC_KERNELS:
+            plan = {k: v for k, v in blk.wgmma_plan(
+                name, W, hidden, *((N, H) if name == "fused_block_full"
+                                   else ())).items() if v}
+        else:
+            plan = blk.tile_plan(name, torch.bfloat16, W, N, H, 3 * W, hidden)
         print(f"  {name} B={B_MINIBATCH}: kernel {ms:.4f} ms (median of "
-              f"{BATCHES} batches of {PER_BATCH}, min {ms_min:.4f}); plain "
-              f"{plain_ms:.3f} ms; unfused sequence {seq_ms:.4f} ms; bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({cost[0] / 1e6:.1f} MB, "
-              f"{cost[1] / 1e9:.1f} GFLOP bf16 + {cost[2] / 1e9:.2f} GFLOP "
-              f"f32); B={B_ROLLOUT}: kernel {roll_ms:.4f} ms, unfused "
-              f"{roll_seq_ms:.4f} ms, bound {roll_bound:.4f} ms; tile {plan} "
+              f"{BATCHES} batches of {PER_BATCH}, min {ms_min:.4f}), card "
+              f"alone {dev_ms:.4f} ms; plain {plain_ms:.3f} ms; unfused "
+              f"sequence {seq_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.1f} GFLOP "
+              f"bf16 + {cost[2] / 1e9:.2f} GFLOP f32); B={B_ROLLOUT}: kernel "
+              f"{roll_ms:.4f} ms, card alone {roll_dev_ms:.4f} ms, unfused "
+              f"{roll_seq_ms:.4f} ms, bound {roll_bound:.4f} ms; plan {plan} "
               f"[{smi}]", flush=True)
         rows[name] = dict(
             name=name, route="cuda",
@@ -684,9 +711,20 @@ def block_phase(torch, blk, smi):
                                        else 2)},
             max_abs_err=errs[name], ms=ms, kernel_ms=ms, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            unfused_ms=seq_ms, ms_rollout=roll_ms,
-            unfused_ms_rollout=roll_seq_ms, bound_ms_rollout=roll_bound)
+            device_ms=dev_ms, unfused_ms=seq_ms, ms_rollout=roll_ms,
+            device_ms_rollout=roll_dev_ms, unfused_ms_rollout=roll_seq_ms,
+            bound_ms_rollout=roll_bound,
+            bf16_route="wgmma" if name in TC_KERNELS else "mma",
+            plan=plan)
     return rows
+
+
+def block_route_counts(blk):
+    """Launches of the tensor-core kernels by route (bf16: ``wgmma``,
+    float32: ``simt``)."""
+    return {f"{name}_{route}": getattr(getattr(blk, name),
+                                       f"launches_{route}")
+            for name in TC_KERNELS for route in ("wgmma", "simt")}
 
 
 def route_counts(attn):
@@ -798,6 +836,7 @@ def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
     for _, reset in count.values():
         reset()
     routes = route_counts(attn)
+    block_routes = block_route_counts(blk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tt = time.perf_counter()
@@ -836,6 +875,13 @@ def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
     if routes != want_routes:
         raise AssertionError(f"the bf16 ViT's attention launches by route "
                              f"{routes}, want {want_routes}")
+    block_routes = {k: v - block_routes[k]
+                    for k, v in block_route_counts(blk).items()}
+    want_block = {f"{k}_{route}": want[k] if route == "wgmma" else 0
+                  for k in TC_KERNELS for route in ("wgmma", "simt")}
+    if block_routes != want_block:
+        raise AssertionError(f"the bf16 ViT's fused-block launches by route "
+                             f"{block_routes}, want {want_block}")
     steps = tc.num_envs * tc.num_steps * UPDATES
     peak = torch.cuda.max_memory_allocated() / 2**30
     split = update_split(out["metrics"])
@@ -892,6 +938,14 @@ def main() -> int:
                      else f"n_agg={n_agg}") + ": "
                   + ", ".join(f"{k} {v}" for k, v in plan.items()),
                   flush=True)
+    hidden = MLP_RATIO * ATT_W
+    for name, shape in (("fused_proj_mlp", ()),
+                        ("fused_block_full", (ATT_N, ATT_H))):
+        info = blk.wgmma_info(name, ATT_W, hidden, *shape)
+        print(f"  {name} bf16 tensor-core plan at W={ATT_W}, hidden "
+              f"{hidden}" + (f", N={ATT_N}, H={ATT_H}" if shape else "")
+              + ": " + ", ".join(f"{k} {v}" for k, v in info.items()),
+              flush=True)
     phase("1 device", t0)
 
     # ---- phase 2: book scan against plain ----

@@ -17,6 +17,13 @@ backward kernel and without), and passes ``gradcheck`` in float64.  On the
 CPU the wrappers run the plain versions and count no launch; the CUDA
 launchers refuse the shapes the kernels do not take before they touch a
 card.
+
+The tile plan of the bf16 tensor-core kernels (``wgmma_plan``), which the
+C entry only checks, is walked over every accepted shape (W, hidden, N,
+D): it fits an H100's 232,448 bytes of shared memory with its regions in
+order, kernel 7's tiles hold whole images, ViT-Small's shapes get 128
+rows a weight fetch, and kernel 7's head groups cover every qkv column
+and every attention column of the projection exactly once.
 """
 
 import jax
@@ -237,3 +244,107 @@ def test_launchers_refuse_unsupported_shapes(launch, args, match):
                               torch.zeros(3 * Wd), n, args["heads"])
     with pytest.raises(NotImplementedError, match=match):
         call()
+
+
+# --------------------------------------------------------------------------
+# The tile plan of the bf16 tensor-core kernels (fused_proj_mlp,
+# fused_block_full), computed on the host and checked by the C entry
+# --------------------------------------------------------------------------
+
+def _vit_small_plans():
+    return (bk.wgmma_plan("fused_proj_mlp", 384, 1536),
+            bk.wgmma_plan("fused_block_full", 384, 1536, 11, 6))
+
+
+def _check_plan(plan, W, hidden, N=1, D=None):
+    """What the C entry's plan_ok asks of a plan, and what the kernel's
+    shared-memory regions need: in order, disjoint, within the limit."""
+    assert plan["smem"] <= bk.SMEM_LIMIT
+    assert plan["rows"] == bk.TC_ROWS and plan["stage_bytes"] == 64 * 128
+    hc = plan["hc"]
+    assert hc in (64, 128, 256) and hidden % hc == 0
+    assert plan["hid_bufs"] == (1 if hc == 256 else 2)
+    assert 1 <= plan["cluster"] <= 4
+    tile = bk.TC_ROWS * W * 2
+    ring = plan["stages"] * plan["stage_bytes"]
+    assert plan["o_h"] >= ring and plan["o_h"] % 1024 == 0
+    widest = max(W // 2, hc // 2)            # weight rows of a k-block
+    if plan["kind"] == bk.KINDS["fused_proj_mlp"]:
+        assert plan["o_hid"] >= plan["o_h"] + tile
+        end = plan["o_hid"] + plan["hid_bufs"] * bk.TC_ROWS * hc * 2
+    else:
+        G, gd = plan["head_group"], plan["head_group"] * D
+        assert 1 <= G <= W // D
+        assert plan["slot"] == -(-gd // 16) * 16
+        assert plan["gdp"] == -(-gd // 64) * 64 <= 192
+        assert plan["ldq"] >= 3 * plan["slot"] and plan["ldq"] % 8 == 0
+        assert 1 <= plan["attn_warps"] <= 8
+        assert plan["o_qkv"] == plan["o_hid"] >= plan["o_h"] + tile
+        assert plan["o_p"] >= plan["o_qkv"] + bk.TC_ROWS * plan["ldq"] * 2
+        assert plan["o_at"] >= plan["o_p"] + (plan["attn_warps"] * N
+                                              * (N + 1) * 4)
+        assert plan["o_at"] >= (plan["o_hid"]
+                                + plan["hid_bufs"] * bk.TC_ROWS * hc * 2)
+        assert plan["o_at"] % 1024 == 0
+        end = plan["o_at"] + -(-plan["slot"] // 64) * bk.TC_KB_BYTES
+    n_bias = 4 * W + hidden + (3 * W if D else 0) + 256
+    assert plan["o_bias"] >= end and plan["o_bias"] % 16 == 0
+    assert plan["stages"] >= 2 * -(-widest // 64)
+    assert plan["o_bar"] >= plan["o_bias"] + 4 * n_bias
+    assert plan["smem"] >= plan["o_bar"] + 16 * plan["stages"] + 1024
+
+
+@pytest.mark.parametrize("W", range(64, 513, 64))
+def test_wgmma_plan_fits_every_accepted_shape(W):
+    """Every bf16 shape the wrappers take has a plan that fits 232,448
+    bytes of shared memory; kernel 7's tiles hold whole images, as many as
+    fit in 64 rows."""
+    for hidden in range(64, 2049, 64):
+        _check_plan(bk.wgmma_plan("fused_proj_mlp", W, hidden), W, hidden)
+        for D in range(8, 129, 8):
+            if W % D:
+                continue
+            for N in range(1, 33):
+                plan = bk.wgmma_plan("fused_block_full", W, hidden, N, W // D)
+                _check_plan(plan, W, hidden, N, D)
+                assert plan["images"] == bk.TC_ROWS // N
+                assert plan["images"] * N <= bk.TC_ROWS
+
+
+def test_wgmma_plan_feeds_128_rows_per_weight_fetch_at_vit_small():
+    """A cluster shares each weight byte from L2 among at least 128 tile
+    rows at ViT-Small's shapes (N=11, W=384, 6 heads, hidden 1,536):
+    two CTAs of 64 rows, kernel 7's holding 5 whole images (55 tokens)."""
+    proj_mlp, full = _vit_small_plans()
+    for plan in (proj_mlp, full):
+        assert plan["rows_per_fetch"] == plan["cluster"] * bk.TC_ROWS >= 128
+    assert full["images"] == 5 and full["images"] * 11 <= bk.TC_ROWS
+
+
+@pytest.mark.parametrize("W,N,D", [(384, 11, 64), (64, 13, 8), (512, 32, 128),
+                                   (192, 17, 24), (320, 5, 40), (448, 1, 56)])
+def test_wgmma_plan_covers_qkv_and_projection_columns_once(W, N, D):
+    """Kernel 7's head groups, as the producer streams them and the
+    epilogue stores them: every qkv column is computed by exactly one
+    warpgroup from its own weight row, and every attention column enters
+    the projection's k dimension exactly once (padding columns are
+    zeros)."""
+    plan = bk.wgmma_plan("fused_block_full", W, 4 * W, N, W // D)
+    G, half = plan["head_group"], plan["gdp"] // 2
+    H = W // D
+    qkv_cols, proj_k = [], []
+    for g0 in range(0, H, G):
+        gd = min(G, H - g0) * D
+        for part in range(3):
+            for o in range(0, half, 64):       # products of <= 64 columns
+                for wg in range(2):
+                    row0 = part * W + g0 * D + o + wg * half   # producer
+                    for c in range(min(64, half - o)):
+                        wc = wg * half + o + c                   # epilogue
+                        assert row0 + c == part * W + g0 * D + wc
+                        if wc < gd:
+                            qkv_cols.append(part * W + g0 * D + wc)
+        at_kb = -(-plan["slot"] // 64)
+        proj_k += [g0 * D + k for k in range(64 * at_kb) if k < gd]
+    assert sorted(qkv_cols) == list(range(3 * W))
+    assert sorted(proj_k) == list(range(W))

@@ -27,9 +27,14 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   within two bf16 ulps of the element or two (three for the blocks ending
   in ``x1 + mlp``) of the output's largest magnitude (``block_tol``);
   ragged B, every tile
-  plan (N = 5, 11, 17, 32; W = 64 to 512); the LN+QKV+attention backward
-  through the attention backward kernel; shapes the kernels do not take
-  raise ``NotImplementedError``.
+  plan (N = 5, 11, 17, 32; W = 64 to 512); the edges of the bf16
+  tensor-core route's plan (proj+MLP and the whole block): more tiles
+  than one persistent wave with a ragged last one (B=5,000), N = 1, 17
+  and 32, W = 64 and 512, hidden 192 (chunks of 64) and 2,048, D = 8 and
+  128; bf16 launches the tensor-core route and float32 the CUDA-core one,
+  counted per route; the LN+QKV+attention backward through the attention
+  backward kernel; shapes the kernels do not take raise
+  ``NotImplementedError``.
 """
 
 import itertools
@@ -414,12 +419,20 @@ def _counter(kind):
             "ln_qkv_attn": blk.fused_ln_qkv_attn}[kind]
 
 
+# Edges of the bf16 route's plan (block_kernel.py::wgmma_plan), hidden 4W:
+# a ragged last tile and more tiles than one persistent wave (B=5,000 at
+# N=11); N = 1, 17 and 32; W = 64 and 512 (hidden 2,048); D = 8 and 128.
+TC_EDGES = [(5000, 11, 384, 6), (40, 1, 128, 2), (25, 17, 192, 3),
+            (9, 32, 256, 2), (13, 11, 64, 8), (7, 5, 512, 4),
+            (11, 3, 512, 64)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("kind", BLOCK_KINDS)
 @pytest.mark.parametrize("B,N,W,H", [(37, 11, 384, 6), (5, 32, 512, 4),
                                      (9, 5, 64, 2), (3, 17, 192, 3),
-                                     (1000, 11, 384, 6)])
+                                     (1000, 11, 384, 6)] + TC_EDGES)
 def test_block_kernels_match_plain(cuda, kind, dtype, B, N, W, H):
     torch.backends.cuda.matmul.allow_tf32 = False
     kern, plain, args = block_case(kind, B, N, W, H, dtype, cuda, B + N + W)
@@ -431,6 +444,38 @@ def test_block_kernels_match_plain(cuda, kind, dtype, B, N, W, H):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
     torch.testing.assert_close(got, want, **block_tol(kind, want))
+
+
+@pytest.mark.parametrize("kind", ["proj_mlp", "full_block"])
+def test_block_kernels_match_plain_hidden_192(cuda, kind):
+    """An MLP hidden width that is no multiple of 128 (chunks of 64) on
+    the bf16 route: W=64, hidden 192, 8 heads of 8."""
+    kern, plain, args = block_case(kind, 21, 11, 64, 8, torch.bfloat16,
+                                   cuda, 192, ratio=3)
+    fn = _counter(kind)
+    before = fn.launches_wgmma
+    got = kern(*args)
+    assert fn.launches_wgmma == before + 1
+    want = plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **block_tol(kind, want))
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt")])
+@pytest.mark.parametrize("kind", ["proj_mlp", "full_block"])
+def test_block_route_follows_the_dtype(cuda, kind, dtype, route):
+    """bf16 launches the tensor-core kernel, float32 the CUDA-core one;
+    each launch counts once on its route and once in the total."""
+    fn = _counter(kind)
+    names = ["launches", "launches_wgmma", "launches_simt"]
+    before = {n: getattr(fn, n) for n in names}
+    kern, _, args = block_case(kind, 7, 11, 128, 2, dtype, cuda, 5)
+    kern(*args)
+    torch.cuda.synchronize()
+    grew = {n: getattr(fn, n) - before[n] for n in names}
+    assert grew == {"launches": 1, f"launches_{route}": 1,
+                    f"launches_{'simt' if route == 'wgmma' else 'wgmma'}": 0}
 
 
 def test_ln_qkv_attn_backward_runs_the_attention_kernel(cuda):

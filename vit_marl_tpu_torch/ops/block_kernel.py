@@ -23,6 +23,12 @@ may be float32.  Each function has two implementations:
   the attention is :func:`short_attention_reference` (float32 from the
   rounded qkv, P in float32, one rounding).  They are the kernels' oracles;
 - ``csrc/fused_block.cu``, the CUDA kernels, built by nvcc at first use.
+  :func:`fused_proj_mlp` and :func:`fused_block_full` have two routes,
+  chosen by the dtype alone: bf16 runs the tensor-core kernels (wgmma on
+  a TMA-fed weight ring, on the tile plan of :func:`wgmma_plan`, computed
+  here and checked by the C entry), float32 the CUDA-core kernels; each
+  counts its launches in ``.launches_wgmma`` / ``.launches_simt`` beside
+  the total ``.launches``.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernel or
 raises (``NotImplementedError`` for a shape the kernels do not take: W a
@@ -42,6 +48,7 @@ its kernel launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import threading
 
@@ -127,6 +134,136 @@ def _full_block_xla(*args):
 
 
 # --------------------------------------------------------------------------
+# The tile plan of the bf16 tensor-core kernels (fused_proj_mlp and
+# fused_block_full)
+# --------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448      # shared memory a block may use on an H100
+TC_ROWS = 64              # token rows of a tile: wgmma's M
+TC_KB_BYTES = TC_ROWS * 128   # one 64-column k-block of a tile, swizzled
+TC_SLOT_BYTES = 64 * 128      # a ring slot: 64 weight rows of a k-block
+TC_MAX_SLOTS = 32
+TC_CLUSTER = 2            # CTAs sharing each weight byte read from L2
+# the fields of the C struct tc::Plan, in order
+TC_FIELDS = ("kind", "rows", "images", "cluster", "stages", "stage_bytes",
+             "head_group", "slot", "gdp", "hc", "hid_bufs", "ldq",
+             "attn_warps", "o_h", "o_qkv", "o_p", "o_at", "o_hid", "o_bias",
+             "o_bar", "smem")
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _ring(rest: int) -> int:
+    """Ring slots that fit beside ``rest`` bytes of tiles: each slot
+    ``TC_SLOT_BYTES`` and a pair of 8-byte mbarriers, 1 KB kept to align
+    the base."""
+    return min(TC_MAX_SLOTS,
+               (SMEM_LIMIT - 1024 - rest) // (TC_SLOT_BYTES + 16))
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_plan(name: str, width: int, hidden: int, n_tokens: int = 1,
+               heads: int = 1, head_group: int = 0) -> dict:
+    """The tile plan of the bf16 kernel ``name`` (``fused_proj_mlp`` or
+    ``fused_block_full``) at width W, MLP hidden width, N tokens and H
+    heads; its fields are ``TC_FIELDS`` (shared-memory offsets in bytes
+    from the ring at 0), and ``rows_per_fetch``, the tile rows each
+    weight byte read from L2 feeds.
+
+    A CTA holds 64 token rows (kernel 7: the whole images that fit) and a
+    ring of ``stages`` weight slots of ``stage_bytes`` (64 rows of a
+    64-column k-block); a consumer warpgroup's k-block (half a product's
+    output columns) takes one slot per 64 rows.  A cluster of 2 CTAs
+    shares each slot by multicast, so each weight byte read from L2 feeds
+    128 tile rows (``rows_per_fetch``; ``fused_block_full``'s tiles hold
+    whole images, 110 token rows at N=11).  The MLP runs in hidden chunks
+    of ``hc`` columns, the largest of 256 (one GELU tile;
+    ``fused_proj_mlp`` only), 128 and 64 (two GELU tiles) that divides the
+    hidden width; the biases, LN2's scale and shift and its row statistics
+    wait in shared memory.  ``fused_block_full`` computes qkv for a group of heads at a time: the
+    group's width padded to ``gdp`` (at most 192), each of q, k and v in
+    products of at most 64 of a warpgroup's columns; the attention's
+    output (``slot`` columns, zeros past the group's heads) is the
+    projection's k dimension.  It takes the largest group (fewest rounds
+    of attention) whose ring holds three of the widest k-blocks and a
+    slot for each warpgroup's next (at ViT-Small a group of 2 heads, 11
+    slots, measured faster than 3 heads with 7), else the group with the
+    most slots (or ``head_group`` heads, if given)."""
+    W = width
+    # 6b: chunks of 256 and one GELU tile; kernel 7, whose registers also
+    # hold the projection during the head groups: 128 and two
+    hc = next(c for c in (256, 128, 64)
+              if hidden % c == 0 and (name == "fused_proj_mlp" or c < 256))
+    bufs = 1 if hc == 256 else 2
+    tile = TC_ROWS * W * 2
+    hid = bufs * TC_ROWS * hc * 2
+    plan = dict.fromkeys(TC_FIELDS, 0)
+    plan.update(rows=TC_ROWS, hc=hc, hid_bufs=bufs)
+    if name == "fused_proj_mlp":
+        bias = 4 * (4 * W + hidden + 256)
+        rest = tile + hid + bias
+        stages = _ring(rest)
+        o_h = stages * TC_SLOT_BYTES
+        plan.update(kind=KINDS[name], cluster=TC_CLUSTER, stages=stages,
+                    stage_bytes=TC_SLOT_BYTES, o_h=o_h, o_hid=o_h + tile,
+                    o_bias=o_h + tile + hid, o_bar=o_h + rest)
+        plan.update(smem=plan["o_bar"] + 16 * stages + 1024,
+                    rows_per_fetch=TC_CLUSTER * TC_ROWS)
+        return plan
+    if name != "fused_block_full":
+        raise ValueError(f"{name}: no tensor-core plan")
+    N, D = n_tokens, W // heads
+    images = TC_ROWS // N
+    best = None
+    need = -(-max(W // 2, hc // 2) // 64)   # slots of a widest k-block
+    for G in [head_group] if head_group else range(heads, 0, -1):
+        gdp = _round_up(G * D, 64)
+        if gdp > 192:
+            continue
+        slot = _round_up(G * D, 16)
+        ldq = 3 * slot + 8
+        attn_warps = min(8, images * G)
+        qkv = _round_up(TC_ROWS * ldq * 2, 16)
+        o_at = _round_up(max(qkv + attn_warps * N * (N + 1) * 4, hid), 1024)
+        o_bias = o_at + -(-slot // 64) * TC_KB_BYTES
+        rest = tile + o_bias + 4 * (7 * W + hidden + 256)
+        stages = _ring(rest)
+        if stages < 2 * need:
+            continue
+        o_h = stages * TC_SLOT_BYTES
+        cand = dict(plan, kind=KINDS[name], images=images, cluster=TC_CLUSTER,
+                    stages=stages, stage_bytes=TC_SLOT_BYTES, head_group=G,
+                    slot=slot, gdp=gdp, ldq=ldq,
+                    attn_warps=attn_warps, o_h=o_h, o_qkv=o_h + tile,
+                    o_p=o_h + tile + qkv, o_at=o_h + tile + o_at,
+                    o_hid=o_h + tile, o_bias=o_h + tile + o_bias,
+                    o_bar=o_h + rest,
+                    smem=o_h + rest + 16 * stages + 1024,
+                    rows_per_fetch=TC_CLUSTER * TC_ROWS)
+        if stages >= 3 * need + 2:
+            return cand
+        if best is None or stages > best["stages"]:
+            best = cand
+    if best is None:
+        raise ValueError(f"{name}: no tile plan for W={W}, N={N}, D={D}")
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_array(name, width, hidden, n_tokens, heads):
+    """The plan as the C struct's ints (cached, so the address stays
+    valid)."""
+    plan = wgmma_plan(name, width, hidden, n_tokens, heads)
+    return (ctypes.c_int * len(TC_FIELDS))(*(plan[k] for k in TC_FIELDS))
+
+
+def _plan_ptr(*shape) -> int:
+    return ctypes.addressof(_plan_array(*shape))
+
+
+# --------------------------------------------------------------------------
 # CUDA kernels: build, load, launch
 # --------------------------------------------------------------------------
 
@@ -151,10 +288,19 @@ def _library():
             lib.fused_block_full.argtypes = [p] * 14 + [i] * 5 + [f, i, p]
             lib.fused_ln_qkv_attn.argtypes = [p] * 6 + [i] * 4 + [f, i, p]
             lib.fused_block_plan.argtypes = [i] * 8 + [p]
+            lib.fused_proj_mlp_tc.argtypes = [p] * 11 + [i] * 3 + [p, p]
+            lib.fused_block_full_tc.argtypes = ([p] * 14 + [i] * 5
+                                                + [f, p, p])
+            lib.fused_block_tc_info.argtypes = [i, p] + [i] * 4 + [p]
             for fn in (lib.fused_ln_qkv, lib.fused_proj_mlp,
                        lib.fused_block_full, lib.fused_ln_qkv_attn,
-                       lib.fused_block_plan):
+                       lib.fused_block_plan, lib.fused_proj_mlp_tc,
+                       lib.fused_block_full_tc, lib.fused_block_tc_info,
+                       lib.fused_block_tc_plan_fields):
                 fn.restype = i
+            if lib.fused_block_tc_plan_fields() != len(TC_FIELDS):
+                raise RuntimeError("fused_block.cu's tc::Plan does not "
+                                   "match TC_FIELDS")
             lib.fused_block_error_string.argtypes = [i]
             lib.fused_block_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -209,15 +355,21 @@ def _kernel_tensors(name: str, rows_args, params):
     return out, _DTYPES[dt]
 
 
-def _run(name: str, x: torch.Tensor, out: torch.Tensor, args) -> None:
+def _run(name: str, x: torch.Tensor, args, route: str = "") -> None:
+    """Launch the C entry ``name`` (``name_tc`` on the tensor-core route)
+    on x's card and count it, in total and on its route."""
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+        entry = name + ("_tc" if route == "wgmma" else "")
+        err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.fused_block_error_string(err).decode())
-    globals()[name].launches += 1
+    fn = globals()[name]
+    fn.launches += 1
+    if route:
+        setattr(fn, f"launches_{route}", getattr(fn, f"launches_{route}") + 1)
 
 
 def _ptrs(ts):
@@ -233,8 +385,7 @@ def _launch_ln_qkv(x, gamma, beta, w, bias):
     (x, w, gamma, beta, bias), code = _kernel_tensors(
         name, (x, w), (gamma, beta, bias))
     out = torch.empty((rows, K), dtype=x.dtype, device=x.device)
-    _run(name, x, out, _ptrs((x, gamma, beta, w, bias, out))
-         + [rows, W, K, code])
+    _run(name, x, _ptrs((x, gamma, beta, w, bias, out)) + [rows, W, K, code])
     return out
 
 
@@ -246,9 +397,13 @@ def _launch_proj_mlp(attn, x, wp, bp, gamma, beta, w1, b1, w2, b2):
     (attn, x, wp, w1, w2, bp, gamma, beta, b1, b2), code = _kernel_tensors(
         name, (attn, x, wp, w1, w2), (bp, gamma, beta, b1, b2))
     out = torch.empty_like(x)
-    _run(name, x, out,
-         _ptrs((attn, x, wp, bp, gamma, beta, w1, b1, w2, b2, out))
-         + [rows, W, w1.shape[0], code])
+    args = (_ptrs((attn, x, wp, bp, gamma, beta, w1, b1, w2, b2, out))
+            + [rows, W, w1.shape[0]])
+    if x.dtype == torch.bfloat16:
+        _run(name, x, args + [_plan_ptr(name, W, w1.shape[0], 1, 1)],
+             "wgmma")
+    else:
+        _run(name, x, args + [code], "simt")
     return out
 
 
@@ -263,11 +418,14 @@ def _launch_full_block(x, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, bm1, w2,
         _kernel_tensors(name, (x, wqkv, wp, w1, w2),
                         (g1, b1, bqkv, bp, g2, b2, bm1, bm2))
     out = torch.empty_like(x)
-    _run(name, x, out,
-         _ptrs((x, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, bm1, w2, bm2,
-                out))
-         + [rows, n_tokens, heads, W, w1.shape[0], (W // heads) ** -0.5,
-            code])
+    args = (_ptrs((x, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, bm1, w2, bm2,
+                   out))
+            + [rows, n_tokens, heads, W, w1.shape[0], (W // heads) ** -0.5])
+    if x.dtype == torch.bfloat16:
+        _run(name, x, args + [_plan_ptr(name, W, w1.shape[0], n_tokens,
+                                        heads)], "wgmma")
+    else:
+        _run(name, x, args + [code], "simt")
     return out
 
 
@@ -279,15 +437,16 @@ def _launch_ln_qkv_attn(x, gamma, beta, w, bias, n_tokens, heads):
     (x, w, gamma, beta, bias), code = _kernel_tensors(
         name, (x, w), (gamma, beta, bias))
     out = torch.empty_like(x)
-    _run(name, x, out, _ptrs((x, gamma, beta, w, bias, out))
+    _run(name, x, _ptrs((x, gamma, beta, w, bias, out))
          + [rows, n_tokens, heads, W, (W // heads) ** -0.5, code])
     return out
 
 
 def tile_plan(name: str, dtype: torch.dtype, width: int, n_tokens: int = 1,
               heads: int = 1, out_width: int = 0, hidden: int = 0) -> dict:
-    """The tile the kernel ``name`` launches with at this shape: rows and
-    images per block, heads per qkv group, shared-memory bytes."""
+    """The tile the first-design kernel ``name`` launches with at this
+    shape (float32, and bf16 ``fused_ln_qkv`` / ``fused_ln_qkv_attn``):
+    rows and images per block, heads per qkv group, shared-memory bytes."""
     plan = (ctypes.c_int * 4)()
     err = _library().fused_block_plan(
         KINDS[name], n_tokens, n_tokens, heads, width, out_width, hidden,
@@ -296,6 +455,24 @@ def tile_plan(name: str, dtype: torch.dtype, width: int, n_tokens: int = 1,
         raise ValueError(f"{name}: no plan for this shape")
     return dict(rows=plan[0], images=plan[1], head_group=plan[2],
                 smem_bytes=plan[3])
+
+
+def wgmma_info(name: str, width: int, hidden: int, n_tokens: int = 1,
+               heads: int = 1) -> dict:
+    """The bf16 tensor-core kernel ``name`` at this shape on the current
+    card: its plan (:func:`wgmma_plan`), registers and spill bytes a
+    thread, and the clusters (and CTAs) one wave holds."""
+    out = (ctypes.c_int * 3)()
+    err = _library().fused_block_tc_info(
+        KINDS[name], _plan_ptr(name, width, hidden, n_tokens, heads),
+        n_tokens, heads, width, hidden, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{name}: " + _library().fused_block_error_string(
+            err).decode())
+    plan = wgmma_plan(name, width, hidden, n_tokens, heads)
+    return dict(plan, registers=out[0], spill_bytes=out[1],
+                clusters_per_wave=out[2],
+                ctas_per_wave=out[2] * plan["cluster"])
 
 
 # --------------------------------------------------------------------------
@@ -419,3 +596,5 @@ def fused_ln_qkv_attn(x, gamma, beta, w, bias, n_tokens: int, heads: int,
 for _fn in (fused_ln_qkv, fused_proj_mlp, fused_block_full,
             fused_ln_qkv_attn):
     _fn.launches = 0
+for _fn in (fused_proj_mlp, fused_block_full):
+    _fn.launches_wgmma = _fn.launches_simt = 0

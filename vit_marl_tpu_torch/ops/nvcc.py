@@ -19,11 +19,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 
-def build(source: str, lib_name: str) -> str:
-    """Compile ``source`` into ``BUILD_DIR/lib_name``; returns its path.
-    Rebuilds when the source or a header of ``csrc/`` is newer than the
-    library.  Concurrent builds of different sources are safe (each writes
-    its own temporary file)."""
+def build(source: str, lib_name: str, flags=()) -> str:
+    """Compile ``source`` (with extra nvcc ``flags``) into
+    ``BUILD_DIR/lib_name``; returns its path.  Rebuilds when the source or
+    a header of ``csrc/`` is newer than the library.  Concurrent builds of
+    different sources are safe (each writes its own temporary file)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, lib_name)
     newest = max(os.path.getmtime(f) for f in
@@ -35,7 +35,7 @@ def build(source: str, lib_name: str) -> str:
     if not os.path.exists(nvcc):
         nvcc = "nvcc"
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source]
+    cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", tmp, source]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
