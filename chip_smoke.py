@@ -8,9 +8,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 1. device: the card's name and power limit, and the nvcc builds of the
    kernels in ``vit_marl_tpu_torch/ops/csrc/`` (one nvcc per source, all
    started together); the book scan's launch plans, and the tile plan,
-   registers, spill bytes and clusters a wave of the bf16 tensor-core
-   kernels of ``fused_proj_mlp`` and ``fused_block_full`` at ViT-Small's
-   shapes;
+   registers, spill bytes and clusters a wave of the four bf16
+   tensor-core fused-block kernels at ViT-Small's shapes;
 2. book scan against plain: the CUDA book scan in aggregate mode (kernel
    1) against its plain PyTorch version at the 2-player path's shape
    (E=4096 envs, M=112 messages, S=128 slots, 2 traders) on seeded random
@@ -62,12 +61,12 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    a last tile part full) in bf16 (within two bf16 ulps of the element,
    rtol 1.6e-2, or two or three of the output's largest magnitude, see
    ``block_tol``) and at B=1,024 and 1,000 in float32 (rtol 2e-5, atol
-   2e-5); bf16 ``fused_proj_mlp`` and ``fused_block_full`` must launch
-   on their tensor-core route, float32 on the CUDA-core one (launches by
-   route printed).
+   2e-5); every bf16 launch must take the tensor-core route (``wgmma``),
+   every float32 one the CUDA-core route (``simt``), counted exactly.
    Times each kernel at B=32,768 and 1,024 (bf16) through the wrapper and
-   on the card alone (replays of a CUDA graph), its plain version and the
-   port's unfused PyTorch sequence for the same function
+   on the card alone (replays of a CUDA graph), beside its time in the
+   parent tree (its chip_smoke.py run, printed from ``PARENT_MS``), its plain
+   version and the port's unfused PyTorch sequence for the same function
    (``F.layer_norm`` + ``F.linear`` + ``F.gelu`` +
    ``scaled_dot_product_attention``), the yardstick; no single PyTorch
    call computes these functions;
@@ -93,8 +92,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 10. fused-mode vision training: phase 8, 2 updates in each of the three
    fused-block modes (``VIT_ATTN_LN_FOLD``, ``VIT_FUSED_BLOCK``,
    ``VIT_FUSED_BLOCK_FULL``), with the exact launch count of every kernel,
-   every launch of ``fused_proj_mlp`` and ``fused_block_full`` on the
-   bf16 tensor-core route;
+   every launch of the four fused-block kernels on the bf16 tensor-core
+   route;
 11. summary: one JSON line describing the eight kernels, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -171,8 +170,6 @@ def block_tol(name, want):
 
 # the fused-block kernels: wrapper name -> (TPU function, ViT mode whose
 # training launches it)
-# the fused-block kernels with a bf16 tensor-core route
-TC_KERNELS = ("fused_proj_mlp", "fused_block_full")
 BLOCK_KERNELS = {
     "fused_ln_qkv": ("vit_marl_tpu/ops/block_kernel.py:88", "fused_block"),
     "fused_proj_mlp": ("vit_marl_tpu/ops/block_kernel.py:169",
@@ -182,6 +179,15 @@ BLOCK_KERNELS = {
     "fused_ln_qkv_attn": ("vit_marl_tpu/ops/block_kernel.py:408",
                           "attn_ln_fold"),
 }
+# the fused-block kernels with a bf16 tensor-core route: all four
+TC_KERNELS = tuple(BLOCK_KERNELS)
+# their times in the parent tree (its chip_smoke.py run, NVIDIA H100
+# 80GB HBM3, 700 W), ms through the wrapper at B=32,768 and 1,024,
+# printed beside this run's
+PARENT_MS = {"fused_ln_qkv": (3.4833, 0.1542),
+             "fused_proj_mlp": (4.4931, 0.2365),
+             "fused_block_full": (10.4012, 0.4300),
+             "fused_ln_qkv_attn": (5.2402, 0.2074)}
 
 
 def phase(name, t0):
@@ -684,15 +690,13 @@ def block_phase(torch, blk, smi):
         roll_seq_ms, _ = time_launches(rseq)
         roll_bound, _ = block_bound(
             *block_cost(name, B_ROLLOUT, N, W, hidden, 2), "bfloat16")
-        if name in TC_KERNELS:
-            plan = {k: v for k, v in blk.wgmma_plan(
-                name, W, hidden, *((N, H) if name == "fused_block_full"
-                                   else ())).items() if v}
-        else:
-            plan = blk.tile_plan(name, torch.bfloat16, W, N, H, 3 * W, hidden)
+        plan = {k: v for k, v in blk.wgmma_plan(
+            name, W, *tc_shape(name, W, hidden)).items() if v}
         print(f"  {name} B={B_MINIBATCH}: kernel {ms:.4f} ms (median of "
               f"{BATCHES} batches of {PER_BATCH}, min {ms_min:.4f}), card "
-              f"alone {dev_ms:.4f} ms; plain {plain_ms:.3f} ms; unfused "
+              f"alone {dev_ms:.4f} ms (parent {PARENT_MS[name][0]} ms at "
+              f"B={B_MINIBATCH}, {PARENT_MS[name][1]} at B={B_ROLLOUT}); "
+              f"plain {plain_ms:.3f} ms; unfused "
               f"sequence {seq_ms:.4f} ms; bound {bound_ms:.4f} ms by "
               f"{bound_by} ({cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.1f} GFLOP "
               f"bf16 + {cost[2] / 1e9:.2f} GFLOP f32); B={B_ROLLOUT}: kernel "
@@ -714,9 +718,18 @@ def block_phase(torch, blk, smi):
             device_ms=dev_ms, unfused_ms=seq_ms, ms_rollout=roll_ms,
             device_ms_rollout=roll_dev_ms, unfused_ms_rollout=roll_seq_ms,
             bound_ms_rollout=roll_bound,
-            bf16_route="wgmma" if name in TC_KERNELS else "mma",
-            plan=plan)
+            bf16_route="wgmma", plan=plan)
     return rows
+
+
+def tc_shape(name, W, hidden):
+    """The shape arguments of ``wgmma_plan`` / ``wgmma_info`` after the
+    width at ViT-Small's shapes: (hidden, or K, or 0[, N, H])."""
+    if name == "fused_ln_qkv":
+        return (3 * W,)
+    if name == "fused_proj_mlp":
+        return (hidden,)
+    return (hidden if name == "fused_block_full" else 0, ATT_N, ATT_H)
 
 
 def block_route_counts(blk):
@@ -939,11 +952,13 @@ def main() -> int:
                   + ", ".join(f"{k} {v}" for k, v in plan.items()),
                   flush=True)
     hidden = MLP_RATIO * ATT_W
-    for name, shape in (("fused_proj_mlp", ()),
-                        ("fused_block_full", (ATT_N, ATT_H))):
-        info = blk.wgmma_info(name, ATT_W, hidden, *shape)
-        print(f"  {name} bf16 tensor-core plan at W={ATT_W}, hidden "
-              f"{hidden}" + (f", N={ATT_N}, H={ATT_H}" if shape else "")
+    for name in TC_KERNELS:
+        shape = tc_shape(name, ATT_W, hidden)
+        info = blk.wgmma_info(name, ATT_W, *shape)
+        what = {"fused_ln_qkv": f", K {shape[0]}",
+                "fused_ln_qkv_attn": ""}.get(name, f", hidden {shape[0]}")
+        print(f"  {name} bf16 tensor-core plan at W={ATT_W}{what}"
+              + (f", N={ATT_N}, H={ATT_H}" if shape[1:] else "")
               + ": " + ", ".join(f"{k} {v}" for k, v in info.items()),
               flush=True)
     phase("1 device", t0)

@@ -348,3 +348,139 @@ def test_wgmma_plan_covers_qkv_and_projection_columns_once(W, N, D):
         proj_k += [g0 * D + k for k in range(64 * at_kb) if k < gd]
     assert sorted(qkv_cols) == list(range(3 * W))
     assert sorted(proj_k) == list(range(W))
+
+
+# --------------------------------------------------------------------------
+# The tile plans of the bf16 tensor-core kernels 6a and 5 (fused_ln_qkv,
+# fused_ln_qkv_attn)
+# --------------------------------------------------------------------------
+
+def _check_qkv_plan(plan, W, K, N=1, D=None):
+    """What the C entry's plan_ok_qkv asks of a plan, and what the
+    kernel's shared-memory regions need: in order, disjoint, within the
+    limit."""
+    assert plan["smem"] <= bk.SMEM_LIMIT
+    assert plan["rows"] in (64, 128) and 1 <= plan["cluster"] <= 4
+    nc = plan["nc"]
+    assert nc in ((64,) if D else (64, 128))
+    assert plan["stage_bytes"] == nc * 128 and plan["stages"] >= 3
+    assert plan["o_h"] >= plan["stages"] * plan["stage_bytes"]
+    assert plan["o_h"] % 1024 == 0
+    end = plan["o_h"] + plan["rows"] * W * 2        # the A tiles
+    if D is None:
+        assert plan["o_qkv"] >= end and plan["o_qkv"] % 1024 == 0
+        end = plan["o_qkv"] + plan["rows"] * nc * 2   # output staging
+        n_bias = -(-K // nc) * nc + 2 * W
+    else:
+        G, DP = plan["head_group"], -(-D // 16) * 16
+        np_ = 16 if N <= 16 else 32
+        assert 1 <= G <= W // D
+        assert plan["images"] == plan["rows"] // N >= 1
+        assert plan["slot"] == G * DP
+        assert plan["ldq"] >= 3 * plan["slot"] and plan["ldq"] % 8 == 0
+        assert plan["qkv_rows"] >= max(plan["rows"],
+                                       (plan["images"] - 1) * N + np_)
+        assert plan["o_qkv"] >= end and plan["o_qkv"] % 16 == 0
+        end = plan["o_qkv"] + plan["qkv_rows"] * plan["ldq"] * 2
+        n_bias = 5 * W
+    assert plan["o_bias"] >= end and plan["o_bias"] % 16 == 0
+    assert plan["o_bar"] >= plan["o_bias"] + 4 * n_bias
+    assert plan["smem"] >= plan["o_bar"] + 16 * plan["stages"] + 16 + 1024
+
+
+def _qkv_chunks(plan, W, K, H=1, D=None):
+    """The chunks of one tile as the producer streams them and the
+    epilogue stores them (``Chunks`` in fused_block.cu): (first weight
+    row, [(qkv column, tile column of its part and head), ...])."""
+    nc = plan["nc"]
+    if D is None:
+        return [(c0, [(c0 + c, c0 + c) for c in range(nc) if c0 + c < K])
+                for c0 in range(0, K, nc)]
+    G, DP = plan["head_group"], -(-D // 16) * 16
+    out = []
+    for g0 in range(0, H, G):
+        gd = min(G, H - g0) * D
+        for part in range(3):
+            for o in range(0, gd, 64):
+                row = part * W + g0 * D + o
+                cols = [(row + c, part * plan["slot"] + (o + c) // D * DP
+                         + (o + c) % D) for c in range(nc) if o + c < gd]
+                out.append((row, cols))
+    return out
+
+
+@pytest.mark.parametrize("W", range(64, 513, 64))
+def test_qkv_wgmma_plans_fit_every_accepted_shape(W):
+    """Kernels 6a and 5 have a plan at every bf16 shape the wrappers take
+    (K a multiple of 64 up to 2,048; N <= 32; D a multiple of 8 up to
+    128) that fits 232,448 bytes; 6a's chunks cover each of the K output
+    columns once; 5's tiles hold whole images, and its chunks compute
+    each qkv column once, from its own weight row, into its own place in
+    the head group's tile."""
+    for K in range(64, 2049, 64):
+        plan = bk.wgmma_plan("fused_ln_qkv", W, K)
+        _check_qkv_plan(plan, W, K)
+        cols = [c for row, cc in _qkv_chunks(plan, W, K) for c, _ in cc]
+        assert cols == list(range(K))
+    for D in range(8, 129, 8):
+        if W % D:
+            continue
+        H = W // D
+        for N in range(1, 33):
+            plan = bk.wgmma_plan("fused_ln_qkv_attn", W, 0, N, H)
+            _check_qkv_plan(plan, W, 3 * W, N, D)
+            seen = []
+            for row, cc in _qkv_chunks(plan, W, 3 * W, H, D):
+                for i, (c, at) in enumerate(cc):
+                    assert c == row + i   # the weight row of its column
+                    assert at < 3 * plan["slot"]
+                seen += [c for c, _ in cc]
+            assert sorted(seen) == list(range(3 * W))
+
+
+def test_qkv_wgmma_plans_at_vit_small():
+    """At ViT-Small's shapes each weight byte read from L2 feeds 256 tile
+    rows (two CTAs of 128 rows, each warpgroup's 64 rows off one ring
+    stage); 6a takes 128 columns a chunk, 5 holds 11 whole images (121
+    rows) and a head a group."""
+    qkv = bk.wgmma_plan("fused_ln_qkv", 384, 1152)
+    attn = bk.wgmma_plan("fused_ln_qkv_attn", 384, 0, 11, 6)
+    for plan in (qkv, attn):
+        assert plan["rows"] == 128 and plan["rows_per_fetch"] == 256
+        assert plan["stages"] >= bk.TC_MIN_STAGES
+    assert qkv["nc"] == 128
+    assert attn["images"] == 11 and attn["head_group"] == 1
+
+
+def _mma_attention(qkv, n_tokens, heads):
+    """The tensor-core attention of kernel 5 in torch: bf16 q, k, v
+    multiplied exactly into float32 sums, ``scale`` on the float32
+    logits, the float32 softmax P split into bf16 hi + lo for P v, the
+    output rounded once to bf16."""
+    rows, w3 = qkv.shape
+    D = w3 // 3 // heads
+    x = qkv.float().reshape(rows // n_tokens, n_tokens, 3, heads, D)
+    q, k, v = x.permute(2, 0, 3, 1, 4)
+    p = torch.softmax((q @ k.transpose(-1, -2)) * D ** -0.5, dim=-1)
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    out = hi @ v + lo @ v
+    return out.transpose(1, 2).reshape(rows, w3 // 3).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ln_qkv_attn_mma_rounding_plan_within_block_tolerance(seed):
+    """Kernel 5's rounding on the bf16 route (LN1 rounded, float32
+    products and bias, qkv rounded to bf16, then the tensor-core
+    attention with P as hi + lo) stays within the card's bf16 tolerance
+    (``chip_smoke.py::block_tol``: rtol 1.6e-2, two ulps of the output's
+    largest magnitude) of the JAX Pallas kernel in interpret mode and of
+    the plain version."""
+    jargs, targs, _ = _inputs("ln_qkv_attn", "bfloat16", seed=40 + seed)
+    want_jax = np.asarray(_jax_fn("ln_qkv_attn")(*jargs), np.float32)
+    got = _mma_attention(bk.ln_qkv_reference(*targs), N, H).float()
+    want_plain = bk.ln_qkv_attn_reference(*targs, N, H).float()
+    for want in (torch.from_numpy(want_jax), want_plain):
+        m = float(want.abs().max())
+        atol = 2 * 2.0 ** (np.floor(np.log2(m)) - 7)
+        torch.testing.assert_close(got, want, rtol=1.6e-2, atol=atol)

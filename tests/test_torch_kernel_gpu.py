@@ -28,12 +28,15 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   in ``x1 + mlp``) of the output's largest magnitude (``block_tol``);
   ragged B, every tile
   plan (N = 5, 11, 17, 32; W = 64 to 512); the edges of the bf16
-  tensor-core route's plan (proj+MLP and the whole block): more tiles
-  than one persistent wave with a ragged last one (B=5,000), N = 1, 17
-  and 32, W = 64 and 512, hidden 192 (chunks of 64) and 2,048, D = 8 and
-  128; bf16 launches the tensor-core route and float32 the CUDA-core one,
-  counted per route; the LN+QKV+attention backward through the attention
-  backward kernel; shapes the kernels do not take raise
+  tensor-core route's plans (all four functions): more tiles than one
+  persistent wave with a ragged last one (B=5,000), N = 1, 17, 18 and 32,
+  W = 64 and 512, hidden 192 (chunks of 64) and 2,048, D = 8, 24 and 128
+  (LN+QKV+attention's heads padded to 16 columns, its tiles of 64 rows
+  where 128 do not fit), images fewer than one tile, LN+QKV's output
+  widths K = 64, 320 and 2,048 (chunks of 128 or 64, a last chunk part
+  past K); bf16 launches the tensor-core route and float32 the CUDA-core
+  one, counted per route; the LN+QKV+attention backward through the
+  attention backward kernel; shapes the kernels do not take raise
   ``NotImplementedError``.
 """
 
@@ -425,6 +428,11 @@ def _counter(kind):
 TC_EDGES = [(5000, 11, 384, 6), (40, 1, 128, 2), (25, 17, 192, 3),
             (9, 32, 256, 2), (13, 11, 64, 8), (7, 5, 512, 4),
             (11, 3, 512, 64)]
+# and of LN+QKV(+attention)'s: N=18 (the last image's padded rows past
+# the tile), D=24 (heads padded to 32 columns), W=448 (tiles of 64 rows),
+# 2 images (one partial tile)
+QKV_EDGES = [(6, 18, 384, 3), (10, 13, 192, 8), (50, 7, 448, 7),
+             (2, 11, 384, 6)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -432,7 +440,8 @@ TC_EDGES = [(5000, 11, 384, 6), (40, 1, 128, 2), (25, 17, 192, 3),
 @pytest.mark.parametrize("kind", BLOCK_KINDS)
 @pytest.mark.parametrize("B,N,W,H", [(37, 11, 384, 6), (5, 32, 512, 4),
                                      (9, 5, 64, 2), (3, 17, 192, 3),
-                                     (1000, 11, 384, 6)] + TC_EDGES)
+                                     (1000, 11, 384, 6)] + TC_EDGES
+                         + QKV_EDGES)
 def test_block_kernels_match_plain(cuda, kind, dtype, B, N, W, H):
     torch.backends.cuda.matmul.allow_tf32 = False
     kern, plain, args = block_case(kind, B, N, W, H, dtype, cuda, B + N + W)
@@ -461,9 +470,29 @@ def test_block_kernels_match_plain_hidden_192(cuda, kind):
     torch.testing.assert_close(got, want, **block_tol(kind, want))
 
 
+@pytest.mark.parametrize("W,K", [(128, 64), (128, 320), (512, 2048)])
+def test_ln_qkv_kernel_output_widths(cuda, W, K):
+    """LN+QKV at output widths other than 3W on the bf16 route: one
+    chunk, a last chunk part past K, and the widest (chunks of 64)."""
+    kern, plain, args = block_case("ln_qkv", 23, 11, W, 2, torch.bfloat16,
+                                   cuda, K)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(K)
+    args[3] = (torch.randn(K, W, generator=gen, device=cuda)
+               * W ** -0.5).to(torch.bfloat16)
+    args[4] = torch.randn(K, generator=gen, device=cuda) * 0.1
+    before = blk.fused_ln_qkv.launches_wgmma
+    got = kern(*args)
+    assert blk.fused_ln_qkv.launches_wgmma == before + 1
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (23 * 11, K)
+    torch.testing.assert_close(got, want, **block_tol("ln_qkv", want))
+
+
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
                                          (torch.float32, "simt")])
-@pytest.mark.parametrize("kind", ["proj_mlp", "full_block"])
+@pytest.mark.parametrize("kind", BLOCK_KINDS)
 def test_block_route_follows_the_dtype(cuda, kind, dtype, route):
     """bf16 launches the tensor-core kernel, float32 the CUDA-core one;
     each launch counts once on its route and once in the total."""

@@ -15,34 +15,44 @@ hidden 1,536) at B=32,768 and 1,024: through the wrapper (CUDA events
 around batches of back-to-back calls) and on the card alone (replays of a
 CUDA graph of the calls), with this checkout's ``chip_smoke.py`` timers
 for every tree alike.  Unless ``--kernels-only``, it then trains
-``configs/ippo_vision_dual_ppo.yaml`` for 2 updates with
-``VIT_FUSED_BLOCK_FULL`` through that checkout's
-``chip_smoke.vision_phase`` (losses, launch counts, env-steps/s, the
-rollout/PPO split).  Running parent, change, change, parent in one call
-puts both on the same card and host, which calls to the chip do not.
+``configs/ippo_vision_dual_ppo.yaml`` for 2 updates in each fused mode
+(``VIT_ATTN_LN_FOLD``, ``VIT_FUSED_BLOCK``, ``VIT_FUSED_BLOCK_FULL``)
+through that checkout's ``chip_smoke.vision_phase`` (losses, launch
+counts, env-steps/s, the rollout/PPO split).  Running parent, change,
+change, parent in one call puts both on the same card and host, which
+calls to the chip do not.
 
-``--ablate TREE`` times kernels 6b and 7 of TREE at B=32,768 on the card
+``--ablate TREE`` times the four kernels of TREE at B=32,768 on the card
 alone against copies of its ``fused_block.cu`` with one part cut out
 (the copies compute wrong results and exist only to be timed): for the
-first design's kernels (mma.sync with weight fragments from global
-memory), the weight loads replaced by shared-memory loads, the output
-columns split so every warp has work, and the MLP's float32
-shared-memory accumulation taken out; for the tensor-core kernels, the
-TMA copies, the wgmmas, the GELU, kernel 7's attention, and the cluster
-(a plan with one CTA a cluster) or the head group (1, 2, 3).  The edits
-that match the tree's source are the ones run.
+first design's bf16 kernels (mma.sync with weight fragments from global
+memory; only where TREE's bf16 still runs them), the weight loads
+replaced by shared-memory loads, the output columns split so every warp
+has work, the MLP's float32 shared-memory accumulation, kernel 6a's
+output stores and kernel 5's attention taken out; for the tensor-core
+kernels, the TMA copies, the wgmmas, the GELU, the epilogue's overlap
+with the next chunk's products (5, 6a), 6a's output stores, LN1 of 5
+and 6a (or done two rows a warp at a time, or from global memory
+without the TMA loads), the attention of 5 and of 7; then plan
+variants: one CTA a cluster, kernel
+7's head group (1, 2, 3), 6a's chunks of 64 columns, 5 and 6a on tiles
+of 64 rows, 5's head group 2 or 3 on them.  The edits that match the
+tree's source are the ones run; a copy or variant that names kernels is
+timed for those alone.
 
 ``--profile`` builds this checkout's ``fused_block.cu`` with
-``-DFUSED_BLOCK_PROFILE`` and prints, for kernels 6b and 7 at B=32,768,
-the cycles CTA 0's producer and each consumer warpgroup spent by phase
-(loads, waits for weight slots, wgmmas, epilogues, barriers, LN2,
-attention, the producer's waits for free slots); the counters cost about
-a third of the kernels' time, so they are read as shares.
+``-DFUSED_BLOCK_PROFILE`` and prints, for the four tensor-core kernels at
+B=32,768, the cycles CTA 0's producer and each consumer warpgroup spent
+by phase (loads and LN1, waits for weight slots, wgmmas, epilogues,
+barriers, LN2, attention, the producer's waits for free slots); the
+counters cost about a third of the kernels' time, so they are read as
+shares.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import importlib.util
 import os
 import shutil
@@ -55,8 +65,10 @@ N, W, H, HIDDEN = 11, 384, 6, 1536
 B_MAIN, B_ROLLOUT = 32_768, 1_024
 NAMES = ("fused_ln_qkv", "fused_proj_mlp", "fused_block_full",
          "fused_ln_qkv_attn")
+# the fused modes each tree trains (2 updates each), after its kernels
+TRAINED_MODES = ("attn_ln_fold", "fused_block", "fused_block_full")
 PHASES = ("load", "wait_full", "mma", "epilogue", "sync", "ln2",
-          "attention", "wait_empty", "issue")
+          "attention", "wait_empty", "issue", "wait_x")
 
 # (label, text in fused_block.cu, what takes its place) for --ablate; the
 # edits of one copy share its label
@@ -85,6 +97,16 @@ ABLATIONS = [
      "[&](int r, int c, float v) {\n"
      "               if (v == -1.2345e30f) acc[r * lda + c] = v;\n"
      "             });"),
+    ("first design: no output stores (kernel 6a)",
+     "if (r < n_valid) st(out + size_t(r) * K + c, v + a.bqkv[c]);",
+     "if (v == -1.2345e30f) st(out + size_t(r) * K + c, v + a.bqkv[c]);"),
+    ("first design: no attention (kernel 5)",
+     "      attn_body::head_softmax(qe, qe + gd, ldq, ldq, N, D, a.scale, Pw,\n"
+     "                              lane);\n"
+     "      attn_body::head_pv(Pw, qe + 2 * gd, ldq, N, D,\n"
+     "                         att + size_t(e) * N * ldatt + (g0 + hh) * D, "
+     "ldatt,\n                         lane);",
+     ""),
     # the tensor-core kernels
     ("tc: no TMA copies (stale weights)",
      "      if (turn == rank)\n        tma_load(",
@@ -96,10 +118,55 @@ ABLATIONS = [
      "  for (int j = 0; j < NC / 64; ++j) mma_n64(&acc[32 * j], da, "
      "desc(sb[j] + koff));",
      "  for (int j = 0; j < NC / 64; ++j) {}"),
+    ("tc: no wgmma",
+     "  if constexpr (NC == 128) mma_n128(acc, da, db);\n"
+     "  else mma_n64(acc, da, db);",
+     ""),
     ("tc: no GELU",
      "pack(gelu_fast(rnd16(acc2[i] + b.x)),\n"
      "                               gelu_fast(rnd16(acc2[i + 1] + b.y)));",
      "pack(rnd16(acc2[i] + b.x), rnd16(acc2[i + 1] + b.y));"),
+    ("tc: no epilogue overlap (kernel 5, kernel 6a)",
+     "        if (kb == min(1, n_kb - 1) && have_prev) finish(prev, cr);\n",
+     ""),
+    ("tc: no epilogue overlap (kernel 5, kernel 6a)",
+     "      fence_acc(nxt);\n#pragma unroll\n",
+     "      if (have_prev) finish(prev, cr);\n      fence_acc(nxt);\n"
+     "#pragma unroll\n"),
+    ("tc: no output stores (kernel 6a)",
+     "              tma_store(&a.tm_out, c.c0 + 64 * h, int(cr.row0),\n"
+     "                        st_addr + h * kKbBytes);",
+     "              (void)st_addr;"),
+    ("tc: no attention (kernel 5)",
+     "          float s[MT][2 * MT][4];\n"
+     "          mma_attn::product_nt<MT>(s, q, q + sl, ht, lane);\n"
+     "          mma_attn::softmax_rows<MT>(s, N, a.scale, lane);\n"
+     "          uint32_t hi[MT][MT][4], lo[MT][MT][4];\n"
+     "          mma_attn::a_fragments<MT>(s, hi, lo);\n"
+     "          __syncwarp();\n"
+     "          mma_attn::product_pv<MT>(hi, lo, q + 2 * sl, q, ht, N, D, "
+     "1.f,\n"
+     "                                   lane);",
+     "          (void)q;"),
+    ("tc: no LN1 (kernel 5, kernel 6a)",
+     "    ln_swizzled<1>(At, W, cr.nv, g1, b1, wi, 4, [&](int r, int c) {",
+     "    if (false) ln_swizzled<1>(At, W, cr.nv, g1, b1, wi, 4, "
+     "[&](int r, int c) {"),
+    ("tc: LN1 two rows a warp at a time (kernel 5, kernel 6a)",
+     "    ln_swizzled<1>(At, W, cr.nv, g1, b1, wi, 4, [&](int r, int c) {",
+     "    ln_swizzled<2>(At, W, cr.nv, g1, b1, wi, 4, [&](int r, int c) {"),
+    ("tc: LN1 from global memory, no TMA (kernel 5, kernel 6a)",
+     "    if (cr.nv > 0) mbar_wait(xbar, xph++ & 1);", "    (void)xph;"),
+    ("tc: LN1 from global memory, no TMA (kernel 5, kernel 6a)",
+     "      const bool refill = after.done() && more && nr.nv > 0;",
+     "      const bool refill = false;"),
+    ("tc: LN1 from global memory, no TMA (kernel 5, kernel 6a)",
+     "    if (lead && nr.nv > 0) {\n      mbar_expect_tx",
+     "    if (false) {\n      mbar_expect_tx"),
+    ("tc: LN1 from global memory, no TMA (kernel 5, kernel 6a)",
+     "      return unpack(*reinterpret_cast<const uint32_t*>(At + swz(r, c)));",
+     "      return unpack(*reinterpret_cast<const uint32_t*>(\n"
+     "          a.x + (cr.row0 + r) * W + c));"),
     ("tc: no attention (kernel 7)",
      "          attn_body::head_softmax(qe, qe + SW, ldq, ldq, N, D, a.scale, "
      "Pw,\n                                  lane);\n"
@@ -194,9 +261,10 @@ def one(tree: str, kernels_only: bool) -> None:
     for m in (bkern, attn):
         m.build_library()
         m._library()
-    chip_smoke.vision_phase(torch, attn, bkern, blk, make_train,
-                            load_yaml_config, torch.device("cuda"), smi,
-                            "fused_block_full")
+    for mode in TRAINED_MODES:
+        chip_smoke.vision_phase(torch, attn, bkern, blk, make_train,
+                                load_yaml_config, torch.device("cuda"), smi,
+                                mode)
 
 
 def copies(source: str, edits, blk, nvcc):
@@ -208,7 +276,8 @@ def copies(source: str, edits, blk, nvcc):
     from concurrent.futures import ThreadPoolExecutor
 
     tmp = tempfile.mkdtemp(prefix="block_copies_")
-    tc = "namespace tc {" in source
+    # the first design's copies only where bf16 still runs it
+    first = "ldg32(" in source
     todo = []   # (label, [(old, new), ...]): an edit's lines share a label
     for label, old, new in edits:
         if todo and old and todo[-1][0] == label:
@@ -216,7 +285,7 @@ def copies(source: str, edits, blk, nvcc):
         else:
             todo.append((label, [(old, new)] if old else []))
     todo = [(n, label, pairs) for n, (label, pairs) in enumerate(todo)
-            if not pairs or label.startswith("tc:") == tc]
+            if not pairs or first or not label.startswith("first design")]
     for n, label, pairs in list(todo):
         if any(source.count(old) != 1 for old, _ in pairs):
             print(f"{label}: its text is not once in this source; skipped",
@@ -227,7 +296,8 @@ def copies(source: str, edits, blk, nvcc):
         n, _, pairs = item
         d = os.path.join(tmp, str(n))
         os.makedirs(d)
-        shutil.copy(os.path.join(nvcc.CSRC, "attention_body.cuh"), d)
+        for header in glob.glob(os.path.join(nvcc.CSRC, "*.cuh")):
+            shutil.copy(header, d)
         text = source
         for old, new in pairs:
             text = text.replace(old, new)
@@ -247,6 +317,18 @@ def copies(source: str, edits, blk, nvcc):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+KERNEL_OF = {"kernel 5": "fused_ln_qkv_attn", "kernel 6a": "fused_ln_qkv",
+             "kernel 6b": "fused_proj_mlp", "kernel 7": "fused_block_full"}
+
+
+def concerns(label: str, name: str) -> bool:
+    """Whether a copy or plan variant labelled ``label`` is timed for
+    kernel ``name``: those naming kernels (``(kernel 5)``) for those
+    alone, the others for all four."""
+    named = [k for k in KERNEL_OF if k + ")" in label or k + "," in label]
+    return not named or any(KERNEL_OF[k] == name for k in named)
+
+
 def ablate(tree: str) -> None:
     torch, blk, nvcc, smi, timers = setup(tree)
     with open(blk.SOURCE) as f:
@@ -255,8 +337,8 @@ def ablate(tree: str) -> None:
     fns = calls(blk, x, a, head, rest)
     for label, changed in copies(source, [WHOLE, *ABLATIONS, WHOLE], blk,
                                  nvcc):
-        for name in ("fused_proj_mlp", "fused_block_full"):
-            if "kernel 7" in label and name != "fused_block_full":
+        for name in NAMES:
+            if not concerns(label, name):
                 continue
             print(f"[{tree}] {name} B={B_MAIN}, {label}: "
                   f"{timers.graph_ms(fns[name]):.4f} ms on the card alone "
@@ -271,15 +353,27 @@ def ablate(tree: str) -> None:
                       lambda *s, g=g: base(*s, head_group=g)
                       if s[0] == "fused_block_full" else base(*s))
                      for g in (1, 2, 3)]
+        qkv = ("fused_ln_qkv", "fused_ln_qkv_attn")
+        variants += [
+            ("kernel 6a, chunks of 64 columns",
+             lambda *s: base(*s, nc=64) if s[0] == qkv[0] else base(*s)),
+            ("kernel 5, kernel 6a, tiles of 64 rows",
+             lambda *s: base(*s, rows=64) if s[0] in qkv else base(*s))]
+        variants += [(f"kernel 5, tiles of 64 rows, head group {g}",
+                      lambda *s, g=g: base(*s, rows=64, head_group=g)
+                      if s[0] == qkv[1] else base(*s)) for g in (2, 3)]
         for vlabel, plan in variants:
             blk.wgmma_plan = plan
             blk._plan_array.cache_clear()
-            for name in ("fused_proj_mlp", "fused_block_full"):
-                if "kernel 7" in vlabel and name != "fused_block_full":
+            for name in NAMES:
+                if not concerns(vlabel, name):
                     continue
-                print(f"[{tree}] {name} B={B_MAIN}, {vlabel}: "
-                      f"{timers.graph_ms(fns[name]):.4f} ms on the card "
-                      f"alone [{smi}]", flush=True)
+                try:
+                    ms = f"{timers.graph_ms(fns[name]):.4f} ms"
+                except ValueError as e:   # no plan of this variant
+                    ms = f"not run ({e})"
+                print(f"[{tree}] {name} B={B_MAIN}, {vlabel}: {ms} on the "
+                      f"card alone [{smi}]", flush=True)
         blk.wgmma_plan = base
         blk._plan_array.cache_clear()
 
@@ -294,11 +388,12 @@ def profile() -> None:
     fns = calls(blk, x, a, head, rest)
     read = blk._library().fused_block_profile
     read.argtypes = [ctypes.c_void_p]
-    for k, name in enumerate(("fused_proj_mlp", "fused_block_full")):
+    for name in NAMES:
+        k = blk.KINDS[name]
         ms = timers.graph_ms(fns[name])
         fns[name]()
         torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * (2 * 3 * len(PHASES)))()
+        buf = (ctypes.c_ulonglong * (4 * 3 * len(PHASES)))()
         if read(ctypes.addressof(buf)):
             raise SystemExit("fused_block_profile failed")
         print(f"{name} B={B_MAIN}, counters on: {ms:.4f} ms on the card "

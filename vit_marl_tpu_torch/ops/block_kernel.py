@@ -23,12 +23,12 @@ may be float32.  Each function has two implementations:
   the attention is :func:`short_attention_reference` (float32 from the
   rounded qkv, P in float32, one rounding).  They are the kernels' oracles;
 - ``csrc/fused_block.cu``, the CUDA kernels, built by nvcc at first use.
-  :func:`fused_proj_mlp` and :func:`fused_block_full` have two routes,
-  chosen by the dtype alone: bf16 runs the tensor-core kernels (wgmma on
-  a TMA-fed weight ring, on the tile plan of :func:`wgmma_plan`, computed
-  here and checked by the C entry), float32 the CUDA-core kernels; each
-  counts its launches in ``.launches_wgmma`` / ``.launches_simt`` beside
-  the total ``.launches``.
+  Each function has two routes, chosen by the dtype alone: bf16 runs the
+  tensor-core kernels (wgmma on a TMA-fed weight ring, on the tile plan
+  of :func:`wgmma_plan`, computed here and checked by the C entry;
+  :func:`fused_ln_qkv_attn`'s attention on ``mma.sync`` tiles), float32
+  the CUDA-core kernels; each counts its launches in ``.launches_wgmma``
+  / ``.launches_simt`` beside the total ``.launches``.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernel or
 raises (``NotImplementedError`` for a shape the kernels do not take: W a
@@ -134,8 +134,7 @@ def _full_block_xla(*args):
 
 
 # --------------------------------------------------------------------------
-# The tile plan of the bf16 tensor-core kernels (fused_proj_mlp and
-# fused_block_full)
+# The tile plan of the bf16 tensor-core kernels
 # --------------------------------------------------------------------------
 
 SMEM_LIMIT = 232_448      # shared memory a block may use on an H100
@@ -148,29 +147,94 @@ TC_CLUSTER = 2            # CTAs sharing each weight byte read from L2
 TC_FIELDS = ("kind", "rows", "images", "cluster", "stages", "stage_bytes",
              "head_group", "slot", "gdp", "hc", "hid_bufs", "ldq",
              "attn_warps", "o_h", "o_qkv", "o_p", "o_at", "o_hid", "o_bias",
-             "o_bar", "smem")
+             "o_bar", "smem", "nc", "qkv_rows")
+TC_MIN_STAGES = 4         # kernels 6a and 5: the ring they are planned for
 
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _ring(rest: int) -> int:
+def _ring(rest: int, slot: int = TC_SLOT_BYTES) -> int:
     """Ring slots that fit beside ``rest`` bytes of tiles: each slot
-    ``TC_SLOT_BYTES`` and a pair of 8-byte mbarriers, 1 KB kept to align
+    ``slot`` bytes and a pair of 8-byte mbarriers, 1 KB kept to align
     the base."""
-    return min(TC_MAX_SLOTS,
-               (SMEM_LIMIT - 1024 - rest) // (TC_SLOT_BYTES + 16))
+    return min(TC_MAX_SLOTS, (SMEM_LIMIT - 1024 - rest) // (slot + 16))
+
+
+def _qkv_plan(name: str, W: int, K: int, N: int, heads: int,
+              head_group: int, rows: int, nc: int) -> dict:
+    """Kernels 6a (``fused_ln_qkv``, K output columns) and 5
+    (``fused_ln_qkv_attn``, K = 3W); see :func:`wgmma_plan`."""
+    attn = name == "fused_ln_qkv_attn"
+    D = W // heads
+    plans = []
+    for R in [rows] if rows else (128, 64):
+        for c in [nc] if nc else ((64,) if attn else (128, 64)):
+            base = dict.fromkeys(TC_FIELDS, 0)
+            base.update(kind=KINDS[name], rows=R, cluster=TC_CLUSTER, nc=c,
+                        stage_bytes=c * 128, rows_per_fetch=TC_CLUSTER * R)
+            a_tiles = R * W * 2
+            if not attn:
+                # the output staging: 64 rows x nc a warpgroup
+                # the output staging: 64 rows x nc a warpgroup
+                tiles = [a_tiles, R * c * 2, 4 * (_round_up(K, c) + 2 * W)]
+                plans.append((base, tiles))
+                continue
+            images, DP = R // N, _round_up(D, 16)
+            np_ = 16 if N <= 16 else 32
+            qkv_rows = max(R, (images - 1) * N + np_)
+            for G in [head_group] if head_group else range(heads, 0, -1):
+                ldq = 3 * G * DP + 8
+                plans.append((dict(base, images=images, head_group=G,
+                                   slot=G * DP, ldq=ldq, qkv_rows=qkv_rows),
+                              [a_tiles, _round_up(qkv_rows * ldq * 2, 16),
+                               4 * 5 * W]))
+    for base, tiles in plans:
+        rest = sum(tiles) + 16
+        stages = _ring(rest, base["stage_bytes"])
+        if stages < (3 if rows or nc else TC_MIN_STAGES):
+            continue
+        at = stages * base["stage_bytes"]
+        offs = []
+        for b in tiles:
+            offs.append(at)
+            at += b
+        o_h, o_qkv, o_bias = offs
+        return dict(base, stages=stages, o_h=o_h, o_qkv=o_qkv,
+                    o_bias=o_bias, o_bar=at, smem=at + 16 * stages + 16
+                    + 1024)
+    raise ValueError(f"{name}: no tile plan for W={W}, K={K}, N={N}, "
+                     f"D={D}")
 
 
 @functools.lru_cache(maxsize=None)
 def wgmma_plan(name: str, width: int, hidden: int, n_tokens: int = 1,
-               heads: int = 1, head_group: int = 0) -> dict:
-    """The tile plan of the bf16 kernel ``name`` (``fused_proj_mlp`` or
-    ``fused_block_full``) at width W, MLP hidden width, N tokens and H
-    heads; its fields are ``TC_FIELDS`` (shared-memory offsets in bytes
-    from the ring at 0), and ``rows_per_fetch``, the tile rows each
-    weight byte read from L2 feeds.
+               heads: int = 1, head_group: int = 0, rows: int = 0,
+               nc: int = 0) -> dict:
+    """The tile plan of the bf16 kernel ``name`` at width W, ``hidden``
+    (the MLP's hidden width; ``fused_ln_qkv``: its K output columns), N
+    tokens and H heads; its fields are ``TC_FIELDS`` (shared-memory
+    offsets in bytes from the ring at 0), and ``rows_per_fetch``, the
+    tile rows each weight byte read from L2 feeds.
+
+    ``fused_ln_qkv`` and ``fused_ln_qkv_attn`` (kernels 6a and 5): a CTA
+    tile of ``rows`` = 128 token rows (kernel 5: the ``images`` whole
+    images that fit), each consumer warpgroup owning 64 and computing
+    every output column for them, so each ring stage (``nc`` weight rows
+    of a 64-column k-block) feeds both warpgroups: 256 rows a weight fetch
+    with the cluster of 2.  The block input comes by TMA into the A tiles
+    (``o_h``, rows x W), LN1 runs in place.  6a computes chunks of ``nc`` = 128
+    output columns (64 where the ring would keep fewer than
+    ``TC_MIN_STAGES`` stages) and stages each in ``o_qkv`` for its
+    TMA store; 5 computes pieces of 64 columns of a head group's q, k and v
+    into its qkv tile (``o_qkv``: ``qkv_rows`` rows of ``ldq``, each head
+    ``slot / head_group`` columns, the head width padded to 16), the
+    largest group whose ring keeps ``TC_MIN_STAGES`` stages.  Where none
+    does at 128 rows, the tile is 64 rows, one consumer warpgroup.
+    ``rows``, ``nc`` and ``head_group`` force a choice (plan variants).
+
+    ``fused_proj_mlp`` and ``fused_block_full`` (kernels 6b and 7):
 
     A CTA holds 64 token rows (kernel 7: the whole images that fit) and a
     ring of ``stages`` weight slots of ``stage_bytes`` (64 rows of a
@@ -192,6 +256,9 @@ def wgmma_plan(name: str, width: int, hidden: int, n_tokens: int = 1,
     slots, measured faster than 3 heads with 7), else the group with the
     most slots (or ``head_group`` heads, if given)."""
     W = width
+    if name in ("fused_ln_qkv", "fused_ln_qkv_attn"):
+        return _qkv_plan(name, W, hidden if name == "fused_ln_qkv" else 3 * W,
+                         n_tokens, heads, head_group, rows, nc)
     # 6b: chunks of 256 and one GELU tile; kernel 7, whose registers also
     # hold the projection during the head groups: 128 and two
     hc = next(c for c in (256, 128, 64)
@@ -287,15 +354,18 @@ def _library():
             lib.fused_proj_mlp.argtypes = [p] * 11 + [i] * 4 + [p]
             lib.fused_block_full.argtypes = [p] * 14 + [i] * 5 + [f, i, p]
             lib.fused_ln_qkv_attn.argtypes = [p] * 6 + [i] * 4 + [f, i, p]
-            lib.fused_block_plan.argtypes = [i] * 8 + [p]
             lib.fused_proj_mlp_tc.argtypes = [p] * 11 + [i] * 3 + [p, p]
             lib.fused_block_full_tc.argtypes = ([p] * 14 + [i] * 5
                                                 + [f, p, p])
+            lib.fused_ln_qkv_tc.argtypes = [p] * 6 + [i] * 3 + [p, p]
+            lib.fused_ln_qkv_attn_tc.argtypes = ([p] * 6 + [i] * 4
+                                                 + [f, p, p])
             lib.fused_block_tc_info.argtypes = [i, p] + [i] * 4 + [p]
             for fn in (lib.fused_ln_qkv, lib.fused_proj_mlp,
                        lib.fused_block_full, lib.fused_ln_qkv_attn,
-                       lib.fused_block_plan, lib.fused_proj_mlp_tc,
-                       lib.fused_block_full_tc, lib.fused_block_tc_info,
+                       lib.fused_ln_qkv_tc, lib.fused_proj_mlp_tc,
+                       lib.fused_block_full_tc, lib.fused_ln_qkv_attn_tc,
+                       lib.fused_block_tc_info,
                        lib.fused_block_tc_plan_fields):
                 fn.restype = i
             if lib.fused_block_tc_plan_fields() != len(TC_FIELDS):
@@ -385,7 +455,11 @@ def _launch_ln_qkv(x, gamma, beta, w, bias):
     (x, w, gamma, beta, bias), code = _kernel_tensors(
         name, (x, w), (gamma, beta, bias))
     out = torch.empty((rows, K), dtype=x.dtype, device=x.device)
-    _run(name, x, _ptrs((x, gamma, beta, w, bias, out)) + [rows, W, K, code])
+    args = _ptrs((x, gamma, beta, w, bias, out)) + [rows, W, K]
+    if x.dtype == torch.bfloat16:
+        _run(name, x, args + [_plan_ptr(name, W, K, 1, 1)], "wgmma")
+    else:
+        _run(name, x, args + [code], "simt")
     return out
 
 
@@ -437,31 +511,22 @@ def _launch_ln_qkv_attn(x, gamma, beta, w, bias, n_tokens, heads):
     (x, w, gamma, beta, bias), code = _kernel_tensors(
         name, (x, w), (gamma, beta, bias))
     out = torch.empty_like(x)
-    _run(name, x, _ptrs((x, gamma, beta, w, bias, out))
-         + [rows, n_tokens, heads, W, (W // heads) ** -0.5, code])
+    args = (_ptrs((x, gamma, beta, w, bias, out))
+            + [rows, n_tokens, heads, W, (W // heads) ** -0.5])
+    if x.dtype == torch.bfloat16:
+        _run(name, x, args + [_plan_ptr(name, W, 0, n_tokens, heads)],
+             "wgmma")
+    else:
+        _run(name, x, args + [code], "simt")
     return out
-
-
-def tile_plan(name: str, dtype: torch.dtype, width: int, n_tokens: int = 1,
-              heads: int = 1, out_width: int = 0, hidden: int = 0) -> dict:
-    """The tile the first-design kernel ``name`` launches with at this
-    shape (float32, and bf16 ``fused_ln_qkv`` / ``fused_ln_qkv_attn``):
-    rows and images per block, heads per qkv group, shared-memory bytes."""
-    plan = (ctypes.c_int * 4)()
-    err = _library().fused_block_plan(
-        KINDS[name], n_tokens, n_tokens, heads, width, out_width, hidden,
-        _DTYPES[dtype], ctypes.addressof(plan))
-    if err:
-        raise ValueError(f"{name}: no plan for this shape")
-    return dict(rows=plan[0], images=plan[1], head_group=plan[2],
-                smem_bytes=plan[3])
 
 
 def wgmma_info(name: str, width: int, hidden: int, n_tokens: int = 1,
                heads: int = 1) -> dict:
     """The bf16 tensor-core kernel ``name`` at this shape on the current
-    card: its plan (:func:`wgmma_plan`), registers and spill bytes a
-    thread, and the clusters (and CTAs) one wave holds."""
+    card (``hidden``: as :func:`wgmma_plan` takes it): its plan,
+    registers and spill bytes a thread, and the clusters (and CTAs) one
+    wave holds."""
     out = (ctypes.c_int * 3)()
     err = _library().fused_block_tc_info(
         KINDS[name], _plan_ptr(name, width, hidden, n_tokens, heads),
@@ -595,6 +660,4 @@ def fused_ln_qkv_attn(x, gamma, beta, w, bias, n_tokens: int, heads: int,
 
 for _fn in (fused_ln_qkv, fused_proj_mlp, fused_block_full,
             fused_ln_qkv_attn):
-    _fn.launches = 0
-for _fn in (fused_proj_mlp, fused_block_full):
-    _fn.launches_wgmma = _fn.launches_simt = 0
+    _fn.launches = _fn.launches_wgmma = _fn.launches_simt = 0

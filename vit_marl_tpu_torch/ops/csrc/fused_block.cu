@@ -19,10 +19,12 @@
 // accumulate in float32; each bias is added in float32 before the rounding
 // to T; residual adds are in T; GELU (tanh form) takes the T-rounded
 // pre-activation; the MLP's second product keeps one float32 sum over the
-// whole hidden width; the attention runs in float32 from the T-rounded qkv
+// whole hidden width; the attention runs from the T-rounded qkv in float32
 // and rounds its output once (attention_body.cuh, shared with
-// short_attention.cu).  The plain PyTorch versions of the same functions,
-// the oracles, are in vit_marl_tpu_torch/ops/block_kernel.py.
+// short_attention.cu; bf16 fused_ln_qkv_attn takes the tensor-core body of
+// mma_attention.cuh, whose P enters P v as bf16 hi + lo).  The plain
+// PyTorch versions of the same functions, the oracles, are in
+// vit_marl_tpu_torch/ops/block_kernel.py.
 //
 // Bound at the PPO minibatch of the ViT-Small path (B = 32,768 images,
 // N = 11, W = 384, hidden 1,536, bf16), each input read once and each
@@ -33,28 +35,27 @@
 //   fused_block_full     557 MB, 0.166 ms; 1,276 GFLOP, 1.381 ms
 //   fused_ln_qkv_attn    555 MB, 0.166 ms;   319 GFLOP, 0.413 ms
 // so all but fused_ln_qkv are bound by operations (chip_smoke.py computes
-// the same from the shapes).  No single PyTorch call computes any of them.
+// the same from the shapes; fused_ln_qkv_attn's attention on the tensor
+// cores leaves the products' 0.322 ms).  No single PyTorch call computes
+// any of them.
 //
-// Two routes, chosen by the dtype alone for fused_proj_mlp and
-// fused_block_full (one C entry point each): bf16 takes the tensor-core
-// kernels of namespace tc (the second half of this file, entry points
-// *_tc), float32 the first design below.  fused_ln_qkv and
-// fused_ln_qkv_attn keep the first design in both types.  Every accepted
-// bf16 shape has a tc plan (tests/test_torch_block.py walks them), so no
-// shape rule sends bf16 to the first design.
+// Two routes, chosen by the dtype alone (one C entry point each): bf16
+// takes the tensor-core kernels of namespace tc (the second half of this
+// file, entry points *_tc), float32 the first design below.  Every
+// accepted bf16 shape has a tc plan (tests/test_torch_block.py walks
+// them), so no shape rule sends bf16 to the first design.
 //
-// First design (all four functions in float32, and fused_ln_qkv and
-// fused_ln_qkv_attn in bf16).  The TPU kernels keep every weight in fast
-// memory under constant index maps; ViT-Small's block weights are 3.5 MB
-// in bf16, far more than the 227 KB of shared memory a block may use.
+// First design (all four functions, float32).  The TPU kernels keep
+// every weight in fast memory under constant index maps; ViT-Small's
+// block weights are 3.5 MB in bf16, far more than the 227 KB of shared
+// memory a block may use.
 // Here a block owns a tile of at most 64 rows, which stays in shared
 // memory with its intermediates (LN output, qkv, attention rows, the MLP
 // hidden) while the weights stream from global memory, where they stay
 // warm in the 50 MB L2.  The 8 warps of a block split every product's
-// output columns: each warp reads its columns' weight fragments from
-// global memory once per tile and the tile's rows from shared memory.
-// bf16 products run on the tensor cores through mma.sync m16n8k16
-// (float32 accumulation); float32 products are scalar FMAs.  Kernels that
+// output columns: each thread reads its column's weights from global
+// memory once per tile and the tile's rows from shared memory, in scalar
+// float32 FMAs.  Kernels that
 // attend hold whole images: a tile is n_img images, their rows padded to
 // a multiple of 16.  The MLP runs in hidden chunks of 64 or 128 columns,
 // its output accumulated in a float32 tile, and the residual x1 waits in
@@ -76,6 +77,7 @@
 #include <tuple>
 
 #include "attention_body.cuh"
+#include "mma_attention.cuh"
 
 namespace {
 
@@ -124,9 +126,6 @@ __host__ __device__ __forceinline__ size_t align16(size_t n) {
 }
 
 __device__ __forceinline__ float rnd(float v, const float*) { return v; }
-__device__ __forceinline__ float rnd(float v, const bf16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 __device__ __forceinline__ float gelu(float x) {   // tanh form
   const float c = 0.7978845608028654f;             // sqrt(2 / pi)
@@ -168,83 +167,6 @@ __device__ void ln_rows(const T* x, int ldx, int n_valid, int rt, int W,
 
 // ---- products: out(r, c) = sum_k A[r][k] Wg[c][k], r < 16*MT, c < ncols;
 // epi(r, c, value) receives each float32 sum once.
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Tensor cores: each warp takes NT n-tiles of 8 columns at a time over all
-// MT m-tiles; A fragments from shared memory, B fragments straight from
-// global memory (torch's (out, in) layout is mma's column-major B).
-template <int MT, int NT, class Epi>
-__device__ void mma_gemm(const bf16* A, int lda, const bf16* Wg, int ldw,
-                         int kin, int ncols, Epi epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  for (int c0 = warp * 8 * NT; c0 < ncols; c0 += kWarps * 8 * NT) {
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    const bf16* wrow[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-      wrow[j] = Wg + size_t(c0 + 8 * j + g) * ldw + 2 * t;
-#pragma unroll 2
-    for (int k0 = 0; k0 < kin; k0 += 16) {
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        b[j][0] = ldg32(wrow[j] + k0);
-        b[j][1] = ldg32(wrow[j] + k0 + 8);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const bf16* ar = A + (16 * i + g) * lda + k0 + 2 * t;
-        const uint32_t a0 = lds32(ar), a1 = lds32(ar + 8 * lda);
-        const uint32_t a2 = lds32(ar + 8), a3 = lds32(ar + 8 * lda + 8);
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_bf16(acc[i][j], a0, a1, a2, a3, b[j][0], b[j][1]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int r = 16 * i + g, c = c0 + 8 * j + 2 * t;
-        epi(r, c, acc[i][j][0]);
-        epi(r, c + 1, acc[i][j][1]);
-        epi(r + 8, c, acc[i][j][2]);
-        epi(r + 8, c + 1, acc[i][j][3]);
-      }
-  }
-}
-
-template <int MT, class Epi>
-__device__ __forceinline__ void gemm(const bf16* A, int lda, const bf16* Wg,
-                                     int ldw, int kin, int ncols, Epi epi) {
-  if (ncols % 32 == 0)
-    mma_gemm<MT, 4>(A, lda, Wg, ldw, kin, ncols, epi);
-  else
-    mma_gemm<MT, 1>(A, lda, Wg, ldw, kin, ncols, epi);
-}
 
 // float32: one thread per output column over all rows, scalar FMAs, the
 // tile's rows broadcast from shared memory, 16-byte loads along k.
@@ -481,16 +403,10 @@ bool make_plan(Args& a, int kind) {
 
 template <typename T, int MT>
 cudaError_t launch_mt(int kind, const Args& a, int grid, cudaStream_t st) {
-  void (*k)(Args) = nullptr;
-  if constexpr (sizeof(T) == 2) {   // bf16 proj_mlp, full_block: route tc
-    if (kind == kProjMlp || kind == kFullBlock) return cudaErrorInvalidValue;
-    k = kind == kLnQkv ? ln_qkv_kernel<T, MT> : ln_qkv_attn_kernel<T, MT>;
-  } else {
-    k = kind == kLnQkv       ? ln_qkv_kernel<T, MT>
-        : kind == kProjMlp   ? proj_mlp_kernel<T, MT>
-        : kind == kFullBlock ? full_block_kernel<T, MT>
-                             : ln_qkv_attn_kernel<T, MT>;
-  }
+  void (*k)(Args) = kind == kLnQkv       ? ln_qkv_kernel<T, MT>
+                    : kind == kProjMlp   ? proj_mlp_kernel<T, MT>
+                    : kind == kFullBlock ? full_block_kernel<T, MT>
+                                         : ln_qkv_attn_kernel<T, MT>;
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (e != cudaSuccess) return e;
@@ -525,18 +441,10 @@ bool shape_ok(int kind, const Args& a) {
          a.D == a.W / a.H && a.D % 8 == 0 && a.D <= 128 && a.rows % a.N == 0;
 }
 
-// The first design; bf16 proj_mlp and full_block are the tc route's.
-bool first_design(int kind, int dtype) {
-  return dtype == 0 || (dtype == 1 && kind != kProjMlp && kind != kFullBlock);
-}
-
+// The first design runs float32 only (dtype 0); bf16 is the tc route's.
 int run(int kind, Args a, int dtype, void* stream) {
-  if (!shape_ok(kind, a) || !first_design(kind, dtype))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(kind, a, st);
-  if (dtype == 1) return launch<bf16>(kind, a, st);
-  return (int)cudaErrorInvalidValue;
+  if (!shape_ok(kind, a) || dtype != 0) return (int)cudaErrorInvalidValue;
+  return launch<float>(kind, a, static_cast<cudaStream_t>(stream));
 }
 
 // ============== bf16 route of fused_proj_mlp and fused_block_full ==========
@@ -613,17 +521,18 @@ constexpr long long kSpinCycles = 1ll << 34;   // ~8 s: a lost barrier traps
 struct Plan {
   int kind, rows, images, cluster, stages, stage_bytes, head_group, slot,
       gdp, hc, hid_bufs, ldq, attn_warps, o_h, o_qkv, o_p, o_at, o_hid,
-      o_bias, o_bar, smem;
+      o_bias, o_bar, smem, nc, qkv_rows;
 };
 constexpr int kPlanFields = sizeof(Plan) / sizeof(int);
 
 struct Params {
   CUtensorMap tm_qkv, tm_p, tm_1, tm_2;   // (out, in) weights
-  const bf16* x;       // block input (7) / attention rows (6b)
+  CUtensorMap tm_x, tm_out;   // 5 and 6a: block input rows; 6a: qkv rows
+  const bf16* x;       // block input (5, 6a, 7) / attention rows (6b)
   const bf16* res;     // 6b: the residual x
   const float *g1, *b1, *bqkv, *bp, *g2, *b2, *bm1, *bm2;
   bf16* out;
-  int rows, W, Hd, N, H, D;
+  int rows, W, Hd, N, H, D, K;
   float scale;
   Plan p;
 };
@@ -633,10 +542,10 @@ struct Params {
 // --profile): a mark(p) charges the cycles since the last mark to p.
 enum Phase {
   kPhLoad, kPhWaitFull, kPhMma, kPhEpilogue, kPhSync, kPhLn2, kPhAttention,
-  kPhWaitEmpty, kPhIssue, kPhases
+  kPhWaitEmpty, kPhIssue, kPhWaitX, kPhases
 };
 #ifdef FUSED_BLOCK_PROFILE
-__device__ unsigned long long g_profile[2][3][kPhases];
+__device__ unsigned long long g_profile[4][3][kPhases];
 __device__ __forceinline__ long long now() {
   long long t;
   asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(t));
@@ -653,7 +562,7 @@ struct Prof {
   __device__ void flush(int kind) {
     if (blockIdx.x == 0 && threadIdx.x % 128 == 0)
       for (int p = 0; p < kPhases; ++p)
-        g_profile[kind - 1][threadIdx.x / 128][p] = c[p];
+        g_profile[kind][threadIdx.x / 128][p] = c[p];
   }
 };
 #else
@@ -795,6 +704,22 @@ __device__ __forceinline__ void mma_n32(float* d, uint64_t da, uint64_t db) {
       : TC_F8(0), TC_F8(8)
       : "l"(da), "l"(db), "r"(1));
 }
+// d(64 x 128) += A(64 x 16) B(128 x 16)^T: B two ring slots' worth of rows
+// (a 16 KB stage of kernel 6a).
+__device__ __forceinline__ void mma_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, "
+      "1, 0, 0;\n}\n"
+      : TC_F8(0), TC_F8(8), TC_F8(16), TC_F8(24), TC_F8(32), TC_F8(40),
+        TC_F8(48), TC_F8(56)
+      : "l"(da), "l"(db), "r"(1));
+}
 #undef TC_F8
 
 // The wgmmas of one k16 step over NC columns (a multiple of 32): an n64
@@ -861,13 +786,14 @@ __device__ __forceinline__ float gelu_fast(float x) {
 
 // ---- the weight ring
 
-// `stages` slots of kSlotBytes, each with a full and an empty barrier.
+// `stages` slots of SB bytes (kSlotBytes for 6b and 7), each with a full
+// and an empty barrier.
 struct Ring {
   uint32_t base, full, empty;
-  int S, C;
+  int S, C, SB;
   __device__ Ring(uint32_t b, const Plan& p)
       : base(b), full(b + p.o_bar), empty(b + p.o_bar + 8 * p.stages),
-        S(p.stages), C(p.cluster) {}
+        S(p.stages), C(p.cluster), SB(p.stage_bytes) {}
 };
 
 // The producer (thread 0) fills the slots in the consumers' order: a
@@ -894,7 +820,7 @@ struct Producer {
     mbar_expect_tx(full, uint32_t(rows * 128));
     for (int q = 0; q < rows; q += box) {
       if (turn == rank)
-        tma_load(r.base + slot * kSlotBytes + q * 128, tm, kcol, row0 + q,
+        tma_load(r.base + slot * r.SB + q * 128, tm, kcol, row0 + q,
                  full, mask);
       if (++turn == uint32_t(r.C)) turn = 0;
     }
@@ -1000,34 +926,35 @@ struct Consumer {
 
 // ---- row phases (the 8 consumer warps)
 
-// LN1 of the tile's rows x (rows < n_valid) into the swizzled tile t,
-// rounded to bf16; rows >= n_valid are zeroed.  One warp a row, two rows
-// at a time (their loads together); float32 mean, then the mean of
-// squared deviations (eps 1e-6).
-__device__ __forceinline__ void ln_tile(unsigned char* t, const bf16* x,
-                                        int W, int n_valid,
-                                        const float* __restrict__ g,
-                                        const float* __restrict__ b) {
-  const int cw = (threadIdx.x >> 5) - 4, lane = threadIdx.x & 31;
+// LayerNorm of the rows of a 64-row swizzled tile t, rounded to bf16:
+// rows < n_valid from load(r, c) (the pair of row r at columns c, c + 1),
+// rows >= n_valid zeroed.  Warp cw of nw takes rows cw, cw + nw, ...,
+// RPI at a time (their loads, then their reductions, together); float32
+// mean, then the mean of squared deviations (eps 1e-6).
+template <int RPI, class Load>
+__device__ __forceinline__ void ln_swizzled(unsigned char* t, int W,
+                                            int n_valid, const float* g,
+                                            const float* b, int cw, int nw,
+                                            Load load) {
+  const int lane = threadIdx.x & 31;
   float2 gv[8], bv[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
     if (64 * i < W) {
-      gv[i] = __ldg(reinterpret_cast<const float2*>(g + 64 * i + 2 * lane));
-      bv[i] = __ldg(reinterpret_cast<const float2*>(b + 64 * i + 2 * lane));
+      gv[i] = *reinterpret_cast<const float2*>(g + 64 * i + 2 * lane);
+      bv[i] = *reinterpret_cast<const float2*>(b + 64 * i + 2 * lane);
     }
-  for (int r0 = cw; r0 < kRows; r0 += 16) {
-    float2 v[2][8];
+  for (int r0 = cw; r0 < kRows; r0 += RPI * nw) {
+    float2 v[RPI][8];
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int h = 0; h < RPI; ++h)
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        if (64 * i < W && r0 + 8 * h < n_valid)
-          v[h][i] = unpack(*reinterpret_cast<const uint32_t*>(
-              x + size_t(r0 + 8 * h) * W + 64 * i + 2 * lane));
+        if (64 * i < W && r0 + nw * h < n_valid)
+          v[h][i] = load(r0 + nw * h, 64 * i + 2 * lane);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
+    for (int h = 0; h < RPI; ++h) {
+      const int r = r0 + nw * h;
       if (r >= n_valid) {
         for (int c = 2 * lane; c < W; c += 64)
           *reinterpret_cast<uint32_t*>(t + swz(r, c)) = 0u;
@@ -1054,6 +981,19 @@ __device__ __forceinline__ void ln_tile(unsigned char* t, const bf16* x,
                    ((v[h][i].y - mu) * rstd) * gv[i].y + bv[i].y);
     }
   }
+}
+
+// LN1 of the tile's rows x (rows < n_valid) into the swizzled tile t by
+// the 8 consumer warps, rows >= n_valid zeroed.
+__device__ __forceinline__ void ln_tile(unsigned char* t, const bf16* x,
+                                        int W, int n_valid,
+                                        const float* __restrict__ g,
+                                        const float* __restrict__ b) {
+  ln_swizzled<2>(t, W, n_valid, g, b, (threadIdx.x >> 5) - 4, 8,
+              [&](int r, int c) {
+                return unpack(*reinterpret_cast<const uint32_t*>(
+                    x + size_t(r) * W + c));
+              });
 }
 
 // An epilogue over this thread's accumulator, 64 columns at a time: for
@@ -1449,6 +1389,408 @@ __device__ __forceinline__ void consume_full_block(const Params& a,
   cons.prof.flush(kFullBlock);
 }
 
+// ---- kernels 6a and 5 (bf16): LN1(x) Wqkv + b, and its attention
+//
+// Replace vit_marl_tpu/ops/block_kernel.py::fused_ln_qkv (:88) and
+// fused_ln_qkv_attn (:408) on the bf16 route.  A CTA tile holds 128
+// token rows (kernel 5: the whole images that fit, 11 x 11 = 121 at
+// ViT-Small); each consumer warpgroup owns 64 of them and computes every
+// output column for them, so each ring stage (nc weight rows of a
+// 64-column k-block) feeds both warpgroups and, multicast to the cluster
+// of 2, 256 tile rows a weight fetch from L2.  The block input comes by
+// TMA (boxes of 64 x 64, zeros past the last row) into the warpgroup's
+// A tile, in the swizzled layout the wgmmas read, and LN1 runs there in
+// place; the next tile's input is loaded a k-block at a time as the last
+// chunk's products finish reading the A tile.  Products are wgmma
+// m64n128k16 (6a) or m64n64k16 (5) with both operands in shared memory,
+// a chunk of nc output columns at a time, into one accumulator set while
+// the epilogue of the previous chunk runs from the other (after the
+// chunk's first two k-blocks are issued).  6a's epilogue adds the
+// bias, rounds and stages the chunk (swizzled) for TMA stores, which
+// clip the ragged last tile and K.  Kernel 5's writes q, k and v of a
+// head group into the group's qkv tile (a head's columns padded to 16,
+// the padding zeros); after the group's v, the attention of each (image,
+// head) runs on the tensor cores (mma_attention.cuh), its output written
+// over q and copied out in 16-byte rows.  Where no 128-row plan fits
+// (large W x D), kernel 5 takes 64-row tiles and one consumer warpgroup.
+//
+// What bounds them (B = 32,768, ViT-Small): the tensor cores at 0.32 ms
+// for both, and 6a's 1,108 MB at 0.33 ms.  Shared memory comes close:
+// each k16 step of a warpgroup reads A (2 KB) and B (nc x 32 bytes), and
+// the ring's fill, the output staging and LN1 add about half as much
+// again, near its 128 bytes an SM-clock at the tensor cores' full rate.
+// Measured (tools/torch_ab_block.py --profile, --ablate; PERF.md): both
+// warpgroups run LN1 at each tile's start with the tensor cores idle
+// (the ring they share lets neither run ahead), about a quarter of 6a's
+// time and an eighth of 5's; the epilogues and kernel 5's attention stop
+// them at each chunk and head group; a quarter goes to waits for weight
+// slots.  Tried and slower: LN1 two or four rows a warp at a time (the
+// consumers' code is compiled for 168 registers), from global memory,
+// chunks of 64 columns for 6a, 64-row tiles, stores straight from the
+// accumulators, images of each warpgroup its own in kernel 5, an L2
+// prefetch of the next tile's input, the warpgroups' epilogues staggered.
+
+__host__ __device__ __forceinline__ int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+
+// CTA tiles of a kind: 6a and 6b rows of p.rows, 5 and 7 whole images.
+__host__ __device__ __forceinline__ int n_tiles(int kind, const Params& a) {
+  if (kind == kLnQkv || kind == kProjMlp)
+    return (a.rows + a.p.rows - 1) / a.p.rows;
+  return (a.rows / a.N + a.p.images - 1) / a.p.images;
+}
+
+// Named barrier of one consumer warpgroup (ids 2 and 3), and of the n
+// active consumer threads (id 1).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+__device__ __forceinline__ void active_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// A TMA box (64 columns from c0, 64 rows from c1) into this CTA alone.
+__device__ __forceinline__ void tma_load_own(uint32_t dst,
+                                             const CUtensorMap* tm, int c0,
+                                             int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A TMA box from shared memory to global memory, clipped at the tensor's
+// edges; bulk_wait_read: the issued boxes have left shared memory.
+__device__ __forceinline__ void tma_store(const CUtensorMap* tm, int c0,
+                                          int c1, uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(tm)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The wgmmas of one k16 step over one ring stage of NC weight rows.
+template <int NC>
+__device__ __forceinline__ void issue_nc(float (&acc)[NC / 2], uint64_t da,
+                                         uint64_t db) {
+  if constexpr (NC == 128) mma_n128(acc, da, db);
+  else mma_n64(acc, da, db);
+}
+
+// A warp frees a ring slot in every CTA of the cluster.
+__device__ __forceinline__ void release_slot(const Ring& r, uint32_t slot) {
+  if ((threadIdx.x & 31) == 0)
+    for (int c = 0; c < r.C; ++c) mbar_arrive_cluster(r.empty + 8 * slot, c);
+}
+
+// A tile's output columns in chunks of NC weight rows, one ring stage a
+// 64-column k-block, in the order the producer streams them and the
+// consumers compute them.  6a: columns c0 = 0, NC, ... of K (rows past K
+// read as zeros).  5: for each head group (g0 on, gd() = its heads' D
+// columns a part), its q, k and v parts, each in pieces of 64 columns
+// (o = 0, 64, ...; columns past gd() are computed and dropped).
+template <int KIND>
+struct Chunks {
+  int W, D, H, G, K, NC;
+  int c0 = 0, g0 = 0, part = 0, o = 0;
+  __device__ explicit Chunks(const Params& a)
+      : W(a.W), D(a.D), H(a.H), G(a.p.head_group), K(a.K), NC(a.p.nc) {}
+  __device__ bool done() const { return KIND == kLnQkv ? c0 >= K : g0 >= H; }
+  __device__ int gd() const { return min(G, H - g0) * D; }
+  __device__ int row() const {
+    return KIND == kLnQkv ? c0 : part * W + g0 * D + o;
+  }
+  __device__ bool group_end() const {
+    return KIND == kLnQkvAttn && part == 2 && o + 64 >= gd();
+  }
+  __device__ void next() {
+    if (KIND == kLnQkv) {
+      c0 += NC;
+    } else if ((o += 64) >= gd()) {
+      o = 0;
+      if (++part == 3) {
+        part = 0;
+        g0 += G;
+      }
+    }
+  }
+};
+
+template <int KIND>
+__device__ __forceinline__ void produce_qkv(const Params& a,
+                                            const Ring& ring) {
+  const Walk w(n_tiles(KIND, a), a.p.cluster);
+  Producer pr(ring, w.rank);
+  for (int t = w.first; t < w.n_ct; t += w.step)
+    for (Chunks<KIND> c(a); !c.done(); c.next())
+      for (int kb = 0; kb < a.W / 64; ++kb)
+        pr.kblock(&a.tm_qkv, 64, 64 * kb, c.row(), a.p.nc);
+  pr.prof.flush(KIND);
+}
+
+// The tile layout mma_attention.cuh reads q, k and v in.
+struct HeadTiles {
+  int NP, DP, ldt;
+};
+
+// A consumer warpgroup of kernels 6a and 5 (p.rows / 64 of them active).
+// It owns rows 64 wg on of the CTA's tile and computes every output
+// column for them; the warpgroups share the ring, and in kernel 5, whose
+// images straddle them, meet at each head group's attention.  Per tile:
+// LN1 in place over the block input, which TMA brought into the A tile a
+// k-block at a time as the tile before finished reading it; then each
+// chunk's products into nxt, the epilogue of the chunk before running
+// from cur once the chunk's first two k-blocks are issued, and a head
+// group's attention with it.  A k-block's slot is freed as soon as its
+// wgmmas are done.
+template <int KIND, int NC, int MT>
+__device__ __forceinline__ void consume_qkv(const Params& a,
+                                            unsigned char* sm,
+                                            const Ring& ring) {
+  constexpr int NA = NC / 2;   // accumulator floats a thread
+  const Plan& p = a.p;
+  const int W = a.W, N = a.N, D = a.D, n_kb = W / 64;
+  const int n_wg = p.rows / kRows, n_act = 128 * n_wg;
+  const int wg = (threadIdx.x >> 7) - 1, wi = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, ct = threadIdx.x - 128;
+  const int r_acc = wi * 16 + (lane >> 2), t2 = (lane & 3) * 2;
+  const bool lead = (threadIdx.x & 127) == 0;
+  if (wg >= n_wg) return;
+  // [bqkv, zeros to nb | g1 | b1]
+  const int nb = KIND == kLnQkv ? round_up(a.K, NC) : 3 * W;
+  float* bias = reinterpret_cast<float*>(sm + p.o_bias);
+  for (int i = ct; i < nb + 2 * W; i += n_act)
+    bias[i] = i < a.K ? a.bqkv[i]
+              : i < nb ? 0.f
+              : i < nb + W ? a.g1[i - nb] : a.b1[i - nb - W];
+  bf16* qkv = reinterpret_cast<bf16*>(sm + p.o_qkv);
+  const int ldq = p.ldq, sl = p.slot, DP = round_up(D, 16);
+  if (KIND == kLnQkvAttn)   // the heads' padding columns and rows stay 0
+    for (int i = ct; i < p.qkv_rows * ldq / 8; i += n_act)
+      reinterpret_cast<uint4*>(qkv)[i] = make_uint4(0, 0, 0, 0);
+  active_sync(n_act);
+  const float* g1 = bias + nb;
+  const float* b1 = g1 + W;
+  bf16* qkv_w = qkv + wg * kRows * ldq;   // this warpgroup's rows
+  unsigned char* At = sm + p.o_h + wg * (kRows * W * 2);
+  const uint32_t a_addr = smem_u32(At);
+  const uint32_t xbar = ring.full + 16 * p.stages + 8 * wg;
+  const Walk w(n_tiles(KIND, a), p.cluster);
+  Prof prof;
+  // A tile's rows: this warpgroup's first (row0) and how many (nv); in
+  // kernel 5 the CTA's images (n_img, an rows from arow0).
+  struct Rows {
+    size_t row0, arow0;
+    int nv, an, n_img;
+  };
+  auto rows_of = [&](int t) {
+    const int tile = t * p.cluster + w.rank;
+    Rows r{0, 0, 0, 0, 0};
+    if (KIND == kLnQkv) {
+      const long long first = (long long)tile * p.rows + wg * kRows;
+      r.row0 = size_t(first);
+      r.nv = int(max(0LL, min((long long)kRows, (long long)a.rows - first)));
+    } else {
+      const int B = a.rows / N, img0 = tile * p.images;
+      r.n_img = max(0, min(p.images, B - min(B, img0)));
+      r.arow0 = size_t(min(B, img0)) * N;
+      r.an = r.n_img * N;
+      r.row0 = r.arow0 + wg * kRows;
+      r.nv = max(0, min(kRows, r.an - wg * kRows));
+    }
+    return r;
+  };
+  float cur[NA], nxt[NA];
+  // The epilogue of chunk c from cur.  6a: bias, rounding, the chunk
+  // staged (swizzled) and stored by TMA.  5: bias and rounding into the
+  // group's qkv tile; after a group's v, the attention of each (image,
+  // head), one warp a unit, written over q, then copied out in 16-byte
+  // rows.
+  auto finish = [&](const Chunks<KIND>& c, const Rows& cr) {
+    fence_acc(cur);
+    if constexpr (KIND == kLnQkv) {
+      unsigned char* st = sm + p.o_qkv + wg * (kRows * NC * 2);
+      const uint32_t st_addr = smem_u32(st);
+      if (lead) bulk_wait_read();
+      wg_sync(wg);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int col = 8 * j + t2;
+        const float2 b = *reinterpret_cast<const float2*>(bias + c.c0 + col);
+        *reinterpret_cast<uint32_t*>(st + swz(r_acc, col)) =
+            pack(cur[4 * j] + b.x, cur[4 * j + 1] + b.y);
+        *reinterpret_cast<uint32_t*>(st + swz(r_acc + 8, col)) =
+            pack(cur[4 * j + 2] + b.x, cur[4 * j + 3] + b.y);
+      }
+      fence_async_smem();
+      wg_sync(wg);
+      if (lead) {
+        if (cr.nv > 0)
+          for (int h = 0; h < NC / 64; ++h)
+            if (c.c0 + 64 * h < a.K)
+              tma_store(&a.tm_out, c.c0 + 64 * h, int(cr.row0),
+                        st_addr + h * kKbBytes);
+        bulk_commit();
+      }
+      prof.mark(kPhEpilogue);
+    } else {
+      const int gd = c.gd();
+      const float* bq = bias + c.part * W + c.g0 * D;
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int col = c.o + 8 * j + t2;   // column of the part
+        if (col < gd) {
+          const int hh = col / D;
+          bf16* dst = qkv_w + c.part * sl + hh * DP + (col - hh * D);
+          const float2 b = *reinterpret_cast<const float2*>(bq + col);
+          *reinterpret_cast<uint32_t*>(dst + r_acc * ldq) =
+              pack(cur[4 * j] + b.x, cur[4 * j + 1] + b.y);
+          *reinterpret_cast<uint32_t*>(dst + (r_acc + 8) * ldq) =
+              pack(cur[4 * j + 2] + b.x, cur[4 * j + 3] + b.y);
+        }
+      }
+      prof.mark(kPhEpilogue);
+      if (c.group_end()) {
+        active_sync(n_act);   // the group's q, k and v are in the tile
+        prof.mark(kPhSync);
+        const int gh = gd / D, units = cr.n_img * gh;
+        const HeadTiles ht{16 * MT, DP, ldq};
+        for (int u = ct >> 5; u < units; u += n_act >> 5) {
+          const int e = u / gh, hh = u - e * gh;
+          bf16* q = qkv + e * N * ldq + hh * DP;
+          float s[MT][2 * MT][4];
+          mma_attn::product_nt<MT>(s, q, q + sl, ht, lane);
+          mma_attn::softmax_rows<MT>(s, N, a.scale, lane);
+          uint32_t hi[MT][MT][4], lo[MT][MT][4];
+          mma_attn::a_fragments<MT>(s, hi, lo);
+          __syncwarp();
+          mma_attn::product_pv<MT>(hi, lo, q + 2 * sl, q, ht, N, D, 1.f,
+                                   lane);
+          __syncwarp();
+        }
+        active_sync(n_act);   // the group's attention rows are over q
+        prof.mark(kPhAttention);
+        const int cpr = gd / 8;
+        for (int i = ct; i < cr.an * cpr; i += n_act) {
+          const int rr = i / cpr, c8 = (i - rr * cpr) * 8, hh = c8 / D;
+          *reinterpret_cast<uint4*>(a.out + (cr.arow0 + rr) * W + c.g0 * D +
+                                    c8) =
+              *reinterpret_cast<const uint4*>(qkv + rr * ldq + hh * DP +
+                                              (c8 - hh * D));
+        }
+        active_sync(n_act);   // q is free for the next group
+        prof.mark(kPhEpilogue);
+      }
+    }
+  };
+  uint32_t n = 0, xph = 0;   // ring stages consumed; A tiles loaded
+  Rows cr{0, 0, 0, 0, 0}, nr{0, 0, 0, 0, 0};
+  if (w.first < w.n_ct) {
+    nr = rows_of(w.first);
+    if (lead && nr.nv > 0) {
+      mbar_expect_tx(xbar, uint32_t(n_kb * kKbBytes));
+      for (int kb = 0; kb < n_kb; ++kb)
+        tma_load_own(a_addr + kb * kKbBytes, &a.tm_x, 64 * kb,
+                     int(nr.row0), xbar);
+    }
+  }
+  for (int t = w.first; t < w.n_ct; t += w.step) {
+    cr = nr;
+    const bool more = t + w.step < w.n_ct;
+    if (more) nr = rows_of(t + w.step);
+    if (cr.nv > 0) mbar_wait(xbar, xph++ & 1);
+    prof.mark(kPhWaitX);
+    // a row at a time: two or four together measured slower
+    ln_swizzled<1>(At, W, cr.nv, g1, b1, wi, 4, [&](int r, int c) {
+      return unpack(*reinterpret_cast<const uint32_t*>(At + swz(r, c)));
+    });
+    fence_async_smem();
+    wg_sync(wg);
+    prof.mark(kPhLoad);
+    Chunks<KIND> c(a), prev(a);
+    bool have_prev = false;
+#pragma unroll 1
+    for (; !c.done(); c.next()) {
+      Chunks<KIND> after = c;
+      after.next();
+      // the A tile's last products: the next tile's input follows them in
+      const bool refill = after.done() && more && nr.nv > 0;
+      if (refill && lead) mbar_expect_tx(xbar, uint32_t(n_kb * kKbBytes));
+      zero_acc(nxt);
+      for (int kb = 0; kb < n_kb; ++kb, ++n) {
+        const uint32_t slot = n % ring.S;
+        mbar_wait(ring.full + 8 * slot, (n / ring.S) & 1);
+        prof.mark(kPhWaitFull);
+        const uint32_t sb = ring.base + slot * ring.SB;
+        const uint32_t ab = a_addr + kb * kKbBytes;
+        wg_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          issue_nc<NC>(nxt, desc(ab + 32 * k), desc(sb + 32 * k));
+        wg_commit();
+        // the last chunk's epilogue under this chunk's first k-blocks
+        if (kb == min(1, n_kb - 1) && have_prev) finish(prev, cr);
+        wg_wait<0>();
+        release_slot(ring, slot);
+        prof.mark(kPhMma);
+        if (refill) {   // k-block kb of the A tile is read
+          wg_sync(wg);
+          if (lead)
+            tma_load_own(ab, &a.tm_x, 64 * kb, int(nr.row0), xbar);
+        }
+      }
+      fence_acc(nxt);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) cur[i] = nxt[i];
+      prev = c;
+      have_prev = true;
+    }
+    if (have_prev) finish(prev, cr);
+  }
+  if (KIND == kLnQkv && lead) bulk_wait();
+  prof.flush(KIND);
+}
+
+template <int KIND, int NC, int MT>
+__global__ void __launch_bounds__(kThreads, 1)
+    qkv_kernel(const __grid_constant__ Params a) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const Ring ring(smem_u32(sm), a.p);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.p.stages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, 4 * (a.p.rows / kRows) * a.p.cluster);
+    }
+    for (int wg = 0; wg < 2; ++wg)   // the A tiles' block-input loads
+      mbar_init(ring.full + 16 * a.p.stages + 8 * wg, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) produce_qkv<KIND>(a, ring);
+    __syncwarp();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    consume_qkv<KIND, NC, MT>(a, sm, ring);
+  }
+  cluster_sync();
+}
+
 template <int KIND, int NM>
 __global__ void __launch_bounds__(kThreads, 1)
     tc_kernel(const __grid_constant__ Params a) {
@@ -1526,8 +1868,6 @@ bool weight_map(CUtensorMap* m, const void* w, int rows, int cols,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int round_up(int n, int m) { return (n + m - 1) / m * m; }
-
 // The checks the C entry makes of a plan it is given (it derives none).
 bool plan_ok(const Plan& p, int kind, const Params& a) {
   const int W = a.W, hc = p.hc;
@@ -1570,6 +1910,39 @@ bool plan_ok(const Plan& p, int kind, const Params& a) {
          p.smem <= int(kMaxSmem);
 }
 
+// The same for kernels 6a and 5 (K = 3W for 5).
+bool plan_ok_qkv(const Plan& p, int kind, const Params& a) {
+  const int W = a.W, nc = p.nc, n_wg = p.rows / kRows;
+  if (p.kind != kind || (p.rows != 64 && p.rows != 128) || p.cluster < 1 ||
+      p.cluster > 4)
+    return false;
+  if ((kind == kLnQkv ? nc != 64 && nc != 128 : nc != 64) ||
+      p.stage_bytes != nc * 128 || p.stages < 3)
+    return false;
+  if (p.o_h < p.stages * p.stage_bytes || p.o_h % 1024) return false;
+  int end_at = p.o_h + p.rows * W * 2, n_bias;
+  if (kind == kLnQkv) {   // the output staging: 64 rows x nc a warpgroup
+    if (p.o_qkv < end_at || p.o_qkv % 1024) return false;
+    end_at = p.o_qkv + n_wg * kRows * nc * 2;
+    n_bias = round_up(a.K, nc) + 2 * W;
+  } else {   // the qkv tile of a head group
+    const int DP = round_up(a.D, 16), NP = a.N <= 16 ? 16 : 32;
+    const int G = p.head_group;
+    if (p.images < 1 || p.images * a.N > p.rows || G < 1 || G > a.H ||
+        p.slot != G * DP || p.ldq < 3 * p.slot || p.ldq % 8 ||
+        p.qkv_rows < max(p.rows, (p.images - 1) * a.N + NP))
+      return false;
+    if (p.o_qkv < end_at || p.o_qkv % 16) return false;
+    end_at = p.o_qkv + p.qkv_rows * p.ldq * 2;
+    n_bias = 5 * W;
+  }
+  if (p.o_bias < end_at || p.o_bias % 16) return false;
+  end_at = p.o_bias + 4 * n_bias;
+  return p.o_bar >= end_at && p.o_bar % 8 == 0 &&
+         p.smem >= p.o_bar + 16 * p.stages + 16 + 1024 &&
+         p.smem <= int(kMaxSmem);
+}
+
 // The instantiation for width W (NM = W / 4 rounded up to 32).
 template <int KIND>
 void (*kernel_for(int W))(Params) {
@@ -1580,9 +1953,28 @@ void (*kernel_for(int W))(Params) {
                     : tc_kernel<KIND, 128>;
 }
 
-template <int KIND>
-cudaError_t launch(const Params& a, int* clusters_out, cudaStream_t st) {
-  void (*k)(Params) = kernel_for<KIND>(a.W);
+// The tc kernel of any kind under its plan (5: by the tokens' mma tiles).
+void (*tc_kernel_for(int kind, const Params& a))(Params) {
+  switch (kind) {
+    case kLnQkv:
+      return a.p.nc == 128 ? qkv_kernel<kLnQkv, 128, 1>
+                           : qkv_kernel<kLnQkv, 64, 1>;
+    case kProjMlp: return kernel_for<kProjMlp>(a.W);
+    case kFullBlock: return kernel_for<kFullBlock>(a.W);
+    default:
+      return a.N <= 16 ? qkv_kernel<kLnQkvAttn, 64, 1>
+                       : qkv_kernel<kLnQkvAttn, 64, 2>;
+  }
+}
+
+bool plan_fits(int kind, const Params& a) {
+  return kind == kLnQkv || kind == kLnQkvAttn ? plan_ok_qkv(a.p, kind, a)
+                                              : plan_ok(a.p, kind, a);
+}
+
+cudaError_t launch(int kind, const Params& a, int* clusters_out,
+                   cudaStream_t st) {
+  void (*k)(Params) = tc_kernel_for(kind, a);
   cudaError_t e = cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, a.p.smem);
   if (e != cudaSuccess) return e;
@@ -1602,8 +1994,8 @@ cudaError_t launch(const Params& a, int* clusters_out, cudaStream_t st) {
   cfg.numAttrs = 1;
   // clusters resident at once, per (device, kernel, cluster, smem)
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int, int>, int> cache;
-  const auto key = std::make_tuple(dev, KIND * 1024 + a.W, C, a.p.smem);
+  static std::map<std::tuple<int, void*, int, int>, int> cache;
+  const auto key = std::make_tuple(dev, (void*)k, C, a.p.smem);
   int fit = 0;
   {
     std::lock_guard<std::mutex> lock(mu);
@@ -1622,10 +2014,7 @@ cudaError_t launch(const Params& a, int* clusters_out, cudaStream_t st) {
     *clusters_out = fit;
     return cudaSuccess;
   }
-  const int n_tiles = KIND == kProjMlp
-                          ? (a.rows + kRows - 1) / kRows
-                          : (a.rows / a.N + a.p.images - 1) / a.p.images;
-  const int n_ct = (n_tiles + C - 1) / C;
+  const int n_ct = (n_tiles(kind, a) + C - 1) / C;
   if (n_ct == 0) return cudaSuccess;
   cfg.gridDim = dim3(min(fit, n_ct) * C);
   e = cudaLaunchKernelEx(&cfg, k, a);
@@ -1639,8 +2028,19 @@ int run(int kind, Params& a, const int* plan, int* clusters_out,
         cudaStream_t st, const void* wqkv, const void* wp, const void* w1,
         const void* w2) {
   std::memcpy(&a.p, plan, sizeof(Plan));
-  if (!plan_ok(a.p, kind, a)) return (int)cudaErrorInvalidValue;
+  if (!plan_fits(kind, a)) return (int)cudaErrorInvalidValue;
   const int W = a.W;
+  if (kind == kLnQkv || kind == kLnQkvAttn) {
+    // the weight in 64-row boxes; the block input, and 6a's output, in
+    // boxes of 64 columns x 64 rows, zeros (or nothing) past their edges
+    if (a.rows == 0 && !clusters_out) return 0;
+    const int rows = a.rows > 0 ? a.rows : 1;
+    if (!weight_map(&a.tm_qkv, wqkv, a.K, W, 64) ||
+        !weight_map(&a.tm_x, a.x, rows, W, 64) ||
+        (kind == kLnQkv && !weight_map(&a.tm_out, a.out, rows, a.K, 64)))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch(kind, a, clusters_out, st);
+  }
   if (!weight_map(&a.tm_p, wp, W, W, W / 2) ||
       !weight_map(&a.tm_1, w1, a.Hd, W, a.p.hc / 2) ||
       !weight_map(&a.tm_2, w2, W, a.Hd, W / 2) ||
@@ -1648,19 +2048,18 @@ int run(int kind, Params& a, const int* plan, int* clusters_out,
                   kind == kFullBlock ? 3 * W : W, W,
                   kind == kFullBlock ? a.p.gdp / 2 : W / 2))
     return (int)cudaErrorInvalidValue;
-  return (int)(kind == kProjMlp ? launch<kProjMlp>(a, clusters_out, st)
-                                : launch<kFullBlock>(a, clusters_out, st));
+  return (int)launch(kind, a, clusters_out, st);
 }
 
 }  // namespace tc
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (fused_proj_mlp and fused_block_full:
-// float32 only; bf16 takes the *_tc entries).  Row tensors and weights in
-// that type, LayerNorm parameters and biases float32; all contiguous and
-// 16-byte aligned.  Each returns cudaGetLastError() after its launch (or
-// cudaErrorInvalidValue for a shape it does not take).
+// The first design: dtype 0 (float32) only; bf16 takes the *_tc entries.
+// Row tensors and weights float32, LayerNorm parameters and biases
+// float32; all contiguous and 16-byte aligned.  Each returns
+// cudaGetLastError() after its launch (or cudaErrorInvalidValue for a
+// shape or dtype it does not take).
 extern "C" int fused_ln_qkv(const void* x, const float* g, const float* b,
                             const void* w, const float* bias, void* out,
                             int rows, int W, int K, int dtype,
@@ -1714,27 +2113,43 @@ extern "C" int fused_ln_qkv_attn(const void* x, const float* g,
   return run(kLnQkvAttn, a, dtype, stream);
 }
 
-// The plan a launch would use: {rows per tile, images per tile, heads per
-// qkv group, shared-memory bytes}; returns 0, or cudaErrorInvalidValue.
-extern "C" int fused_block_plan(int kind, int rows, int N, int H, int W,
-                                int K, int Hd, int dtype, int* plan) {
-  Args a = {};
-  a.rows = rows; a.N = N; a.H = H; a.W = W; a.K = K; a.Hd = Hd;
-  a.D = H > 0 ? W / H : 0;
-  if (kind < 0 || kind > 3 || !shape_ok(kind, a) || !first_design(kind, dtype))
-    return (int)cudaErrorInvalidValue;
-  a.hc = (a.Hd % 128 == 0 && a.W >= 128) ? 128 : 64;
-  const bool ok = dtype == 0 ? make_plan<float>(a, kind)
-                             : make_plan<bf16>(a, kind);
-  if (!ok) return (int)cudaErrorInvalidValue;
-  plan[0] = a.rt; plan[1] = a.n_img; plan[2] = a.G; plan[3] = a.smem;
-  return 0;
+// The bf16 route of the four functions (namespace tc): bf16 rows and
+// weights, float32 LayerNorm parameters and biases, all contiguous and
+// 16-byte aligned; `plan` is block_kernel.py::wgmma_plan's (checked here,
+// cudaErrorInvalidValue if it does not hold).
+extern "C" int fused_ln_qkv_tc(const void* x, const float* g, const float* b,
+                               const void* w, const float* bias, void* out,
+                               int rows, int W, int K, const int* plan,
+                               void* stream) {
+  Args s = {};
+  s.rows = rows; s.W = W; s.K = K;
+  if (!shape_ok(kLnQkv, s)) return (int)cudaErrorInvalidValue;
+  tc::Params a = {};
+  a.x = static_cast<const bf16*>(x); a.g1 = g; a.b1 = b; a.bqkv = bias;
+  a.out = static_cast<bf16*>(out);
+  a.rows = rows; a.W = W; a.K = K; a.N = 1; a.H = 1; a.D = W;
+  return tc::run(kLnQkv, a, plan, nullptr, static_cast<cudaStream_t>(stream),
+                 w, nullptr, nullptr, nullptr);
 }
 
-// The bf16 route of fused_proj_mlp and fused_block_full (namespace tc):
-// bf16 rows and weights, float32 LayerNorm parameters and biases, all
-// contiguous and 16-byte aligned; `plan` is block_kernel.py::wgmma_plan's
-// (checked here, cudaErrorInvalidValue if it does not hold).
+extern "C" int fused_ln_qkv_attn_tc(const void* x, const float* g,
+                                    const float* b, const void* w,
+                                    const float* bias, void* out, int rows,
+                                    int N, int H, int W, float scale,
+                                    const int* plan, void* stream) {
+  Args s = {};
+  s.rows = rows; s.N = N; s.H = H; s.W = W; s.D = H > 0 ? W / H : 0;
+  if (!shape_ok(kLnQkvAttn, s)) return (int)cudaErrorInvalidValue;
+  tc::Params a = {};
+  a.x = static_cast<const bf16*>(x); a.g1 = g; a.b1 = b; a.bqkv = bias;
+  a.out = static_cast<bf16*>(out);
+  a.rows = rows; a.W = W; a.K = 3 * W; a.N = N; a.H = H; a.D = s.D;
+  a.scale = scale;
+  return tc::run(kLnQkvAttn, a, plan, nullptr,
+                 static_cast<cudaStream_t>(stream), w, nullptr, nullptr,
+                 nullptr);
+}
+
 extern "C" int fused_proj_mlp_tc(const void* att, const void* x,
                                  const void* wp, const float* bp,
                                  const float* g2, const float* b2,
@@ -1777,35 +2192,34 @@ extern "C" int fused_block_full_tc(const void* x, const float* g1,
                  static_cast<cudaStream_t>(stream), wqkv, wp, w1, w2);
 }
 
-// The tc kernel of `kind` (1 or 2) under `plan` at this shape: out =
-// {registers a thread, spill (local) bytes a thread, clusters a wave}.
+// The tc kernel of `kind` under `plan` at this shape (`Hd`: the MLP's
+// hidden width; for fused_ln_qkv, K): out = {registers a thread, spill
+// (local) bytes a thread, clusters a wave}.
 extern "C" int fused_block_tc_info(int kind, const int* plan, int N, int H,
                                    int W, int Hd, int* out) {
-  if (kind != kProjMlp && kind != kFullBlock) return (int)cudaErrorInvalidValue;
+  if (kind < 0 || kind > 3) return (int)cudaErrorInvalidValue;
   Args s = {};
-  s.rows = N; s.N = N; s.H = H; s.W = W; s.Hd = Hd; s.D = H > 0 ? W / H : 0;
+  s.rows = N; s.N = N; s.H = H; s.W = W; s.Hd = Hd; s.K = Hd;
+  s.D = H > 0 ? W / H : 0;
   if (!shape_ok(kind, s)) return (int)cudaErrorInvalidValue;
   tc::Params a = {};
   std::memcpy(&a.p, plan, sizeof(tc::Plan));
   a.rows = N; a.W = W; a.Hd = Hd; a.N = N; a.H = H; a.D = s.D;
-  if (!tc::plan_ok(a.p, kind, a)) return (int)cudaErrorInvalidValue;
+  a.K = kind == kLnQkv ? Hd : 3 * W;
+  if (!tc::plan_fits(kind, a)) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(
-      &attr, kind == kProjMlp ? tc::kernel_for<kProjMlp>(W)
-                              : tc::kernel_for<kFullBlock>(W));
+  cudaError_t e = cudaFuncGetAttributes(&attr, tc::tc_kernel_for(kind, a));
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
-  e = kind == kProjMlp ? tc::launch<kProjMlp>(a, &out[2], nullptr)
-                       : tc::launch<kFullBlock>(a, &out[2], nullptr);
-  return (int)e;
+  return (int)tc::launch(kind, a, &out[2], nullptr);
 }
 
 extern "C" int fused_block_tc_plan_fields() { return tc::kPlanFields; }
 
 // Profile builds (-DFUSED_BLOCK_PROFILE) only: the cycles by phase of the
-// last launch of each tc kernel, [kind - 1][warpgroup][phase] (warpgroup
-// 0 the producer's); cudaErrorNotSupported otherwise.
+// last launch of each tc kernel, [kind][warpgroup][phase] (warpgroup 0
+// the producer's); cudaErrorNotSupported otherwise.
 extern "C" int fused_block_profile(unsigned long long* out) {
 #ifdef FUSED_BLOCK_PROFILE
   return (int)cudaMemcpyFromSymbol(out, tc::g_profile,
