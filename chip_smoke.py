@@ -72,8 +72,10 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    call computes these functions;
 6. 2-player training: ``make_train`` on ``configs/ippo_2player.yaml`` at
    its published widths and NUM_ENVS=4096 on the card for 2 updates;
-   losses must be finite and the book scan's launch count must rise by
-   exactly NUM_STEPS x updates;
+   losses must be finite, the env-info metrics (``LOG_ENV_INFO``, on by
+   default) present, and the book scan's launch count must rise by
+   exactly NUM_STEPS x updates; then 2 updates with ``LOG_ENV_INFO``
+   off, and the rollout seconds of both;
 7. debug-mode training: the same config with ``WORLD.DEBUG_MODE=true``
    (set through the port's ``--set`` parser) for 2 updates; losses must be
    finite, the records scan must launch exactly NUM_STEPS x updates times
@@ -89,12 +91,30 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
 9. vision simplest-case training: the same for
    ``configs/ippo_vision_simplest.yaml`` (ViT-Small, 512 envs x 32 steps,
    the discrete ``simplest_case`` execution agent alone);
-10. fused-mode vision training: phase 8, 2 updates in each of the three
+10. fused-mode vision training: phase 8, 1 update in each of the three
    fused-block modes (``VIT_ATTN_LN_FOLD``, ``VIT_FUSED_BLOCK``,
    ``VIT_FUSED_BLOCK_FULL``), with the exact launch count of every kernel,
    every launch of the four fused-block kernels on the bf16 tensor-core
    route;
-11. summary: one JSON line describing the eight kernels, then the last
+11. bench: ``vit_marl_tpu_torch/bench.py`` in-process, the loop with GRU
+   and ViT-Small policies (4,096 envs, 10 steps, 2 reps), ``--vit-images``
+   and ``--selfcheck`` (every kernel against its plain version at the
+   bench's shapes); each JSON line must parse with a value > 0 (true),
+   each loop's launches must be exact;
+12. checkpoint and resume: ``configs/ippo_vision_simplest.yaml``, 2
+   updates with ``CHECKPOINT_DIR``, then ``RESUME=true`` for one more: the
+   restored tensors equal the saved ones, the update index continues, the
+   losses are finite and the launches exact;
+13. LOBSTER: ``configs/ippo_2player.yaml`` at 1,024 envs fed by CSVs
+   written from a synthetic day, one update, the book scan's launches
+   exact;
+14. the fused modes at ViT-Base's width (W=768, hidden 3,072): one bf16
+   block of each mode forward and backward at B=1,024 images, against
+   the plain versions at ``block_tol``, every call on the ``composed``
+   route and none on a kernel, counted exactly; their times;
+15. entry: ``vit_marl_tpu_torch/graft_entry.py::entry`` on the card,
+   against the same weights on the CPU;
+16. summary: one JSON line describing the eight kernels, then the last
    line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it, the
@@ -103,9 +123,12 @@ script exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
-import math
 import os
+import tempfile
 import subprocess
 import sys
 import time
@@ -113,6 +136,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import yaml
+
+from vit_marl_tpu_torch.selfcheck import (
+    ATT_TOL,
+    F32_BLOCK_TOL,
+    block_params,
+    block_tol,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "ippo_2player.yaml")
@@ -134,8 +164,6 @@ BATCHES, PER_BATCH = 10, 20     # kernel timing: batches of launches
 # per PPO minibatch (128 steps x 1024 envs / 4 minibatches)
 ATT_N, ATT_W, ATT_H = 11, 384, 6
 B_ROLLOUT, B_MINIBATCH = 1024, 32_768
-ATT_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
-           "bfloat16": dict(rtol=8e-3, atol=1e-3)}
 # (B, N, H, D) the bf16 route pads: N to 16 or 32 tokens, D to a multiple
 # of 16; ragged B and a B below the persistent grid (3 images)
 ATT_PAD_SHAPES = [((1000, 3, 37, 130)[i % 4], n, (1, 2, 3)[i % 3], d)
@@ -147,25 +175,11 @@ ATT_PAD_SHAPES = [((1000, 3, 37, 130)[i % 4], n, (1, 2, 3)[i % 3], d)
 ATT_EARLIER_MS = {"fwd": 1.1845, "fwd_rollout": 0.0472, "bwd": 2.9990}
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 MLP_RATIO = 4
-F32_BLOCK_TOL = dict(rtol=2e-5, atol=2e-5)
-
-
-def block_tol(name, want):
-    """float32: rtol 2e-5, atol 2e-5.  bf16: two ulps of the element (rtol
-    1.6e-2), or ulps of the largest magnitude of the output (atol): the
-    fused functions round a chain of intermediates (qkv, attention, x1,
-    the MLP's sum), and a one-ulp flip in one of them, from another order
-    of summation, reaches the output; where the output cancels to near 0
-    (``x1 + mlp``, or ``P v`` over values of both signs) the error is an
-    ulp of the intermediates, at the scale of the rows.  Two ulps, and
-    three where the output ends in ``x1 + mlp`` (x1, the MLP's sum and
-    their sum each round once)."""
-    if want.element_size() == 4:
-        return dict(F32_BLOCK_TOL)
-    ulps = 3 if name in ("fused_proj_mlp", "fused_block_full") else 2
-    m = float(want.float().abs().max())
-    return dict(rtol=1.6e-2, atol=ulps * 2.0 ** (math.floor(math.log2(m)) - 7)
-                if m else 1e-2)
+# ViT-Base: width, heads; images of the W=768 phase
+BASE_W, BASE_H, B_BASE = 768, 12, 1024
+# the bench phase's arguments (in-process ``bench.main``)
+BENCH_ARGS = ["--envs", "4096", "--steps", "10", "--reps", "2",
+              "--deadline", "600"]
 
 
 # the fused-block kernels: wrapper name -> (TPU function, ViT mode whose
@@ -582,23 +596,13 @@ def block_phase(torch, blk, smi):
     N, W, H = ATT_N, ATT_W, ATT_H
     D, hidden = W // H, MLP_RATIO * W
 
-    def rand(*shape, scale=1.0, loc=0.0, dtype=torch.float32):
-        return (loc + scale * torch.randn(shape, generator=gen,
-                                          device=dev)).to(dtype)
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def params(dtype):
         """ViT-Small block parameters: LayerNorms and biases float32,
         weights (out, in) in the compute type."""
-        return dict(
-            g1=rand(W, scale=0.1, loc=1.0), b1=rand(W, scale=0.1),
-            wqkv=rand(3 * W, W, scale=W ** -0.5, dtype=dtype),
-            bqkv=rand(3 * W, scale=0.1),
-            wp=rand(W, W, scale=W ** -0.5, dtype=dtype), bp=rand(W, scale=0.1),
-            g2=rand(W, scale=0.1, loc=1.0), b2=rand(W, scale=0.1),
-            w1=rand(hidden, W, scale=W ** -0.5, dtype=dtype),
-            bm1=rand(hidden, scale=0.1),
-            w2=rand(W, hidden, scale=hidden ** -0.5, dtype=dtype),
-            bm2=rand(W, scale=0.1))
+        return block_params(gen, dtype, W, hidden)
 
     def calls(name, x, a, p):
         """(kernel, plain version, unfused PyTorch sequence) on rows x (and
@@ -667,7 +671,8 @@ def block_phase(torch, blk, smi):
         del x, a
     routes = {k: v - routes0[k] for k, v in block_route_counts(blk).items()}
     want_routes = {f"{name}_{route}": n for name in TC_KERNELS
-                   for route, n in (("wgmma", 4), ("simt", 2))}
+                   for route, n in (("wgmma", 4), ("simt", 2),
+                                    ("composed", 0))}
     print(f"  fused-block launches by route: {routes}", flush=True)
     if routes != want_routes:
         raise AssertionError(f"fused-block launches by route {routes}, want "
@@ -732,12 +737,15 @@ def tc_shape(name, W, hidden):
     return (hidden if name == "fused_block_full" else 0, ATT_N, ATT_H)
 
 
+BLOCK_ROUTES = ("wgmma", "simt", "composed")
+
+
 def block_route_counts(blk):
-    """Launches of the tensor-core kernels by route (bf16: ``wgmma``,
-    float32: ``simt``)."""
+    """Calls of the fused-block functions by route (bf16: ``wgmma``,
+    float32: ``simt``, past the kernels' widths: ``composed``)."""
     return {f"{name}_{route}": getattr(getattr(blk, name),
                                        f"launches_{route}")
-            for name in TC_KERNELS for route in ("wgmma", "simt")}
+            for name in TC_KERNELS for route in BLOCK_ROUTES}
 
 
 def route_counts(attn):
@@ -787,12 +795,7 @@ def debug_phase(torch, count, make_train, dev, smi, agg_train, agg_rate):
     torch.cuda.synchronize()
     wall = time.perf_counter() - tt
     got = {k: get() for k, (get, _) in count.items()}
-    for m in out["metrics"]:
-        print("  " + " ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())),
-              flush=True)
-        bad = [k for k, v in m.items() if not np.isfinite(v)]
-        if bad:
-            raise AssertionError(f"non-finite metrics: {bad}")
+    check_metrics(out["metrics"])
     want = {k: 0 for k in count}
     want["book_scan_records"] = tc.num_steps * UPDATES
     if got != want:
@@ -825,6 +828,322 @@ def debug_phase(torch, count, make_train, dev, smi, agg_train, agg_rate):
     return got
 
 
+def check_metrics(metrics, label=""):
+    """Print each update's metrics; raise on a non-finite one."""
+    for m in metrics:
+        print("  " + " ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())),
+              flush=True)
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{label}non-finite metrics: {bad}")
+
+
+def vision_launches(tc, depth, updates, mode=None):
+    """The kernel launches of ``updates`` updates of a ViT config: the
+    book scan once a step; the rollout runs each block's forward once a
+    step and once for the last value, the update twice a minibatch
+    (remat) and its backward once."""
+    passes = tc.update_epochs * tc.num_minibatches * updates
+    forward = depth * (tc.num_steps + 1) * updates + depth * 2 * passes
+    want = {"book_scan": tc.num_steps * updates}
+    if mode is None:
+        want["short_attention_fwd"] = forward
+        want["short_attention_bwd"] = depth * passes
+    elif mode == "attn_ln_fold":
+        want["fused_ln_qkv_attn"] = forward
+        want["short_attention_bwd"] = depth * passes
+    elif mode == "fused_block":
+        want["fused_ln_qkv"] = want["fused_proj_mlp"] = forward
+    else:
+        want["fused_block_full"] = forward
+    return want
+
+
+def drive(torch, count, fn):
+    """Run ``fn()`` with every launch count set to 0 just before it; returns
+    (its result, the counts just after, seconds)."""
+    for _, reset in count.values():
+        reset()
+    torch.cuda.synchronize()
+    tt = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: get() for k, (get, _) in count.items()}, \
+        time.perf_counter() - tt
+
+
+def expect(got, want, label):
+    full = {k: 0 for k in got}
+    full.update(want)
+    if got != full:
+        raise AssertionError(f"{label}: launch counts {got}, want {full}")
+
+
+def bench_phase(torch, attn, bkern, blk, smi):
+    """The port's bench in-process (``vit_marl_tpu_torch/bench.py``): the
+    loop with GRU and ViT-Small policies at 4,096 envs x 10 steps x 2
+    reps, ``--vit-images`` and ``--selfcheck``; each JSON line must parse
+    with a value > 0 (true), each loop's launches must be exact.  Returns
+    the four result dicts."""
+    from vit_marl_tpu_torch import bench
+
+    count = counters(attn, bkern, blk)
+    depth, steps = 12, 1 + 10 * 2             # ViT-Small; warm-up + timed
+    iters = 1 + max(2 * 4, 8)                 # --vit-images: warm-up + timed
+    # the bench builds its world, whose window table takes one scan
+    runs = [("gru", ["--policy", "gru"], {"book_scan": 1 + steps}),
+            ("vit-small", ["--policy", "vit-small"],
+             {"book_scan": 1 + steps, "short_attention_fwd": depth * steps}),
+            ("vit-images", ["--vit-images"],
+             {"short_attention_fwd": depth * 2 * iters,
+              "short_attention_bwd": depth * iters}),
+            ("selfcheck", ["--selfcheck"], None)]
+    results = {}
+    for label, argv, want in runs:
+        buf = io.StringIO()
+        routes0 = route_counts(attn)
+        try:
+            with contextlib.redirect_stdout(buf):
+                out, got, wall = drive(torch, count, lambda: bench.main(
+                    BENCH_ARGS + argv))
+        except SystemExit as e:
+            raise AssertionError(f"bench {label} exited {e.code}: "
+                                 f"{buf.getvalue().strip()}") from None
+        line = buf.getvalue().strip().splitlines()[-1]
+        parsed = json.loads(line)
+        if parsed != out or not parsed["value"] or parsed["value"] < 0:
+            raise AssertionError(f"bench {label}: {line}")
+        if want is not None:
+            expect(got, want, f"bench {label}")
+            routes = {k: v - routes0[k] for k, v in route_counts(attn).items()}
+            if routes["fwd_simt"] or routes["bwd_simt"]:
+                raise AssertionError(f"bench {label}: attention on the "
+                                     f"float32 route {routes}")
+        results[label] = parsed
+        print(f"  bench {label}: {line} ({wall:.2f}s; launches "
+              f"{ {k: v for k, v in got.items() if v} }) [{smi}]",
+              flush=True)
+    return results
+
+
+def learner_state(learners):
+    """Copies of each learner's weights, Adam moments and step count."""
+    from vit_marl_tpu_torch.rl.checkpoint import adam_state
+    return [({k: v.clone() for k, v in lr.net.state_dict().items()},
+             {k: [t.clone() for t in v]
+              for k, v in adam_state(lr.opt).items()}, lr.count)
+            for lr in learners]
+
+
+def resume_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
+                 smi):
+    """``configs/ippo_vision_simplest.yaml``: 2 updates with
+    ``CHECKPOINT_DIR`` in a temporary directory, then ``RESUME=true`` for
+    one more; the weights, Adam moments and step counts of the resumed
+    trainer (``train(seed, n_updates=0)``: restored, no update run) must
+    equal the saved ones, the update index must continue at 2, the losses
+    must be finite and the resumed update's launches exact."""
+    from vit_marl_tpu_torch.rl.checkpoint import CheckpointManager
+
+    ma, tc = load_yaml_config(SIMPLEST_CONFIG)
+    count = counters(attn, bkern, blk)
+    with tempfile.TemporaryDirectory() as d:
+        tc = dataclasses.replace(tc, checkpoint_dir=d, log_backend="none")
+        train = make_train(ma, tc, device=dev)
+        first = train(tc.seed, n_updates=UPDATES)
+        saved = learner_state(first["learners"])
+        resumed = make_train(ma, dataclasses.replace(tc, resume=True),
+                             env=train.env)
+        # the entry point's own restore: no update run, its learners held
+        # against the saved ones
+        restored = resumed(tc.seed, n_updates=0)
+        for (w0, a0, c0), (w1, a1, c1) in zip(
+                saved, learner_state(restored["learners"])):
+            same = (c0 == c1 and all(torch.equal(w0[k], w1[k]) for k in w0)
+                    and all(torch.equal(x, y) for k in a0
+                            for x, y in zip(a0[k], a1[k])))
+            if not same:
+                raise AssertionError("resume: restored state differs from "
+                                     "the saved state")
+        out, got, wall = drive(torch, count,
+                               lambda: resumed(tc.seed, n_updates=1))
+        steps = [m["update_step"] for m in out["metrics"]]
+        kept = CheckpointManager(d).all_steps()
+    check_metrics(out["metrics"], "resume: ")
+    if restored["metrics"] or steps != [UPDATES] or kept != [1, 2]:
+        raise AssertionError(f"resume: restore ran {restored['metrics']}, "
+                             f"then {steps}; checkpoints {kept}")
+    expect(got, vision_launches(tc, 12, 1), "resume")
+    n_saved = sum(len(w) for w, _, _ in saved)
+    print(f"  saved updates 0-1, restored {n_saved} tensors and the Adam "
+          f"state exactly, resumed at update {steps[0]} in {wall:.2f}s "
+          f"({update_split(out['metrics'])}); checkpoints kept {kept} "
+          f"[{smi}]", flush=True)
+
+
+def lobster_phase(torch, attn, bkern, blk, make_train, dev, smi):
+    """``configs/ippo_2player.yaml`` fed by LOBSTER CSVs written from a
+    synthetic day (``WORLD.DATA_PATH``; the native parser built from
+    ``native/lobster_parser.cpp``): one update at 1,024 envs, finite
+    losses, the book scan's launches exact."""
+    from vit_marl_tpu_torch.config import make_config
+    from vit_marl_tpu_torch.data import native
+    from vit_marl_tpu_torch.data.synthetic import generate_day, write_day_csvs
+    from vit_marl_tpu_torch.utils.cli import apply_set_overrides
+
+    count = counters(attn, bkern, blk)
+    with tempfile.TemporaryDirectory() as d:
+        day = generate_day(seed=SEED, n_messages=30_000)
+        paths = write_day_csvs(day, os.path.join(d, "SYNTH", "2024-01"))
+        with open(CONFIG) as f:
+            raw = yaml.safe_load(f)
+        ma, tc = make_config(apply_set_overrides(raw, [
+            f"WORLD.DATA_PATH={d}", "WORLD.STOCK=SYNTH",
+            "WORLD.TIME_PERIOD=2024-01", "NUM_ENVS=1024",
+            "LOG_BACKEND=none"]))
+        tl = time.perf_counter()
+        train = make_train(ma, tc, device=dev)
+        load_s = time.perf_counter() - tl
+    parser = "native" if native.get_native_module() is not None else "numpy"
+    out, got, wall = drive(torch, count, lambda: train(tc.seed, n_updates=1))
+    check_metrics(out["metrics"], "LOBSTER: ")
+    expect(got, {"book_scan": tc.num_steps}, "LOBSTER")
+    print(f"  {os.path.basename(paths[0])}: {len(day.messages)} messages, "
+          f"{train.env.n_windows} windows, loaded in {load_s:.2f}s "
+          f"({parser} parser); 1 update x NUM_STEPS={tc.num_steps} x "
+          f"NUM_ENVS={tc.num_envs} in {wall:.2f}s "
+          f"({update_split(out['metrics'])}) [{smi}]", flush=True)
+
+
+def wide_block_phase(torch, attn, blk, smi):
+    """One bf16 block of each fused mode at ViT-Base's width (W=768, 12
+    heads, hidden 3,072, B=1,024 images) forward and backward: every
+    fused call on the composed route and none on a kernel, counted
+    exactly; the forward against the plain versions and the gradients
+    against autograd of the composition the JAX package differentiates,
+    at ``block_tol`` (float32 gradients at that of their bf16
+    rounding).  Times each mode."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    N, W, H, B = ATT_N, BASE_W, BASE_H, B_BASE
+    p = block_params(gen, torch.bfloat16, W, MLP_RATIO * W)
+    x = torch.randn((B * N, W), generator=gen, device=dev).to(torch.bfloat16)
+    gout = torch.randn((B * N, W), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    names = ("g1", "b1", "wqkv", "bqkv", "wp", "bp", "g2", "b2", "w1", "bm1",
+             "w2", "bm2")
+    xla = attn.attention_reference_xla
+
+    def fused(mode, t, q):
+        if mode == "fused_block_full":
+            return blk.fused_block_full(t, *q, N, H)
+        if mode == "fused_block":
+            return blk.fused_proj_mlp(
+                xla(blk.fused_ln_qkv(t, *q[:4]), N, H), t, *q[4:])
+        return blk.fused_ln_qkv_attn(t, *q[:4], N, H)
+
+    def plain(mode, t, q):
+        if mode == "fused_block_full":
+            return blk.full_block_reference(t, *q, N, H)
+        if mode == "fused_block":
+            return blk.proj_mlp_reference(
+                xla(blk.ln_qkv_reference(t, *q[:4]), N, H), t, *q[4:])
+        return blk.ln_qkv_attn_reference(t, *q[:4], N, H)
+
+    def differentiated(mode, t, q):
+        """The composition the wrappers' backwards differentiate."""
+        if mode == "fused_block_full":
+            return blk._full_block_xla(t, *q, N, H)
+        if mode == "fused_block":
+            return plain(mode, t, q)
+        return xla(blk.ln_qkv_reference(t, *q[:4]), N, H)
+
+    want_routes = {"fused_block_full": ("fused_block_full",),
+                   "fused_block": ("fused_ln_qkv", "fused_proj_mlp"),
+                   "attn_ln_fold": ("fused_ln_qkv_attn",)}
+    errs, times = {}, {}
+    for mode, fns in want_routes.items():
+        used = 12 if mode != "attn_ln_fold" else 4
+        leaves = [x] + [p[k] for k in names[:used]]
+        ins = [t.clone().requires_grad_(True) for t in leaves]
+        routes0, att0 = block_route_counts(blk), route_counts(attn)
+        out = fused(mode, ins[0], ins[1:])
+        got = torch.autograd.grad(out, ins, gout)
+        torch.cuda.synchronize()
+        routes = {k: v - routes0[k]
+                  for k, v in block_route_counts(blk).items()}
+        want = {k: 0 for k in routes}
+        for name in fns:
+            want[f"{name}_composed"] = 1
+        att = {k: v - att0[k] for k, v in route_counts(attn).items()}
+        want_att = {k: 0 for k in att}
+        if mode == "attn_ln_fold":
+            want_att["bwd_mma"] = 1
+        if routes != want or att != want_att:
+            raise AssertionError(f"W={W} {mode}: fused calls by route "
+                                 f"{routes}, attention {att}; want {want}, "
+                                 f"{want_att}")
+        ref = [t.clone().requires_grad_(True) for t in leaves]
+        fwd = plain(mode, ref[0], ref[1:]).detach()
+        grads = torch.autograd.grad(differentiated(mode, ref[0], ref[1:]),
+                                    ref, gout)
+        name = fns[-1]
+        out = out.detach()
+        err = float((out.float() - fwd.float()).abs().max())
+        torch.testing.assert_close(out, fwd, **block_tol(name, fwd),
+                                   msg=lambda m: f"W={W} {mode}: {m}")
+        for i, (a, b) in enumerate(zip(got, grads)):
+            tol = block_tol(name, b.to(torch.bfloat16))
+            torch.testing.assert_close(
+                a.float(), b.float(), **tol,
+                msg=lambda m: f"W={W} {mode} gradient {i}: {m}")
+        errs[mode] = err
+        det = [t.detach() for t in leaves]
+        with torch.no_grad():
+            fwd_ms, _ = time_launches(lambda: fused(mode, det[0], det[1:]),
+                                      batches=5, per_batch=5, warm=2)
+
+        def step():
+            xs = [t.requires_grad_(True) for t in (u.clone() for u in det)]
+            torch.autograd.grad(fused(mode, xs[0], xs[1:]), xs, gout)
+
+        step_ms, _ = time_launches(step, batches=3, per_batch=3, warm=1)
+        times[mode] = (fwd_ms, step_ms)
+        calls = {k: v for k, v in routes.items() if v}
+        print(f"  W={W} {mode}: forward max abs err {err:.3g}, gradients "
+              f"within block_tol; calls {calls}; forward {fwd_ms:.4f} ms, "
+              f"forward + backward {step_ms:.3f} ms at B={B} [{smi}]",
+              flush=True)
+        del ins, got, ref, grads, out, fwd
+    return errs, times
+
+
+def entry_phase(torch, attn, bkern, blk, smi):
+    """The entry module's forward step of the flagship (ViT-Tiny, bf16,
+    32 actors) on the card: shapes and finite values, the attention
+    kernel once a block, and the same weights on the CPU's plain path
+    within 2e-2 (bf16)."""
+    from vit_marl_tpu_torch.graft_entry import entry
+
+    count = counters(attn, bkern, blk)
+    fn, args = entry()
+    got, launches, wall = drive(torch, count, lambda: fn(*args))
+    expect(launches, {"short_attention_fwd": 12}, "entry")
+    cfn, cargs = entry("cpu")
+    cfn.net.load_state_dict({k: v.cpu() for k, v in
+                             fn.net.state_dict().items()})
+    want = cfn(*cargs)
+    for name, a, b in zip(("h2", "mode", "value"), got, want):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"entry {name}: {tuple(a.shape)}")
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-2, atol=2e-2,
+                                   msg=lambda m: f"entry {name}: {m}")
+    print(f"  entry(): h2 {tuple(got[0].shape)}, mode {tuple(got[1].shape)},"
+          f" value {tuple(got[2].shape)} in {wall * 1e3:.2f} ms (first "
+          f"call); within 2e-2 of the CPU [{smi}]", flush=True)
+
+
 def update_split(metrics):
     return "; ".join(f"update {int(m['update_step'])}: rollout "
                      f"{m['rollout_s']:.2f}s + PPO {m['update_s']:.2f}s"
@@ -832,12 +1151,10 @@ def update_split(metrics):
 
 
 def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
-                 smi, mode=None, config=VISION_CONFIG):
-    """Train a ViT config for UPDATES updates on the card, with the
+                 smi, mode=None, config=VISION_CONFIG, updates=UPDATES):
+    """Train a ViT config for ``updates`` updates on the card, with the
     default blocks or in the fused-block ``mode``; check losses and the
     launch count of every kernel.  Returns the counts of the run."""
-    import dataclasses
-
     from vit_marl_tpu_torch.models.vit import VIT_PRESETS
 
     ma, tc = load_yaml_config(config)
@@ -853,32 +1170,13 @@ def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tt = time.perf_counter()
-    out = train(tc.seed, n_updates=UPDATES)
+    out = train(tc.seed, n_updates=updates)
     torch.cuda.synchronize()
     wall = time.perf_counter() - tt
     got = {k: get() for k, (get, _) in count.items()}
-    for m in out["metrics"]:
-        print("  " + " ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())),
-              flush=True)
-        bad = [k for k, v in m.items() if not np.isfinite(v)]
-        if bad:
-            raise AssertionError(f"non-finite metrics: {bad}")
-    passes = tc.update_epochs * tc.num_minibatches * UPDATES
-    # rollout: one forward per step and one for the last value; update:
-    # remat runs each block's forward twice per minibatch
-    forward = depth * (tc.num_steps + 1) * UPDATES + depth * 2 * passes
+    check_metrics(out["metrics"])
     want = {k: 0 for k in count}
-    want["book_scan"] = tc.num_steps * UPDATES
-    if mode is None:
-        want["short_attention_fwd"] = forward
-        want["short_attention_bwd"] = depth * passes
-    elif mode == "attn_ln_fold":
-        want["fused_ln_qkv_attn"] = forward
-        want["short_attention_bwd"] = depth * passes
-    elif mode == "fused_block":
-        want["fused_ln_qkv"] = want["fused_proj_mlp"] = forward
-    else:
-        want["fused_block_full"] = forward
+    want.update(vision_launches(tc, depth, updates, mode))
     if got != want:
         raise AssertionError(f"launch counts {got}, want {want}")
     routes = {k: v - routes[k] for k, v in route_counts(attn).items()}
@@ -891,17 +1189,17 @@ def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
     block_routes = {k: v - block_routes[k]
                     for k, v in block_route_counts(blk).items()}
     want_block = {f"{k}_{route}": want[k] if route == "wgmma" else 0
-                  for k in TC_KERNELS for route in ("wgmma", "simt")}
+                  for k in TC_KERNELS for route in BLOCK_ROUTES}
     if block_routes != want_block:
         raise AssertionError(f"the bf16 ViT's fused-block launches by route "
                              f"{block_routes}, want {want_block}")
-    steps = tc.num_envs * tc.num_steps * UPDATES
+    steps = tc.num_envs * tc.num_steps * updates
     peak = torch.cuda.max_memory_allocated() / 2**30
     split = update_split(out["metrics"])
     nonzero = {k: v for k, v in got.items() if v}
     print(f"  {os.path.basename(config)}: "
           f"ViT-{tc.vit_preset} depth {depth}, mode {mode or 'default'}, "
-          f"{UPDATES} updates x NUM_STEPS={tc.num_steps} x NUM_ENVS="
+          f"{updates} updates x NUM_STEPS={tc.num_steps} x NUM_ENVS="
           f"{tc.num_envs}: {steps} env-steps in {wall:.2f}s = "
           f"{steps / wall:.0f} env-steps/s; {split}; peak memory "
           f"{peak:.2f} GiB; launches {nonzero} [{smi}]", flush=True)
@@ -965,7 +1263,8 @@ def main() -> int:
 
     # ---- phase 2: book scan against plain ----
     # Launches made here and in phases 3-5 only check and time the
-    # kernels; phases 6-10 set the counts to 0 before they drive the paths.
+    # kernels; phases 6-15 set the counts to 0 before they drive the paths
+    # (the bench's selfcheck and phase 14's comparisons excepted).
     t0 = time.perf_counter()
     tids = torch.tensor(AGENT_TIDS, dtype=torch.int32, device=dev)
     max_err = 0
@@ -1149,16 +1448,13 @@ def main() -> int:
     if others:
         raise AssertionError("the 2-player path (GRU policies) launched the "
                              f"ViT's kernels: {others}")
-    for m in out["metrics"]:
-        print("  " + " ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())),
-              flush=True)
-        bad = [k for k, v in m.items() if not np.isfinite(v)]
-        if bad:
-            raise AssertionError(f"non-finite metrics: {bad}")
+    check_metrics(out["metrics"])
     want_launches = tc.num_steps * UPDATES
     if launches != want_launches:
         raise AssertionError(f"book scan launched {launches} times, want "
                              f"NUM_STEPS x updates = {want_launches}")
+    if not any("/info_" in k for k in out["metrics"][0]):
+        raise AssertionError("LOG_ENV_INFO is on and no info metric came")
     obs_shapes = [tuple(s.shape) for s in env.observation_spaces]
     steps = tc.num_envs * tc.num_steps * UPDATES
     print(f"  {UPDATES} updates x NUM_STEPS={tc.num_steps} x NUM_ENVS="
@@ -1166,6 +1462,17 @@ def main() -> int:
           f"{steps / wall:.0f} env-steps/s; {update_split(out['metrics'])}; "
           f"book-scan launches {launches}, obs {obs_shapes} [{smi}]",
           flush=True)
+    # the same path with the env-info metrics off, for their cost
+    quiet = make_train(ma, dataclasses.replace(tc, log_env_info=False),
+                       env=env)
+    qout, qgot, qwall = drive(torch, count,
+                              lambda: quiet(tc.seed, n_updates=UPDATES))
+    expect(qgot, {"book_scan": want_launches}, "LOG_ENV_INFO=false")
+    print("  rollout_s with LOG_ENV_INFO on: "
+          + ", ".join(f"{m['rollout_s']:.3f}" for m in out["metrics"])
+          + "; off: " + ", ".join(f"{m['rollout_s']:.3f}"
+                                  for m in qout["metrics"])
+          + f" ({steps / qwall:.0f} env-steps/s off) [{smi}]", flush=True)
     phase("6 2-player training", t0)
 
     # ---- phase 7: debug-mode training ----
@@ -1191,10 +1498,37 @@ def main() -> int:
     modes = {}
     for mode in ("attn_ln_fold", "fused_block", "fused_block_full"):
         modes[mode] = vision_phase(torch, attn, bkern, blk, make_train,
-                                   load_yaml_config, dev, smi, mode)
+                                   load_yaml_config, dev, smi, mode,
+                                   updates=1)
     phase("10 fused-mode vision training", t0)
 
-    # ---- phase 11: summary ----
+    # ---- phase 11: the port's bench ----
+    t0 = time.perf_counter()
+    bench_phase(torch, attn, bkern, blk, smi)
+    phase("11 bench", t0)
+
+    # ---- phase 12: checkpoints and resume ----
+    t0 = time.perf_counter()
+    resume_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
+                 smi)
+    phase("12 checkpoint and resume", t0)
+
+    # ---- phase 13: LOBSTER CSV data ----
+    t0 = time.perf_counter()
+    lobster_phase(torch, attn, bkern, blk, make_train, dev, smi)
+    phase("13 LOBSTER-fed training", t0)
+
+    # ---- phase 14: the fused modes at ViT-Base's width ----
+    t0 = time.perf_counter()
+    wide_block_phase(torch, attn, blk, smi)
+    phase("14 fused modes at W=768", t0)
+
+    # ---- phase 15: the entry module ----
+    t0 = time.perf_counter()
+    entry_phase(torch, attn, bkern, blk, smi)
+    phase("15 entry forward", t0)
+
+    # ---- phase 16: summary ----
     print(json.dumps({"kernels": [{
         "name": "book_scan_aggs",
         "route": "cuda",

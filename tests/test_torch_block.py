@@ -18,6 +18,13 @@ CPU the wrappers run the plain versions and count no launch; the CUDA
 launchers refuse the shapes the kernels do not take before they touch a
 card.
 
+Past the JAX package's width guards (W over 512, the LN+QKV output or
+the MLP hidden over 2048) the wrappers take the ``composed`` route, on
+any device: ``fits_kernel`` is checked against where the JAX functions
+reach ``pl.pallas_call``, the composed functions against the JAX ones
+at ViT-Base's width, and the ViT-Base encoder (depth 2) in each fused
+mode against flax, forward and gradients, in float32 within 1e-5.
+
 The tile plan of the bf16 tensor-core kernels (``wgmma_plan``), which the
 C entry only checks, is walked over every accepted shape (W, hidden, N,
 D): it fits an H100's 232,448 bytes of shared memory with its regions in
@@ -57,25 +64,27 @@ def _f32(a):
     return jnp.asarray(a), torch.from_numpy(a), False
 
 
-def _inputs(kind, dtype, seed):
-    """(jax args, torch args, which are weights) of one function; rows and
-    weights in ``dtype``, LayerNorm parameters and biases float32."""
+def _inputs(kind, dtype, seed, W=W, rows=None, scale=0.1, w2_scale=0.1):
+    """(jax args, torch args, which are weights) of one function at width
+    W; rows and weights in ``dtype``, LayerNorm parameters and biases
+    float32."""
     rng = np.random.default_rng(seed)
-    rows = 1024 if kind in ("ln_qkv", "proj_mlp") else IMAGES * N
+    if rows is None:
+        rows = 1024 if kind in ("ln_qkv", "proj_mlp") else IMAGES * N
 
     def normal(*shape, scale=1.0, loc=0.0):
         return (loc + scale * rng.normal(size=shape)).astype(np.float32)
 
     x = _pair(normal(rows, W), dtype)
     ln = [_f32(normal(W, scale=0.1, loc=1.0)), _f32(normal(W, scale=0.1))]
-    qkv = [_pair(normal(W, 3 * W, scale=0.1), dtype, True),
+    qkv = [_pair(normal(W, 3 * W, scale=scale), dtype, True),
            _f32(normal(3 * W, scale=0.1))]
-    tail = [_pair(normal(W, W, scale=0.1), dtype, True),
+    tail = [_pair(normal(W, W, scale=scale), dtype, True),
             _f32(normal(W, scale=0.1)),
             _f32(normal(W, scale=0.1, loc=1.0)), _f32(normal(W, scale=0.1)),
-            _pair(normal(W, RATIO * W, scale=0.1), dtype, True),
+            _pair(normal(W, RATIO * W, scale=scale), dtype, True),
             _f32(normal(RATIO * W, scale=0.1)),
-            _pair(normal(RATIO * W, W, scale=0.1), dtype, True),
+            _pair(normal(RATIO * W, W, scale=w2_scale), dtype, True),
             _f32(normal(W, scale=0.1))]
     if kind == "ln_qkv":
         pairs = [x] + ln + qkv
@@ -220,7 +229,9 @@ def test_attention_reference_xla_matches_jax():
          "head-narrow"])
 def test_launchers_refuse_unsupported_shapes(launch, args, match):
     """Checked before anything reaches a card: a CUDA tensor of these
-    shapes raises; the plain version is never taken instead."""
+    shapes raises; the plain version is never taken instead.  (W over
+    512 never reaches a launcher through the wrappers: they take the
+    composed route first, by shape.)"""
     Wd, n = args["W"], args.get("n", 1)
     rows = 2 * n
     x = torch.zeros(rows, Wd)
@@ -484,3 +495,147 @@ def test_ln_qkv_attn_mma_rounding_plan_within_block_tolerance(seed):
         m = float(want.abs().max())
         atol = 2 * 2.0 ** (np.floor(np.log2(m)) - 7)
         torch.testing.assert_close(got, want, rtol=1.6e-2, atol=atol)
+
+
+# --------------------------------------------------------------------------
+# The composed route: shapes past the JAX package's width guards
+# --------------------------------------------------------------------------
+
+NAMES = {"ln_qkv": "fused_ln_qkv", "proj_mlp": "fused_proj_mlp",
+         "full_block": "fused_block_full", "ln_qkv_attn": "fused_ln_qkv_attn"}
+
+
+class _KernelTaken(Exception):
+    pass
+
+
+def _jax_takes_kernel(kind, width, hidden, monkeypatch):
+    """Whether the JAX function reaches ``pl.pallas_call`` (interpret
+    mode, rows aligned to every row block) at this width and hidden
+    width (``fused_ln_qkv``: its output width); traced, not run."""
+    def kernel(*a, **k):
+        raise _KernelTaken
+
+    monkeypatch.setattr(jbk.pl, "pallas_call", kernel)
+    rows, heads = 16 * 64 * N, width // 64
+    f32 = jnp.float32
+    x = jax.ShapeDtypeStruct((rows, width), f32)
+    v = jax.ShapeDtypeStruct((width,), f32)
+
+    def m(a, b):
+        return jax.ShapeDtypeStruct((a, b), f32)
+
+    def vec(a):
+        return jax.ShapeDtypeStruct((a,), f32)
+
+    tail = (m(width, width), v, v, v, m(width, hidden), vec(hidden),
+            m(hidden, width), v)
+    calls = {
+        "ln_qkv": lambda: jax.eval_shape(
+            lambda *a: jbk._ln_qkv_impl(*a, True), x, v, v,
+            m(width, hidden), vec(hidden)),
+        "proj_mlp": lambda: jax.eval_shape(
+            lambda *a: jbk._proj_mlp_impl(*a, True), x, x, *tail),
+        "full_block": lambda: jax.eval_shape(
+            lambda *a: jbk._full_block_impl(*a, N, heads, 64, True), x, v,
+            v, m(width, 3 * width), vec(3 * width), *tail),
+        "ln_qkv_attn": lambda: jax.eval_shape(
+            lambda *a: jbk._ln_qkv_attn_impl(*a, N, heads, 64, True), x, v,
+            v, m(width, 3 * width), vec(3 * width))}
+    try:
+        calls[kind]()
+    except _KernelTaken:
+        return True
+    return False
+
+
+@pytest.mark.parametrize("hidden", [1536, 2048, 2304, 3072])
+@pytest.mark.parametrize("width", [384, 512, 576, 768])
+@pytest.mark.parametrize("kind", KINDS)
+def test_route_predicate_matches_jax_guards(kind, width, hidden,
+                                            monkeypatch):
+    """``fits_kernel`` is true exactly where the JAX function takes its
+    Pallas kernel: W up to 512, and the LN+QKV output or the MLP hidden
+    up to 2048 (``fused_ln_qkv_attn``: W alone)."""
+    want = _jax_takes_kernel(kind, width, hidden, monkeypatch)
+    assert bk.fits_kernel(NAMES[kind], width, hidden) == want
+    assert want == (width <= 512 and (kind == "ln_qkv_attn"
+                                      or hidden <= 2048))
+
+
+WIDE_W, WIDE_H = 768, 12     # ViT-Base
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_composed_route_matches_jax_reference(kind, dtype):
+    """At ViT-Base's width (W=768, hidden 3,072, 12 heads) each wrapper
+    takes the composed route, counted in ``.launches_composed`` and not
+    in ``.launches``, and matches the JAX function, which takes its XLA
+    reference there, within this file's plain-version tolerances (the
+    same numerics; sums in another order, and bf16 elementwise ops that
+    round once where XLA may round more often)."""
+    rows = 3 * N
+    jargs, targs, _ = _inputs(kind, dtype, seed=50 + KINDS.index(kind),
+                              W=WIDE_W, rows=rows, scale=WIDE_W ** -0.5,
+                              w2_scale=WIDE_W ** -0.5 / 2)
+    jfn = {"ln_qkv": lambda *a: jbk.fused_ln_qkv(*a),
+           "proj_mlp": lambda *a: jbk.fused_proj_mlp(*a),
+           "full_block": lambda *a: jbk.fused_block_full(*a, N, WIDE_H),
+           "ln_qkv_attn": lambda *a: jbk.fused_ln_qkv_attn(
+               *a, N, WIDE_H)}[kind]
+    fn = getattr(bk, NAMES[kind])
+    wrapper = {"full_block": lambda *a: fn(*a, N, WIDE_H),
+               "ln_qkv_attn": lambda *a: fn(*a, N, WIDE_H)}.get(kind, fn)
+    before = (fn.launches, fn.launches_composed)
+    got = wrapper(*targs)
+    assert (fn.launches, fn.launches_composed) == (before[0], before[1] + 1)
+    want = torch.from_numpy(np.array(jfn(*jargs), np.float32))
+    assert got.dtype == DTYPES[dtype][1]
+    torch.testing.assert_close(got.float(), want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("mode", ["fused_block", "fused_block_full",
+                                  "attn_ln_fold"])
+def test_vit_base_encoder_in_fused_modes_matches_flax(mode):
+    """``VIT_PRESET=base`` (W=768, 12 heads, depth cut to 2) in each fused
+    mode against the flax encoder in float32 within 1e-5, forward and
+    weight gradients, every fused call on the composed route (counted),
+    none on a kernel."""
+    import dataclasses
+
+    from vit_marl_tpu.models.vit import VIT_PRESETS as J_PRESETS
+    from vit_marl_tpu.models.vit import ViTEncoder as JViTEncoder
+    from vit_marl_tpu_torch.models import vit as tvit
+    from vit_marl_tpu_torch.models.bridge import vit_encoder_state_dict
+
+    kw = {mode: True, "depth": 2, "compute_dtype": "float32"}
+    jc = dataclasses.replace(J_PRESETS["base"], **kw)
+    tc = dataclasses.replace(tvit.VIT_PRESETS["base"], **kw)
+    img = np.random.default_rng(7).normal(size=(2, 3, 10, 3, 2)).astype(
+        np.float32)
+    jenc = JViTEncoder(jc)
+    params = jax.device_get(jenc.init(jax.random.PRNGKey(7),
+                                      jnp.asarray(img)))
+    enc = tvit.ViTEncoder(tc, 10)
+    enc.load_state_dict(vit_encoder_state_dict(params["params"]),
+                        strict=True)
+    fns = {"fused_block": (bk.fused_ln_qkv, bk.fused_proj_mlp),
+           "fused_block_full": (bk.fused_block_full,),
+           "attn_ln_fold": (bk.fused_ln_qkv_attn,)}[mode]
+    counts = [(f.launches, f.launches_composed) for f in fns]
+    w = (np.random.default_rng(8).normal(size=(2, 3, 768)) / 32).astype(
+        np.float32)
+    out = enc(torch.from_numpy(img))
+    (out * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(
+        jenc.apply(params, jnp.asarray(img))), rtol=1e-5, atol=1e-5)
+    # remat: each block's forward runs again in the backward
+    assert [(f.launches, f.launches_composed) for f in fns] == [
+        (n, c + 2 * 2) for n, c in counts]
+    jgrads = vit_encoder_state_dict(jax.device_get(jax.grad(
+        lambda p: jnp.sum(jenc.apply(p, jnp.asarray(img))
+                          * jnp.asarray(w)))(params))["params"])
+    for k, p in enc.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), jgrads[k].numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)

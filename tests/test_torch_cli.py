@@ -3,6 +3,7 @@ package's ``utils/cli.py``, and the trainer options the port does not
 honour, which ``make_train`` refuses instead of dropping."""
 
 import copy
+import json
 import os
 
 import numpy as np
@@ -60,9 +61,7 @@ def test_set_needs_key_and_value():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh_shape", (8,)), ("eval_every", 5), ("checkpoint_dir", "ckpt"),
-    ("resume", True), ("rollout_mode", "pipeline"),
-    ("log_backend", "jsonl"), ("log_backend", "wandb")])
+    ("mesh_shape", (8,)), ("eval_every", 5), ("rollout_mode", "pipeline")])
 def test_options_the_port_does_not_honour_raise(field, value):
     tc = tcfg.TrainConfig(**{field: value})
     with pytest.raises(NotImplementedError, match=field.upper()):
@@ -71,7 +70,10 @@ def test_options_the_port_does_not_honour_raise(field, value):
 
 def test_options_the_port_honours_pass():
     for tc in (tcfg.TrainConfig(), tcfg.TrainConfig(log_backend="none"),
-               tcfg.TrainConfig(rollout_mode="loop", log_env_info=True)):
+               tcfg.TrainConfig(rollout_mode="loop", log_env_info=True),
+               tcfg.TrainConfig(log_backend="jsonl"),
+               tcfg.TrainConfig(log_backend="wandb"),
+               tcfg.TrainConfig(checkpoint_dir="ckpt", resume=True)):
         tppo.check_ported(tc)
 
 
@@ -83,7 +85,9 @@ def test_mesh_config_raises():
 
 
 def test_train_cli_refuses_resume():
-    with pytest.raises(NotImplementedError, match="RESUME"):
+    """``RESUME=true`` with no ``CHECKPOINT_DIR`` has nothing to resume
+    from, and raises, as the JAX trainer does."""
+    with pytest.raises(ValueError, match="RESUME"):
         ttrain.main(["--config",
                      os.path.join(ROOT, "configs", "ippo_2player.yaml"),
                      "--device", "cpu", "--set", "RESUME=true"])
@@ -102,3 +106,26 @@ def test_train_cli_debug_mode_on_the_cpu():
     assert out["state"].world.trades.shape == (4, 128, 8)
     assert len(out["metrics"]) == 1
     assert all(np.isfinite(v) for v in out["metrics"][0].values())
+
+
+def test_train_cli_checkpoints_logs_and_resumes(tmp_path):
+    """``CHECKPOINT_DIR``, ``LOG_BACKEND=jsonl`` and ``RESUME=true`` through
+    the CLI: two updates saved and logged, then a resumed run trains the
+    third and appends its line."""
+    ckpt, log = str(tmp_path / "ckpt"), str(tmp_path / "m.jsonl")
+    common = [
+        "--config", os.path.join(ROOT, "configs", "ippo_2player.yaml"),
+        "--device", "cpu", *[a for s in SMALL_WORLD for a in ("--set", s)],
+        "--set", "NUM_ENVS=4", "--set", "NUM_STEPS=4", "--set",
+        "NUM_MINIBATCHES=2", "--set", "UPDATE_EPOCHS=1", "--set",
+        f"CHECKPOINT_DIR={ckpt}", "--set", "LOG_BACKEND=jsonl", "--set",
+        f"LOG_PATH={log}"]
+    out = ttrain.main(common + ["--set", "TOTAL_TIMESTEPS=32"])
+    assert [m["update_step"] for m in out["metrics"]] == [0, 1]
+    out = ttrain.main(common + ["--set", "TOTAL_TIMESTEPS=48", "--set",
+                                "RESUME=true"])
+    assert [m["update_step"] for m in out["metrics"]] == [2]
+    with open(log) as f:
+        steps = [json.loads(line)["update_step"] for line in f]
+    assert steps == [0, 1, 2]
+    assert sorted(os.listdir(ckpt)) == ["1", "2"]

@@ -37,7 +37,11 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   past K); bf16 launches the tensor-core route and float32 the CUDA-core
   one, counted per route; the LN+QKV+attention backward through the
   attention backward kernel; shapes the kernels do not take raise
-  ``NotImplementedError``.
+  ``NotImplementedError``, but for ViT-Base's width (W=768, hidden
+  3,072), which takes the counted ``composed`` route and matches the
+  plain versions at ``block_tol``.
+- The bench (``--selfcheck`` passes, the GRU loop reports a rate) and
+  the entry module's forward step, on the card.
 """
 
 import itertools
@@ -535,3 +539,54 @@ def test_block_kernels_reject_unsupported_shapes(cuda):
     with pytest.raises(NotImplementedError, match="float16"):
         blk.fused_ln_qkv(*[a.half() if a.dim() == 2 else a
                            for a in args[:5]])
+
+
+COMPOSED = {"ln_qkv": "fused_ln_qkv", "proj_mlp": "fused_proj_mlp",
+            "full_block": "fused_block_full",
+            "ln_qkv_attn": "fused_ln_qkv_attn"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", list(COMPOSED))
+def test_vit_base_width_takes_the_composed_route(cuda, kind, dtype):
+    """W=768, hidden 3,072, 12 heads: past the JAX package's width
+    guards, each wrapper runs the composed route on the card (counted in
+    ``launches_composed``, no kernel launched) and matches the plain
+    version at ``block_tol``."""
+    from vit_marl_tpu_torch.selfcheck import block_tol
+
+    fn = getattr(blk, COMPOSED[kind])
+    names = ["launches", "launches_wgmma", "launches_simt",
+             "launches_composed"]
+    before = {n: getattr(fn, n) for n in names}
+    kern, plain, args = block_case(kind, 37, 11, 768, 12, dtype, cuda, 8)
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    grew = {n: getattr(fn, n) - before[n] for n in names}
+    assert grew == {"launches": 0, "launches_wgmma": 0, "launches_simt": 0,
+                    "launches_composed": 1}
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, **block_tol(COMPOSED[kind], want))
+
+
+def test_bench_selfcheck_and_loop_on_the_card(cuda, capsys):
+    """``python -m vit_marl_tpu_torch.bench`` in-process on the card: the
+    selfcheck passes and the GRU loop reports a positive rate."""
+    from vit_marl_tpu_torch import bench
+
+    out = bench.main(["--selfcheck", "--envs", "512"])
+    assert out["value"] is True, out
+    out = bench.main(["--policy", "gru", "--envs", "512", "--steps", "2",
+                      "--reps", "1"])
+    assert out["value"] > 0
+
+
+def test_entry_on_the_card(cuda):
+    from vit_marl_tpu_torch.graft_entry import entry
+
+    fn, args = entry()
+    h2, mode, value = fn(*args)
+    assert h2.shape == (32, 64) and mode.shape == (1, 32, 3)
+    assert value.shape == (1, 32)
+    assert all(bool(torch.isfinite(t).all()) for t in (h2, mode, value))

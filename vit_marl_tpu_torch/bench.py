@@ -1,0 +1,372 @@
+"""Benchmark: env-steps/s of the world with a policy in the loop, on the card.
+
+Counterpart of the JAX package's ``bench.py::main``: the 2-player world
+(``spread_skew`` market maker and an execution agent, the book scan every
+step) with the policies' forward and sampling in the rollout loop.  Prints
+ONE JSON line on stdout,
+
+  {"metric": ..., "value": N, "unit": ..., "vs_baseline": null}
+
+and ``# device=... envs=... compile=... run=...`` on stderr.
+``vs_baseline`` is null: the JAX bench's 1e6 env-steps/s is a target set
+for a TPU and is not carried over.  Without a card (and without
+``--device cpu``), or when ``--deadline`` passes, it prints the same line
+with ``"value": 0.0`` and an ``"error"`` and exits non-zero.
+
+Usage:
+  python -m vit_marl_tpu_torch.bench                      # vit-small, 8192
+  python -m vit_marl_tpu_torch.bench --policy gru --envs 4096
+  python -m vit_marl_tpu_torch.bench --vit-images         # ViT fwd+bwd
+  python -m vit_marl_tpu_torch.bench --selfcheck          # kernels vs plain
+  python -m vit_marl_tpu_torch.bench --smoke --device cpu
+
+``--mode`` takes ``loop`` only: the scanned and pipelined rollouts wait for
+the port's pipeline slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import functools
+import json
+import os
+import sys
+import threading
+import time
+
+import torch
+
+PRESETS = {"none": "small", "gru": "small", "vit-tiny": "tiny",
+           "vit-small": "small", "vit-base": "base"}
+
+
+def _error_json(metric: str, reason: str, unit: str) -> str:
+    return json.dumps({"metric": metric, "value": 0.0, "unit": unit,
+                       "vs_baseline": None, "error": reason})
+
+
+def arm_deadline(metric: str, seconds: float, unit: str):
+    """If the bench has not finished ``seconds`` after arming, print the
+    error line and end the process."""
+    def fire():
+        print(_error_json(metric, f"bench_deadline_exceeded: no result "
+                                  f"after {seconds}s", unit), flush=True)
+        os._exit(3)
+    t = threading.Timer(seconds, fire)
+    t.daemon = True
+    t.start()
+    return t
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(prog="python -m vit_marl_tpu_torch.bench")
+    p.add_argument("--envs", type=int, default=8192)
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--reps", type=int, default=3)
+    p.add_argument("--data-msgs", type=int, default=100)
+    p.add_argument("--policy", default="vit-small", choices=list(PRESETS))
+    p.add_argument("--vit-images", action="store_true",
+                   help="ViT fwd+bwd images/s of one PPO minibatch step")
+    p.add_argument("--selfcheck", action="store_true",
+                   help="every CUDA kernel against its plain version at "
+                        "the bench's shapes, then exit")
+    p.add_argument("--mode", default="loop",
+                   choices=["loop", "scan", "pipeline", "pipeline-seq"])
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny shapes: 8 envs, 4 steps, 1 rep, 10 msgs")
+    p.add_argument("--fused-block", action="store_true")
+    p.add_argument("--fused-block-full", action="store_true")
+    p.add_argument("--attn-kernel", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--attn-bwd-kernel",
+                   action=argparse.BooleanOptionalAction, default=True)
+    p.add_argument("--attn-ln-fold", action="store_true")
+    p.add_argument("--deadline", type=float, default=1500.0,
+                   help="wall-clock budget in seconds")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; cpu on request)")
+    args = p.parse_args(argv)
+    if args.smoke:
+        args.envs, args.steps, args.reps, args.data_msgs = 8, 4, 1, 10
+    return args
+
+
+def _vit_config(args, preset: str):
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS
+    return dataclasses.replace(
+        VIT_PRESETS[preset], fused_block=args.fused_block,
+        fused_block_full=args.fused_block_full,
+        attn_kernel=args.attn_kernel, attn_bwd_kernel=args.attn_bwd_kernel,
+        attn_ln_fold=args.attn_ln_fold)
+
+
+def metric_label(args):
+    """(metric, unit), as ``bench.py`` labels them (``bench.py:150-211``).
+    A fused mode whose kernels do not take the preset's width runs the
+    composed route (``ops/block_kernel.py::fits_kernel``) and says so."""
+    from vit_marl_tpu_torch.ops.block_kernel import fits_kernel
+
+    preset = PRESETS[args.policy]
+    vit = _vit_config(args, preset)
+    W, hidden = vit.width, vit.width * vit.mlp_ratio
+    vit_measured = args.vit_images or args.policy.startswith("vit")
+    tag = ""
+    if vit_measured and args.fused_block_full:
+        tag = ",fusedblockfull" + (
+            "" if fits_kernel("fused_block_full", W, hidden) else ":composed")
+    elif vit_measured and args.fused_block:
+        tag = ",fusedblock" + (
+            "" if fits_kernel("fused_ln_qkv", W, 3 * W)
+            and fits_kernel("fused_proj_mlp", W, hidden) else ":composed")
+    if vit_measured and not args.attn_kernel:
+        tag += ",xla-attn"
+    if vit_measured and args.attn_ln_fold:
+        tag += ",lnfold" + ("" if fits_kernel("fused_ln_qkv_attn", W)
+                            else ":composed")
+    if args.vit_images:
+        if args.attn_kernel and not args.attn_bwd_kernel:
+            tag += ",xla-bwd"
+        return f"vit_fwd_bwd_images_per_sec[{preset}{tag}]", "images/s"
+    if args.selfcheck:
+        return "kernel_selfcheck_ok", "bool"
+    return (f"env_steps_per_sec_per_chip[{args.policy}{tag},{args.mode}]",
+            "env-steps/s")
+
+
+@functools.lru_cache(maxsize=None)
+def _day_data(wcfg):
+    """The synthetic days of a world config, made once a process."""
+    from vit_marl_tpu_torch.data.lobster import load_data
+    return load_data(wcfg)
+
+
+def bench_world(args, device):
+    """The bench's world (``bench.py:240-256``) on ``device``."""
+    from vit_marl_tpu_torch.config import (
+        ExecutionConfig,
+        MarketMakingConfig,
+        MultiAgentConfig,
+        WorldConfig,
+    )
+    from vit_marl_tpu_torch.env.world import WorldEnv
+
+    vision = args.policy.startswith("vit")
+    wcfg = WorldConfig(
+        n_data_msg_per_step=args.data_msgs, ep_type="fixed_steps",
+        episode_time=50, start_resolution=50, n_orders=128, n_trades=128,
+        n_messages_per_synthetic_day=max(30_000, args.data_msgs * 60 * 4))
+    ma = MultiAgentConfig(
+        world=wcfg,
+        agents=(MarketMakingConfig(action_space="spread_skew"),
+                ExecutionConfig(
+                    action_space=("policy_blending" if vision
+                                  else "fixed_quants_complex"),
+                    observation_space=("execution_policy" if vision
+                                       else "engineered"),
+                    reward_space="dual_ppo" if vision else "normal",
+                    use_vision_obs=vision)),
+        n_agents_per_type=(1, 1))
+    return WorldEnv(ma, data=_day_data(wcfg), device=device)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def bench_loop(args, dev) -> dict:
+    """Env-steps/s: policy forward, sample and ``step_vec``, one untimed
+    step, then ``reps x steps`` timed steps (``bench.py:333-338``)."""
+    from vit_marl_tpu_torch.config import TrainConfig
+    from vit_marl_tpu_torch.env import spaces
+    from vit_marl_tpu_torch.models.rnn import ScannedGRU
+    from vit_marl_tpu_torch.rl.ppo import make_network
+    from vit_marl_tpu_torch.utils.tree import tree_map
+
+    E = args.envs
+    env = bench_world(args, dev)
+    params = env.default_params
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.manual_seed(0)
+    obs, state = env.reset(env.draw_reset(E, gen), params)
+    n_types = len(env.agent_types)
+    if args.policy == "none":
+        nets = []
+        fixed = [torch.zeros(E, dtype=torch.int64, device=dev)]
+        sp = env.action_spaces[1]
+        fixed.append(torch.ones(E, dtype=torch.int64, device=dev)
+                     if isinstance(sp, spaces.Discrete)
+                     else torch.full((E, 3), 0.5, device=dev))
+    else:
+        use_vision = args.policy.startswith("vit")
+        vit = _vit_config(args, PRESETS[args.policy])
+        tc = TrainConfig(
+            num_envs=E,
+            network=("gru", "vit_gru") if use_vision else ("gru", "gru"),
+            vit_preset=PRESETS[args.policy],
+            vit_fused_block=vit.fused_block,
+            vit_fused_block_full=vit.fused_block_full,
+            vit_attn_kernel=vit.attn_kernel,
+            vit_attn_bwd_kernel=vit.attn_bwd_kernel,
+            vit_attn_ln_fold=vit.attn_ln_fold)
+        nets = [make_network(tc, i, env.action_spaces[i],
+                             env.observation_spaces[i]).to(dev)
+                for i in range(n_types)]
+        hs = [ScannedGRU.initialize_carry(E, tc.hidden_size, dev)
+              for _ in range(n_types)]
+        no_done = torch.zeros((1, E), dtype=torch.bool, device=dev)
+
+    def one_step(state, obs):
+        if not nets:
+            acts = fixed
+        else:
+            acts = []
+            for i in range(n_types):
+                o = tree_map(lambda v: v.reshape((E,) + v.shape[2:])[None],
+                             obs[i])
+                hs[i], pi, _ = nets[i](hs[i], o, no_done)
+                acts.append(pi.sample(gen)[0])
+        obs, state, rew, _, _ = env.step_vec(state, acts, params,
+                                             generator=gen)
+        return state, obs, rew[0]
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        state, obs, rew = one_step(state, obs)
+        _sync(dev)
+        compile_time = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(args.reps * args.steps):
+            state, obs, rew = one_step(state, obs)
+        _sync(dev)
+        float(rew.sum())
+        dt = time.perf_counter() - t0
+    return dict(value=E * args.steps * args.reps / dt, compile=compile_time,
+                run=dt, detail=f"envs={E} steps={args.steps} "
+                f"reps={args.reps} msgs/step={env.num_msgs_per_step}")
+
+
+def bench_vit_images(args, dev) -> dict:
+    """ViT fwd+bwd images/s inside a PPO update (``bench.py:630-700``): one
+    minibatch step of the ViT actor-critic (clipped surrogate, value and
+    entropy terms, backward, Adam) on T=16 x B random book images."""
+    from vit_marl_tpu_torch.models.rnn import ScannedGRU
+    from vit_marl_tpu_torch.models.vit import ViTActorCriticRNN
+
+    T, B = 16, max(args.envs // 16, 16)
+    torch.manual_seed(0)
+    net = ViTActorCriticRNN(
+        obs_dim=28, levels=10, action_dim=3,
+        vit=_vit_config(args, PRESETS[args.policy]), fc_dim=64,
+        hidden_size=64, action_low=torch.tensor([-1.0, 0.0, 0.0]),
+        action_high=torch.tensor([3.0, 1.0, 1.0])).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    obs = {"obs": torch.randn((T, B, 28), generator=gen, device=dev),
+           "vision_obs": torch.randn((T, B, 10, 3, 2), generator=gen,
+                                     device=dev)}
+    dones = torch.zeros((T, B), dtype=torch.bool, device=dev)
+    h = ScannedGRU.initialize_carry(B, 64, dev)
+    opt = torch.optim.Adam(net.parameters(), lr=2.5e-4)
+    action = torch.zeros((T, B, 3), device=dev)
+    old_logp = torch.zeros((T, B), device=dev)
+    gae = torch.ones((T, B), device=dev)
+
+    def ppo_step():
+        opt.zero_grad(set_to_none=True)
+        _, pi, value = net(h, obs, dones)
+        ratio = torch.exp(pi.log_prob(action) - old_logp)
+        a_loss = -torch.minimum(ratio * gae,
+                                ratio.clamp(0.8, 1.2) * gae).mean()
+        loss = (a_loss + 0.5 * value.square().mean()
+                - 0.01 * pi.entropy().mean())
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    float(ppo_step())
+    compile_time = time.perf_counter() - t0
+    iters = max(args.reps * 4, 8)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss = ppo_step()
+    _sync(dev)
+    float(loss)
+    dt = time.perf_counter() - t0
+    return dict(value=T * B * iters / dt, compile=compile_time, run=dt,
+                detail=f"T={T} B={B} iters={iters}")
+
+
+def selfcheck(args, dev) -> dict:
+    """Every kernel against its plain version (``vit_marl_tpu_torch/
+    selfcheck.py``); the line's value is true or false, ``kernels`` the
+    max abs error of each."""
+    from vit_marl_tpu_torch.selfcheck import kernel_selfcheck
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    env = bench_world(argparse.Namespace(**{**vars(args),
+                                            "policy": "gru"}), dev)
+    t0 = time.perf_counter()
+    res = kernel_selfcheck(env, args.envs, gen)
+    dt = time.perf_counter() - t0
+    errs = {k: r[1] for k, r in res.items()}
+    return dict(value=all(r[0] for r in res.values()), compile=0.0, run=dt,
+                detail=f"envs={args.envs} max abs errors {errs}",
+                kernels=errs)
+
+
+def main(argv=None):
+    """Run the bench; returns the printed result dict.  After printing
+    the error line, raises ``SystemExit`` (non-zero) when there is no card
+    or the selfcheck fails, and ``NotImplementedError`` for a mode that
+    is not ported."""
+    args = parse_args(argv)
+    metric, unit = metric_label(args)
+    if args.mode != "loop":
+        why = (f"--mode {args.mode} is not ported yet (ROADMAP.md section "
+               "1, item 7: the pipelined rollout)")
+        print(_error_json(metric, why, unit), flush=True)
+        raise NotImplementedError(why)
+    from vit_marl_tpu_torch.utils.device import resolve_device
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        print(_error_json(metric, f"no_device: {e}", unit), flush=True)
+        raise SystemExit(1)
+    if args.selfcheck and dev.type != "cuda":
+        print(_error_json(metric, "the selfcheck needs a CUDA device", unit),
+              flush=True)
+        raise SystemExit(1)
+    watchdog = arm_deadline(metric, args.deadline, unit)
+    try:
+        if args.vit_images:
+            out = bench_vit_images(args, dev)
+        elif args.selfcheck:
+            out = selfcheck(args, dev)
+        else:
+            out = bench_loop(args, dev)
+    finally:
+        watchdog.cancel()
+    value = out["value"]
+    result = {"metric": metric,
+              "value": value if args.selfcheck else round(value, 1),
+              "unit": unit, "vs_baseline": None}
+    if "kernels" in out:
+        result["kernels"] = out["kernels"]
+    print(json.dumps(result), flush=True)
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    print(f"# device={dev.type} ({name}) {out['detail']} "
+          f"compile={out['compile']:.1f}s run={out['run']:.2f}s",
+          file=sys.stderr, flush=True)
+    if args.selfcheck and not value:
+        raise SystemExit(1)
+    return result
+
+
+if __name__ == "__main__":
+    main()

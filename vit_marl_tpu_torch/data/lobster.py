@@ -1,9 +1,10 @@
-"""Message data for the world: synthetic days in the LOBSTER schema.
+"""Message data for the world: LOBSTER CSV days, or synthetic days in the
+LOBSTER schema.
 
-Port of the synthetic branch of ``vit_marl_tpu/data/lobster.py``: all days
-are concatenated into one ``(N, 8)`` int32 message array plus per-window
-start/end indices and initial L2 book rows.  Preprocessing and windowing
-are copies of the reference's (ref: lobster_loader.py:444-452, 618-782):
+Port of ``vit_marl_tpu/data/lobster.py``: all days are concatenated into
+one ``(N, 8)`` int32 message array plus per-window start/end indices and
+initial L2 book rows.  Preprocessing and windowing are copies of the
+reference's (ref: lobster_loader.py:444-452, 618-782):
 
 - split float seconds into (time_s, time_ns);
 - drop messages outside [day_start, day_end] and types 5/6/7;
@@ -12,14 +13,21 @@ are copies of the reference's (ref: lobster_loader.py:444-452, 618-782):
 - ``fixed_steps`` windows start every ``start_resolution * n_msg_per_step``
   messages; the last episode is zero-padded to a step multiple.
 
-Reading LOBSTER CSV files (``LobsterLoader``, the native parser and the npz
-cache) is not ported yet: a non-empty ``data_path`` raises.
+With ``data_path`` set, :class:`LobsterLoader` reads every day pair
+``{data_path}/{stock}/{time_period}/*message*.csv`` / ``*orderbook*.csv``
+(sorted, parsed in parallel by the native parser of ``data/native.py``,
+else by ``np.loadtxt``), skips days left empty by the filtering, and
+caches the result in ``cache_dir`` as a compressed npz under the JAX
+package's key.  ``fixed_time`` windows are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import glob
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -103,25 +111,13 @@ def _pad_last_episode(messages: np.ndarray, max_msgs: np.ndarray,
     return messages, max_msgs
 
 
-def load_data(cfg: WorldConfig) -> LoadedData:
-    """Generate ``cfg.n_synthetic_days`` synthetic days in memory."""
-    if cfg.data_path:
-        raise NotImplementedError(
-            "reading LOBSTER CSV files is not ported yet; leave data_path "
-            "empty for synthetic data")
-
-    from vit_marl_tpu_torch.data.synthetic import generate_day
-
+def _assemble(days: Sequence[Tuple[np.ndarray, np.ndarray]],
+              cfg: WorldConfig) -> LoadedData:
+    """Concatenate preprocessed days, with their windows, into one table."""
     all_msgs: List[np.ndarray] = []
     all_starts, all_ends, all_books = [], [], []
     offset = 0
-    for d in range(cfg.n_synthetic_days):
-        day = generate_day(seed=cfg.seed + d,
-                           n_messages=cfg.n_messages_per_synthetic_day,
-                           levels=cfg.book_depth,
-                           day_start=cfg.day_start, day_end=cfg.day_end)
-        msgs, book = _preprocess_day(day.messages, day.orderbook,
-                                     cfg.day_start, cfg.day_end)
+    for msgs, book in days:
         s, e, ib = _day_windows(msgs, book, cfg, offset)
         all_msgs.append(msgs)
         all_starts.append(s)
@@ -129,13 +125,109 @@ def load_data(cfg: WorldConfig) -> LoadedData:
         all_books.append(ib)
         offset += len(msgs)
     messages = np.concatenate(all_msgs)
-    max_msgs = (np.concatenate(all_ends)
-                - np.concatenate(all_starts)).astype(np.int32)
+    starts = np.concatenate(all_starts).astype(np.int32)
+    ends = np.concatenate(all_ends).astype(np.int32)
+    max_msgs = (ends - starts).astype(np.int32)
     if cfg.n_data_msg_per_step != 0:
-        messages, max_msgs = _pad_last_episode(
-            messages, max_msgs, cfg.n_data_msg_per_step)
-    return LoadedData(messages=messages.astype(np.int32),
-                      starts=np.concatenate(all_starts).astype(np.int32),
-                      ends=np.concatenate(all_ends).astype(np.int32),
-                      init_books=np.concatenate(all_books),
+        messages, max_msgs = _pad_last_episode(messages, max_msgs,
+                                               cfg.n_data_msg_per_step)
+    return LoadedData(messages=messages.astype(np.int32), starts=starts,
+                      ends=ends, init_books=np.concatenate(all_books),
                       max_msgs_per_window=max_msgs)
+
+
+class LobsterLoader:
+    """Loads all day CSVs under ``{data_path}/{stock}/{time_period}/``
+    (ref: vit_marl_tpu/data/lobster.py:135-232)."""
+
+    def __init__(self, cfg: WorldConfig):
+        self.cfg = cfg
+        base = os.path.join(cfg.data_path, cfg.stock, cfg.time_period)
+        self.message_files = sorted(
+            glob.glob(os.path.join(base, "*message*.csv")))
+        self.book_files = sorted(
+            glob.glob(os.path.join(base, "*orderbook*.csv")))
+
+    def _cache_path(self) -> Optional[str]:
+        if not self.cfg.cache_dir:
+            return None
+        c = self.cfg
+        key = "_".join(map(str, [
+            c.stock, c.time_period, c.book_depth, c.ep_type, c.episode_time,
+            c.start_resolution, c.n_data_msg_per_step, c.day_start, c.day_end,
+        ]))
+        os.makedirs(c.cache_dir, exist_ok=True)
+        return os.path.join(c.cache_dir, f"lobster_{key}.npz")
+
+    def _load_one(self, pair) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        """One day: the native parser, else (unavailable, an empty result
+        or a file it rejects) ``np.loadtxt`` and ``_preprocess_day``; None
+        for an unreadable or empty file."""
+        mfile, bfile = pair
+        try:
+            from vit_marl_tpu_torch.data.native import parse_day_native
+            parsed = parse_day_native(mfile, bfile, self.cfg.day_start,
+                                      self.cfg.day_end)
+            if parsed is not None and parsed[0].size:
+                return parsed
+        except Exception:
+            pass
+        try:
+            raw_msgs = np.loadtxt(mfile, delimiter=",", ndmin=2)
+            raw_book = np.loadtxt(bfile, delimiter=",", ndmin=2)
+        except (ValueError, OSError):
+            return None
+        if raw_msgs.size == 0 or raw_book.size == 0:
+            return None
+        msgs, book = _preprocess_day(raw_msgs, raw_book, self.cfg.day_start,
+                                     self.cfg.day_end)
+        return msgs, book.astype(np.int64)
+
+    def run_loading(self) -> LoadedData:
+        cache = self._cache_path()
+        if cache and os.path.exists(cache):
+            z = np.load(cache)
+            return LoadedData(messages=z["messages"], starts=z["starts"],
+                              ends=z["ends"], init_books=z["init_books"],
+                              max_msgs_per_window=z["max_msgs"])
+        pairs = list(zip(self.message_files, self.book_files))
+        if not pairs:
+            raise FileNotFoundError(
+                f"no LOBSTER csv pairs under {self.cfg.data_path}/"
+                f"{self.cfg.stock}/{self.cfg.time_period}")
+        with ThreadPoolExecutor(max_workers=min(8, len(pairs))) as ex:
+            days = [d for d in ex.map(self._load_one, pairs) if d is not None]
+        # a day can be empty after filtering (a halted day, every row
+        # outside trading hours): it has no windows
+        days = [(m, b) for m, b in days if len(m)]
+        if not days:
+            raise ValueError(
+                f"all {len(pairs)} day file pair(s) under {self.cfg.data_path}"
+                f"/{self.cfg.stock}/{self.cfg.time_period} were empty after "
+                f"trading-hours/type filtering")
+        data = _assemble(days, self.cfg)
+        if cache:
+            np.savez_compressed(cache, messages=data.messages,
+                                starts=data.starts, ends=data.ends,
+                                init_books=data.init_books,
+                                max_msgs=data.max_msgs_per_window)
+        return data
+
+
+def load_data(cfg: WorldConfig) -> LoadedData:
+    """The LOBSTER days under ``cfg.data_path``, or, where it is empty,
+    ``cfg.n_synthetic_days`` synthetic days generated in memory."""
+    if cfg.data_path:
+        return LobsterLoader(cfg).run_loading()
+
+    from vit_marl_tpu_torch.data.synthetic import generate_day
+
+    days = []
+    for d in range(cfg.n_synthetic_days):
+        day = generate_day(seed=cfg.seed + d,
+                           n_messages=cfg.n_messages_per_synthetic_day,
+                           levels=cfg.book_depth,
+                           day_start=cfg.day_start, day_end=cfg.day_end)
+        days.append(_preprocess_day(day.messages, day.orderbook,
+                                    cfg.day_start, cfg.day_end))
+    return _assemble(days, cfg)

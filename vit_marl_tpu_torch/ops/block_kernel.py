@@ -30,10 +30,26 @@ may be float32.  Each function has two implementations:
   the CUDA-core kernels; each counts its launches in ``.launches_wgmma``
   / ``.launches_simt`` beside the total ``.launches``.
 
-A CPU tensor takes the plain versions; a CUDA tensor launches the kernel or
-raises (``NotImplementedError`` for a shape the kernels do not take: W a
-multiple of 64 up to 512, the MLP hidden and the qkv width multiples of 64
-up to 2048, N <= 32, D a multiple of 8 up to 128).
+A third route, ``composed``, runs the JAX package's composed XLA
+reference (``_ln_qkv_reference``, ``_proj_mlp_reference``,
+``_full_block_reference``, ``_ln_qkv_attn_reference``) in its numerics:
+the plain versions below, whose products widen the operands to float32
+(float32 products and sums, as ``jnp.dot(..., preferred_element_type=
+f32)``) and add the float32 bias before the one rounding, with LayerNorm
+in float32 (eps 1e-6), the tanh GELU and, for the attention, the XLA-form
+:func:`attention_reference_xla` (the compositions the backwards
+differentiate).  It is chosen by shape alone, before any launch, exactly
+where the JAX package's guards send a shape to XLA (:func:`fits_kernel`:
+W over 512, the LN+QKV output or the MLP hidden over 2048), on any
+device, and counted in ``.launches_composed`` (not in ``.launches``: it
+launches no kernel of its own).  The JAX guards' row alignment and
+backend conditions are not taken: the kernels take ragged rows.
+
+Otherwise a CPU tensor takes the plain versions, and a CUDA tensor
+launches the kernel or raises (``NotImplementedError`` for a shape the
+kernels do not take: W a multiple of 64 up to 512, the MLP hidden and the
+qkv width multiples of 64 up to 2048, N <= 32, D a multiple of 8 up to
+128).
 
 Gradients, as in the JAX package, recompute in plain ops: the backward of
 each function is autograd of the composition the JAX package
@@ -131,6 +147,36 @@ def ln_qkv_attn_reference(x, gamma, beta, w, bias, n_tokens, heads,
 
 def _full_block_xla(*args):
     return full_block_reference(*args, attention=attention_reference_xla)
+
+
+def _ln_qkv_attn_xla(*args):
+    return ln_qkv_attn_reference(*args, attention=attention_reference_xla)
+
+
+# --------------------------------------------------------------------------
+# The composed route: the JAX package's XLA reference, for shapes past its
+# kernels' width guards
+# --------------------------------------------------------------------------
+
+def fits_kernel(name: str, width: int, hidden: int = 0) -> bool:
+    """Whether the JAX package sends a shape of ``name`` to its kernel and
+    not to its composed XLA reference, by width alone: W up to
+    ``MAX_WIDTH``; ``hidden`` (``fused_ln_qkv``: its K output columns; the
+    MLP's hidden width) up to ``MAX_HIDDEN``; ``fused_ln_qkv_attn`` has
+    no hidden guard (ref: block_kernel.py:101-104, :182-186,
+    ``full_block_ok``, ``ln_qkv_attn_ok``).  False selects the
+    ``composed`` route."""
+    if name not in KINDS:
+        raise ValueError(f"unknown fused-block function {name!r}")
+    if name == "fused_ln_qkv_attn":
+        hidden = 0
+    return width <= MAX_WIDTH and hidden <= MAX_HIDDEN
+
+
+def _composed(name: str, fn, *args):
+    """Run the composed route of ``name`` and count it."""
+    _count(name, "composed")
+    return fn(*args)
 
 
 # --------------------------------------------------------------------------
@@ -436,10 +482,14 @@ def _run(name: str, x: torch.Tensor, args, route: str = "") -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            + lib.fused_block_error_string(err).decode())
-    fn = globals()[name]
-    fn.launches += 1
+    globals()[name].launches += 1
     if route:
-        setattr(fn, f"launches_{route}", getattr(fn, f"launches_{route}") + 1)
+        _count(name, route)
+
+
+def _count(name: str, route: str) -> None:
+    fn = globals()[name]
+    setattr(fn, f"launches_{route}", getattr(fn, f"launches_{route}") + 1)
 
 
 def _ptrs(ts):
@@ -570,7 +620,10 @@ class _LnQkv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *args):
         ctx.save_for_backward(*args)
-        if _on_cpu(args[0]):
+        x, w = args[0], args[3]
+        if not fits_kernel("fused_ln_qkv", x.shape[1], w.shape[0]):
+            return _composed("fused_ln_qkv", ln_qkv_reference, *args)
+        if _on_cpu(x):
             return ln_qkv_reference(*args)
         return _launch_ln_qkv(*args)
 
@@ -583,7 +636,10 @@ class _ProjMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *args):
         ctx.save_for_backward(*args)
-        if _on_cpu(args[0]):
+        x, w1 = args[1], args[6]
+        if not fits_kernel("fused_proj_mlp", x.shape[1], w1.shape[0]):
+            return _composed("fused_proj_mlp", proj_mlp_reference, *args)
+        if _on_cpu(x):
             return proj_mlp_reference(*args)
         return _launch_proj_mlp(*args)
 
@@ -598,7 +654,10 @@ class _FullBlock(torch.autograd.Function):
         *tensors, n_tokens, heads = args
         ctx.save_for_backward(*tensors)
         ctx.n_tokens, ctx.heads = n_tokens, heads
-        if _on_cpu(args[0]):
+        x, w1 = args[0], args[9]
+        if not fits_kernel("fused_block_full", x.shape[1], w1.shape[0]):
+            return _composed("fused_block_full", _full_block_xla, *args)
+        if _on_cpu(x):
             return full_block_reference(*args)
         return _launch_full_block(*args)
 
@@ -615,6 +674,8 @@ class _LnQkvAttn(torch.autograd.Function):
         ctx.n_tokens, ctx.heads = n_tokens, heads
         ctx.bwd_kernel = bwd_kernel
         args = (x, gamma, beta, w, bias, n_tokens, heads)
+        if not fits_kernel("fused_ln_qkv_attn", x.shape[1]):
+            return _composed("fused_ln_qkv_attn", _ln_qkv_attn_xla, *args)
         if _on_cpu(x):
             return ln_qkv_attn_reference(*args)
         return _launch_ln_qkv_attn(*args)
@@ -661,3 +722,4 @@ def fused_ln_qkv_attn(x, gamma, beta, w, bias, n_tokens: int, heads: int,
 for _fn in (fused_ln_qkv, fused_proj_mlp, fused_block_full,
             fused_ln_qkv_attn):
     _fn.launches = _fn.launches_wgmma = _fn.launches_simt = 0
+    _fn.launches_composed = 0

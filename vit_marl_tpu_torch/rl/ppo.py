@@ -19,11 +19,22 @@ tiled, onto the actor axis (``global_done_for_actors``).
 Observations, transitions and minibatches are trees (a dict observation
 is indexed leaf by leaf).
 
+With ``log_env_info`` (on by default) each env step's info tree is
+reduced on the device to per-field moments (:func:`_reduce_info`, one
+stacked reduction per agent type and one for the world), stacked per
+update and folded into ``{name}/info_{k}_mean|_std`` and
+``world/{k}_mean`` (:func:`_fold_info_stats`), beside the action metrics
+``{name}/action_pct_{a}`` or ``{name}/action_mean|_std``
+(:func:`_action_metrics`); the host reads the metrics once an update.
+Each update's metrics go to :class:`rl.logger.Logger`; with
+``checkpoint_dir`` the learners are saved (``rl/checkpoint.py``) every
+``checkpoint_every`` updates and at the last, and ``resume`` restores the
+latest and continues after it (the env states and the generator restart
+from the seed, as in the JAX package).
+
 Not ported yet, and refused by :func:`check_ported` or ``make_network``:
-eval, checkpoints and resume, the pipeline rollout, meshes, log backends
-other than ``print``/``none``, ``cnn_gru`` and continuous actions on
-``gru``.  The info/action metrics (``LOG_ENV_INFO``, on by default) are
-not emitted.
+eval, the pipeline rollout, meshes, ``cnn_gru`` and continuous actions on
+``gru``.
 """
 
 from __future__ import annotations
@@ -40,6 +51,12 @@ from vit_marl_tpu_torch.env import spaces
 from vit_marl_tpu_torch.env.world import WorldEnv
 from vit_marl_tpu_torch.models.rnn import ActorCriticRNN, ScannedGRU
 from vit_marl_tpu_torch.models.vit import VIT_PRESETS, ViTActorCriticRNN
+from vit_marl_tpu_torch.rl.checkpoint import (
+    CheckpointManager,
+    adam_state,
+    load_adam_state,
+)
+from vit_marl_tpu_torch.rl.logger import Logger
 from vit_marl_tpu_torch.utils.tree import tree_map
 
 Tensor = torch.Tensor
@@ -75,6 +92,64 @@ def _per_type(val, i: int):
     if isinstance(val, (tuple, list)):
         return val[i % len(val)]
     return val
+
+
+def _moments(fields: Dict[str, Tensor], squares: bool):
+    """Per-field means over all elements, cast to float32 first (and means
+    of squares: ``(2,)`` ``[mean, mean of squares]`` a field): one stack
+    (promoting int and bool fields; on the card a copy a field) and one
+    reduction per element count."""
+    out = {}
+    groups: Dict[int, List[str]] = {}
+    for k, v in fields.items():
+        groups.setdefault(v.numel(), []).append(k)
+    for keys in groups.values():
+        x = torch.stack([fields[k].reshape(-1) for k in keys]).to(
+            torch.float32)
+        m = torch.stack([x.mean(1), x.square().mean(1)], 1) if squares \
+            else x.mean(1)
+        out.update(zip(keys, m))
+    return {k: out[k] for k in fields}
+
+
+def _reduce_info(info):
+    """One env step's info tree reduced on the device (ref: ppo.py:71-91):
+    each agent type's fields to ``(2,)`` ``[mean, mean of squares]``, the
+    world's to means."""
+    return {"agents": [_moments(inf, True) for inf in info["agents"]],
+            "world": _moments(info["world"], False)}
+
+
+def _action_metrics(action: Tensor, space, prefix: str, out) -> None:
+    """Per-update action metrics (ref: ppo.py:93-110): the percentage of
+    each action id of a Discrete space (``bincount(length=n)``), or the
+    mean and population std of a Box space's sampled actions."""
+    if isinstance(space, spaces.Discrete):
+        ids = torch.arange(space.n, device=action.device)
+        counts = (action.reshape(-1, 1).to(torch.int32) == ids).sum(0)
+        pct = 100.0 * counts / action.numel()
+        for a in range(space.n):
+            out[f"{prefix}/action_pct_{a}"] = pct[a]
+    else:
+        af = action.to(torch.float32)
+        out[f"{prefix}/action_mean"] = af.mean()
+        out[f"{prefix}/action_std"] = af.std(correction=0)
+
+
+def _fold_info_stats(info_stats, names, out, prefix: str = "") -> None:
+    """Fold stacked per-step moments (agent leaves ``(steps, 2)``, world
+    leaves ``(steps,)``) into per-update mean/std metrics (ref:
+    ppo.py:113-130): every step reduces as many elements, so the mean of
+    the per-step moments is the whole rollout's, and std =
+    sqrt(max(E[x^2] - E[x]^2, 0))."""
+    for i, name in enumerate(names):
+        for k, ms in info_stats["agents"][i].items():
+            mean = ms[:, 0].mean()
+            var = torch.clamp(ms[:, 1].mean() - mean.square(), min=0.0)
+            out[f"{prefix}{name}/info_{k}_mean"] = mean
+            out[f"{prefix}{name}/info_{k}_std"] = torch.sqrt(var)
+    for k, v in info_stats["world"].items():
+        out[f"{prefix}world/{k}_mean"] = v.mean()
 
 
 def compute_gae(traj: Transition, last_val: Tensor, gamma: float,
@@ -227,39 +302,74 @@ def make_networks(env: WorldEnv, cfg: TrainConfig) -> List[nn.Module]:
 def check_ported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a trainer option the port would
     otherwise accept and drop without a word: a device mesh, periodic
-    eval, checkpoints or resume, the pipelined rollout, and log backends
-    other than ``print`` and ``none``."""
+    eval and the pipelined rollout."""
     refused = {
         "MESH_SHAPE": tuple(cfg.mesh_shape) != (),
         "EVAL_EVERY": cfg.eval_every > 0,
-        "CHECKPOINT_DIR": bool(cfg.checkpoint_dir),
-        "RESUME": cfg.resume,
         "ROLLOUT_MODE": cfg.rollout_mode == "pipeline",
-        "LOG_BACKEND": cfg.log_backend not in ("print", "none"),
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise NotImplementedError(
             f"{', '.join(bad)}: not ported yet (mesh_shape="
             f"{tuple(cfg.mesh_shape)}, eval_every={cfg.eval_every}, "
-            f"checkpoint_dir={cfg.checkpoint_dir!r}, resume={cfg.resume}, "
-            f"rollout_mode={cfg.rollout_mode!r}, "
-            f"log_backend={cfg.log_backend!r})")
+            f"rollout_mode={cfg.rollout_mode!r})")
+
+
+def _resume(ckpt: CheckpointManager, learners: Sequence[PPOLearner]) -> int:
+    """Restore each learner's parameters, Adam state and step count from
+    the latest checkpoint (ref: ppo.py:216-271); returns the next update.
+    Raises ``ValueError`` where a saved shape or the optimizer's structure
+    differs from the live one."""
+    latest = ckpt.latest_step()
+    restored = ckpt.restore(latest)
+    if len(restored["params"]) != len(learners):
+        raise ValueError(f"resume: {len(restored['params'])} agent types "
+                         f"saved, {len(learners)} live")
+    for i, lr in enumerate(learners):
+        live = lr.net.state_dict()
+        saved = restored["params"][i]
+        if set(saved) != set(live):
+            raise ValueError(f"resume: agent type {i}'s parameters changed "
+                             "since the checkpoint was written")
+        for k, v in live.items():
+            if saved[k].shape != v.shape:
+                raise ValueError(
+                    f"resume: checkpoint leaf {k} has shape "
+                    f"{tuple(saved[k].shape)}, the live network's "
+                    f"{tuple(v.shape)}: the network architecture changed "
+                    "since the checkpoint was written "
+                    "(hidden_size/fc_dim/preset?). Start fresh or match "
+                    "the original config.")
+        lr.net.load_state_dict(saved)
+        load_adam_state(lr.opt, restored["opt"][i], f" (agent type {i})")
+        lr.count = int(restored["count"][i])
+    print(f"resumed from checkpoint update {latest} "
+          f"(next update: {latest + 1})", flush=True)
+    return latest + 1
 
 
 def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                env: Optional[WorldEnv] = None, device=None,
-               log=None):
+               logger: Optional[Logger] = None):
     """Build the training function (ref: ppo.py:274-833).
 
     The env (with its window table) is built here, on ``device`` (the card
-    unless ``device="cpu"``); ``train(seed)`` then seeds a
-    ``torch.Generator`` and the networks from ``seed`` and runs
-    ``cfg.num_updates`` updates.  ``log``, if given, receives each update's
-    metrics dict.
+    unless ``device="cpu"``); ``train(seed, n_updates=None)`` then seeds a
+    ``torch.Generator`` and the networks from ``seed``, restores the latest
+    checkpoint with ``cfg.resume``, and runs the updates from there to
+    ``cfg.num_updates`` (at most ``n_updates`` of them).  ``logger``
+    (default: ``cfg.log_backend`` to ``cfg.log_path``) receives each
+    update's metrics dict.
     """
     check_ported(cfg)
+    if cfg.resume and not cfg.checkpoint_dir:
+        raise ValueError(
+            "RESUME=true needs CHECKPOINT_DIR set: with no checkpoint "
+            "directory there is nothing to resume from (refusing to "
+            "silently restart at update 0)")
     env = env or WorldEnv(ma_config, device=device)
+    logger = logger or Logger(cfg.log_backend, cfg.log_path)
     dev = env.device
     n_types = len(env.agent_types)
     num_actors = [n * cfg.num_envs for n in env.n_per_type]
@@ -285,11 +395,21 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
         obs, state = env.reset(env.draw_reset(cfg.num_envs, gen), params)
         dones = [torch.zeros(num_actors[i], dtype=torch.bool, device=dev)
                  for i in range(n_types)]
+        ckpt = (CheckpointManager(cfg.checkpoint_dir,
+                                  max_to_keep=cfg.checkpoint_max_to_keep)
+                if cfg.checkpoint_dir else None)
+        start = 0
+        if cfg.resume and ckpt.latest_step() is not None:
+            start = _resume(ckpt, learners)
+        stop = (num_updates if n_updates is None
+                else min(num_updates, start + n_updates))
+        names = [a.cfg.short_name for a in env.agent_types]
         metrics_history = []
-        for u in range(num_updates if n_updates is None else n_updates):
+        for u in range(start, stop):
             t0 = time.perf_counter()
             initial_h = [h.clone() for h in hstates]
             steps: List[List[Transition]] = [[] for _ in range(n_types)]
+            step_stats = []
             with torch.no_grad():
                 for _ in range(cfg.num_steps):
                     actions, values, log_probs = [], [], []
@@ -306,8 +426,10 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                         a.reshape((cfg.num_envs, n) + a.shape[1:])
                         if n > 1 else a
                         for a, n in zip(actions, env.n_per_type)]
-                    obs, state, reward, done, _ = env.step_vec(
+                    obs, state, reward, done, info = env.step_vec(
                         state, env_actions, params, generator=gen)
+                    if cfg.log_env_info:
+                        step_stats.append(_reduce_info(info))
                     for i in range(n_types):
                         steps[i].append(Transition(
                             global_done=global_done_for_actors(
@@ -321,7 +443,7 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
-            metrics: Dict[str, float] = {"update_step": u}
+            metrics: Dict[str, Tensor] = {}
             for i in range(n_types):
                 traj = tree_map(lambda *v: torch.stack(v), *steps[i])
                 with torch.no_grad():
@@ -336,17 +458,33 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                          for _ in range(cfg.update_epochs)]
                 loss_info = learners[i].update(initial_h[i], traj, adv, tgt,
                                                cfg.num_minibatches, perms)
-                name = env.agent_types[i].cfg.short_name
+                name = names[i]
                 metrics[f"{name}/mean_reward"] = traj.reward.mean()
                 for k, v in loss_info.items():
                     metrics[f"{name}/{k}"] = v
-            metrics = {k: float(v) for k, v in metrics.items()}
+                if cfg.log_env_info:
+                    _action_metrics(traj.action, env.action_spaces[i], name,
+                                    metrics)
+            if cfg.log_env_info:
+                _fold_info_stats(tree_map(lambda *v: torch.stack(v),
+                                          *step_stats), names, metrics)
+            # one read of every metric
+            values = torch.stack([v.to(torch.float64)
+                                  for v in metrics.values()]).tolist()
+            metrics = {"update_step": u, **dict(zip(metrics, values))}
             t2 = time.perf_counter()
             metrics["rollout_s"] = t1 - t0
             metrics["update_s"] = t2 - t1
+            # keys in sorted order, as the JAX package's jitted update
+            # returns them
+            metrics = dict(sorted(metrics.items()))
+            logger.log(metrics)
             metrics_history.append(metrics)
-            if log is not None:
-                log(metrics)
+            if ckpt is not None and ((u + 1) % cfg.checkpoint_every == 0
+                                     or u == num_updates - 1):
+                ckpt.save(u, [lr.net.state_dict() for lr in learners],
+                          [adam_state(lr.opt) for lr in learners],
+                          [lr.count for lr in learners], metrics=metrics)
         return {"metrics": metrics_history, "networks": nets,
                 "state": state, "learners": learners}
 

@@ -8,6 +8,15 @@ Usage:
       --set WORLD.DEBUG_MODE=true
 
 Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU.
+Each update's metrics go to ``LOG_BACKEND`` (``print``, ``jsonl`` to
+``LOG_PATH``, ``wandb`` where installed, ``none``); ``CHECKPOINT_DIR``
+saves the learners, and ``RESUME=true`` continues from its latest update:
+
+  python -m vit_marl_tpu_torch.train --config configs/ippo_2player.yaml \
+      --set CHECKPOINT_DIR=runs/ckpt --set LOG_BACKEND=jsonl \
+      --set LOG_PATH=runs/metrics.jsonl
+  python -m vit_marl_tpu_torch.train --config configs/ippo_2player.yaml \
+      --set CHECKPOINT_DIR=runs/ckpt --set RESUME=true
 """
 
 from __future__ import annotations
@@ -45,14 +54,7 @@ def main(argv=None):
     if args.seed is not None:
         train_config = dataclasses.replace(train_config, seed=args.seed)
 
-    def log(m):
-        keys = [k for k in sorted(m) if k != "update_step"][:8]
-        print(f"[update {m['update_step']}] "
-              + " ".join(f"{k}={m[k]:.4g}" for k in keys), flush=True)
-
-    train = make_train(ma_config, train_config, device=args.device,
-                       log=None if train_config.log_backend == "none"
-                       else log)
+    train = make_train(ma_config, train_config, device=args.device)
     env = train.env
     print(f"device: {env.device} world: msgs/step={env.num_msgs_per_step} "
           f"train: envs={train_config.num_envs} "
