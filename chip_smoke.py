@@ -75,7 +75,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    losses must be finite, the env-info metrics (``LOG_ENV_INFO``, on by
    default) present, and the book scan's launch count must rise by
    exactly NUM_STEPS x updates; then 2 updates with ``LOG_ENV_INFO``
-   off, and the rollout seconds of both;
+   off, and the rollout seconds of both; the card kernels of one step's
+   info reduction (``torch.profiler``);
 7. debug-mode training: the same config with ``WORLD.DEBUG_MODE=true``
    (set through the port's ``--set`` parser) for 2 updates; losses must be
    finite, the records scan must launch exactly NUM_STEPS x updates times
@@ -114,8 +115,22 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    route and none on a kernel, counted exactly; their times;
 15. entry: ``vit_marl_tpu_torch/graft_entry.py::entry`` on the card,
    against the same weights on the CPU;
-16. summary: one JSON line describing the eight kernels, then the last
-   line ``{"ok": true, "device": {...}}``.
+16. agent spaces and evaluation: one update of ``configs/sweep_fine.yaml``'s
+   base run (its ``SWEEP:`` dropped; 512 envs x 128 steps, MM ``basic``,
+   execution ``fixed_quants`` + ``basic``); one update of
+   ``configs/ippo_2player.yaml`` at 4,096 envs with ``EVAL_EVERY=1``,
+   ``EVAL_STEPS=32`` (the eval keys finite) and a checkpoint; worlds of
+   every newly ported agent space and a ``fixed_time`` world (``SPACE_
+   WORLDS``), 4 steps each at 4,096 envs, then one step of the same state
+   and draws at E=256 through the kernel and through the plain book scan
+   on the card (books, best quotes and integer state bit-equal, rewards
+   and observations within 1e-5); kernel 1 timed at M=126 beside its
+   bound, kernel 2 checked at M=126 in ``debug_mode``; ``evaluate.py`` in
+   process on the 2-player checkpoint and on the ``AvSt``/``twap``
+   baseline world (4,096 envs x 50 steps, all four labels); the launch
+   count of every run exact;
+then one JSON line describing the eight kernels, and the last line
+``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it, the
 script exits non-zero before printing any result.
@@ -147,6 +162,7 @@ from vit_marl_tpu_torch.selfcheck import (
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "ippo_2player.yaml")
 VISION_CONFIG = os.path.join(ROOT, "configs", "ippo_vision_dual_ppo.yaml")
+SWEEP_CONFIG = os.path.join(ROOT, "configs", "sweep_fine.yaml")
 SIMPLEST_CONFIG = os.path.join(ROOT, "configs", "ippo_vision_simplest.yaml")
 REC_KS = (16, 128)              # records per message: debug log, every slot
 E_MAIN, M_MAIN, S_MAIN = 4096, 112, 128
@@ -180,6 +196,65 @@ BASE_W, BASE_H, B_BASE = 768, 12, 1024
 # the bench phase's arguments (in-process ``bench.main``)
 BENCH_ARGS = ["--envs", "4096", "--steps", "10", "--reps", "2",
               "--deadline", "600"]
+
+
+# phase 16's worlds: (agent kind, overrides) per type, instances per type,
+# world fields.  Every agent space the 2-player path does not run, and
+# fixed_time episodes; "m126" carries 100 + 16 + 8 + 2 = 126 messages a
+# step, where kernel 1 is timed (and kernel 2 checked in debug_mode); a
+# fixed_time episode of 30 s is shorter than a step of 100 data messages
+# (about 47 s of the synthetic day), so every step's stream holds data
+# rows past the episode's end.
+SPACE_WORLDS = {
+    "mm": ([("mm", dict(action_space="fixed_quants",
+                        sell_buy_all_option=True, reward_space="complex",
+                        inv_penalty="linear",
+                        reference_price_portfolio_value="best_bid_ask",
+                        observation_space="basic")),
+            ("mm", dict(action_space="simple", reward_space="spooner_damped",
+                        inv_penalty="quadratic", clip_reward=True,
+                        reference_price_portfolio_value="near_touch")),
+            ("mm", dict(action_space="AvSt", reward_space="delta_netWorth",
+                        inv_penalty="threshold",
+                        exclude_extreme_spreads=True,
+                        observation_space="messages")),
+            ("mm", dict(action_space="directional_trading",
+                        reward_space="weight_pnl_inventory_pnl",
+                        based_on_mid_price_of_action=False,
+                        observation_space="messages_tokenized")),
+            ("mm", dict(multiplier_type="spread",
+                        reward_space="spooner_scaled")),
+            ("exe", dict(action_space="fixed_quants", observation_space="basic",
+                         reward_space="finish_fast"))], (1, 1, 1, 1, 1, 1), {}),
+    "exe": ([("mm", dict(reward_space="portfolio_value_scaled",
+                         inv_penalty="linear")),
+             ("mm", dict(action_space="simple", sell_buy_all_option=True,
+                         fixed_action_setting=True, fixed_action=1,
+                         reward_space="zero_inv")),
+             ("exe", dict(action_space="fixed_prices", n_actions=2,
+                          action_type="delta", task_size=40)),
+             ("exe", dict(action_space="twap", reward_space="finish_fast")),
+             ("exe", dict(action_space="twap_v3", task_size=45,
+                          reward_space="simplest_case"))], (1, 1, 2, 1, 2),
+            {}),
+    "m126": ([("mm", dict(action_space="fixed_prices", n_actions=8,
+                          reward_space="pnl")),
+              ("exe", dict(action_space="fixed_prices", n_actions=4,
+                           task_size=60)),
+              ("exe", dict(action_space="fixed_quants_1msg",
+                           reward_space="normal"))], (1, 1, 1), {}),
+    "fixed_time": ([("mm", dict()), ("mm", dict(action_space="AvSt")),
+                    ("exe", dict()),
+                    ("exe", dict(action_space="twap_v3",
+                                 observation_space="basic", task_size=80))],
+                   (1, 1, 2, 1), dict(ep_type="fixed_time", episode_time=30,
+                                      start_resolution=30)),
+}
+M_SPACES = 126
+E_CHECK = 256
+DEV = "cuda"                    # where phase 16 builds its worlds
+SPACE_STEPS = 4
+EVAL_STEPS, EVAL_LABEL_STEPS = 32, 50
 
 
 # the fused-block kernels: wrapper name -> (TPU function, ViT mode whose
@@ -1144,6 +1219,353 @@ def entry_phase(torch, attn, bkern, blk, smi):
           f"call); within 2e-2 of the CPU [{smi}]", flush=True)
 
 
+def info_reduce_kernels(torch, env, smi):
+    """The card's kernels of one step's info reduction
+    (``rl/ppo.py::_reduce_info``) at the world's batch, from
+    ``torch.profiler``, beside the host ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_marl_tpu_torch.rl.ppo import _reduce_info
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = env.default_params
+    E = E_MAIN
+    _, state = env.reset(env.draw_reset(E, gen), params)
+    info = env.step_vec(state, random_actions(torch, env, E, gen), params,
+                        generator=gen)[4]
+    ms = host_ms(lambda: _reduce_info(info))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _reduce_info(info)
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    n_buf = sum(len(inf.buffers) for inf in [info["world"]]
+                + list(info["agents"]))
+    print(f"  one step's info reduction at E={E}: {n} card kernels "
+          f"(torch.profiler; {n_buf} info buffers), host {ms:.4f} ms a "
+          f"call [{smi}]", flush=True)
+    return n
+
+
+def space_world(name, **world):
+    """The port's world of ``SPACE_WORLDS[name]`` on the card."""
+    from vit_marl_tpu_torch import config as c
+    from vit_marl_tpu_torch.env.world import WorldEnv
+
+    agents, n, fields = SPACE_WORLDS[name]
+    cfgs = tuple((c.MarketMakingConfig if kind == "mm" else
+                  c.ExecutionConfig)(short_name=f"{kind.upper()}{i}", **kw)
+                 for i, (kind, kw) in enumerate(agents))
+    ma = c.MultiAgentConfig(world=c.WorldConfig(**dict(fields, **world)),
+                            agents=cfgs, n_agents_per_type=n)
+    return WorldEnv(ma, device=DEV)
+
+
+def random_actions(torch, env, E, gen):
+    """Actions inside each type's space, on the card."""
+    from vit_marl_tpu_torch.env import spaces
+
+    out = []
+    for sp, n in zip(env.action_spaces, env.n_per_type):
+        lead = (E,) if n == 1 else (E, n)
+        if isinstance(sp, spaces.Discrete):
+            out.append(torch.randint(0, sp.n, lead, generator=gen,
+                                     device=gen.device))
+        elif sp.dtype == torch.int32:
+            out.append(torch.randint(sp.low, sp.high + 1, lead + sp.shape,
+                                     generator=gen, device=gen.device,
+                                     dtype=torch.int32))
+        else:
+            low, high = (torch.as_tensor(b, device=gen.device)
+                         for b in (sp.low, sp.high))
+            u = torch.rand(lead + sp.shape, generator=gen,
+                           device=gen.device)
+            out.append(low + u * (high - low))
+    return out
+
+
+def compare_steps(torch, got, want, label):
+    """A step through the kernel against the same step through the plain
+    scan: integer and bool leaves equal, float leaves within 1e-5."""
+    from vit_marl_tpu_torch.utils.tree import tree_map
+
+    bad = []
+
+    def check(a, b):
+        if a.dtype.is_floating_point:
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-5,
+                                  equal_nan=True):
+                bad.append(float((a - b).abs().nan_to_num().max()))
+        elif not torch.equal(a, b):
+            bad.append(int((a.long() - b.long()).abs().max()))
+        return a
+
+    obs, state, rew, done, _ = got
+    wobs, wstate, wrew, wdone, _ = want
+    tree_map(check, (obs, state, rew, done["agents"], done["__all__"]),
+             (wobs, wstate, wrew, wdone["agents"], wdone["__all__"]))
+    if bad:
+        raise AssertionError(f"{label}: kernel step != plain step ({bad})")
+
+
+def spaces_phase(torch, count, bkern, smi):
+    """Each world of ``SPACE_WORLDS``: SPACE_STEPS steps at E_MAIN envs
+    (the book scan once a step), then one step of the first E_CHECK envs'
+    state with the same actions and draws through the kernel and through
+    the plain scan.  Kernel 1 timed at M=126 beside its bound; kernel 2
+    checked there in debug_mode (the world's step and the scan alone).
+    Returns the M=126 numbers."""
+    from vit_marl_tpu_torch.env import world as world_mod
+    from vit_marl_tpu_torch.utils.tree import tree_map
+
+    out = {}
+    for name in SPACE_WORLDS:
+        env = space_world(name)
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED)
+        params = env.default_params
+        _, state = env.reset(env.draw_reset(E_MAIN, gen), params)
+
+        def run():
+            st = state
+            for _ in range(SPACE_STEPS):
+                st = env.step_vec(st, random_actions(torch, env, E_MAIN, gen),
+                                  params, generator=gen)[1]
+            return st
+        state, got, wall = drive(torch, count, run)
+        expect(got, {"book_scan": SPACE_STEPS}, f"world {name!r}")
+        sub = tree_map(lambda v: v[:E_CHECK], state)
+        acts = random_actions(torch, env, E_CHECK, gen)
+        draws = env.draw_step(E_CHECK, gen)
+        with_kernel = env.step_vec(sub, acts, params, draws=draws)
+        kernel_scan = world_mod.process_step_aggs
+        world_mod.process_step_aggs = bkern.process_step_aggs_reference
+        try:
+            plain = env.step_vec(sub, acts, params, draws=draws)
+        finally:
+            world_mod.process_step_aggs = kernel_scan
+        compare_steps(torch, with_kernel, plain, f"world {name!r}")
+        combined, _ = env._build_messages(sub, env._actions(acts), params,
+                                          draws.shuffle, draws.agents)
+        zeroed = int(((combined[:, :, 0] == 0) & (combined[:, :, 6] != 0))
+                     .sum())
+        if name == "fixed_time" and not zeroed:
+            raise AssertionError("the fixed_time stream holds no data rows "
+                                 "zeroed past the episode's end")
+        print(f"  world {name!r}: M={env.num_msgs_per_step}, "
+              f"{len(env.agent_types)} agent types "
+              f"{[a.cfg.action_space for a in env.agent_types]}, obs "
+              f"{[tuple(s.shape) for s in env.observation_spaces]}; "
+              f"{SPACE_STEPS} steps at E={E_MAIN} in {wall:.2f}s, launches "
+              f"{ {k: v for k, v in got.items() if v} }; E={E_CHECK}: kernel "
+              f"step = plain step ({zeroed} zeroed data rows) [{smi}]",
+              flush=True)
+        if name == "m126":
+            out = m126_checks(torch, bkern, world_mod, env, state, params,
+                              gen, smi)
+        del env, state, sub, with_kernel, plain
+    return out
+
+
+def m126_checks(torch, bkern, world_mod, env, state, params, gen, smi):
+    """Kernel 1 at M=126, E=E_MAIN on the world's own stream, timed beside
+    its bound and its plain version; kernel 2 on the same stream (rec_k
+    16) against its plain version, and the debug_mode world's step at
+    E=E_CHECK through the records kernel and through its plain version."""
+    if env.num_msgs_per_step != M_SPACES:
+        raise AssertionError(f"m126 world: M={env.num_msgs_per_step}")
+    acts = random_actions(torch, env, E_MAIN, gen)
+    draws = env.draw_step(E_MAIN, gen)
+    combined, _ = env._build_messages(state, env._actions(acts), params,
+                                      draws.shuffle, draws.agents)
+    books = state.world.books
+    prev = torch.stack([state.world.best_asks[:, -1, 0],
+                        state.world.best_bids[:, -1, 0]], 1)
+    tids = torch.cat([p.trader_id for p in params.agents])
+    cfg = env.wcfg
+    got = bkern.process_step_aggs(cfg, combined, books, tids, prev, TICK,
+                                  draws.uniforms)
+    want = bkern.process_step_aggs_reference(cfg, combined, books, tids,
+                                             prev, TICK, draws.uniforms)
+    pairs = [(got[0].data, want[0].data), (got[1][0], want[1][0]),
+             (got[1][1], want[1][1]), (got[2][0], want[2][0]),
+             (got[2][1], want[2][1])]
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("kernel 1 != plain at M=126")
+    ms, ms_min = time_launches(lambda: bkern.process_step_aggs(
+        cfg, combined, books, tids, prev, TICK, draws.uniforms))
+    torch.cuda.synchronize()
+    tp = time.perf_counter()
+    bkern.process_step_aggs_reference(cfg, combined, books, tids, prev,
+                                      TICK, draws.uniforms)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - tp) * 1e3
+    nbytes = scan_bytes(E_MAIN, M_SPACES, cfg.n_orders, len(tids))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  kernel 1 at M={M_SPACES}, E={E_MAIN}, {len(tids)} traders: "
+          f"bit-equal to plain; {ms:.4f} ms per launch (min {ms_min:.4f}); "
+          f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB at 3.35 TB/s) [{smi}]", flush=True)
+    rk = REC_KS[0]
+    rgot = bkern.process_step_records(cfg, combined, books, prev, rk,
+                                      draws.uniforms)
+    rwant = bkern.process_step_records_reference(cfg, combined, books, prev,
+                                                 rk, draws.uniforms)
+    flat = lambda r: [r[0].data, *r[1], *r[2]]   # noqa: E731
+    if not all(torch.equal(a, b) for a, b in zip(flat(rgot), flat(rwant))):
+        raise AssertionError(f"kernel 2 != plain at M={M_SPACES}")
+    denv = space_world("m126", debug_mode=True)
+    dparams = denv.default_params
+    _, dstate = denv.reset(denv.draw_reset(E_CHECK, gen), dparams)
+    dacts = random_actions(torch, denv, E_CHECK, gen)
+    ddraws = denv.draw_step(E_CHECK, gen)
+    launches = bkern.process_step_records.launches
+    with_kernel = denv.step_vec(dstate, dacts, dparams, draws=ddraws)
+    if bkern.process_step_records.launches != launches + 1:
+        raise AssertionError("the debug_mode step did not launch kernel 2")
+    kernel_scan = world_mod.process_step_records
+    world_mod.process_step_records = bkern.process_step_records_reference
+    try:
+        plain = denv.step_vec(dstate, dacts, dparams, draws=ddraws)
+    finally:
+        world_mod.process_step_records = kernel_scan
+    compare_steps(torch, with_kernel, plain, "debug_mode world, M=126")
+    if not torch.equal(with_kernel[4]["world"]["trades"],
+                       plain[4]["world"]["trades"]):
+        raise AssertionError("debug_mode trade logs differ at M=126")
+    n_fills = int((with_kernel[4]["world"]["trades"][:, :, 0] != -1).sum())
+    print(f"  kernel 2 at M={M_SPACES}: records (rec_k {rk}) bit-equal to "
+          f"plain at E={E_MAIN}; the debug_mode world's step at "
+          f"E={E_CHECK} equal through the kernel and the plain scan, "
+          f"{n_fills} trades logged [{smi}]", flush=True)
+    return dict(ms_m126=ms, plain_ms_m126=plain_ms, bound_ms_m126=bound_ms,
+                bit_equal_m126=True)
+
+
+def eval_training_phase(torch, count, make_train, load_yaml_config, env,
+                        ckpt_dir, smi):
+    """One update of ``sweep_fine.yaml``'s base run, then one of the
+    2-player config with greedy eval every update and a checkpoint.
+    Returns the eval rollout's env-steps/s."""
+    from vit_marl_tpu_torch.config import make_config
+    from vit_marl_tpu_torch.rl import ppo
+
+    with open(SWEEP_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    raw.pop("SWEEP")                 # as vit_marl_tpu/rl/sweep.py:168
+    ma, tc = make_config(raw)
+    out, got, wall = drive(torch, count, lambda: make_train(
+        ma, tc, device=DEV)(tc.seed, n_updates=1))
+    expect(got, {"book_scan": 1 + tc.num_steps},
+           "sweep_fine base run (window table + steps)")
+    check_metrics(out["metrics"], "sweep_fine: ")
+    m = out["metrics"][0]
+    steps = tc.num_envs * tc.num_steps
+    print(f"  sweep_fine base run (MM {ma.agents[0].observation_space}, "
+          f"EXE {ma.agents[1].action_space} + "
+          f"{ma.agents[1].observation_space}): 1 update x {tc.num_steps} "
+          f"steps x {tc.num_envs} envs: {steps / m['rollout_s']:.0f} "
+          f"env-steps/s in the rollout, rollout_s {m['rollout_s']:.3f}, "
+          f"update_s {m['update_s']:.3f}; book-scan launches "
+          f"{got['book_scan']} ({tc.num_steps} + the window table) [{smi}]",
+          flush=True)
+
+    ma, tc = load_yaml_config(CONFIG)
+    tc = dataclasses.replace(tc, eval_every=1, eval_steps=EVAL_STEPS,
+                             checkpoint_dir=ckpt_dir)
+    evals = []
+    plain_eval = ppo.eval_rollout
+
+    def timed_eval(*a, **k):
+        t = time.perf_counter()
+        res = plain_eval(*a, **k)
+        torch.cuda.synchronize()
+        evals.append(time.perf_counter() - t)
+        return res
+    ppo.eval_rollout = timed_eval
+    try:
+        out, got, wall = drive(torch, count, lambda: make_train(
+            ma, tc, env=env)(tc.seed, n_updates=1))
+    finally:
+        ppo.eval_rollout = plain_eval
+    expect(got, {"book_scan": 1 + tc.num_steps + EVAL_STEPS},
+           "2-player with eval (eval window table + steps + eval steps)")
+    check_metrics(out["metrics"], "2-player with eval: ")
+    m = out["metrics"][0]
+    keys = [k for k in m if "eval" in k]
+    for k in ("MM/eval_mean_reward", "EXE/eval_mean_reward",
+              "eval_MM/action_pct_0", "eval_EXE/info_reward_mean",
+              "eval_world/end_mid_price_mean"):
+        if k not in m:
+            raise AssertionError(f"eval key {k} missing")
+    rate = tc.num_envs * EVAL_STEPS / evals[0]
+    print(f"  2-player with EVAL_EVERY=1, EVAL_STEPS={EVAL_STEPS}: "
+          f"{len(keys)} eval keys, MM/eval_mean_reward "
+          f"{m['MM/eval_mean_reward']:.5g}, EXE/eval_mean_reward "
+          f"{m['EXE/eval_mean_reward']:.5g}; eval rollout {evals[0]:.3f}s "
+          f"= {rate:.0f} env-steps/s; training rollout_s "
+          f"{m['rollout_s']:.3f}, update_s {m['update_s']:.3f} [{smi}]",
+          flush=True)
+    return rate
+
+
+def evaluate_phase(torch, count, ckpt_dir, smi):
+    """``vit_marl_tpu_torch/evaluate.py`` in process at E_MAIN envs x
+    EVAL_LABEL_STEPS steps: on the 2-player config from the checkpoint of
+    ``eval_training_phase``, and on the AvSt/twap baseline world without
+    one.  Each label's seconds; combinations.json must hold finite
+    rewards; launches exact."""
+    from vit_marl_tpu_torch import evaluate
+    from vit_marl_tpu_torch.eval import combinations
+
+    runs = {"2-player, checkpoint": ["--config", CONFIG, "--checkpoint-dir",
+                                     ckpt_dir],
+            "AvSt/twap baseline world": [
+                "--config", CONFIG,
+                "--set", "AGENT_CONFIGS.MarketMaking.ACTION_SPACE=AvSt",
+                "--set", "AGENT_CONFIGS.Execution.ACTION_SPACE=twap"]}
+    out = {}
+    plain_rollout = combinations.rollout
+    for label, args in runs.items():
+        secs = []
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            res = plain_rollout(*a, **k)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            return res
+        combinations.rollout = timed
+        with tempfile.TemporaryDirectory() as d:
+            try:
+                argv = args + ["--num-envs", str(E_MAIN), "--num-steps",
+                               str(EVAL_LABEL_STEPS), "--out-dir", d,
+                               "--device", DEV]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res, got, wall = drive(torch, count,
+                                           lambda: evaluate.main(argv))
+            finally:
+                combinations.rollout = plain_rollout
+            with open(os.path.join(d, "combinations.json")) as f:
+                summary = json.load(f)
+        expect(got, {"book_scan": 1 + 4 * EVAL_LABEL_STEPS},
+               f"evaluate.py, {label}")
+        if sorted(summary) != ["BB", "BL", "LB", "LL"] or not all(
+                np.isfinite(r["mean_rewards"]).all()
+                for r in summary.values()):
+            raise AssertionError(f"evaluate.py, {label}: {summary}")
+        rates = ", ".join(
+            f"{c} {s:.2f}s ({E_MAIN * EVAL_LABEL_STEPS / s:.0f} "
+            f"env-steps/s, mean rewards "
+            f"{[round(v, 4) for v in summary[c]['mean_rewards']]})"
+            for c, s in zip(res, secs))
+        print(f"  evaluate.py, {label}: {rates}; {wall:.2f}s in all "
+              f"[{smi}]", flush=True)
+        out[label] = dict(zip(res, secs))
+    return out
+
+
 def update_split(metrics):
     return "; ".join(f"update {int(m['update_step'])}: rollout "
                      f"{m['rollout_s']:.2f}s + PPO {m['update_s']:.2f}s"
@@ -1473,6 +1895,7 @@ def main() -> int:
           + "; off: " + ", ".join(f"{m['rollout_s']:.3f}"
                                   for m in qout["metrics"])
           + f" ({steps / qwall:.0f} env-steps/s off) [{smi}]", flush=True)
+    reduce_kernels = info_reduce_kernels(torch, env, smi)
     phase("6 2-player training", t0)
 
     # ---- phase 7: debug-mode training ----
@@ -1528,7 +1951,16 @@ def main() -> int:
     entry_phase(torch, attn, bkern, blk, smi)
     phase("15 entry forward", t0)
 
-    # ---- phase 16: summary ----
+    # ---- phase 16: agent spaces and evaluation ----
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        eval_rate = eval_training_phase(torch, count, make_train,
+                                        load_yaml_config, env, ckpt_dir, smi)
+        m126 = spaces_phase(torch, count, bkern, smi)
+        evaluate_phase(torch, count, ckpt_dir, smi)
+    phase("16 agent spaces and evaluation", t0)
+
+    # ---- summary ----
     print(json.dumps({"kernels": [{
         "name": "book_scan_aggs",
         "route": "cuda",
@@ -1554,7 +1986,11 @@ def main() -> int:
         "waves_by_envs": {str(E): r["waves"] for E, r in scan_rows.items()},
         "registers": plan["registers"],
         "warps_per_sm": plan["warps_per_sm"],
+        **m126,
+        "eval_env_steps_per_s": eval_rate,
+        "info_reduce_kernels": reduce_kernels,
     }, dict(records, launches=dgot["book_scan_records"],
+            bit_equal_m126=m126["bit_equal_m126"],
             launches_per_update=dgot["book_scan_records"] // UPDATES)]
       + [dict(att[k], launches=vision[k],
                launches_attn_ln_fold=modes["attn_ln_fold"][k])

@@ -61,7 +61,7 @@ def test_set_needs_key_and_value():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh_shape", (8,)), ("eval_every", 5), ("rollout_mode", "pipeline")])
+    ("mesh_shape", (8,)), ("rollout_mode", "pipeline")])
 def test_options_the_port_does_not_honour_raise(field, value):
     tc = tcfg.TrainConfig(**{field: value})
     with pytest.raises(NotImplementedError, match=field.upper()):
@@ -73,7 +73,8 @@ def test_options_the_port_honours_pass():
                tcfg.TrainConfig(rollout_mode="loop", log_env_info=True),
                tcfg.TrainConfig(log_backend="jsonl"),
                tcfg.TrainConfig(log_backend="wandb"),
-               tcfg.TrainConfig(checkpoint_dir="ckpt", resume=True)):
+               tcfg.TrainConfig(checkpoint_dir="ckpt", resume=True),
+               tcfg.TrainConfig(eval_every=5)):
         tppo.check_ported(tc)
 
 

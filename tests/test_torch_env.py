@@ -42,19 +42,23 @@ WORLD = dict(n_orders=64, n_messages_per_synthetic_day=4000,
 
 
 def _config_files():
-    out = []
-    for path in sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml"))):
-        with open(path) as f:
-            if "SWEEP" not in (yaml.safe_load(f) or {}):
-                out.append(path)
-    return out
+    return sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
 
 
 @pytest.mark.parametrize("path", _config_files(),
                          ids=lambda p: os.path.basename(p))
 def test_configs_load_to_equal_values(path):
-    jm, jt = jcfg.load_yaml_config(path)
-    tm, tt = tcfg.load_yaml_config(path)
+    """Every committed config; of a sweep config its base run, the file
+    without its ``SWEEP:`` grid (as ``vit_marl_tpu/rl/sweep.py:168``
+    drops it)."""
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    if "SWEEP" in raw:
+        raw.pop("SWEEP")
+        (jm, jt), (tm, tt) = jcfg.make_config(raw), tcfg.make_config(raw)
+    else:
+        jm, jt = jcfg.load_yaml_config(path)
+        tm, tt = tcfg.load_yaml_config(path)
     assert dataclasses.asdict(jm) == dataclasses.asdict(tm)
     assert dataclasses.asdict(jt) == dataclasses.asdict(tt)
     assert jt.num_updates == tt.num_updates

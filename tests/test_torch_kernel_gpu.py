@@ -40,6 +40,11 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   ``NotImplementedError``, but for ViT-Base's width (W=768, hidden
   3,072), which takes the counted ``composed`` route and matches the
   plain versions at ``block_tol``.
+- Kernels 1 and 2 on streams the port's worlds build: 126 messages a step
+  (a ``fixed_prices`` market maker, ``fixed_prices`` and
+  ``fixed_quants_1msg`` execution agents, three traders) and a
+  ``fixed_time`` world's stream with data rows zeroed past the episode's
+  end.
 - The bench (``--selfcheck`` passes, the GRU loop reports a rate) and
   the entry module's forward step, on the card.
 """
@@ -124,6 +129,82 @@ def test_records_kernel_bit_equal_to_plain(cuda, mode, rec_k, E):
         torch.full((E, 256, 8), -1, dtype=torch.int32), want[2][0].cpu(),
         args[1].cpu(), counts.cpu())
     assert torch.equal(log.cpu(), want_log)
+
+
+def _world_stream(cuda, name, E=512):
+    """A step's message stream of a port world on the card: ``m126`` (a
+    fixed_prices market maker, fixed_prices and fixed_quants_1msg
+    execution agents, 126 messages a step) or ``fixed_time`` (data rows
+    past the episode's end zeroed but for their times), after 3 steps."""
+    from vit_marl_tpu_torch import config as c
+    from vit_marl_tpu_torch.env import spaces
+    from vit_marl_tpu_torch.env.world import WorldEnv
+
+    if name == "m126":
+        agents = (c.MarketMakingConfig(action_space="fixed_prices"),
+                  c.ExecutionConfig(action_space="fixed_prices", n_actions=4,
+                                    task_size=60),
+                  c.ExecutionConfig(action_space="fixed_quants_1msg"))
+        world = c.WorldConfig(n_messages_per_synthetic_day=6000)
+    else:
+        agents = (c.MarketMakingConfig(), c.ExecutionConfig())
+        world = c.WorldConfig(n_messages_per_synthetic_day=6000,
+                              ep_type="fixed_time", episode_time=600,
+                              start_resolution=600)
+    env = WorldEnv(c.MultiAgentConfig(world=world, agents=agents,
+                                      n_agents_per_type=(1,) * len(agents)),
+                   device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = env.default_params
+
+    def acts():
+        out = []
+        for sp in env.action_spaces:
+            if isinstance(sp, spaces.Discrete):
+                out.append(torch.randint(0, sp.n, (E,), generator=gen,
+                                         device=cuda))
+            else:
+                out.append(torch.randint(0, 101, (E,) + sp.shape,
+                                         generator=gen, device=cuda,
+                                         dtype=torch.int32))
+        return out
+    _, state = env.reset(env.draw_reset(E, gen), params)
+    for _ in range(3):
+        state = env.step_vec(state, acts(), params, generator=gen)[1]
+    draws = env.draw_step(E, gen)
+    msgs, _ = env._build_messages(state, env._actions(acts()), params,
+                                  draws.shuffle, draws.agents)
+    prev = torch.stack([state.world.best_asks[:, -1, 0],
+                        state.world.best_bids[:, -1, 0]], 1)
+    tids = torch.cat([p.trader_id for p in params.agents])
+    return env.wcfg, msgs, state.world.books, tids, prev
+
+
+@pytest.mark.parametrize("records", [False, True], ids=["aggs", "records"])
+@pytest.mark.parametrize("name", ["m126", "fixed_time"])
+def test_kernels_bit_equal_on_world_streams(cuda, name, records):
+    """Kernels 1 and 2 on the streams of the newly ported spaces: 126
+    messages a step with three traders, and fixed_time's zeroed rows."""
+    cfg, msgs, books, tids, prev = _world_stream(cuda, name)
+    if name == "m126":
+        assert msgs.shape[1] == 126
+    else:
+        assert bool(((msgs[:, :, 0] == 0) & (msgs[:, :, 6] != 0)).any())
+    if records:
+        args = (cfg, msgs, books, prev, 16, None)
+        fn, ref = bkern.process_step_records, \
+            bkern.process_step_records_reference
+    else:
+        args = (cfg, msgs, books, tids, prev, TICK, None)
+        fn, ref = bkern.process_step_aggs, bkern.process_step_aggs_reference
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    want = ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].data, want[0].data)
+    for g, w in zip(got[1] + got[2], want[1] + want[2]):
+        assert torch.equal(g, w)
 
 
 CORNER_SHAPES = [(130, 40, 32), (67, 7, 64), (129, 112, 128), (33, 23, 256)]

@@ -159,10 +159,15 @@ def test_all_days_empty_raises(tmp_path):
 
 
 def test_fixed_time_windows_still_raise(tmp_path):
+    """``fixed_time`` windows of the written days (a synthetic day and a
+    day of random rows): bit-equal to the JAX loader's."""
     _write_days(str(tmp_path), n_days=1)
-    _, tc = _configs(tmp_path, ep_type="fixed_time")
-    with pytest.raises(NotImplementedError, match="fixed_time"):
-        tlob.load_data(tc)
+    jc, tc = _configs(tmp_path, ep_type="fixed_time", episode_time=300,
+                      start_resolution=300)
+    want = JLoader(jc).run_loading()
+    got = tlob.load_data(tc)
+    assert got.n_windows == want.n_windows > 10
+    _assert_equal(want, got)
 
 
 def test_port_writes_the_same_csvs_as_jax(tmp_path):

@@ -11,18 +11,21 @@ reference's (ref: lobster_loader.py:444-452, 618-782):
 - MATCH(4) -> LIMIT(1) with the direction flipped; DELETE(3) -> CANCEL(2);
 - trader_id := order_id;
 - ``fixed_steps`` windows start every ``start_resolution * n_msg_per_step``
-  messages; the last episode is zero-padded to a step multiple.
+  messages, ``fixed_time`` windows every ``start_resolution`` seconds of
+  the day (the messages of ``episode_time`` seconds from there); the last
+  episode is zero-padded to a step multiple.
 
 With ``data_path`` set, :class:`LobsterLoader` reads every day pair
 ``{data_path}/{stock}/{time_period}/*message*.csv`` / ``*orderbook*.csv``
 (sorted, parsed in parallel by the native parser of ``data/native.py``,
 else by ``np.loadtxt``), skips days left empty by the filtering, and
 caches the result in ``cache_dir`` as a compressed npz under the JAX
-package's key.  ``fixed_time`` windows are not ported yet and raise.
+package's key.
 """
 
 from __future__ import annotations
 
+import functools
 import glob
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -84,15 +87,30 @@ def _day_windows(msgs: np.ndarray, book: np.ndarray, cfg: WorldConfig,
                  index_offset: int
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Window start/end indices + init books for one preprocessed day."""
-    if cfg.ep_type != "fixed_steps":
-        raise NotImplementedError(
-            f"ep_type={cfg.ep_type!r}: only fixed_steps windows are ported")
     n = len(msgs)
-    span = cfg.episode_time * cfg.n_data_msg_per_step
-    step = cfg.n_data_msg_per_step * cfg.start_resolution
-    last_start = n - span
-    starts = np.arange(0, max(last_start, 0) + 1, step)
-    ends = starts + span
+    if cfg.ep_type == "fixed_steps":
+        span = cfg.episode_time * cfg.n_data_msg_per_step
+        step = cfg.n_data_msg_per_step * cfg.start_resolution
+        last_start = n - span
+        starts = np.arange(0, max(last_start, 0) + 1, step)
+        ends = starts + span
+    elif cfg.ep_type == "fixed_time":
+        # a window a start_resolution of the day: its first and last
+        # message within episode_time seconds (ref: lobster.py:104-114)
+        time_s = msgs[:, 6]
+        starts_l: List[int] = []
+        ends_l: List[int] = []
+        for w0 in range(cfg.day_start, cfg.day_end + 1,
+                        cfg.start_resolution):
+            in_win = np.nonzero((time_s >= w0)
+                                & (time_s < w0 + cfg.episode_time))[0]
+            if len(in_win):
+                starts_l.append(int(in_win[0]))
+                ends_l.append(int(in_win[-1]))
+        starts = np.array(starts_l, dtype=np.int64)
+        ends = np.array(ends_l, dtype=np.int64)
+    else:
+        raise ValueError(f"unknown ep_type {cfg.ep_type!r}")
     init_books = book[starts]
     return starts + index_offset, ends + index_offset, init_books
 
@@ -214,20 +232,24 @@ class LobsterLoader:
         return data
 
 
+@functools.lru_cache(maxsize=16)
+def _synthetic_day(seed: int, n_messages: int, levels: int, day_start: int,
+                   day_end: int) -> Tuple[np.ndarray, np.ndarray]:
+    """One preprocessed synthetic day, made once a process for its
+    arguments (generating one takes seconds of host time); read only."""
+    from vit_marl_tpu_torch.data.synthetic import generate_day
+
+    day = generate_day(seed=seed, n_messages=n_messages, levels=levels,
+                       day_start=day_start, day_end=day_end)
+    return _preprocess_day(day.messages, day.orderbook, day_start, day_end)
+
+
 def load_data(cfg: WorldConfig) -> LoadedData:
     """The LOBSTER days under ``cfg.data_path``, or, where it is empty,
     ``cfg.n_synthetic_days`` synthetic days generated in memory."""
     if cfg.data_path:
         return LobsterLoader(cfg).run_loading()
-
-    from vit_marl_tpu_torch.data.synthetic import generate_day
-
-    days = []
-    for d in range(cfg.n_synthetic_days):
-        day = generate_day(seed=cfg.seed + d,
-                           n_messages=cfg.n_messages_per_synthetic_day,
-                           levels=cfg.book_depth,
-                           day_start=cfg.day_start, day_end=cfg.day_end)
-        days.append(_preprocess_day(day.messages, day.orderbook,
-                                    cfg.day_start, cfg.day_end))
+    days = [_synthetic_day(cfg.seed + d, cfg.n_messages_per_synthetic_day,
+                           cfg.book_depth, cfg.day_start, cfg.day_end)
+            for d in range(cfg.n_synthetic_days)]
     return _assemble(days, cfg)

@@ -27,11 +27,10 @@ def build_init_states(cfg: WorldConfig, data: LoadedData,
 
     Replays each window's L2 snapshot into an empty book.  The init
     messages are limit orders only, so the random-cancel draws are never
-    consulted; zeros stand in for them.
+    consulted; zeros stand in for them.  In ``fixed_time`` episodes a
+    window starts on the ``start_resolution`` grid of the trading day
+    (ref: base.py:37-44).
     """
-    if cfg.ep_type != "fixed_steps":
-        raise NotImplementedError(
-            f"ep_type={cfg.ep_type!r}: only fixed_steps is ported")
     n = data.n_windows
     msgs_np = data.messages[data.starts][:, [MsgCol.TIME_S, MsgCol.TIME_NS]]
     first_times = torch.as_tensor(msgs_np, dtype=torch.int32, device=device)
@@ -46,9 +45,17 @@ def build_init_states(cfg: WorldConfig, data: LoadedData,
     max_steps = torch.as_tensor(
         data.max_msgs_per_window // cfg.n_data_msg_per_step + 1,
         dtype=torch.int32, device=device)
+    window_index = torch.arange(n, dtype=torch.int32, device=device)
+    init_time = first_times
+    if cfg.ep_type == "fixed_time":
+        start = ((window_index * cfg.start_resolution)
+                 % (cfg.day_end - cfg.day_start - cfg.episode_time
+                    + cfg.start_resolution) + cfg.day_start)
+        init_time = torch.stack([start, torch.zeros_like(start)],
+                                dim=1).to(torch.int32)
     return LoadedState(
-        book=book.data, init_time=first_times,
-        window_index=torch.arange(n, dtype=torch.int32, device=device),
+        book=book.data, init_time=init_time,
+        window_index=window_index,
         max_steps_in_episode=max_steps,
         start_index=torch.as_tensor(data.starts, dtype=torch.int32,
                                     device=device),
@@ -83,11 +90,18 @@ def gather_reset_state(params: WorldParams, idx: Tensor) -> LoadedState:
 
 
 def get_data_messages(cfg: WorldConfig, message_data: Tensor,
-                      start_index: Tensor, step_counter: Tensor) -> Tensor:
+                      start_index: Tensor, step_counter: Tensor,
+                      end_time_s: Optional[Tensor] = None) -> Tensor:
     """This step's ``(E, n, 8)`` data messages (ref: base.py:96-116); the
-    clip reproduces ``dynamic_slice``'s clamp-to-fit."""
+    clip reproduces ``dynamic_slice``'s clamp-to-fit.  In ``fixed_time``
+    episodes the messages at or after the episode's end (``end_time_s``,
+    ``(E,)``) are zeroed but for their two time fields."""
     n = cfg.n_data_msg_per_step
     offset = torch.clamp(start_index.long() + n * step_counter.long(), 0,
                          message_data.shape[0] - n)
     rows = offset[:, None] + torch.arange(n, device=offset.device)
-    return message_data[rows]
+    msgs = message_data[rows]
+    if cfg.ep_type == "fixed_time":
+        past_end = msgs[:, :, MsgCol.TIME_S] >= end_time_s[:, None]
+        msgs[:, :, :6] = torch.where(past_end[..., None], 0, msgs[:, :, :6])
+    return msgs

@@ -196,12 +196,70 @@ def mul_add(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
     FMAs; the port computes them the same way on every device (float64 is
     exact for the product of a float32 and a small integer).
     """
-    return (a.double() + b.double() * c.double()).float()
+    a, b, c = (_f64(v) for v in (a, b, c))
+    return (a + b * c).float()
+
+
+def _f64(v) -> Tensor:
+    """float64 of a tensor, or of a Python number taken as float32 first
+    (a JAX weak-typed scalar meets float32 arrays as float32)."""
+    if isinstance(v, Tensor):
+        return v.double()
+    return torch.tensor(v, dtype=torch.float32).double()
 
 
 def mul_sub(a: Tensor, b: Tensor, c: Tensor) -> Tensor:
     """float32 ``a - b * c`` with one rounding (see :func:`mul_add`)."""
-    return (a.double() - b.double() * c.double()).float()
+    a, b, c = (_f64(v) for v in (a, b, c))
+    return (a - b * c).float()
+
+
+def to_int32(x: Tensor) -> Tensor:
+    """float -> int32 as XLA converts: toward zero, saturating at the int32
+    range, NaN to 0 (a plain cast leaves NaN and out-of-range values
+    undefined)."""
+    x = torch.nan_to_num(x, nan=0.0, posinf=2.0 ** 31, neginf=-2.0 ** 31)
+    big = x >= 2.0 ** 31
+    x = torch.where(big, 0.0, torch.clamp(x, min=-2.0 ** 31))
+    return torch.where(big, torch.iinfo(torch.int32).max,
+                       x.to(torch.int32))
+
+
+def sum_last(x: Tensor) -> Tensor:
+    """float32 sum over the last axis in the order of the JAX package's
+    XLA CPU backend: an axis longer than 32 is padded with zeros, equally
+    on both sides, to windows of 32; each window is summed in order, then
+    the window sums in order.
+
+    XLA also turns a division by a constant into a product with its
+    float32 reciprocal and folds constant factors together, so a mean
+    divided by the tick is ``sum * (f32(1/n) * f32(1/tick))``.  Money
+    terms that subtract such a mean from a nearly equal sum (the market
+    maker's ``averageMidprice``, mm.py:315) move by ~1e-3 relative with
+    another order or rounding.
+    """
+    def in_order(v):
+        s = v[..., 0]
+        for k in range(1, v.shape[-1]):
+            s = s + v[..., k]
+        return s
+
+    n = x.shape[-1]
+    x = x.to(torch.float32)
+    if n > 32:
+        w = -(-n // 32)
+        pad = 32 * w - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = in_order(x.reshape(x.shape[:-1] + (w, 32)))
+    return in_order(x)
+
+
+def f32_product(*factors: float) -> Tensor:
+    """The float32 product of float32 constants, as XLA folds them."""
+    out = torch.tensor(1.0, dtype=torch.float32)
+    for f in factors:
+        out = out * torch.tensor(f, dtype=torch.float32)
+    return out
 
 
 def floor_tick(x: Tensor, tick: int) -> Tensor:

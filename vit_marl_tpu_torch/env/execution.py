@@ -1,21 +1,25 @@
-"""Execution agent: the action, reward and observation spaces of the
-ported paths.
+"""Execution agent: optimal-execution action, reward and observation
+spaces.
 
-Port of ``vit_marl_tpu/env/execution.py`` in ``fixed_steps`` episodes,
-batched over ``(E, n)``:
+Port of ``vit_marl_tpu/env/execution.py``, batched over ``(E, n)``:
 
-- actions ``fixed_quants_complex`` (13 discrete), ``simplest_case`` (3
-  discrete: no trade, far touch, near touch) and ``policy_blending``
-  (continuous ``Box(3,)`` blend over the top-3 own-side levels, with the
-  ``blend_aggressive`` option);
-- rewards ``normal``, ``simplest_case`` and ``dual_ppo``;
-- observations ``engineered`` (12), ``simplest_case`` (3) and
-  ``execution_policy`` (28), and the ``{"obs", "vision_obs"}`` dict with
-  the normalized ``(levels, 3, 2)`` book image when ``use_vision_obs`` is
-  set.
+- actions ``fixed_quants`` (5), ``fixed_quants_complex`` (13),
+  ``fixed_quants_1msg`` (5, one message), ``simplest_case`` (3: no trade,
+  far touch, near touch), ``fixed_prices`` (a ``Box`` of ``n_actions``
+  quantities over a ladder of the last 10 best quotes, ``action_type``
+  ``pure`` or ``delta`` over the ``twap_v3`` split, capped at the task by
+  Hamilton apportionment), the baselines ``twap`` and ``twap_v3``, and
+  ``policy_blending`` (continuous ``Box(3,)`` blend over the top-3
+  own-side levels, with the ``blend_aggressive`` option);
+- rewards ``normal``, ``finish_fast``, ``simplest_case`` and ``dual_ppo``;
+- observations ``engineered`` (12, 15 in ``fixed_time`` episodes),
+  ``basic`` (3), ``simplest_case`` (3) and ``execution_policy`` (28), and
+  the ``{"obs", "vision_obs"}`` dict with the normalized ``(levels, 3,
+  2)`` book image when ``use_vision_obs`` is set.
 
-The other spaces of the reference (TWAP, fixed prices, fixed quants,
-fixed quants 1msg, basic, finish fast) are not ported yet and raise.
+``twap_v3`` and ``fixed_prices`` draw each step (the split's order, the
+apportionment's tie-breaks); the draws enter as
+:class:`~vit_marl_tpu_torch.env.structs.ExecStepDraw`.
 """
 
 from __future__ import annotations
@@ -27,8 +31,15 @@ import torch.nn.functional as F
 
 from vit_marl_tpu_torch.config import ExecutionConfig, WorldConfig
 from vit_marl_tpu_torch.env import common, spaces
-from vit_marl_tpu_torch.env.structs import ExecParams, ExecState, WorldState
+from vit_marl_tpu_torch.env.structs import (
+    ExecParams,
+    ExecState,
+    ExecStepDraw,
+    Info,
+    WorldState,
+)
 from vit_marl_tpu_torch.lob import book as bk
+from vit_marl_tpu_torch.utils.ints import hamilton_apportionment_permuted
 
 Tensor = torch.Tensor
 
@@ -38,28 +49,41 @@ _QUANT_ARRAY = [
     [1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1],
     [2, 0, 0, 0], [0, 2, 0, 0], [0, 0, 2, 0], [0, 0, 0, 2],
     [5, 0, 0, 0], [0, 5, 0, 0], [0, 0, 5, 0], [0, 0, 0, 5]]
+_ACTIONS = ("fixed_quants", "fixed_quants_complex", "fixed_quants_1msg",
+            "simplest_case", "fixed_prices", "twap", "twap_v3",
+            "policy_blending")
+_OBS = ("engineered", "basic", "simplest_case", "execution_policy")
+_REWARDS = ("normal", "finish_fast", "simplest_case", "dual_ppo")
+# fixed_prices ladder rows of (FT, M, NT, PP) per n_actions
+# (ref: execution.py:211-213)
+_LADDER_ROWS = {4: [0, 1, 2, 3], 3: [0, 2, 3], 2: [0, 2], 1: [0]}
 
 
 class ExecutionAgent:
     def __init__(self, cfg: ExecutionConfig, wcfg: WorldConfig):
-        if cfg.action_space not in ("fixed_quants_complex", "simplest_case",
-                                    "policy_blending"):
-            raise NotImplementedError(
-                f"execution action_space={cfg.action_space!r} is not "
-                "ported yet")
-        if cfg.observation_space not in ("engineered", "simplest_case",
-                                         "execution_policy"):
-            raise NotImplementedError(
-                f"execution observation_space={cfg.observation_space!r} "
-                "is not ported yet")
-        if cfg.reward_space not in ("normal", "simplest_case", "dual_ppo"):
-            raise NotImplementedError(
-                f"execution reward_space={cfg.reward_space!r} is not "
-                "ported yet")
-        if cfg.task not in ("random", "buy", "sell"):
-            raise ValueError(f"invalid task {cfg.task!r}")
+        for what, value, allowed in (
+                ("action_space", cfg.action_space, _ACTIONS),
+                ("observation_space", cfg.observation_space, _OBS),
+                ("reward_space", cfg.reward_space, _REWARDS),
+                ("task", cfg.task, ("random", "buy", "sell"))):
+            if value not in allowed:
+                raise ValueError(f"invalid execution {what} {value!r}")
+        if cfg.action_space == "fixed_prices":
+            if cfg.n_actions not in _LADDER_ROWS:
+                raise ValueError("fixed_prices takes n_actions in 1-4, got "
+                                 f"{cfg.n_actions}")
+            if cfg.action_type == "delta" and cfg.n_actions != 2:
+                # the twapV3 delta baseline is a 2-vector (FT, NT)
+                # (ref: execution.py:44-48)
+                raise ValueError("action_type='delta' requires n_actions=2 "
+                                 "(FT, NT ladder)")
+        if cfg.action_space == "twap" and wcfg.ep_type != "fixed_steps":
+            # (ref: execution.py:289-290)
+            raise ValueError("twap requires fixed_steps episodes")
         self.cfg = cfg
         self.wcfg = wcfg
+
+    needs_stream = False
 
     def default_params(self, trader_id_start: int, n_agents: int,
                        device) -> Tuple[ExecParams, int]:
@@ -106,15 +130,31 @@ class ExecutionAgent:
             trade_duration=z)
         return self.get_observation(world, state), state
 
+    def draw_step(self, n_envs: int, n: int, generator: torch.Generator
+                  ) -> Optional[ExecStepDraw]:
+        """This step's draws of the ``n`` instances (ref: execution.py:
+        230-285): the ``twap_v3`` split's order and the apportionment's
+        tie-breaks; ``None`` for the spaces that draw nothing."""
+        space = self.cfg.action_space
+        twap = space == "twap_v3" or (space == "fixed_prices"
+                                      and self.cfg.action_type == "delta")
+        if space not in ("twap_v3", "fixed_prices"):
+            return None
+        k = 2 if space == "twap_v3" else self.cfg.n_actions
+        dev = generator.device
+        swap = (torch.rand((n_envs, n), generator=generator, device=dev)
+                < 0.5) if twap else None
+        ties = torch.rand((n_envs, n, k), generator=generator, device=dev)
+        return ExecStepDraw(swap=swap, ties=ties)
+
     # ------------------------------------------------------------------
 
-    def _task_prices(self, world: WorldState, state: ExecState) -> Tensor:
-        """(FT, M, NT, PP) ladder, ``(E, n, 4)`` int32
-        (ref: vision_env.py:848-869)."""
+    def _ladder(self, best_ask: Tensor, best_bid: Tensor, state: ExecState
+                ) -> Tensor:
+        """(FT, M, NT, PP) for the task direction from ``(E, 1)`` best
+        quotes, ``(E, n, 4)`` int32 (ref: execution.py:98-120)."""
         tick = self.wcfg.tick_size
         nt = self.cfg.n_ticks_in_book
-        best_ask = common.floor_tick(world.best_asks[:, -1, 0], tick)[:, None]
-        best_bid = common.floor_tick(world.best_bids[:, -1, 0], tick)[:, None]
         buy = torch.stack([
             best_ask,
             common.floor_tick(torch.div(best_bid + best_ask, 2,
@@ -128,6 +168,14 @@ class ExecutionAgent:
         is_sell = state.is_sell_task[..., None] != 0
         return torch.where(is_sell, sell, buy).to(torch.int32)
 
+    def _task_prices(self, world: WorldState, state: ExecState) -> Tensor:
+        """The ladder from the instantaneous best quotes."""
+        tick = self.wcfg.tick_size
+        return self._ladder(
+            common.floor_tick(world.best_asks[:, -1, 0], tick)[:, None],
+            common.floor_tick(world.best_bids[:, -1, 0], tick)[:, None],
+            state)
+
     @staticmethod
     def _cap_quants(quants: Tensor, first_row: Tensor, state: ExecState
                     ) -> Tensor:
@@ -137,9 +185,19 @@ class ExecutionAgent:
         return torch.where(quants.sum(dim=-1, keepdim=True) <= quant_left,
                            quants, first_row * quant_left).to(torch.int32)
 
-    def _quants_fixed_quants_complex(self, action: Tensor, world: WorldState,
-                                     state: ExecState
-                                     ) -> Tuple[Tensor, Tensor]:
+    def _quants_fixed_quants(self, action, world, state):
+        """5 actions: no trade or one of 4 levels (ref: execution.py:
+        152-162); ``larger_far_touch_quant`` sends 10x at the far touch."""
+        row1 = [10, 0, 0, 0] if self.cfg.larger_far_touch_quant \
+            else [1, 0, 0, 0]
+        qa = torch.tensor([[0, 0, 0, 0], row1, [0, 1, 0, 0], [0, 0, 1, 0],
+                           [0, 0, 0, 1]], dtype=torch.int32,
+                          device=action.device)
+        quants = qa[action.long()] * self.cfg.fixed_quant_value
+        return (self._cap_quants(quants, qa[1], state),
+                self._task_prices(world, state))
+
+    def _quants_fixed_quants_complex(self, action, world, state):
         """(quants, prices) ``(E, n, 4)`` (ref: vision_env.py:1537-1587)."""
         prices = self._task_prices(world, state)
         qa = torch.tensor(_QUANT_ARRAY, dtype=torch.int32,
@@ -147,7 +205,99 @@ class ExecutionAgent:
         quants = qa[action.long()] * self.cfg.fixed_quant_value  # (E, n, 4)
         return self._cap_quants(quants, qa[1], state), prices
 
-    def _quants_simplest(self, action: Tensor, world: WorldState,
+    def _quants_fixed_quants_1msg(self, action, world, state):
+        """One message at the level the action picks, 0 = no trade
+        (ref: execution.py:177-186)."""
+        prices4 = self._task_prices(world, state)
+        level = torch.clamp(action.long() - 1, min=0)[..., None]
+        price = torch.gather(prices4, -1, level)
+        quant = torch.where(action == 0, 0, self.cfg.fixed_quant_value)
+        quant = torch.minimum(quant, state.task_to_execute
+                              - state.quant_executed)
+        return quant[..., None].to(torch.int32), price
+
+    def _twap_v3_quants(self, world: WorldState, state: ExecState,
+                        swap: Tensor) -> Tensor:
+        """twapV3 two-level split (ref: execution.py:230-246): the pair
+        (ceil(q/steps) - half, half) over (FT, NT), swapped where ``swap``;
+        two market-size orders in the last 60 seconds."""
+        remaining_time = (self.wcfg.episode_time
+                          - (world.time - world.init_time)[:, 0])
+        if_market = (remaining_time <= 60)[:, None, None]
+        quant_left = state.task_to_execute - state.quant_executed
+        steps_left = torch.clamp(world.max_steps_in_episode
+                                 - world.step_counter, min=1)[:, None]
+        step_quant = torch.ceil(quant_left / steps_left).to(torch.int32)
+        half = torch.div(step_quant, 2, rounding_mode="floor")
+        first, second = step_quant - half, half
+        limit = torch.stack([torch.where(swap, second, first),
+                             torch.where(swap, first, second)], dim=-1)
+        market = torch.stack([step_quant, step_quant], dim=-1)
+        return torch.where(if_market, market, limit)
+
+    @staticmethod
+    def _fit_task(quants: Tensor, state: ExecState, ties: Tensor) -> Tensor:
+        """Round, clip to the task's remainder and, where the sum still
+        exceeds it, truncate by randomized Hamilton apportionment
+        (ref: execution.py:260-265, :280-285)."""
+        remain = (state.task_to_execute - state.quant_executed)[..., None]
+        if quants.is_floating_point():
+            quants = torch.round(quants)
+        quants = torch.minimum(torch.clamp(quants, min=0), remain).to(
+            torch.int32)
+        fits = quants.sum(dim=-1, keepdim=True) <= remain
+        ham = hamilton_apportionment_permuted(quants, remain[..., 0], ties)
+        return torch.where(fits, quants, ham.to(torch.int32))
+
+    def _quants_twap_v3(self, action, world, state, draw: ExecStepDraw):
+        """twapV3 baseline (ref: execution.py:248-266); the policy action
+        is ignored."""
+        prices = self._task_prices(world, state)[..., [0, 2]]   # (FT, NT)
+        quants = self._twap_v3_quants(world, state, draw.swap)
+        return self._fit_task(quants, state, draw.ties), prices
+
+    def _quants_fixed_prices(self, action, world, state,
+                             draw: ExecStepDraw):
+        """A quantity a price level (ref: execution.py:199-228, :268-285):
+        the ladder from the mean of the last 10 best quotes; with
+        ``action_type='delta'`` the action adds to the twapV3 split; the
+        quantities are fitted to the task.  With 4 levels and mid equal to
+        near touch, the mid order joins the near-touch one."""
+        tick = self.wcfg.tick_size
+        if self.cfg.action_type == "delta":
+            action = self._twap_v3_quants(world, state, draw.swap) + action
+        quants = self._fit_task(action, state, draw.ties)
+        best_ask = common.floor_tick(
+            world.best_asks[:, -10:, 0].to(torch.float32).mean(dim=1), tick)
+        best_bid = common.floor_tick(
+            world.best_bids[:, -10:, 0].to(torch.float32).mean(dim=1), tick)
+        full = self._ladder(best_ask.to(torch.int32)[:, None],
+                            best_bid.to(torch.int32)[:, None], state)
+        prices = full[..., _LADDER_ROWS[self.cfg.n_actions]]
+        if self.cfg.n_actions == 4:
+            combine = (prices[..., 1] == prices[..., 2])[..., None]
+            moved = torch.stack([quants[..., 0], torch.zeros_like(
+                quants[..., 1]), quants[..., 2] + quants[..., 1],
+                quants[..., 3]], dim=-1)
+            quants = torch.where(combine, moved, quants)
+            no_mid = prices.clone()
+            no_mid[..., 1] = -1
+            prices = torch.where(combine, no_mid, prices)
+        return quants, prices
+
+    def _quants_twap(self, action, world, state):
+        """TWAP baseline (ref: execution.py:287-301): the remainder over
+        the steps left, at the far touch (action 0) or near touch."""
+        steps_left = torch.clamp(world.max_steps_in_episode
+                                 - world.step_counter - 1, min=1)[:, None]
+        quant_left = state.task_to_execute - state.quant_executed
+        step_quant = torch.ceil(quant_left / steps_left).to(torch.int32)
+        prices = self._task_prices(world, state)[..., [0, 2]]   # (FT, NT)
+        qa = torch.tensor([[1, 0], [0, 1]], dtype=torch.int32,
+                          device=action.device)
+        return qa[action.long()] * step_quant[..., None], prices
+
+    def _quants_simplest_case(self, action: Tensor, world: WorldState,
                          state: ExecState) -> Tuple[Tensor, Tensor]:
         """0 = no trade, 1 = far touch, 2 = near touch; (quants, prices)
         ``(E, n, 2)`` (ref: execution.py:188-197, vision_env.py:1145-1211).
@@ -200,19 +350,23 @@ class ExecutionAgent:
                 torch.cat([prices3, pad], dim=-1))
 
     def get_messages(self, action: Tensor, world: WorldState,
-                     state: ExecState, params: ExecParams
+                     state: ExecState, params: ExecParams,
+                     draw: Optional[ExecStepDraw] = None
                      ) -> Tuple[Tensor, Tensor]:
-        """Action and cancel messages, ``(E, n, 4, 8)`` each
-        (ref: vision_env.py:1537-1587; execution.py:364-387)."""
+        """Action and cancel messages, ``(E, n, k, 8)`` each
+        (ref: execution.py:349-389); ``draw``: this step's draws of the
+        spaces that draw (:meth:`draw_step`)."""
         dev = action.device
-        if self.cfg.action_space == "policy_blending":
-            quants, prices = self._quants_policy_blending(action, world,
-                                                          state)
-        elif self.cfg.action_space == "simplest_case":
-            quants, prices = self._quants_simplest(action, world, state)
+        space = self.cfg.action_space
+        if space in ("twap_v3", "fixed_prices"):
+            if draw is None:
+                raise ValueError(f"action_space={space!r} draws each step: "
+                                 "pass its ExecStepDraw")
+            quants, prices = getattr(self, f"_quants_{space}")(
+                action, world, state, draw)
         else:
-            quants, prices = self._quants_fixed_quants_complex(action, world,
-                                                               state)
+            quants, prices = getattr(self, f"_quants_{space}")(
+                action, world, state)
         n = self.cfg.num_action_messages
         side = (1 - state.is_sell_task * 2)[..., None]
         action_msgs = common.build_action_msgs(
@@ -241,20 +395,25 @@ class ExecutionAgent:
 
     def get_reward(self, world: WorldState, state: ExecState,
                    params: ExecParams, bestasks: Tensor, bestbids: Tensor,
-                   summary: common.TradeSummary
+                   summary: common.TradeSummary, time: Tensor
                    ) -> Tuple[Tensor, Dict[str, Tensor]]:
-        """Doom trade + the ``normal``, ``simplest_case`` or ``dual_ppo``
-        reward (ref: exec_env.py:1698-1930, vision_env.py:2063-2240).
-        Returns the scaled reward (``simplest_case``: over the task size)
-        and the extras."""
+        """Doom trade + the ``normal``, ``finish_fast``, ``simplest_case``
+        or ``dual_ppo`` reward (ref: execution.py:395-527).  Returns the
+        scaled reward (``finish_fast``: over 10, ``simplest_case``: over
+        the task size) and the extras; ``time`` is the step's last message
+        time."""
         cfg, wcfg = self.cfg, self.wcfg
         tick = wcfg.tick_size
         col = lambda v: v[:, None]                     # noqa: E731
         quant_this_step = summary.signed_sum.abs()
         quant_left0 = state.task_to_execute - (state.quant_executed
                                                + quant_this_step)
-        ep_is_over = col(world.max_steps_in_episode - world.step_counter
-                         - 1 <= 1)
+        if wcfg.ep_type == "fixed_time":
+            remaining = wcfg.episode_time - (time - world.init_time)[:, 0]
+            ep_is_over = col(remaining <= wcfg.last_step_seconds)
+        else:
+            ep_is_over = col(world.max_steps_in_episode - world.step_counter
+                             - 1 <= 1)
         penalty = cfg.doom_price_penalty
         is_sell = state.is_sell_task != 0
         doom_price = torch.where(
@@ -318,7 +477,9 @@ class ExecutionAgent:
                                     drift)
             reward_lam1 = direction * common.mul_sub(revenue, init_tick,
                                                      agent_quant)
-            if cfg.reward_space == "simplest_case":
+            if cfg.reward_space == "finish_fast":
+                reward = -quant_left.abs() / 10
+            elif cfg.reward_space == "simplest_case":
                 # (ref: execution.py:496-510) sum((p - init_price) * |q|)
                 # without int32 wrap: fill prices are on the tick grid, so
                 # split init_price into ticks (exact integers) and the
@@ -350,9 +511,13 @@ class ExecutionAgent:
     def is_terminal(self, world: WorldState, state: ExecState) -> Tensor:
         """(ref: vision_env.py:480-518)"""
         task_done = state.task_to_execute - state.quant_executed <= 0
-        time_done = (world.max_steps_in_episode - world.step_counter
-                     <= 1)[:, None]
-        return time_done | task_done
+        if self.wcfg.ep_type == "fixed_time":
+            time_done = (self.wcfg.episode_time
+                         - (world.time - world.init_time)[:, 0]
+                         <= self.cfg.seconds_before_episode_end)
+        else:
+            time_done = world.max_steps_in_episode - world.step_counter <= 1
+        return time_done[:, None] | task_done
 
     def update_state(self, world: WorldState, state: ExecState, extras
                      ) -> Tuple[ExecState, Tensor, Dict[str, Tensor]]:
@@ -368,7 +533,7 @@ class ExecutionAgent:
             vwap_rm=extras["vwap_rm"],
             trade_duration=extras["trade_duration"])
         done = self.is_terminal(world, new_state)
-        info = {
+        info = Info({
             "quant_left": extras["quant_left"],
             "done": done,
             "revenue_direction_normalised": extras["reward_lam1"],
@@ -377,30 +542,48 @@ class ExecutionAgent:
             "doom_quant": extras["doom_quant"],
             "is_sell_task": new_state.is_sell_task,
             "reward": extras["reward"],
-        }
+        })
         return new_state, done, info
 
     # ------------------------------------------------------------------
 
-    def get_observation(self, world: WorldState, state: ExecState):
+    def get_observation(self, world: WorldState, state: ExecState,
+                        stream=None):
         """The flat observation ``(E, n, d)``, or with ``use_vision_obs``
         the dict ``{"obs": (E, n, d), "vision_obs": (E, n, levels, 3, 2)}``
-        (ref: execution.py:741-760)."""
-        if self.cfg.observation_space == "execution_policy":
-            obs = self._obs_execution_policy(world, state)
-        elif self.cfg.observation_space == "simplest_case":
-            obs = self._obs_simplest(world, state)
-        else:
-            obs = self._obs_engineered(world, state)
+        (ref: execution.py:741-760); ``stream`` is unused."""
+        obs = {"execution_policy": self._obs_execution_policy,
+               "simplest_case": self._obs_simplest,
+               "basic": self._obs_basic,
+               "engineered": self._obs_engineered}[
+                   self.cfg.observation_space](world, state)
         if not self.cfg.use_vision_obs:
             return obs
         vision = self.get_vision_obs(world)
         return {"obs": obs, "vision_obs": vision[:, None].expand(
             (-1, obs.shape[1]) + vision.shape[1:])}
 
+    def _obs_basic(self, world: WorldState, state: ExecState) -> Tensor:
+        """Best ask, best bid and the quantity left, ``(E, n, 3)``
+        (ref: execution.py:594-607)."""
+        shape = state.quant_executed.shape
+        w = lambda v: v[:, None].expand(shape)         # noqa: E731
+        obs = {
+            "best_ask_price": w(world.best_asks[:, -1, 0]),
+            "best_bid_price": w(world.best_bids[:, -1, 0]),
+            "remaining_quant": state.task_to_execute - state.quant_executed,
+        }
+        if self.cfg.normalize:
+            means = {"best_ask_price": 1_550_000,
+                     "best_bid_price": 1_550_000, "remaining_quant": 0}
+            stds = {"best_ask_price": 1e3, "best_bid_price": 1e3,
+                    "remaining_quant": self.cfg.task_size}
+            obs = {k: (v - means[k]) / stds[k] for k, v in obs.items()}
+        return common.flatten_obs_dict(obs)
+
     def _obs_engineered(self, world: WorldState, state: ExecState) -> Tensor:
-        """12-dim engineered features, ``(E, n, 12)`` float32
-        (ref: vision_env.py:2415-2470)."""
+        """Engineered features, ``(E, n, 12)`` float32, 15 in ``fixed_time``
+        episodes (ref: execution.py:609-659)."""
         shape = state.quant_executed.shape
         w = lambda v: v[:, None].expand(shape)         # noqa: E731
         is_sell = state.is_sell_task != 0
@@ -428,6 +611,12 @@ class ExecutionAgent:
                 max_steps == 0, torch.zeros((), device=steps.device),
                 1.0 - steps / max_steps),
         }
+        if self.wcfg.ep_type == "fixed_time":
+            t = world.time[:, 0] + world.time[:, 1] / 1e9
+            elapsed = t - (world.init_time[:, 0]
+                           + world.init_time[:, 1] / 1e9)
+            obs.update(time=w(t), delta_time=w(world.delta_time),
+                       time_remaining=w(self.wcfg.episode_time - elapsed))
         if self.cfg.normalize:
             ts = self.cfg.task_size
             price_mean = state.init_price * sign_switch
@@ -438,6 +627,8 @@ class ExecutionAgent:
                 "init_price": 1e7, "current_task_size": ts,
                 "executed_quant": ts, "remaining_quant": ts,
                 "step_counter": 30, "remaining_ratio": 1,
+                "time": 1e5, "delta_time": 10,
+                "time_remaining": self.wcfg.episode_time,
             }
             obs = {k: (v - means.get(k, 0)) / stds[k] for k, v in obs.items()}
         return common.flatten_obs_dict(obs)
@@ -553,6 +744,8 @@ class ExecutionAgent:
 
     def action_space(self):
         """(ref: execution.py:766-776)"""
+        if self.cfg.action_space == "fixed_prices":
+            return spaces.Box(0, 100, (self.cfg.n_actions,), torch.int32)
         if self.cfg.action_space == "policy_blending":
             return spaces.Box(torch.tensor([-1.0, 0.0, 0.0]),
                               torch.tensor([3.0, 1.0, 1.0]), (3,))
@@ -560,8 +753,9 @@ class ExecutionAgent:
 
     def observation_space(self):
         """(ref: execution.py:778-792)"""
-        dim = {"execution_policy": 28, "simplest_case": 3}.get(
-            self.cfg.observation_space, 12)
+        engineered = 15 if self.wcfg.ep_type == "fixed_time" else 12
+        dim = {"execution_policy": 28, "simplest_case": 3, "basic": 3,
+               "engineered": engineered}[self.cfg.observation_space]
         flat = spaces.Box(-10_000, 10_000, (dim,))
         if self.cfg.use_vision_obs:
             vision = spaces.Box(-100, 1e8, (self.cfg.vision_levels, 3, 2))

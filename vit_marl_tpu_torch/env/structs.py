@@ -6,13 +6,15 @@ leaves are ``(E, n)`` for ``n`` instances of a type.  The book is one
 ``(E, 2, 6, S)`` tensor (:class:`vit_marl_tpu_torch.lob.book.BookState`
 layout).  The world state carries the step's ``(E, n_trades, 8)`` trade
 log only in ``debug_mode``: the main path folds every fill into
-per-trader sums inside the book scan and never builds one.
+per-trader sums inside the book scan and never builds one.  A step's
+info dicts are :class:`Info`: their fields stacked in one buffer a
+(dtype, shape).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 
@@ -124,6 +126,49 @@ class MultiAgentParams:
     agents: Tuple[Any, ...]
 
 
+@dataclass
+class Stream:
+    """What the message observations read of a step (ref: world.py:
+    163-167, :305-306): the combined stream, the mid price and the L2
+    book before the step."""
+
+    msgs: Tensor            # (E, M, 8) int32
+    old_mid: Tensor         # (E,) float32
+    lob_before: Tensor      # (E, 40) int32
+
+
+class Info(Mapping):
+    """One info dict of a step, its fields held in one buffer a (dtype,
+    shape): the fields of a group are stacked in one launch, and a reader
+    that wants them all (``rl/ppo.py::_reduce_info``) takes each buffer
+    whole.  Reads as a dict of ``(E, ...)`` views, keys in the order
+    given."""
+
+    def __init__(self, fields: Mapping[str, Tensor]):
+        groups: Dict[Any, list] = {}
+        for k, v in fields.items():
+            groups.setdefault((v.dtype, tuple(v.shape)), []).append(k)
+        self.buffers = []            # [(names, (k, *shape) tensor)]
+        self._where = {}
+        for names in groups.values():
+            vals = [fields[k] for k in names]
+            buf = torch.stack(vals) if len(vals) > 1 else vals[0][None]
+            for j, k in enumerate(names):
+                self._where[k] = (len(self.buffers), j)
+            self.buffers.append((tuple(names), buf))
+        self._order = tuple(fields)
+
+    def __getitem__(self, key: str) -> Tensor:
+        b, j = self._where[key]
+        return self.buffers[b][1][j]
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(self._order)
+
+    def __len__(self) -> int:
+        return len(self._order)
+
+
 # --------------------------------------------------------------------------
 # Random draws.  Every draw on the step path enters through these, so a test
 # can hand the port the JAX package's draws; in production the port makes
@@ -138,7 +183,22 @@ class ResetDraws:
 
 
 @dataclass
+class ExecStepDraw:
+    """An execution type's per-step draws (ref: execution.py:230-285).
+
+    ``swap``: ``(E, n)`` bool, the ``twap_v3`` split's permutation of its
+    two levels (``jax.random.permutation`` of a 2-vector); ``ties``:
+    ``(E, n, k)`` float32 uniforms in ``[0, 1)``, one a pick of the
+    Hamilton apportionment (``utils/ints.py``)."""
+
+    swap: Optional[Tensor]
+    ties: Optional[Tensor]
+
+
+@dataclass
 class StepDraws:
     shuffle: Optional[Tensor]        # (E, n_action_msgs) permutation
     uniforms: Optional[Tensor]       # (M, E) float32 cancel uniforms
     reset: ResetDraws                # draws of the auto-reset
+    # per type: the agents' own draws (ExecStepDraw) or None
+    agents: Tuple[Optional[Any], ...] = ()

@@ -20,10 +20,17 @@ the log, as the JAX package's ``debug_mode`` step does.
 Randomness enters as :class:`StepDraws` / :class:`ResetDraws`; without
 them the env draws from the caller's ``torch.Generator``.  The streams
 differ from the JAX package's threefry draws by design.
+
+``VIT_MARL_ABLATE`` (a comma list of ``data``, ``agents``, ``shuffle``,
+``build``, ``obs``, ``reset``) skips those stages of the step, as the JAX
+package's hook does (ref: world.py:76-87): a profiling mode whose results
+are wrong, announced on stderr.
 """
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -35,10 +42,12 @@ from vit_marl_tpu_torch.env.common import summarize_trades, summary_from_aggs
 from vit_marl_tpu_torch.env.execution import ExecutionAgent
 from vit_marl_tpu_torch.env.mm import MarketMakingAgent
 from vit_marl_tpu_torch.env.structs import (
+    Info,
     MultiAgentParams,
     MultiAgentState,
     ResetDraws,
     StepDraws,
+    Stream,
     WorldState,
 )
 from vit_marl_tpu_torch.lob import book as bk
@@ -64,8 +73,6 @@ class WorldEnv:
                  data: Optional[LoadedData] = None, device=None):
         self.device = resolve_device(device)
         self.wcfg = ma_config.world
-        if self.wcfg.ep_type != "fixed_steps":
-            raise NotImplementedError("only fixed_steps episodes are ported")
         self.agent_types = [AGENT_REGISTRY[a.agent_kind](a, self.wcfg)
                             for a in ma_config.agents]
         self.n_per_type = tuple(ma_config.n_agents_per_type)
@@ -73,10 +80,23 @@ class WorldEnv:
         self.num_action_msgs_per_step = sum(
             a.num_action_messages * n
             for a, n in zip(ma_config.agents, self.n_per_type))
+        self._ablate = set(filter(None, os.environ.get(
+            "VIT_MARL_ABLATE", "").split(",")))
+        if self._ablate:
+            print(f"WARNING: VIT_MARL_ABLATE={sorted(self._ablate)} — "
+                  "step stages are SKIPPED in the step. This is a "
+                  "profiling mode; semantics are broken (zeroed messages/"
+                  "observations). Unset the env var for real runs.",
+                  file=sys.stderr)
         self._world_params = env_base.make_world_params(
             self.wcfg, self.device, data)
         self.n_windows = int(self._world_params.init_states.window_index
                              .shape[0])
+        for a in self.agent_types:
+            # message-stream observations carry the world's combined
+            # stream (ref: world.py:92-96)
+            a.total_msgs_per_step = self.num_msgs_per_step
+        self.needs_stream = any(a.needs_stream for a in self.agent_types)
         self.action_spaces = [a.action_space() for a in self.agent_types]
         self.observation_spaces = [a.observation_space()
                                    for a in self.agent_types]
@@ -107,7 +127,8 @@ class WorldEnv:
     def draw_step(self, n_envs: int, generator: torch.Generator
                   ) -> StepDraws:
         """Action shuffle (ref: world.py:201-203), random-cancel uniforms
-        (ref: book_kernel.py:448-461) and the auto-reset's draws."""
+        (ref: book_kernel.py:448-461), the agents' own draws
+        (ref: world.py:181-190) and the auto-reset's draws."""
         shuffle = None
         if self.wcfg.shuffle_action_messages:
             keys = torch.rand((n_envs, self.num_action_msgs_per_step),
@@ -118,8 +139,11 @@ class WorldEnv:
             uniforms = torch.rand((self.num_msgs_per_step, n_envs),
                                   generator=generator,
                                   device=generator.device)
+        agents = tuple(a.draw_step(n_envs, n, generator)
+                       for a, n in zip(self.agent_types, self.n_per_type))
         return StepDraws(shuffle=shuffle, uniforms=uniforms,
-                         reset=self.draw_reset(n_envs, generator))
+                         reset=self.draw_reset(n_envs, generator),
+                         agents=agents)
 
     # ------------------------------------------------------------------
     # reset
@@ -168,21 +192,46 @@ class WorldEnv:
         return [a[:, None] if n == 1 else a
                 for a, n in zip(actions, self.n_per_type)]
 
+    def _zero_obs(self, i: int, E: int):
+        """Ablation stand-in observation (profiling only, ref:
+        world.py:209-216)."""
+        space, n = self.observation_spaces[i], self.n_per_type[i]
+        if hasattr(space, "spaces"):
+            return {k: torch.zeros((E, n) + tuple(s.shape),
+                                   device=self.device)
+                    for k, s in space.spaces.items()}
+        return torch.zeros((E, n) + tuple(space.shape), device=self.device)
+
     def _build_messages(self, state: MultiAgentState, actions: List[Tensor],
                         params: MultiAgentParams,
-                        shuffle: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+                        shuffle: Optional[Tensor],
+                        agent_draws: Sequence = ()
+                        ) -> Tuple[Tensor, Tensor]:
         """Stages A-C: data slice, per-type action/cancel messages, central
         order ids and shuffle (ref: marl_env.py:241-344).  Returns the
         ``(E, M, 8)`` combined stream and the new order-id counters."""
         world = state.world
-        data_msgs = env_base.get_data_messages(
-            self.wcfg, params.world.message_data, world.start_index,
-            world.step_counter)
-        E = data_msgs.shape[0]
+        E = world.step_counter.shape[0]
+        if "data" in self._ablate:
+            data_msgs = torch.zeros((E, self.wcfg.n_data_msg_per_step, 8),
+                                    dtype=torch.int32, device=self.device)
+        else:
+            end_time = (world.init_time[:, 0] + self.wcfg.episode_time
+                        if self.wcfg.ep_type == "fixed_time" else None)
+            data_msgs = env_base.get_data_messages(
+                self.wcfg, params.world.message_data, world.start_index,
+                world.step_counter, end_time)
         all_action, all_cancel = [], []
         for i, agent in enumerate(self.agent_types):
-            msgs_a, msgs_c = agent.get_messages(
-                actions[i], world, state.agents[i], params.agents[i])
+            if "agents" in self._ablate:
+                msgs_a = torch.zeros(
+                    (E, self.n_per_type[i], agent.cfg.num_messages // 2, 8),
+                    dtype=torch.int32, device=self.device)
+                msgs_c = torch.zeros_like(msgs_a)
+            else:
+                msgs_a, msgs_c = agent.get_messages(
+                    actions[i], world, state.agents[i], params.agents[i],
+                    agent_draws[i] if agent_draws else None)
             all_action.append(msgs_a.reshape(E, -1, 8))
             all_cancel.append(msgs_c.reshape(E, -1, 8))
         action_msgs = torch.cat(all_action, dim=1)
@@ -192,7 +241,7 @@ class WorldEnv:
                    - torch.arange(n_act, device=data_msgs.device))
         action_msgs[:, :, MsgCol.OID] = new_ids.to(torch.int32)
         new_id_counter = world.order_id_counter - n_act
-        if shuffle is not None:
+        if shuffle is not None and "shuffle" not in self._ablate:
             action_msgs = torch.gather(
                 action_msgs, 1, shuffle.long()[:, :, None].expand(-1, -1, 8))
         combined = torch.cat([cancel_msgs, action_msgs, data_msgs], dim=1)
@@ -201,16 +250,19 @@ class WorldEnv:
     def _post_engine(self, state: MultiAgentState, params: MultiAgentParams,
                      book: bk.BookState, bestasks: Tensor, bestbids: Tensor,
                      combined: Tensor, new_id_counter: Tensor, summaries,
-                     trades: Optional[Tensor] = None):
+                     trades: Optional[Tensor] = None,
+                     lob_before: Optional[Tensor] = None):
         """Stages E-K: rewards, state updates, dones, infos, observations
         (ref: marl_env.py:420-662).  ``trades``: the step's trade log, in
-        ``debug_mode`` only."""
+        ``debug_mode`` only; ``lob_before``: the L2 book before the step,
+        for message observations."""
         world = state.world
         final_time = combined[:, -1, -2:]
         rewards, extras_list = [], []
         for i, agent in enumerate(self.agent_types):
             r, ex = agent.get_reward(world, state.agents[i], params.agents[i],
-                                     bestasks, bestbids, summaries[i])
+                                     bestasks, bestbids, summaries[i],
+                                     final_time)
             rewards.append(r)
             extras_list.append(ex)
 
@@ -249,16 +301,23 @@ class WorldEnv:
             world_info.update(
                 trades=trades, total_msgs=combined,
                 lob_state=bk.get_l2_state(self.wcfg, 10, new_world.books))
-        info = {"world": world_info, "agents": infos_list}
+        info = {"world": Info(world_info), "agents": infos_list}
 
+        stream = (Stream(msgs=combined, old_mid=world.mid_price,
+                         lob_before=lob_before)
+                  if self.needs_stream else None)
         obs_list = []
         for i, agent in enumerate(self.agent_types):
-            obs = agent.get_observation(new_world, new_agent_states[i])
+            if "obs" in self._ablate:
+                obs_list.append(self._zero_obs(i, combined.shape[0]))
+                continue
+            obs = agent.get_observation(new_world, new_agent_states[i],
+                                        stream)
             mask = dones_list[i] & ~done_all[:, None]
 
             def zero_done(o, mask=mask):
                 m = mask.reshape(mask.shape + (1,) * (o.dim() - mask.dim()))
-                return torch.where(m, 0.0, o)
+                return torch.where(m, 0, o)     # keeps o's dtype
 
             obs_list.append(tree_map(zero_done, obs))
         return obs_list, new_state, rewards, dones, info
@@ -315,8 +374,15 @@ class WorldEnv:
         if draws is None:
             draws = self.draw_step(E, generator)
         actions = self._actions(actions)
-        combined, new_id_counter = self._build_messages(
-            state, actions, params, draws.shuffle)
+        lob_before = (bk.get_l2_state(self.wcfg, 10, state.world.books)
+                      if self.needs_stream else None)
+        if "build" in self._ablate:
+            combined = torch.zeros((E, self.num_msgs_per_step, 8),
+                                   dtype=torch.int32, device=self.device)
+            new_id_counter = state.world.order_id_counter
+        else:
+            combined, new_id_counter = self._build_messages(
+                state, actions, params, draws.shuffle, draws.agents)
 
         prev = torch.stack([state.world.best_asks[:, -1, 0],
                             state.world.best_bids[:, -1, 0]], dim=1)
@@ -339,7 +405,9 @@ class WorldEnv:
 
         obs_st, st_st, rewards, dones, infos = self._post_engine(
             state, params, book, bestasks, bestbids, combined,
-            new_id_counter, summaries, trades)
+            new_id_counter, summaries, trades, lob_before)
+        if "reset" in self._ablate:
+            return obs_st, st_st, rewards, dones, infos
 
         # vectorised auto-reset (ref: marl_env.py:737-766)
         obs_re, st_re = self.reset(draws.reset, params)

@@ -32,14 +32,21 @@ Each update's metrics go to :class:`rl.logger.Logger`; with
 latest and continues after it (the env states and the generator restart
 from the seed, as in the JAX package).
 
+With ``eval_every`` the policies are evaluated greedily every
+``eval_every`` updates on a held-out world (:func:`make_eval_env`) for
+``eval_steps`` steps of ``eval_envs`` envs (:func:`eval_rollout`), which
+adds ``{name}/eval_mean_reward`` and, with ``log_env_info``, the
+``eval_``-prefixed action and info metrics to the update's metrics.
+
 Not ported yet, and refused by :func:`check_ported` or ``make_network``:
-eval, the pipeline rollout, meshes, ``cnn_gru`` and continuous actions on
+the pipeline rollout, meshes, ``cnn_gru`` and continuous actions on
 ``gru``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
@@ -48,6 +55,7 @@ from torch import nn
 
 from vit_marl_tpu_torch.config import MultiAgentConfig, TrainConfig
 from vit_marl_tpu_torch.env import spaces
+from vit_marl_tpu_torch.env.structs import Info
 from vit_marl_tpu_torch.env.world import WorldEnv
 from vit_marl_tpu_torch.models.rnn import ActorCriticRNN, ScannedGRU
 from vit_marl_tpu_torch.models.vit import VIT_PRESETS, ViTActorCriticRNN
@@ -94,30 +102,44 @@ def _per_type(val, i: int):
     return val
 
 
-def _moments(fields: Dict[str, Tensor], squares: bool):
-    """Per-field means over all elements, cast to float32 first (and means
-    of squares: ``(2,)`` ``[mean, mean of squares]`` a field): one stack
-    (promoting int and bool fields; on the card a copy a field) and one
-    reduction per element count."""
+def _moments(info: Info, squares: bool):
+    """Per-field float32 means over all elements (and means of squares:
+    ``(2,)`` ``[mean, mean of squares]`` a field).  The fields come in
+    :class:`Info`'s buffers, one a (dtype, shape); the buffers of one
+    element count are cast into one float32 block (a copy a buffer),
+    squared in one pass and reduced in one."""
+    groups: Dict[int, list] = {}
+    for names, buf in info.buffers:
+        groups.setdefault(buf[0].numel(), []).append((names, buf))
     out = {}
-    groups: Dict[int, List[str]] = {}
-    for k, v in fields.items():
-        groups.setdefault(v.numel(), []).append(k)
-    for keys in groups.values():
-        x = torch.stack([fields[k].reshape(-1) for k in keys]).to(
-            torch.float32)
-        m = torch.stack([x.mean(1), x.square().mean(1)], 1) if squares \
-            else x.mean(1)
-        out.update(zip(keys, m))
-    return {k: out[k] for k in fields}
+    for numel, bufs in groups.items():
+        n_fields = sum(len(names) for names, _ in bufs)
+        dev = bufs[0][1].device
+        y = torch.empty((2 if squares else 1, n_fields, numel),
+                        dtype=torch.float32, device=dev)
+        off = 0
+        for names, buf in bufs:
+            y[0, off:off + len(names)].view(buf.shape).copy_(buf)
+            off += len(names)
+        if squares:
+            torch.mul(y[0], y[0], out=y[1])
+        m = y.mean(dim=2)
+        keys = [k for names, _ in bufs for k in names]
+        out.update((k, m[:, j] if squares else m[0, j])
+                   for j, k in enumerate(keys))
+    return {k: out[k] for k in info}
 
 
 def _reduce_info(info):
     """One env step's info tree reduced on the device (ref: ppo.py:71-91):
     each agent type's fields to ``(2,)`` ``[mean, mean of squares]``, the
-    world's to means."""
-    return {"agents": [_moments(inf, True) for inf in info["agents"]],
-            "world": _moments(info["world"], False)}
+    world's to means.  A dict of fields is taken into an :class:`Info`
+    first."""
+    def as_info(d):
+        return d if isinstance(d, Info) else Info(d)
+    return {"agents": [_moments(as_info(inf), True)
+                       for inf in info["agents"]],
+            "world": _moments(as_info(info["world"]), False)}
 
 
 def _action_metrics(action: Tensor, space, prefix: str, out) -> None:
@@ -301,19 +323,106 @@ def make_networks(env: WorldEnv, cfg: TrainConfig) -> List[nn.Module]:
 
 def check_ported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a trainer option the port would
-    otherwise accept and drop without a word: a device mesh, periodic
-    eval and the pipelined rollout."""
+    otherwise accept and drop without a word: a device mesh and the
+    pipelined rollout."""
     refused = {
         "MESH_SHAPE": tuple(cfg.mesh_shape) != (),
-        "EVAL_EVERY": cfg.eval_every > 0,
         "ROLLOUT_MODE": cfg.rollout_mode == "pipeline",
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise NotImplementedError(
             f"{', '.join(bad)}: not ported yet (mesh_shape="
-            f"{tuple(cfg.mesh_shape)}, eval_every={cfg.eval_every}, "
-            f"rollout_mode={cfg.rollout_mode!r})")
+            f"{tuple(cfg.mesh_shape)}, rollout_mode={cfg.rollout_mode!r})")
+
+
+def make_eval_env(ma_config: MultiAgentConfig, cfg: TrainConfig,
+                  train_env: WorldEnv) -> WorldEnv:
+    """The held-out evaluation world (ref: ppo.py:182-214), on the
+    training world's device.
+
+    LOBSTER data: ``cfg.eval_time_period`` selects the held-out period;
+    without it the training data is used only with
+    ``cfg.eval_allow_in_sample`` (a warning on stderr), else this raises.
+    Synthetic data: ``cfg.eval_data_seed`` (auto: world seed + 1) makes a
+    different day.
+    """
+    wcfg = ma_config.world
+    dev = train_env.device
+    if cfg.eval_time_period and wcfg.data_path:
+        ew = dataclasses.replace(wcfg, time_period=cfg.eval_time_period)
+        return WorldEnv(dataclasses.replace(ma_config, world=ew), device=dev)
+    if not wcfg.data_path:
+        seed = cfg.eval_data_seed if cfg.eval_data_seed >= 0 \
+            else wcfg.seed + 1
+        ew = dataclasses.replace(wcfg, seed=seed)
+        return WorldEnv(dataclasses.replace(ma_config, world=ew), device=dev)
+    if cfg.eval_allow_in_sample:
+        print("WARNING: eval env shares the TRAINING data "
+              "(EVAL_ALLOW_IN_SAMPLE=true) — eval curves are in-sample.",
+              file=sys.stderr)
+        return train_env
+    raise ValueError(
+        "LOBSTER data is configured but EVAL_TIME_PERIOD is unset: the "
+        "eval env would silently share the TRAINING data and every eval "
+        "curve would be in-sample. Set EVAL_TIME_PERIOD to a held-out "
+        "period, or opt in explicitly with EVAL_ALLOW_IN_SAMPLE=true "
+        "(smoke runs only).")
+
+
+def eval_rollout(env: WorldEnv, nets: Sequence[nn.Module], n_envs: int,
+                 n_steps: int, hidden_size: int, log_env_info: bool,
+                 generator: Optional[torch.Generator] = None,
+                 draws=None) -> Dict[str, Tensor]:
+    """Greedy evaluation (ref: ppo.py:668-716): ``n_steps`` steps of
+    ``n_envs`` envs from a reset, each type acting on its distribution's
+    mode.  Returns ``{name}/eval_mean_reward`` (the mean over steps of
+    each step's mean reward) and, with ``log_env_info``, the
+    ``eval_{name}/action_*`` and ``eval_``-prefixed info metrics.
+    ``draws``: (reset draws, a step's draws each step), which tests feed
+    from the JAX package's keys; else the env draws from ``generator``."""
+    n_types = len(env.agent_types)
+    actors = [n * n_envs for n in env.n_per_type]
+    dev = env.device
+    params = env.default_params
+    obs, state = env.reset(draws[0] if draws else
+                           env.draw_reset(n_envs, generator), params)
+    hs = [ScannedGRU.initialize_carry(actors[i], hidden_size, dev)
+          for i in range(n_types)]
+    dns = [torch.zeros(actors[i], dtype=torch.bool, device=dev)
+           for i in range(n_types)]
+    rews, stats, acts = [], [], [[] for _ in range(n_types)]
+    with torch.no_grad():
+        for t in range(n_steps):
+            step_acts = []
+            for i in range(n_types):
+                obs_i = tree_map(lambda v: v[None],
+                                 batchify(obs[i], actors[i]))
+                hs[i], pi, _ = nets[i](hs[i], obs_i, dns[i][None])
+                a = pi.mode()[0]
+                a = a.reshape((n_envs, env.n_per_type[i])
+                              + tuple(a.shape[1:]))
+                acts[i].append(a)
+                step_acts.append(a[:, 0] if env.n_per_type[i] == 1 else a)
+            obs, state, rew, done, info = env.step_vec(
+                state, step_acts, params,
+                draws=draws[1][t] if draws else None, generator=generator)
+            dns = [done["agents"][i].reshape(actors[i])
+                   for i in range(n_types)]
+            rews.append(torch.stack([r.float().mean() for r in rew]))
+            if log_env_info:
+                stats.append(_reduce_info(info))
+    names = [a.cfg.short_name for a in env.agent_types]
+    mean_rew = torch.stack(rews).mean(dim=0)
+    out = {f"{names[i]}/eval_mean_reward": mean_rew[i]
+           for i in range(n_types)}
+    if log_env_info:
+        for i in range(n_types):
+            _action_metrics(torch.stack(acts[i]), env.action_spaces[i],
+                            f"eval_{names[i]}", out)
+        _fold_info_stats(tree_map(lambda *v: torch.stack(v), *stats),
+                         names, out, prefix="eval_")
+    return out
 
 
 def _resume(ckpt: CheckpointManager, learners: Sequence[PPOLearner]) -> int:
@@ -369,6 +478,8 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
             "directory there is nothing to resume from (refusing to "
             "silently restart at update 0)")
     env = env or WorldEnv(ma_config, device=device)
+    eval_env = make_eval_env(ma_config, cfg, env) if cfg.eval_every \
+        else None
     logger = logger or Logger(cfg.log_backend, cfg.log_path)
     dev = env.device
     n_types = len(env.agent_types)
@@ -468,11 +579,17 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
             if cfg.log_env_info:
                 _fold_info_stats(tree_map(lambda *v: torch.stack(v),
                                           *step_stats), names, metrics)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+            if eval_env is not None and (u + 1) % cfg.eval_every == 0:
+                metrics.update(eval_rollout(
+                    eval_env, nets, cfg.eval_envs or cfg.num_envs,
+                    cfg.eval_steps, cfg.hidden_size, cfg.log_env_info, gen))
             # one read of every metric
             values = torch.stack([v.to(torch.float64)
                                   for v in metrics.values()]).tolist()
             metrics = {"update_step": u, **dict(zip(metrics, values))}
-            t2 = time.perf_counter()
             metrics["rollout_s"] = t1 - t0
             metrics["update_s"] = t2 - t1
             # keys in sorted order, as the JAX package's jitted update
@@ -489,4 +606,5 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                 "state": state, "learners": learners}
 
     train.env = env
+    train.eval_env = eval_env
     return train
