@@ -129,6 +129,28 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    process on the 2-player checkpoint and on the ``AvSt``/``twap``
    baseline world (4,096 envs x 50 steps, all four labels); the launch
    count of every run exact;
+17. networks, layouts, pipeline and data parallelism (the port's
+   eleventh slice), each path one update with every count set to 0 just
+   before it and its launches exact: ``configs/ippo_vision_dual_ppo.yaml``
+   on ``NETWORK=[gru, cnn_gru]`` (1,024 envs); ``ippo_2player.yaml`` with
+   a ``fixed_prices`` execution agent (a ``Box`` on ``gru``, 512 envs x
+   128 steps); the ViT-Small encoder forward and backward at B=1,024
+   images on the same weights as flat rows (the kernels), flat rows with
+   the XLA-form attention and ``(B, N, W)`` tokens (bf16: the rank-3
+   embeddings within ``block_tol`` of the flat XLA-form ones, one block
+   of each layout on its own attention route within ``block_tol``; the
+   ``(B, N, W)`` layout launches no attention kernel); ``ippo_vision_simplest.yaml`` with ``VISION_LEVELS=40`` (41
+   tokens: every attention on ``dot_product_attention``, counted, none on
+   kernels 3-4); ``ROLLOUT_MODE=pipeline`` on the vision config (1,024
+   envs, the book scan once a half-batch step); the bench at 4,096 envs
+   with ViT-Small in ``loop``, ``pipeline-seq`` and ``pipeline`` modes
+   (the two-stream pipeline bit-equal to the one-stream schedule in
+   observations and actions; the three rates);
+   ``configs/mesh_ippo_2player.yaml`` as one rank of its 8-way run (a
+   1-rank NCCL group, 4,096 envs, 10 + 10 agents, M=220): one update,
+   finite losses, kernel 1's launches exact; kernel 1 at E=4,096, M=220,
+   20 traders bit-equal to its plain version in all four cancel modes and
+   on the world's stream, its launch plan, time, bound and plain time;
 then one JSON line describing the eight kernels, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -255,6 +277,13 @@ E_CHECK = 256
 DEV = "cuda"                    # where phase 16 builds its worlds
 SPACE_STEPS = 4
 EVAL_STEPS, EVAL_LABEL_STEPS = 32, 50
+# phase 17: the book image of the long-attention update (41 tokens), the
+# mesh config's rank (its 32,768 envs over its 8 ranks) and messages a step
+# (100 data + 10 market makers x 4 + 10 execution agents x 8)
+LONG_LEVELS = 40
+MESH_CONFIG = os.path.join(ROOT, "configs", "mesh_ippo_2player.yaml")
+MESH_ENVS, M_MESH = 4096, 220
+BOX_ENVS = 512
 
 
 # the fused-block kernels: wrapper name -> (TPU function, ViT mode whose
@@ -839,7 +868,9 @@ def counters(attn, bkern, blk):
            "book_scan_records": attr(bkern.process_step_records,
                                      "launches"),
            "short_attention_fwd": attr(attn.short_attention, "launches_fwd"),
-           "short_attention_bwd": attr(attn.short_attention, "launches_bwd")}
+           "short_attention_bwd": attr(attn.short_attention, "launches_bwd"),
+           # not a kernel: the counted plain route past 32 tokens
+           "long_attention": attr(attn.dot_product_attention, "calls")}
     for name in BLOCK_KERNELS:
         out[name] = attr(getattr(blk, name), "launches")
     return out
@@ -913,15 +944,20 @@ def check_metrics(metrics, label=""):
             raise AssertionError(f"{label}non-finite metrics: {bad}")
 
 
-def vision_launches(tc, depth, updates, mode=None):
+def vision_launches(tc, depth, updates, mode=None, halves=1):
     """The kernel launches of ``updates`` updates of a ViT config: the
-    book scan once a step; the rollout runs each block's forward once a
-    step and once for the last value, the update twice a minibatch
-    (remat) and its backward once."""
+    book scan once a step (``halves``: once a half-batch step, in the
+    pipelined rollout); the rollout runs each block's forward once a
+    step (a half-batch step) and once for the last value, the update
+    twice a minibatch (remat) and its backward once.  ``mode="long"``:
+    past 32 tokens, the forwards on the counted plain route."""
     passes = tc.update_epochs * tc.num_minibatches * updates
-    forward = depth * (tc.num_steps + 1) * updates + depth * 2 * passes
-    want = {"book_scan": tc.num_steps * updates}
-    if mode is None:
+    forward = (depth * (halves * tc.num_steps + 1) * updates
+               + depth * 2 * passes)
+    want = {"book_scan": halves * tc.num_steps * updates}
+    if mode == "long":
+        want["long_attention"] = forward
+    elif mode is None:
         want["short_attention_fwd"] = forward
         want["short_attention_bwd"] = depth * passes
     elif mode == "attn_ln_fold":
@@ -1628,6 +1664,347 @@ def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
     return got
 
 
+def config_with(path, sets):
+    """A committed config with ``--set`` overrides (the port's parser)."""
+    from vit_marl_tpu_torch.config import make_config
+    from vit_marl_tpu_torch.utils.cli import apply_set_overrides
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    return make_config(apply_set_overrides(raw, sets))
+
+
+def train_once(torch, count, make_train, ma, tc, want, label, smi,
+               **kw):
+    """One update of a config on the card with every count set to 0 just
+    before it; the losses finite and the launches exactly ``want``.
+    Returns (the update's metrics, the counts, the trainer, its
+    networks)."""
+    train = make_train(ma, tc, device=DEV, **kw)
+    out, got, wall = drive(torch, count, lambda: train(tc.seed, n_updates=1))
+    m = out["metrics"][0]
+    bad = [k for k, v in m.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{label}: non-finite metrics {bad}")
+    expect(got, want, label)
+    steps = tc.num_envs * tc.num_steps
+    losses = ", ".join(f"{k}={v:.5g}" for k, v in sorted(m.items())
+                       if k.endswith(("/total_loss", "/mean_reward")))
+    print(f"  {label}: 1 update x {tc.num_steps} steps x {tc.num_envs} "
+          f"envs in {wall:.2f}s ({steps / wall:.0f} env-steps/s; rollout "
+          f"{m['rollout_s']:.2f}s, PPO {m['update_s']:.2f}s); {losses}; "
+          f"launches { {k: v for k, v in got.items() if v} } [{smi}]",
+          flush=True)
+    return m, got, train, out["networks"]
+
+
+def layouts_check(torch, count, smi):
+    """The ViT-Small encoder (bf16) forward and backward at B_ROLLOUT
+    images on the same weights in three forms: flat rows with the
+    attention kernels (the default), flat rows with the XLA-form
+    attention (``attn_kernel=False``) and ``(B, N, W)`` tokens
+    (``rows_2d=False``, which takes the XLA-form attention by layout, as
+    the JAX package's MHA does).  The flat rows launch the kernels (twice
+    a block forward under remat, once backward), the other two none.
+    The rank-3 layout's embeddings agree with the flat XLA-form ones
+    within ``block_tol`` of the bf16-rounded output (the same math in
+    another layout), and one block of each layout with its default
+    attention (kernel against XLA form) within ``block_tol``; the whole
+    encoder's difference between the two attention routes (P in float32
+    against P rounded to bf16, over 12 blocks) is printed.  Returns the
+    counts of the kernel and rank-3 runs."""
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS, ViTEncoder
+
+    torch.manual_seed(SEED)
+    cfg = VIT_PRESETS["small"]
+    encs = {"flat rows": ViTEncoder(cfg, ATT_N - 1).to(DEV)}
+    for label, kw in (("flat rows, XLA-form attention",
+                       dict(attn_kernel=False)),
+                      ("(B, N, W) tokens", dict(rows_2d=False))):
+        encs[label] = ViTEncoder(dataclasses.replace(cfg, **kw),
+                                 ATT_N - 1).to(DEV)
+        encs[label].load_state_dict(encs["flat rows"].state_dict(),
+                                    strict=True)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    img = 3 * torch.randn((B_ROLLOUT, ATT_N - 1, 3, 2), generator=gen,
+                          device=DEV)
+    w = torch.randn((B_ROLLOUT, cfg.width), generator=gen, device=DEV) / 32
+    res = {}
+    for label, enc in encs.items():
+        def run(enc=enc):
+            enc.zero_grad(set_to_none=True)
+            y = enc(img)
+            (y * w).sum().backward()
+            return y.detach(), {k: p.grad.clone()
+                                for k, p in enc.named_parameters()}
+        run()                        # untimed: first calls' set-up
+        res[label] = drive(torch, count, run)
+    depth = cfg.depth
+    (yk, gk), got_k, tk = res["flat rows"]
+    (yx, gx), got_x, tx = res["flat rows, XLA-form attention"]
+    (y3, g3), got_3, t3 = res["(B, N, W) tokens"]
+    expect(got_k, {"short_attention_fwd": 2 * depth,
+                   "short_attention_bwd": depth}, "encoder, flat rows")
+    expect(got_x, {}, "encoder, flat rows, XLA-form attention")
+    expect(got_3, {}, "encoder, (B, N, W) tokens")
+    tol = block_tol("fused_ln_qkv", yx.to(torch.bfloat16))
+    if not torch.allclose(y3, yx, **tol):
+        raise AssertionError(
+            f"encoder layouts differ: max abs "
+            f"{float((y3 - yx).abs().max())}, tolerance {tol}")
+    if not all(torch.isfinite(g).all() for g in g3.values()):
+        raise AssertionError("encoder, (B, N, W) tokens: non-finite grads")
+
+    def grad_diff(a, b):
+        num = torch.sqrt(sum(((a[k] - b[k]) ** 2).sum() for k in a))
+        return float(num / torch.sqrt(sum((b[k] ** 2).sum() for k in b)))
+
+    # one block, each layout on its own attention route
+    x = torch.randn((B_ROLLOUT * ATT_N, cfg.width), generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    with torch.no_grad():
+        bk_out, got_b, _ = drive(torch, count, lambda: encs["flat rows"]
+                                 .blocks[0](x, ATT_N))
+        b3_out = encs["(B, N, W) tokens"].blocks[0](
+            x.reshape(B_ROLLOUT, ATT_N, -1), ATT_N).reshape(bk_out.shape)
+    expect(got_b, {"short_attention_fwd": 1}, "one block, flat rows")
+    btol = block_tol("fused_block_full", bk_out)
+    if not torch.allclose(b3_out.float(), bk_out.float(), **btol):
+        raise AssertionError(
+            f"one block: layouts differ by "
+            f"{float((b3_out.float() - bk_out.float()).abs().max())}, "
+            f"tolerance {btol}")
+    print(f"  ViT-Small encoder, bf16, B={B_ROLLOUT}, forward + backward: "
+          f"flat rows {tk * 1e3:.1f} ms (launches "
+          f"{ {k: v for k, v in got_k.items() if v} }), flat rows with the "
+          f"XLA-form attention {tx * 1e3:.1f} ms, (B, N, W) tokens "
+          f"{t3 * 1e3:.1f} ms (no kernel launch); (B, N, W) against flat "
+          f"XLA-form: embeddings max abs "
+          f"{float((y3 - yx).abs().max()):.4g} (tolerance {tol}), "
+          f"gradients' relative difference {grad_diff(g3, gx):.3g}; one "
+          f"block, (B, N, W) against flat rows' kernel: max abs "
+          f"{float((b3_out.float() - bk_out.float()).abs().max()):.4g} "
+          f"(tolerance {btol}); the whole encoder, (B, N, W) against "
+          f"flat rows' kernel: embeddings max abs "
+          f"{float((y3 - yk).abs().max()):.4g}, gradients' relative "
+          f"difference {grad_diff(g3, gk):.3g} (P rounded to bf16 "
+          f"against P in float32, over {depth} blocks) [{smi}]",
+          flush=True)
+    return got_k, got_3
+
+
+def pipeline_bench(torch, count, smi):
+    """The bench at 4,096 envs with ViT-Small in ``loop``,
+    ``pipeline-seq`` and ``pipeline`` modes (10 steps x 2 reps after one
+    untimed run); the launches of each exact; ``pipeline`` bit-equal to
+    ``pipeline-seq`` in the last run's observations and every step's
+    actions.  Returns the three rates."""
+    from vit_marl_tpu_torch import bench
+    from vit_marl_tpu_torch.utils.tree import tree_leaves
+
+    depth, rates, finals = 12, {}, {}
+    for mode in ("loop", "pipeline-seq", "pipeline"):
+        args = bench.parse_args(BENCH_ARGS + ["--policy", "vit-small",
+                                              "--mode", mode])
+        out, got, wall = drive(torch, count,
+                               lambda: bench.measure(args, torch.device(DEV)))
+        if mode == "loop":
+            steps = 1 + args.steps * args.reps
+            want = {"book_scan": 1 + steps,
+                    "short_attention_fwd": depth * steps}
+        else:
+            steps = args.steps * (1 + args.reps)
+            want = {"book_scan": 1 + 2 * steps,
+                    "short_attention_fwd": depth * 2 * steps}
+            finals[mode] = tree_leaves(out["final"])
+        expect(got, want, f"bench {mode}")
+        rates[mode] = out["value"]
+        print(f"  bench [vit-small,{mode}]: {out['value']:.1f} env-steps/s "
+              f"({out['detail']}; {wall:.2f}s with the world's set-up; "
+              f"launches { {k: v for k, v in got.items() if v} }) [{smi}]",
+              flush=True)
+    a, b = finals["pipeline"], finals["pipeline-seq"]
+    if len(a) != len(b) or not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("bench: pipeline (two streams) != "
+                             "pipeline-seq (one stream)")
+    print(f"  pipeline on two streams bit-equal to pipeline-seq: "
+          f"{len(a)} tensors (both halves' observations, every step's "
+          f"actions); pipeline / pipeline-seq = "
+          f"{rates['pipeline'] / rates['pipeline-seq']:.4f}, pipeline / "
+          f"loop = {rates['pipeline'] / rates['loop']:.4f} [{smi}]",
+          flush=True)
+    return rates
+
+
+def mesh_scan_checks(torch, bkern, env, state, params, gen, smi):
+    """Kernel 1 at the mesh config's shape (E=MESH_ENVS, M=220, 20
+    traders, the general kernel whose per-trader sums live in shared
+    memory): its launch plan; bit-equal to its plain version on seeded
+    streams in all four cancel modes and on the world's own stream; its
+    time beside its bound and its plain version."""
+    from torch_cases import make_case
+    from vit_marl_tpu_torch.config import EngineConfig
+
+    tids = torch.cat([p.trader_id for p in params.agents])
+    S = env.wcfg.n_orders
+    n_agg = int(tids.numel())
+    plan = bkern.launch_plan(S, n_agg, DEV)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    waves = -(-MESH_ENVS // (plan["warps_per_sm"] * sms))
+    print(f"  kernel 1 launch plan at S={S}, {n_agg} traders: "
+          f"{plan['registers']} registers a thread, {plan['spill_bytes']} "
+          f"spill bytes, {plan['dynamic_smem']} B of dynamic shared memory "
+          f"a block, {plan['warps_per_sm']} warps an SM on {sms} SMs: "
+          f"{waves} waves at E={MESH_ENVS}", flush=True)
+
+    def same(cfg, msgs, book, prev, u, label):
+        got = bkern.process_step_aggs(cfg, msgs, book, tids, prev, TICK, u)
+        want = bkern.process_step_aggs_reference(cfg, msgs, book, tids,
+                                                 prev, TICK, u)
+        pairs = [(got[0].data, want[0].data), (got[1][0], want[1][0]),
+                 (got[1][1], want[1][1]), (got[2][0], want[2][0]),
+                 (got[2][1], want[2][1])]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"kernel 1 != plain at M={M_MESH}, "
+                                 f"{n_agg} traders: {label}")
+
+    from vit_marl_tpu_torch.lob.book import BookState
+    cases = {}
+    for mode in range(4):
+        book, msgs, prev = make_case(MESH_ENVS, M_MESH, S, SEED + 60 + mode,
+                                     tids=tuple(tids.tolist()))
+        u = np.random.default_rng(SEED + mode).random(
+            (M_MESH, MESH_ENVS), dtype=np.float32)
+        case = (torch.from_numpy(msgs).to(DEV),
+                BookState(torch.from_numpy(book).to(DEV)),
+                torch.from_numpy(prev).to(DEV), torch.from_numpy(u).to(DEV))
+        cases[mode] = case
+        same(EngineConfig(n_orders=S, cancel_mode=mode), *case,
+             f"seeded streams, cancel mode {mode}")
+    acts = random_actions(torch, env, MESH_ENVS, gen)
+    draws = env.draw_step(MESH_ENVS, gen)
+    combined, _ = env._build_messages(state, env._actions(acts), params,
+                                      draws.shuffle, draws.agents)
+    if combined.shape[1] != M_MESH:
+        raise AssertionError(f"mesh world: M={combined.shape[1]}")
+    prev = torch.stack([state.world.best_asks[:, -1, 0],
+                        state.world.best_bids[:, -1, 0]], 1)
+    world_case = (combined, state.world.books, prev, draws.uniforms)
+    same(env.wcfg, *world_case, "the world's stream")
+    mode = int(env.wcfg.cancel_mode)
+    cfg = EngineConfig(n_orders=S, cancel_mode=mode)
+    msgs, book, prev, u = cases[mode]
+    ms, ms_min = time_launches(lambda: bkern.process_step_aggs(
+        cfg, msgs, book, tids, prev, TICK, u))
+    torch.cuda.synchronize()
+    tp = time.perf_counter()
+    bkern.process_step_aggs_reference(cfg, msgs, book, tids, prev, TICK, u)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - tp) * 1e3
+    nbytes = scan_bytes(MESH_ENVS, M_MESH, S, n_agg)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  kernel 1 at M={M_MESH}, E={MESH_ENVS}, {n_agg} traders: "
+          f"bit-equal to plain in cancel modes 0-3 and on the world's "
+          f"stream; {ms:.4f} ms per launch (min {ms_min:.4f}, cancel mode "
+          f"{mode}); plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e6:.1f} MB at 3.35 TB/s) [{smi}]", flush=True)
+    return dict(ms_m220=ms, plain_ms_m220=plain_ms, bound_ms_m220=bound_ms,
+                bit_equal_m220=True, waves_m220=waves,
+                registers_m220=plan["registers"],
+                dynamic_smem_m220=plan["dynamic_smem"])
+
+
+def mesh_phase(torch, count, bkern, make_train, smi):
+    """``configs/mesh_ippo_2player.yaml`` as one rank of its published
+    8-way run: a 1-rank NCCL group, NUM_ENVS=MESH_ENVS (its 32,768 / 8),
+    10 + 10 agents, M=220; one update with finite losses and kernel 1's
+    launches exact; then :func:`mesh_scan_checks` on the world."""
+    import datetime
+
+    import torch.distributed as dist
+    from vit_marl_tpu_torch.parallel.distributed import DataGroup, free_port
+
+    ma, tc = config_with(MESH_CONFIG, [f"NUM_ENVS={MESH_ENVS}",
+                                       "MESH_SHAPE=[1]",
+                                       "LOG_BACKEND=none"])
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=300))
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"group backend {dist.get_backend()}")
+        group = DataGroup.current()
+        _, _, train, _ = train_once(
+            torch, count, make_train, ma, tc,
+            {"book_scan": tc.num_steps},
+            f"mesh_ippo_2player.yaml, rank 0 of a 1-rank NCCL group, "
+            f"{ma.n_agents_per_type} agents", smi, group=group)
+        if train.group.group is None or train.env.num_msgs_per_step != M_MESH:
+            raise AssertionError("the mesh run took no group, or M != 220")
+    finally:
+        dist.destroy_process_group()
+    env = train.env
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    params = env.default_params
+    _, state = env.reset(env.draw_reset(MESH_ENVS, gen), params)
+    for _ in range(2):
+        state = env.step_vec(state, random_actions(torch, env, MESH_ENVS,
+                                                   gen), params,
+                             generator=gen)[1]
+    return mesh_scan_checks(torch, bkern, env, state, params, gen, smi)
+
+
+def slice11_phase(torch, attn, bkern, blk, make_train, smi):
+    """Phase 17: the networks, layouts, rollout and data parallelism of
+    the port's eleventh slice, each path driven once with every count
+    set to 0 just before it.  Returns the counts and the kernel-1
+    numbers at M=220."""
+    from vit_marl_tpu_torch.env import spaces
+    from vit_marl_tpu_torch.models.cnn import CNNActorCriticRNN
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS
+
+    count = counters(attn, bkern, blk)
+    out = {}
+    ma, tc = config_with(VISION_CONFIG, ["NETWORK=[gru, cnn_gru]",
+                                         "LOG_BACKEND=none"])
+    _, out["cnn_gru"], _, nets = train_once(
+        torch, count, make_train, ma, tc, {"book_scan": tc.num_steps},
+        "ippo_vision_dual_ppo.yaml on NETWORK=[gru, cnn_gru]", smi)
+    if not isinstance(nets[1], CNNActorCriticRNN):
+        raise AssertionError("NETWORK=[gru, cnn_gru] built no CNN")
+    ma, tc = config_with(CONFIG, [
+        "AGENT_CONFIGS.EXECUTION.ACTION_SPACE=fixed_prices",
+        "AGENT_CONFIGS.EXECUTION.N_ACTIONS=4", f"NUM_ENVS={BOX_ENVS}",
+        "LOG_BACKEND=none"])
+    m, out["gru_box"], train, nets = train_once(
+        torch, count, make_train, ma, tc, {"book_scan": tc.num_steps},
+        "ippo_2player.yaml, execution fixed_prices (a Box) on gru", smi)
+    if not isinstance(train.env.action_spaces[1], spaces.Box) or \
+            not nets[1].continuous or "EXE/action_std" not in m:
+        raise AssertionError("the gru update took no Box action")
+    out["layouts"] = layouts_check(torch, count, smi)
+    ma, tc = config_with(SIMPLEST_CONFIG, [
+        f"AGENT_CONFIGS.EXECUTION.VISION_LEVELS={LONG_LEVELS}",
+        "LOG_BACKEND=none"])
+    depth = VIT_PRESETS[tc.vit_preset].depth
+    _, out["long"], _, _ = train_once(
+        torch, count, make_train, ma, tc,
+        vision_launches(tc, depth, 1, "long"),
+        f"ippo_vision_simplest.yaml, VISION_LEVELS={LONG_LEVELS} "
+        f"({LONG_LEVELS + 1} tokens)", smi)
+    ma, tc = config_with(VISION_CONFIG, ["ROLLOUT_MODE=pipeline",
+                                         "LOG_BACKEND=none"])
+    _, out["pipeline"], _, _ = train_once(
+        torch, count, make_train, ma, tc,
+        vision_launches(tc, depth, 1, halves=2),
+        "ippo_vision_dual_ppo.yaml, ROLLOUT_MODE=pipeline", smi)
+    out["bench"] = pipeline_bench(torch, count, smi)
+    out["m220"] = mesh_phase(torch, count, bkern, make_train, smi)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1960,6 +2337,11 @@ def main() -> int:
         evaluate_phase(torch, count, ckpt_dir, smi)
     phase("16 agent spaces and evaluation", t0)
 
+    # ---- phase 17: networks, layouts, pipeline, data parallelism ----
+    t0 = time.perf_counter()
+    s11 = slice11_phase(torch, attn, bkern, blk, make_train, smi)
+    phase("17 networks, layouts, pipeline, data parallelism", t0)
+
     # ---- summary ----
     print(json.dumps({"kernels": [{
         "name": "book_scan_aggs",
@@ -1987,13 +2369,19 @@ def main() -> int:
         "registers": plan["registers"],
         "warps_per_sm": plan["warps_per_sm"],
         **m126,
+        **s11["m220"],
+        "launches_phase17": {k: s11[k]["book_scan"] for k in
+                             ("cnn_gru", "gru_box", "long", "pipeline")},
         "eval_env_steps_per_s": eval_rate,
         "info_reduce_kernels": reduce_kernels,
     }, dict(records, launches=dgot["book_scan_records"],
             bit_equal_m126=m126["bit_equal_m126"],
             launches_per_update=dgot["book_scan_records"] // UPDATES)]
       + [dict(att[k], launches=vision[k],
-               launches_attn_ln_fold=modes["attn_ln_fold"][k])
+               launches_attn_ln_fold=modes["attn_ln_fold"][k],
+               launches_pipeline=s11["pipeline"][k],
+               launches_rows_3d=s11["layouts"][1][k],
+               launches_41_tokens=s11["long"][k])
           for k in ("short_attention_fwd", "short_attention_bwd")]
       + [dict(fused[k], launches=modes[BLOCK_KERNELS[k][1]][k],
               launches_mode=BLOCK_KERNELS[k][1]) for k in BLOCK_KERNELS]

@@ -121,7 +121,7 @@ def test_bench_without_a_card_prints_the_error_and_fails(monkeypatch,
 
 
 def test_bench_refuses_other_modes_and_the_cpu_selfcheck(capsys):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         bench.main(["--smoke", "--device", "cpu", "--mode", "scan"])
     assert "error" in _last_json(capsys.readouterr().out)
     with pytest.raises(SystemExit) as e:

@@ -60,8 +60,7 @@ def test_set_needs_key_and_value():
         tcli.apply_set_overrides({}, ["NUM_ENVS"])
 
 
-@pytest.mark.parametrize("field,value", [
-    ("mesh_shape", (8,)), ("rollout_mode", "pipeline")])
+@pytest.mark.parametrize("field,value", [("mesh_shape", (8,))])
 def test_options_the_port_does_not_honour_raise(field, value):
     tc = tcfg.TrainConfig(**{field: value})
     with pytest.raises(NotImplementedError, match=field.upper()):
@@ -74,7 +73,9 @@ def test_options_the_port_honours_pass():
                tcfg.TrainConfig(log_backend="jsonl"),
                tcfg.TrainConfig(log_backend="wandb"),
                tcfg.TrainConfig(checkpoint_dir="ckpt", resume=True),
-               tcfg.TrainConfig(eval_every=5)):
+               tcfg.TrainConfig(eval_every=5),
+               tcfg.TrainConfig(rollout_mode="pipeline"),
+               tcfg.TrainConfig(mesh_shape=(1,))):
         tppo.check_ported(tc)
 
 
@@ -83,6 +84,21 @@ def test_mesh_config_raises():
         os.path.join(ROOT, "configs", "mesh_ippo_2player.yaml"))
     with pytest.raises(NotImplementedError, match="MESH_SHAPE"):
         tppo.make_train(ma, tc, device="cpu")
+
+
+def test_train_cli_pipeline_on_the_cpu():
+    """``--set ROLLOUT_MODE=pipeline`` trains (the split-batch pipelined
+    rollout, one update of a small world); it was refused before the
+    port's pipeline."""
+    out = ttrain.main([
+        "--config", os.path.join(ROOT, "configs", "ippo_2player.yaml"),
+        "--device", "cpu", "--set", "ROLLOUT_MODE=pipeline",
+        *[a for s in SMALL_WORLD for a in ("--set", s)],
+        "--set", "NUM_ENVS=4", "--set", "NUM_STEPS=4", "--set",
+        "NUM_MINIBATCHES=2", "--set", "UPDATE_EPOCHS=1", "--set",
+        "TOTAL_TIMESTEPS=16", "--set", "LOG_BACKEND=none"])
+    assert len(out["metrics"]) == 1
+    assert all(np.isfinite(v) for v in out["metrics"][0].values())
 
 
 def test_train_cli_refuses_resume():

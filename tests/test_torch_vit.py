@@ -192,17 +192,25 @@ def test_squashed_normal_matches_jax():
                                rtol=1e-6, atol=1e-6)
 
 
-# every mode on top of rows_2d=False, the one layout still to port
+# the modes the port still refuses: attn_ln_fold without rows_2d (as the
+# JAX package), and the fused kernels whose attention holds N <= 32 tokens
+# past that (41 tokens); every other mode takes both layouts and 41
+# tokens (tests/test_torch_networks.py)
 @pytest.mark.parametrize("mode", [
-    dict(rows_2d=False), dict(rows_2d=False, attn_kernel=False),
-    dict(rows_2d=False, fused_block=True),
-    dict(rows_2d=False, fused_block_full=True),
     dict(rows_2d=False, attn_ln_fold=True),
-    dict(rows_2d=False, attn_bwd_kernel=False)])
+    dict(fused_block_full=True), dict(attn_ln_fold=True),
+    dict(rows_2d=False, fused_block_full=True),
+    dict(attn_ln_fold=True, attn_bwd_kernel=False),
+    dict(fused_block_full=True, attn_kernel=False)])
 def test_modes_not_ported_raise(mode):
     _, tc = _cfgs("float32", **mode)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tvit.ViTEncoder(tc, LEVELS)
+    if not tc.rows_2d and tc.attn_ln_fold:
+        with pytest.raises(ValueError, match="rows_2d"):
+            tvit.ViTEncoder(tc, LEVELS)
+        return
+    with pytest.raises(NotImplementedError, match="41 tokens"):
+        tvit.ViTEncoder(tc, 40)
+    tvit.ViTEncoder(tc, LEVELS)
 
 
 MODES = {"fused_block": dict(fused_block=True),
@@ -303,6 +311,10 @@ def test_fused_modes_keep_the_parameter_layout():
 
 
 def test_more_than_32_tokens_raise():
-    _, tc = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="32 tokens"):
+    """Past 32 tokens the kernels of fused_block_full and attn_ln_fold
+    raise; the default blocks take the image on dot_product_attention."""
+    _, tc = _cfgs("float32", fused_block_full=True)
+    with pytest.raises(NotImplementedError, match="33 tokens"):
         tvit.ViTEncoder(tc, 32)
+    _, tc = _cfgs("float32")
+    tvit.ViTEncoder(tc, 32)

@@ -1,0 +1,71 @@
+"""Functions that ``tests/test_torch_parallel.py`` runs in each rank of a
+gloo group (``parallel/distributed.py::run_group``).  They import no JAX:
+each child process starts from a fresh interpreter, and imports this
+module to find them."""
+
+from vit_marl_tpu_torch.env.world import WorldEnv
+from vit_marl_tpu_torch.parallel.shard_step import (
+    local_reset_draws,
+    make_sharded_step,
+)
+from vit_marl_tpu_torch.rl import ppo as tppo
+from vit_marl_tpu_torch.utils.tree import tree_map
+
+
+def sharded_steps(group, ma, reset_draws, actions, step_draws):
+    """Reset this rank's envs from its slice of the whole batch's reset
+    draws, then step them with the whole batch's actions and draws (the
+    sharded step slices the draws); returns each step's (obs, state,
+    rewards, dones) of this rank's envs."""
+    env = WorldEnv(ma, device="cpu")
+    params = env.default_params
+    n = reset_draws.window.shape[0] // group.world
+    lo = group.rank * n
+    obs, state = env.reset(local_reset_draws(reset_draws, lo, lo + n),
+                           params)
+    step = make_sharded_step(env, group)
+    out = [(obs, state)]
+    for acts, draws in zip(actions, step_draws):
+        obs, state, rew, done, _ = step(
+            state, [a[lo:lo + n] for a in acts], params, draws=draws)
+        out.append((obs, state, rew, done))
+    return out
+
+
+def ppo_updates(group, make_net, state_dict, cfg, n_updates, traj, init_h,
+                adv, tgt, perms):
+    """``len(perms)`` updates of one learner on this rank's share of the
+    actors (``traj`` and the rest are the whole batch's); returns the
+    weights and each update's loss metrics."""
+    net = make_net()
+    net.load_state_dict(state_dict, strict=True)
+    learner = tppo.PPOLearner(net, cfg, 0, n_updates, group)
+    n = adv.shape[1] // group.world
+    sl = slice(group.rank * n, (group.rank + 1) * n)
+    local = tree_map(lambda v: v[:, sl], traj)
+    infos = []
+    for ep_perms in perms:
+        info = learner.update(init_h[sl], local, adv[:, sl], tgt[:, sl],
+                              cfg.num_minibatches, ep_perms)
+        infos.append({k: float(v) for k, v in info.items()})
+    return ({k: v.numpy() for k, v in net.state_dict().items()}, infos,
+            learner.count)
+
+
+def train(group, ma, tc, seed):
+    """``make_train`` over the group; returns the metrics (without the
+    host times), each network's weights and each learner's step count."""
+    out = tppo.make_train(ma, tc, device="cpu", group=group)(seed)
+    metrics = [{k: v for k, v in m.items()
+                if k not in ("rollout_s", "update_s")}
+               for m in out["metrics"]]
+    weights = [{k: v.numpy() for k, v in net.state_dict().items()}
+               for net in out["networks"]]
+    return metrics, weights, [lr.count for lr in out["learners"]]
+
+
+def make_gru(obs_dim, action_dim, hidden):
+    from vit_marl_tpu_torch.models.rnn import ActorCriticRNN
+    return ActorCriticRNN(obs_dim, action_dim, fc_dim=hidden,
+                          hidden_size=hidden)
+

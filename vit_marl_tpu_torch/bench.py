@@ -20,8 +20,12 @@ Usage:
   python -m vit_marl_tpu_torch.bench --selfcheck          # kernels vs plain
   python -m vit_marl_tpu_torch.bench --smoke --device cpu
 
-``--mode`` takes ``loop`` only: the scanned and pipelined rollouts wait for
-the port's pipeline slice.
+``--mode``: ``loop`` (Python-issued steps), ``pipeline`` (the
+split-batch pipelined rollout of ``rl/pipeline.py``, each tick's env half
+and policy half on two CUDA streams) and ``pipeline-seq`` (the same
+schedule on one stream).  ``scan`` (the JAX bench's fused ``lax.scan``
+rollout, whose counterpart is a CUDA-graph capture of the whole step) is
+not ported and raises.
 """
 
 from __future__ import annotations
@@ -175,14 +179,13 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def bench_loop(args, dev) -> dict:
-    """Env-steps/s: policy forward, sample and ``step_vec``, one untimed
-    step, then ``reps x steps`` timed steps (``bench.py:333-338``)."""
+def _bench_setup(args, dev):
+    """The bench's world, reset at ``args.envs`` envs, and its policies
+    (none, or one network a type at the preset) with zero GRU carries;
+    draws from a generator seeded 0."""
     from vit_marl_tpu_torch.config import TrainConfig
-    from vit_marl_tpu_torch.env import spaces
     from vit_marl_tpu_torch.models.rnn import ScannedGRU
     from vit_marl_tpu_torch.rl.ppo import make_network
-    from vit_marl_tpu_torch.utils.tree import tree_map
 
     E = args.envs
     env = bench_world(args, dev)
@@ -192,14 +195,8 @@ def bench_loop(args, dev) -> dict:
     torch.manual_seed(0)
     obs, state = env.reset(env.draw_reset(E, gen), params)
     n_types = len(env.agent_types)
-    if args.policy == "none":
-        nets = []
-        fixed = [torch.zeros(E, dtype=torch.int64, device=dev)]
-        sp = env.action_spaces[1]
-        fixed.append(torch.ones(E, dtype=torch.int64, device=dev)
-                     if isinstance(sp, spaces.Discrete)
-                     else torch.full((E, 3), 0.5, device=dev))
-    else:
+    nets, hs = [], []
+    if args.policy != "none":
         use_vision = args.policy.startswith("vit")
         vit = _vit_config(args, PRESETS[args.policy])
         tc = TrainConfig(
@@ -216,18 +213,39 @@ def bench_loop(args, dev) -> dict:
                 for i in range(n_types)]
         hs = [ScannedGRU.initialize_carry(E, tc.hidden_size, dev)
               for _ in range(n_types)]
-        no_done = torch.zeros((1, E), dtype=torch.bool, device=dev)
+    return env, params, gen, obs, state, nets, hs
+
+
+def _policy_actions(nets, hs, obs, n: int, gen):
+    """Each network's sampled action for ``n`` envs of one step, no
+    resets (``bench.py::policy_actions``); updates ``hs`` in place."""
+    from vit_marl_tpu_torch.utils.tree import tree_map
+
+    no_done = torch.zeros((1, n), dtype=torch.bool, device=hs[0].device)
+    acts = []
+    for i, net in enumerate(nets):
+        o = tree_map(lambda v: v.reshape((n,) + v.shape[2:])[None], obs[i])
+        hs[i], pi, _ = net(hs[i], o, no_done)
+        acts.append(pi.sample(gen)[0])
+    return acts
+
+
+def bench_loop(args, dev) -> dict:
+    """Env-steps/s: policy forward, sample and ``step_vec``, one untimed
+    step, then ``reps x steps`` timed steps (``bench.py:333-338``)."""
+    from vit_marl_tpu_torch.env import spaces
+
+    E = args.envs
+    env, params, gen, obs, state, nets, hs = _bench_setup(args, dev)
+    if not nets:
+        fixed = [torch.zeros(E, dtype=torch.int64, device=dev)]
+        sp = env.action_spaces[1]
+        fixed.append(torch.ones(E, dtype=torch.int64, device=dev)
+                     if isinstance(sp, spaces.Discrete)
+                     else torch.full((E, 3), 0.5, device=dev))
 
     def one_step(state, obs):
-        if not nets:
-            acts = fixed
-        else:
-            acts = []
-            for i in range(n_types):
-                o = tree_map(lambda v: v.reshape((E,) + v.shape[2:])[None],
-                             obs[i])
-                hs[i], pi, _ = nets[i](hs[i], o, no_done)
-                acts.append(pi.sample(gen)[0])
+        acts = _policy_actions(nets, hs, obs, E, gen) if nets else fixed
         obs, state, rew, _, _ = env.step_vec(state, acts, params,
                                              generator=gen)
         return state, obs, rew[0]
@@ -246,6 +264,65 @@ def bench_loop(args, dev) -> dict:
     return dict(value=E * args.steps * args.reps / dt, compile=compile_time,
                 run=dt, detail=f"envs={E} steps={args.steps} "
                 f"reps={args.reps} msgs/step={env.num_msgs_per_step}")
+
+
+def bench_pipeline(args, dev) -> dict:
+    """Env-steps/s of the split-batch pipelined rollout
+    (``bench.py:346-397``, ``rl/pipeline.py``): ``--mode pipeline`` issues
+    each tick's env half and policy half on two CUDA streams,
+    ``pipeline-seq`` the same schedule on one.  One untimed run of
+    ``steps`` steps, then ``reps`` timed runs.  ``final`` holds the last
+    run's observations of both halves and every step's actions, for
+    comparing the two modes."""
+    from vit_marl_tpu_torch.rl.pipeline import (
+        make_pipelined_runner,
+        split_half,
+    )
+    from vit_marl_tpu_torch.rl.ppo import pipeline_generators
+
+    E = args.envs
+    if args.policy == "none":
+        raise ValueError("pipeline mode needs a policy in the loop")
+    if E % 2:
+        raise ValueError("pipeline mode needs an even env count")
+    env, params, _, obs, state, nets, hs = _bench_setup(args, dev)
+    half = E // 2
+
+    def policy_half(_, pol_state, obs_h):
+        gen, hs_h = pol_state
+        acts = _policy_actions(nets, hs_h, obs_h, half, gen)
+        return (gen, hs_h), acts, acts
+
+    def env_half(_, env_carry, acts):
+        gen, st = env_carry
+        obs_h, st, rew, _, _ = env.step_vec(st, acts, params, generator=gen)
+        return (gen, st), obs_h, rew[0].sum()
+
+    run = make_pipelined_runner(policy_half, env_half,
+                                merged=args.mode == "pipeline")
+    gens = pipeline_generators(0, dev)
+    pol_states = [(gens[0][h], [split_half(c, h, half) for c in hs])
+                  for h in (0, 1)]
+    env_states = [(gens[1][h], split_half(state, h, half)) for h in (0, 1)]
+    pol_ins = [[split_half(o, h, half) for o in obs] for h in (0, 1)]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        pol_states, env_states, pol_ins, _, eouts = run(
+            None, pol_states, env_states, pol_ins, args.steps)
+        _sync(dev)
+        float(eouts[0][-1] + eouts[1][-1])
+        compile_time = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            pol_states, env_states, pol_ins, pouts, eouts = run(
+                None, pol_states, env_states, pol_ins, args.steps)
+        _sync(dev)
+        float(eouts[0][-1] + eouts[1][-1])
+        dt = time.perf_counter() - t0
+    return dict(value=E * args.steps * args.reps / dt, compile=compile_time,
+                run=dt, final=(pol_ins, pouts),
+                detail=f"envs={E} steps={args.steps} reps={args.reps} "
+                f"msgs/step={env.num_msgs_per_step} halves of {half}")
 
 
 def bench_vit_images(args, dev) -> dict:
@@ -319,6 +396,18 @@ def selfcheck(args, dev) -> dict:
                 kernels=errs)
 
 
+def measure(args, dev) -> dict:
+    """The measurement ``args`` name, on ``dev``: a dict with ``value``,
+    ``compile``, ``run`` and ``detail`` (and what the measurement adds)."""
+    if args.vit_images:
+        return bench_vit_images(args, dev)
+    if args.selfcheck:
+        return selfcheck(args, dev)
+    if args.mode.startswith("pipeline"):
+        return bench_pipeline(args, dev)
+    return bench_loop(args, dev)
+
+
 def main(argv=None):
     """Run the bench; returns the printed result dict.  After printing
     the error line, raises ``SystemExit`` (non-zero) when there is no card
@@ -326,9 +415,9 @@ def main(argv=None):
     is not ported."""
     args = parse_args(argv)
     metric, unit = metric_label(args)
-    if args.mode != "loop":
-        why = (f"--mode {args.mode} is not ported yet (ROADMAP.md section "
-               "1, item 7: the pipelined rollout)")
+    if args.mode == "scan":
+        why = ("--mode scan is not ported yet (ROADMAP.md section 1, item "
+               "10: the rollout as one CUDA graph)")
         print(_error_json(metric, why, unit), flush=True)
         raise NotImplementedError(why)
     from vit_marl_tpu_torch.utils.device import resolve_device
@@ -343,12 +432,7 @@ def main(argv=None):
         raise SystemExit(1)
     watchdog = arm_deadline(metric, args.deadline, unit)
     try:
-        if args.vit_images:
-            out = bench_vit_images(args, dev)
-        elif args.selfcheck:
-            out = selfcheck(args, dev)
-        else:
-            out = bench_loop(args, dev)
+        out = measure(args, dev)
     finally:
         watchdog.cancel()
     value = out["value"]

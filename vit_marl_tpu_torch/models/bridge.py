@@ -1,10 +1,11 @@
-"""Flax -> PyTorch weight bridge for :class:`ActorCriticRNN` and
-:class:`ViTActorCriticRNN`.
+"""Flax -> PyTorch weight bridge for :class:`ActorCriticRNN`,
+:class:`ViTActorCriticRNN` and :class:`CNNActorCriticRNN`.
 
-Turns the parameter tree of the JAX package's ``ActorCriticRNN`` or
-``ViTActorCriticRNN`` (nested dicts of numpy arrays, as
-``jax.device_get(params)`` gives them) into the port's ``state_dict``.
-Layout traps:
+Turns the parameter tree of the JAX package's ``ActorCriticRNN``,
+``ViTActorCriticRNN`` or ``CNNActorCriticRNN`` (nested dicts of numpy
+arrays, as ``jax.device_get(params)`` gives them) into the port's
+``state_dict``; a continuous head's ``log_std`` comes along on every
+tree.  Layout traps:
 
 - a flax ``Dense`` kernel is ``(in, out)``; ``torch.nn.Linear.weight`` is
   ``(out, in)``;
@@ -19,7 +20,11 @@ Layout traps:
   ``attn_ln_fold``) keep each block's parameters as flat leaves
   (``ln1_scale``, ``qkv_kernel``, ...) instead of submodules.  The port has
   one parameter layout for every mode, so both trees load into the same
-  ``state_dict``; a checkpoint needs no conversion between modes.
+  ``state_dict``; a checkpoint needs no conversion between modes;
+- a flax ``Conv`` kernel is ``(kh, kw, in, out)``; ``torch.nn.Conv2d``'s
+  weight is ``(out, in, kh, kw)``.  The CNN's ``Dense(128)`` after the
+  flatten needs no permutation: the port's encoder flattens in flax's
+  ``(h, w, c)`` order (``models/cnn.py``).
 """
 
 from __future__ import annotations
@@ -94,26 +99,39 @@ def _gru_into(sd: Dict[str, torch.Tensor], gru: Mapping):
 
 
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """``{"params": {...}}`` (or the inner dict) of either model ->
-    ``state_dict`` of its port."""
+    """``{"params": {...}}`` (or the inner dict) of any of the three
+    models -> ``state_dict`` of its port."""
     p = params.get("params", params)
-    if "vit" in p:
-        return _vit_to_state_dict(p)
+    vision = "vit" in p or "cnn" in p
     sd: Dict[str, torch.Tensor] = {}
-    for flax_name, name in _DENSE.items():
-        _dense_into(sd, name, p[flax_name])
-    _gru_into(sd, p["ScannedGRU_0"])
-    return sd
-
-
-def _vit_to_state_dict(p: Mapping) -> Dict[str, torch.Tensor]:
-    sd: Dict[str, torch.Tensor] = {}
-    for flax_name, name in _VIT_DENSE.items():
+    for flax_name, name in (_VIT_DENSE if vision else _DENSE).items():
         _dense_into(sd, name, _get(p, flax_name))
     _gru_into(sd, p["ScannedGRU_0"])
     if "log_std" in p:
         sd["log_std"] = _t(p["log_std"])
-    sd.update(vit_encoder_state_dict(p["vit"], prefix="vit."))
+    if "vit" in p:
+        sd.update(vit_encoder_state_dict(p["vit"], prefix="vit."))
+    if "cnn" in p:
+        sd.update(cnn_encoder_state_dict(p["cnn"], prefix="cnn."))
+    return sd
+
+
+def cnn_encoder_state_dict(cnn: Mapping, prefix: str = ""
+                           ) -> Dict[str, torch.Tensor]:
+    """The ``VisionAgentCNN`` subtree (``Conv_0``..``Conv_2``,
+    ``Dense_0``, ``Dense_1``) -> the port's ``VisionAgentCNN``
+    ``state_dict``, keys under ``prefix``: each conv kernel ``(kh, kw,
+    in, out)`` transposed to ``(out, in, kh, kw)``."""
+    sd: Dict[str, torch.Tensor] = {}
+    i = 0
+    while f"Conv_{i}" in cnn:
+        conv = cnn[f"Conv_{i}"]
+        sd[f"{prefix}convs.{i}.weight"] = _t(conv["kernel"]).permute(
+            3, 2, 0, 1).contiguous()
+        sd[f"{prefix}convs.{i}.bias"] = _t(conv["bias"])
+        i += 1
+    _dense_into(sd, f"{prefix}fc1", cnn["Dense_0"])
+    _dense_into(sd, f"{prefix}fc2", cnn["Dense_1"])
     return sd
 
 

@@ -11,20 +11,24 @@ hidden-side projections of the reset and update gates carry no bias
     h' = (1 - z) * n + z * h
 
 ``ActorCriticRNN`` is Dense -> relu -> GRU -> {actor head, critic head}
-with the reference's orthogonal gains (ref: ippo_rnn_JAXMARL.py:76-115).
-Weights are drawn from torch's generator; ``models/bridge.py`` loads a
-flax parameter tree instead.
+with the reference's orthogonal gains (ref: ippo_rnn_JAXMARL.py:76-115);
+the actor head is a ``Categorical`` over a ``Discrete`` space, or, given
+a ``Box``'s bounds, a ``SquashedNormal`` with a learned ``log_std``
+(ref: vit_marl_tpu/models/rnn.py:53-91).  :class:`ActorCritic` holds
+the GRU and heads that the vision actor-critics share.  Weights are drawn from
+torch's generator; ``models/bridge.py`` loads a flax parameter tree
+instead.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
-from vit_marl_tpu_torch.models.distributions import Categorical
+from vit_marl_tpu_torch.models.distributions import Categorical, SquashedNormal
 
 
 def _lecun_normal_(w: torch.Tensor) -> None:
@@ -88,28 +92,61 @@ def _dense(i: int, o: int, gain: float) -> nn.Linear:
     return layer
 
 
-class ActorCriticRNN(nn.Module):
-    """(time, batch, obs) + (time, batch) dones -> (hidden, pi, value)."""
+class ActorCritic(nn.Module):
+    """Base of the actor-critics: the actor and critic heads on the GRU's
+    output, Dense -> relu -> Dense for each with orthogonal gains 2 and
+    0.01 (actor), 2 and 1 (critic).  ``action_low`` / ``action_high`` (a
+    ``Box``'s bounds) make the actor a ``SquashedNormal`` with a learned
+    ``log_std`` (zeros), else it is a ``Categorical``."""
 
-    def __init__(self, obs_dim: int, action_dim: int, fc_dim: int = 64,
-                 hidden_size: int = 64):
-        super().__init__()
+    def _init_heads(self, fc_dim: int, hidden_size: int, action_dim: int,
+                    action_low: Optional[torch.Tensor],
+                    action_high: Optional[torch.Tensor]) -> None:
         if hidden_size != fc_dim:
-            # the reference's GRU runs at the embedding width and its carry
-            # at hidden_size; they must agree
+            # the reference's GRU runs at the embedding width and its
+            # carry at hidden_size; they must agree
             raise ValueError(f"hidden_size ({hidden_size}) must equal "
                              f"fc_dim ({fc_dim})")
-        self.embed = _dense(obs_dim, fc_dim, math.sqrt(2))
         self.gru = ScannedGRU(fc_dim)
         self.actor_fc = _dense(fc_dim, hidden_size, 2.0)
         self.actor_out = _dense(hidden_size, action_dim, 0.01)
         self.critic_fc = _dense(fc_dim, fc_dim, 2.0)
         self.critic_out = _dense(fc_dim, 1, 1.0)
+        self.continuous = action_low is not None
+        if self.continuous:
+            self.log_std = nn.Parameter(torch.zeros(action_dim))
+            self.register_buffer("action_low", torch.as_tensor(
+                action_low, dtype=torch.float32), persistent=False)
+            self.register_buffer("action_high", torch.as_tensor(
+                action_high, dtype=torch.float32), persistent=False)
+
+    def _recurrent_heads(self, hidden: torch.Tensor, emb: torch.Tensor,
+                         dones: torch.Tensor):
+        """The GRU over ``emb``, then the heads: (hidden, pi, value)."""
+        hidden, emb = self.gru(hidden, emb, dones)
+        actor_out = self.actor_out(torch.relu(self.actor_fc(emb)))
+        if self.continuous:
+            pi = SquashedNormal(actor_out, self.log_std, self.action_low,
+                                self.action_high)
+        else:
+            pi = Categorical(actor_out)
+        value = self.critic_out(torch.relu(self.critic_fc(emb)))
+        return hidden, pi, value.squeeze(-1)
+
+
+class ActorCriticRNN(ActorCritic):
+    """(time, batch, obs) + (time, batch) dones -> (hidden, pi, value)."""
+
+    def __init__(self, obs_dim: int, action_dim: int, fc_dim: int = 64,
+                 hidden_size: int = 64,
+                 action_low: Optional[torch.Tensor] = None,
+                 action_high: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.embed = _dense(obs_dim, fc_dim, math.sqrt(2))
+        self._init_heads(fc_dim, hidden_size, action_dim, action_low,
+                         action_high)
 
     def forward(self, hidden: torch.Tensor, obs: torch.Tensor,
                 dones: torch.Tensor):
         emb = torch.relu(self.embed(obs))
-        hidden, emb = self.gru(hidden, emb, dones)
-        logits = self.actor_out(torch.relu(self.actor_fc(emb)))
-        value = self.critic_out(torch.relu(self.critic_fc(emb)))
-        return hidden, Categorical(logits), value.squeeze(-1)
+        return self._recurrent_heads(hidden, emb, dones)

@@ -1,8 +1,9 @@
 """ViT encoder over the order-book image and the recurrent actor-critic
 that fuses it with the flat features.
 
-Port of ``vit_marl_tpu/models/vit.py`` on flat ``(B*N, W)`` rows
-(``rows_2d``), in each of its block modes:
+Port of ``vit_marl_tpu/models/vit.py`` in both of its layouts: flat
+``(B*N, W)`` rows (``rows_2d``, the default) or ``(B, N, W)`` tokens
+(``rows_2d=False``), with the same parameters.  Its block modes:
 
 - the defaults: the unfused pre-LN ``Block`` with the short-sequence
   attention kernels (``ops/attention_kernel.py``) forward and backward;
@@ -31,10 +32,22 @@ Numerics follow flax:
   the compute type; GELU is the tanh form;
 - parameters are float32; the residual stream is in the compute type.
 
+The attention's route is chosen by layout and shape alone, as the JAX
+package chooses it (``MHA``, vit.py:187-208): the kernels take flat rows
+of N <= 32 tokens; ``(B, N, W)`` tokens of N <= 32 take the XLA-form
+attention (``attention_nhd``); past 32 tokens either layout takes
+:func:`~vit_marl_tpu_torch.ops.attention_kernel.dot_product_attention`,
+counted in its ``.calls``.  The fused modes take both layouts (the rank-3
+one as flat rows, as ``_fused_block`` does); past 32 tokens
+``fused_block`` runs ``dot_product_attention`` between its kernels, and
+``fused_block_full`` and ``attn_ln_fold`` raise ``NotImplementedError``:
+their CUDA kernels hold an image's attention for N <= 32 only, where the
+JAX package's Pallas kernels take any N.  ``attn_ln_fold`` with
+``rows_2d=False`` raises ``ValueError``, as in the JAX package.
+
 ``remat`` recomputes each block's activations in the backward pass
 (``torch.utils.checkpoint``, as ``nn.remat(Block)``), so the attention
-forward runs twice per block in a PPO update.  ``rows_2d=False`` and more
-than 32 tokens are not ported yet and raise.
+forward runs twice per block in a PPO update.
 """
 
 from __future__ import annotations
@@ -48,11 +61,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from vit_marl_tpu_torch.models.distributions import Categorical, SquashedNormal
-from vit_marl_tpu_torch.models.rnn import ScannedGRU, _dense, _lecun_normal_
+from vit_marl_tpu_torch.models.rnn import ActorCritic, _dense, _lecun_normal_
 from vit_marl_tpu_torch.ops.attention_kernel import (
     MAX_TOKENS,
     attention_reference_xla,
+    dot_product_attention,
     short_attention,
 )
 from vit_marl_tpu_torch.ops.block_kernel import (
@@ -92,13 +105,36 @@ VIT_PRESETS = {
     "base": ViTConfig(width=768, depth=12, heads=12),
 }
 
-_LATER = "is not ported yet (a later slice of the port)"
+def check_ported(cfg: ViTConfig, n_tokens: int) -> None:
+    """Raise for a mode the port does not run at ``n_tokens`` tokens:
+    ``ValueError`` for ``attn_ln_fold`` without ``rows_2d`` (as the JAX
+    package raises), ``NotImplementedError`` for ``fused_block_full`` or
+    ``attn_ln_fold`` past 32 tokens."""
+    if cfg.attn_ln_fold and not (cfg.fused_block or cfg.fused_block_full) \
+            and not cfg.rows_2d:
+        raise ValueError("attn_ln_fold requires the rows_2d layout")
+    fused = ("fused_block_full" if cfg.fused_block_full else
+             None if cfg.fused_block else
+             "attn_ln_fold" if cfg.attn_ln_fold else None)
+    if fused and n_tokens > MAX_TOKENS:
+        raise NotImplementedError(
+            f"{fused} at {n_tokens} tokens: its CUDA kernel holds an "
+            f"image's attention for at most {MAX_TOKENS} tokens (widening "
+            "it is a later kernel PR, ROADMAP.md section 1, item 8); the "
+            "default blocks and fused_block take this image")
 
 
-def check_ported(cfg: ViTConfig) -> None:
-    """Raise ``NotImplementedError`` for a mode the port does not have."""
-    if not cfg.rows_2d:
-        raise NotImplementedError(f"ViTConfig.rows_2d=False {_LATER}")
+def attention(qkv: torch.Tensor, n_tokens: int, heads: int,
+              kernel: bool, bwd_kernel: bool) -> torch.Tensor:
+    """The attention of flat ``(B*N, 3W)`` qkv rows on the route the JAX
+    package's ``MHA`` takes (vit.py:187-208): the kernels where
+    ``kernel`` (flat rows, ``attn_kernel``) and N <= 32; else the
+    XLA-form attention for N <= 32; else ``dot_product_attention``."""
+    if n_tokens > MAX_TOKENS:
+        return dot_product_attention(qkv, n_tokens, heads)
+    if kernel:
+        return short_attention(qkv, n_tokens, heads, bwd_kernel=bwd_kernel)
+    return attention_reference_xla(qkv, n_tokens, heads)
 
 
 class Dense(nn.Linear):
@@ -132,16 +168,21 @@ class MHA(nn.Module):
         self.proj = Dense(cfg.width, cfg.width, dtype)
 
     def forward(self, x: torch.Tensor, n_tokens: int) -> torch.Tensor:
-        """``(B*N, W)`` rows -> ``(B*N, W)``; ``qkv`` lanes are
-        ``[q | k | v]`` with heads contiguous, the kernel's layout."""
+        """``(B*N, W)`` rows or ``(B, N, W)`` tokens -> the same shape;
+        ``qkv`` lanes are ``[q | k | v]`` with heads contiguous, the
+        kernel's layout.  Only flat rows take the kernels, as only rank-2
+        input does in the JAX package."""
         c = self.cfg
         qkv = self.qkv(x)
-        if c.attn_kernel:
-            out = short_attention(qkv, n_tokens, c.heads,
-                                  bwd_kernel=c.attn_bwd_kernel)
-        else:
-            out = attention_reference_xla(qkv, n_tokens, c.heads)
-        return self.proj(out)
+        out = attention(qkv.reshape(-1, qkv.shape[-1]), n_tokens, c.heads,
+                        c.attn_kernel and x.dim() == 2, c.attn_bwd_kernel)
+        return self.proj(out.reshape(x.shape))
+
+
+def _cls_rows(x: torch.Tensor, n_tokens: int) -> torch.Tensor:
+    """The CLS token (token 0) of each image, ``(B, W)``, from flat rows
+    or ``(B, N, W)`` tokens."""
+    return (x.reshape(-1, n_tokens, x.shape[-1]) if x.dim() == 2 else x)[:, 0]
 
 
 class Block(nn.Module):
@@ -170,7 +211,7 @@ class Block(nn.Module):
             return self._attn_ln_fold_block(x, n_tokens, cls_only)
         x = x + self.attn(_layer_norm(self.ln1, x).to(self.dtype), n_tokens)
         if cls_only:
-            x = x.reshape(-1, n_tokens, x.shape[-1])[:, 0]
+            x = _cls_rows(x, n_tokens)
         h = _layer_norm(self.ln2, x).to(self.dtype)
         h = self.mlp2(F.gelu(self.mlp1(h), approximate="tanh"))
         return x + h
@@ -187,14 +228,19 @@ class Block(nn.Module):
 
     def _fused_block(self, x: torch.Tensor, n_tokens: int) -> torch.Tensor:
         """``fused_block_full``: one kernel.  ``fused_block``: LN1+QKV and
-        proj+LN2+MLP kernels around the XLA-form attention."""
+        proj+LN2+MLP kernels around the XLA-form attention (past 32
+        tokens ``dot_product_attention``).  ``(B, N, W)`` tokens run as
+        flat rows."""
         p = self._fused_params()
-        x = x.to(self.dtype)
+        shape = x.shape
+        x = x.reshape(-1, shape[-1]).to(self.dtype)
         if self.cfg.fused_block_full:
-            return fused_block_full(x, *p, n_tokens, self.cfg.heads)
-        attn = attention_reference_xla(fused_ln_qkv(x, *p[:4]), n_tokens,
-                                       self.cfg.heads)
-        return fused_proj_mlp(attn, x, *p[4:])
+            out = fused_block_full(x, *p, n_tokens, self.cfg.heads)
+        else:
+            attn = attention(fused_ln_qkv(x, *p[:4]), n_tokens,
+                             self.cfg.heads, False, False)
+            out = fused_proj_mlp(attn, x, *p[4:])
+        return out.reshape(shape)
 
     def _attn_ln_fold_block(self, x: torch.Tensor, n_tokens: int,
                             cls_only: bool) -> torch.Tensor:
@@ -209,7 +255,7 @@ class Block(nn.Module):
                                  bwd_kernel=self.cfg.attn_bwd_kernel)
         x1 = x + dense(attn, wp, bp)
         if cls_only:
-            x1 = x1.reshape(-1, n_tokens, x1.shape[-1])[:, 0]
+            x1 = _cls_rows(x1, n_tokens)
         h = layer_norm(x1, g2, b2).to(self.dtype)
         return x1 + dense(gelu(dense(h, w1, bm1)), w2, bm2)
 
@@ -219,11 +265,7 @@ class ViTEncoder(nn.Module):
 
     def __init__(self, cfg: ViTConfig, levels: int):
         super().__init__()
-        check_ported(cfg)
-        if levels + 1 > MAX_TOKENS:
-            raise NotImplementedError(
-                f"{levels + 1} tokens: attention over more than "
-                f"{MAX_TOKENS} tokens {_LATER}")
+        check_ported(cfg, levels + 1)
         # The float32 products around the bf16 blocks (patch embed, fusion,
         # GRU, heads) run in full float32 as in the JAX package, and bf16
         # products accumulate in float32: no TF32, no reduced-precision
@@ -250,7 +292,8 @@ class ViTEncoder(nn.Module):
         x = self.patch_embed(x.float()).to(self.dtype)
         cls = self.cls.expand(x.shape[0], 1, W).to(self.dtype)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
-        x = x.reshape(-1, W)
+        if self.cfg.rows_2d:
+            x = x.reshape(-1, W)
         remat = self.cfg.remat and torch.is_grad_enabled()
         # the last block runs LN2 and the MLP on the CLS rows only, except
         # in the fused-block modes, whose kernels take whole images
@@ -262,7 +305,7 @@ class ViTEncoder(nn.Module):
             else:
                 x = block(x, N, last)
         if not cls_short:
-            x = x.reshape(-1, N, W)[:, 0]
+            x = _cls_rows(x, N)
         return _layer_norm(self.ln_f, x).reshape(lead + (W,))
 
 
@@ -283,47 +326,42 @@ class GateFusion(nn.Module):
         return gate * v + (1 - gate) * f
 
 
-class ViTActorCriticRNN(nn.Module):
+class VisionActorCritic(ActorCritic):
     """``{"obs", "vision_obs"}`` dicts of ``(T, B, ...)`` and ``(T, B)``
-    dones -> (hidden, pi, value): ViT CLS embedding and Dense flat
-    embedding, gated fusion, GRU, then the actor and critic heads of
-    ``ActorCriticRNN`` (orthogonal inits, same gains); ``log_std`` for a
-    continuous head."""
+    dones -> (hidden, pi, value): the vision encoder's embedding of the
+    book image and a Dense embedding of the flat features, gated fusion,
+    GRU, then the heads of ``ActorCriticRNN`` (orthogonal inits, same
+    gains; ``log_std`` for a continuous head).  The encoder is the
+    submodule named ``encoder_name``, whose output is ``vision_dim``
+    wide."""
+
+    def __init__(self, encoder_name: str, encoder: nn.Module,
+                 vision_dim: int, obs_dim: int, action_dim: int,
+                 fc_dim: int, hidden_size: int,
+                 action_low: Optional[torch.Tensor],
+                 action_high: Optional[torch.Tensor]):
+        super().__init__()
+        self.encoder_name = encoder_name
+        self.add_module(encoder_name, encoder)
+        self.flat_embed = _dense(obs_dim, fc_dim, math.sqrt(2))
+        self.fusion = GateFusion(vision_dim, fc_dim, fc_dim)
+        self._init_heads(fc_dim, hidden_size, action_dim, action_low,
+                         action_high)
+
+    def forward(self, hidden: torch.Tensor, obs, dones: torch.Tensor):
+        vision = getattr(self, self.encoder_name)(obs["vision_obs"])
+        flat = torch.relu(self.flat_embed(obs["obs"]))
+        emb = torch.relu(self.fusion(vision, flat))
+        return self._recurrent_heads(hidden, emb, dones)
+
+
+class ViTActorCriticRNN(VisionActorCritic):
+    """The vision actor-critic on the ViT encoder (``network: vit_gru``)."""
 
     def __init__(self, obs_dim: int, levels: int, action_dim: int,
                  vit: ViTConfig, fc_dim: int = 64, hidden_size: int = 64,
                  action_low: Optional[torch.Tensor] = None,
                  action_high: Optional[torch.Tensor] = None):
-        super().__init__()
-        if hidden_size != fc_dim:
-            raise ValueError(f"hidden_size ({hidden_size}) must equal "
-                             f"fc_dim ({fc_dim})")
-        self.vit = ViTEncoder(vit, levels)
-        self.flat_embed = _dense(obs_dim, fc_dim, math.sqrt(2))
-        self.fusion = GateFusion(vit.width, fc_dim, fc_dim)
-        self.gru = ScannedGRU(fc_dim)
-        self.actor_fc = _dense(fc_dim, hidden_size, 2.0)
-        self.actor_out = _dense(hidden_size, action_dim, 0.01)
-        self.critic_fc = _dense(fc_dim, fc_dim, 2.0)
-        self.critic_out = _dense(fc_dim, 1, 1.0)
-        self.continuous = action_low is not None
-        if self.continuous:
-            self.log_std = nn.Parameter(torch.zeros(action_dim))
-            self.register_buffer("action_low", torch.as_tensor(
-                action_low, dtype=torch.float32), persistent=False)
-            self.register_buffer("action_high", torch.as_tensor(
-                action_high, dtype=torch.float32), persistent=False)
-
-    def forward(self, hidden: torch.Tensor, obs, dones: torch.Tensor):
-        vision = self.vit(obs["vision_obs"])
-        flat = torch.relu(self.flat_embed(obs["obs"]))
-        emb = torch.relu(self.fusion(vision, flat))
-        hidden, emb = self.gru(hidden, emb, dones)
-        actor_out = self.actor_out(torch.relu(self.actor_fc(emb)))
-        if self.continuous:
-            pi = SquashedNormal(actor_out, self.log_std, self.action_low,
-                                self.action_high)
-        else:
-            pi = Categorical(actor_out)
-        value = self.critic_out(torch.relu(self.critic_fc(emb)))
-        return hidden, pi, value.squeeze(-1)
+        super().__init__("vit", ViTEncoder(vit, levels), vit.width, obs_dim,
+                         action_dim, fc_dim, hidden_size, action_low,
+                         action_high)

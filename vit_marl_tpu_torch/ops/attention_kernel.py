@@ -30,7 +30,10 @@ kernels or raises.  ``short_attention.launches_fwd`` and
 :func:`attention_reference_xla` is the JAX package's XLA attention, which
 rounds P to the input type; the ViT's modes without the kernels run it,
 and the fused blocks' backwards differentiate it, as the JAX package's
-do.
+do.  :func:`dot_product_attention` is the JAX package's attention past 32
+tokens (``models/vit.py::dot_product_attention``), in plain PyTorch, as
+the JAX package computes it in XLA; ``dot_product_attention.calls``
+counts its calls.
 """
 
 from __future__ import annotations
@@ -126,6 +129,33 @@ def attention_reference_xla(qkv: torch.Tensor, n_tokens: int,
     p = torch.softmax(logits, dim=2).to(qkv.dtype)
     out = (p[..., None] * v[:, None]).to(acc).sum(2)        # (B, Nq, H, D)
     return out.reshape(rows, W).to(qkv.dtype)
+
+
+def dot_product_attention(qkv: torch.Tensor, n_tokens: int,
+                          heads: int) -> torch.Tensor:
+    """The JAX package's attention over more than 32 tokens
+    (``vit_marl_tpu/models/vit.py::dot_product_attention``, which MHA
+    takes for N > 32) on flat ``(B*N, 3W)`` qkv rows, in its rounding: q
+    scaled in the input type, logits as float32 products and sums of
+    the (exactly widened) operands, the float32 softmax rounded to the
+    input type, ``P v`` in float32 and rounded once.  Batched products
+    of ``(B, H, N, D)``; differentiable by autograd.  No TF32: the ViT
+    turns it off for every float32 product."""
+    rows, w3 = qkv.shape
+    W = w3 // 3
+    D = W // heads
+    acc = torch.promote_types(qkv.dtype, torch.float32)
+    x = qkv.reshape(rows // n_tokens, n_tokens, 3, heads, D).permute(
+        2, 0, 3, 1, 4)                                     # (3, B, H, N, D)
+    q = (x[0] * D ** -0.5).to(acc)
+    k, v = x[1].to(acc), x[2].to(acc)
+    p = torch.softmax(q @ k.transpose(-1, -2), dim=-1).to(qkv.dtype)
+    out = (p.to(acc) @ v).to(qkv.dtype)                    # (B, H, N, D)
+    dot_product_attention.calls += 1
+    return out.transpose(1, 2).reshape(rows, W)
+
+
+dot_product_attention.calls = 0
 
 
 # --------------------------------------------------------------------------

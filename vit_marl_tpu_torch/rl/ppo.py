@@ -1,8 +1,9 @@
-"""IPPO with recurrent policies, single device.
+"""IPPO with recurrent policies, on one device or data parallel.
 
 Port of ``vit_marl_tpu/rl/ppo.py::make_train`` for GRU policies
-(``gru``) and ViT-GRU policies over ``{"obs", "vision_obs"}`` dict
-observations (``vit_gru``), with discrete or continuous (``Box``) actions:
+(``gru``), and ViT-GRU and CNN-GRU policies over ``{"obs",
+"vision_obs"}`` dict observations (``vit_gru``, ``cnn_gru``), each with
+discrete or continuous (``Box``) actions:
 one network, optimizer and hidden state per agent type; each update collects
 ``num_steps`` batched env steps (a Python loop where the reference scans),
 computes per-type GAE (a reverse loop) and runs per-type clipped-PPO epochs
@@ -38,9 +39,12 @@ With ``eval_every`` the policies are evaluated greedily every
 adds ``{name}/eval_mean_reward`` and, with ``log_env_info``, the
 ``eval_``-prefixed action and info metrics to the update's metrics.
 
-Not ported yet, and refused by :func:`check_ported` or ``make_network``:
-the pipeline rollout, meshes, ``cnn_gru`` and continuous actions on
-``gru``.
+``ROLLOUT_MODE=pipeline`` collects with the split-batch pipelined
+rollout (:func:`rollout_pipeline`, ``rl/pipeline.py``); ``MESH_SHAPE``
+over data axes trains data parallel over ``torch.distributed``, one
+process a device (``parallel/``, :class:`PPOLearner`).  Refused by
+:func:`check_ported`: a ``model`` axis (tensor parallelism), a mesh of
+more ranks than the group, the pipeline under a group of several ranks.
 """
 
 from __future__ import annotations
@@ -57,15 +61,24 @@ from vit_marl_tpu_torch.config import MultiAgentConfig, TrainConfig
 from vit_marl_tpu_torch.env import spaces
 from vit_marl_tpu_torch.env.structs import Info
 from vit_marl_tpu_torch.env.world import WorldEnv
+from vit_marl_tpu_torch.models.cnn import CNNActorCriticRNN
 from vit_marl_tpu_torch.models.rnn import ActorCriticRNN, ScannedGRU
 from vit_marl_tpu_torch.models.vit import VIT_PRESETS, ViTActorCriticRNN
+from vit_marl_tpu_torch.parallel.distributed import DataGroup
+from vit_marl_tpu_torch.parallel.mesh import mesh_ranks, wide_other_axes
+from vit_marl_tpu_torch.parallel.shard_step import make_sharded_step, rank_seed
+from vit_marl_tpu_torch.rl.pipeline import (
+    concat_halves,
+    make_pipelined_runner,
+    split_half,
+)
 from vit_marl_tpu_torch.rl.checkpoint import (
     CheckpointManager,
     adam_state,
     load_adam_state,
 )
 from vit_marl_tpu_torch.rl.logger import Logger
-from vit_marl_tpu_torch.utils.tree import tree_map
+from vit_marl_tpu_torch.utils.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
 
@@ -142,20 +155,29 @@ def _reduce_info(info):
             "world": _moments(as_info(info["world"]), False)}
 
 
-def _action_metrics(action: Tensor, space, prefix: str, out) -> None:
+def _action_metrics(action: Tensor, space, prefix: str, out,
+                    group: Optional[DataGroup] = None) -> None:
     """Per-update action metrics (ref: ppo.py:93-110): the percentage of
     each action id of a Discrete space (``bincount(length=n)``), or the
-    mean and population std of a Box space's sampled actions."""
+    mean and population std of a Box space's sampled actions; under a
+    group, of every rank's actions (equal counts a rank)."""
+    group = group or DataGroup()
     if isinstance(space, spaces.Discrete):
         ids = torch.arange(space.n, device=action.device)
         counts = (action.reshape(-1, 1).to(torch.int32) == ids).sum(0)
-        pct = 100.0 * counts / action.numel()
+        (pct,) = group.mean_tensors([100.0 * counts / action.numel()])
         for a in range(space.n):
             out[f"{prefix}/action_pct_{a}"] = pct[a]
-    else:
+    elif not group.distributed:
         af = action.to(torch.float32)
         out[f"{prefix}/action_mean"] = af.mean()
         out[f"{prefix}/action_std"] = af.std(correction=0)
+    else:
+        af = action.to(torch.float32)
+        (mean,) = group.mean_tensors([af.mean()])
+        (var,) = group.mean_tensors([(af - mean).square().mean()])
+        out[f"{prefix}/action_mean"] = mean
+        out[f"{prefix}/action_std"] = torch.sqrt(var)
 
 
 def _fold_info_stats(info_stats, names, out, prefix: str = "") -> None:
@@ -200,11 +222,24 @@ def linear_schedule(lr: float, count: int, n_mb: int,
 
 
 class PPOLearner:
-    """One agent type's network and optimizer state."""
+    """One agent type's network and optimizer state.
+
+    Under a :class:`~vit_marl_tpu_torch.parallel.distributed.DataGroup`
+    with a process group each rank holds its own share of the actors, and
+    the update computes what the JAX package's GSPMD update computes over
+    the global batch: every minibatch is a slice of one permutation of the
+    *global* actors an epoch (``vit_marl_tpu/rl/ppo.py:474-481``), so its
+    rows fall unevenly across ranks; each rank evaluates the loss terms on
+    the rows it holds as sums over the global row count, the advantage
+    normalisation's mean and centred second moment are all-reduced first,
+    the gradients (with the loss terms, for the metrics) are all-reduced
+    in one buffer, and every rank clips by the same global norm and takes
+    the same Adam step."""
 
     def __init__(self, net: nn.Module, cfg: TrainConfig, i: int,
-                 num_updates: int):
+                 num_updates: int, group: Optional[DataGroup] = None):
         self.net = net
+        self.group = group or DataGroup()
         self.lr = float(_per_type(cfg.lr, i))
         self.max_grad_norm = float(_per_type(cfg.max_grad_norm, i))
         self.clip_eps = float(_per_type(cfg.clip_eps, i))
@@ -217,30 +252,62 @@ class PPOLearner:
         self.count = 0     # optimizer steps taken (optax's schedule count)
 
     def loss(self, init_h: Tensor, traj: Transition, gae: Tensor,
-             targets: Tensor):
-        """Clipped PPO loss (ref: ppo.py:442-462)."""
+             targets: Tensor, count: Optional[int] = None):
+        """Clipped PPO loss (ref: ppo.py:442-462) over a minibatch of
+        ``count`` (T x actors) elements, of which this rank holds
+        ``traj``'s: each term is this rank's sum over ``count``, the
+        advantages normalised by the all-reduced moments.  Returns (total,
+        the five terms stacked), this rank's shares."""
         clip_eps = self.clip_eps
+        g = self.group
+        count = gae.numel() if count is None else count
+        # the global minibatch's advantage moments (biased std, as jnp's)
+        mean = g.all_reduce(gae.sum()[None])[0] / count
+        var = g.all_reduce((gae - mean).square().sum()[None])[0] / count
+        gae = (gae - mean) / (torch.sqrt(var) + 1e-8)
+        if traj.value.numel() == 0:
+            # no row of this minibatch on this rank: nothing to add, but
+            # every parameter still joins the gradient all-reduce
+            zero = sum(p.sum() for p in self.net.parameters()) * 0.0
+            return zero, zero.new_zeros(5)
         _, pi, value = self.net(init_h, traj.obs, traj.done)
         log_prob = pi.log_prob(traj.action)
         v_clip = traj.value + (value - traj.value).clamp(-clip_eps, clip_eps)
         v_loss = 0.5 * torch.maximum((value - targets) ** 2,
-                                     (v_clip - targets) ** 2).mean()
+                                     (v_clip - targets) ** 2).sum() / count
         logratio = log_prob - traj.log_prob
         ratio = torch.exp(logratio)
-        gae = (gae - gae.mean()) / (gae.std(correction=0) + 1e-8)
         l1 = ratio * gae
         l2 = ratio.clamp(1 - clip_eps, 1 + clip_eps) * gae
-        actor_loss = -torch.minimum(l1, l2).mean()
-        entropy = pi.entropy().mean()
-        approx_kl = ((ratio - 1) - logratio).mean()
-        clip_frac = ((ratio - 1).abs() > clip_eps).float().mean()
+        actor_loss = -torch.minimum(l1, l2).sum() / count
+        # a SquashedNormal's entropy is one value for every element
+        entropy = torch.broadcast_to(pi.entropy(), log_prob.shape).sum() \
+            / count
+        approx_kl = ((ratio - 1) - logratio).sum() / count
+        clip_frac = ((ratio - 1).abs() > clip_eps).float().sum() / count
         total = actor_loss + self.vf_coef * v_loss - self.ent_coef * entropy
         return total, torch.stack([v_loss, actor_loss, entropy, approx_kl,
                                    clip_frac])
 
-    def apply_gradients(self) -> None:
-        """optax ``clip_by_global_norm`` then Adam at the annealed rate."""
-        params = [p for p in self.net.parameters() if p.grad is not None]
+    def apply_gradients(self, aux: Optional[Tensor] = None
+                        ) -> Optional[Tensor]:
+        """optax ``clip_by_global_norm`` then Adam at the annealed rate.
+        Under a group the gradients, and ``aux`` with them, are summed
+        over ranks first (one all-reduce); returns the summed ``aux``."""
+        params = list(self.net.parameters())
+        if self.group.distributed:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            extra = [] if aux is None else [aux]
+            flat = self.group.all_reduce(torch.cat(
+                [t.reshape(-1) for t in grads + extra]))
+            off = 0
+            for p in params:
+                p.grad = flat[off:off + p.numel()].view_as(p)
+                off += p.numel()
+            if aux is not None:
+                aux = flat[off:]
+        params = [p for p in params if p.grad is not None]
         g_norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
         keep = g_norm < self.max_grad_norm
         for p in params:
@@ -252,26 +319,42 @@ class PPOLearner:
             group["lr"] = lr
         self.opt.step()
         self.count += 1
+        return aux
 
     def update(self, init_h: Tensor, traj: Transition, advantages: Tensor,
                targets: Tensor, num_minibatches: int,
                perms: Sequence[Tensor]) -> Dict[str, Tensor]:
-        """PPO epochs (ref: ppo.py:464-501): one permutation of the actors
-        per epoch, ``num_minibatches`` contiguous slices of it."""
-        n_actors = advantages.shape[1]
+        """PPO epochs (ref: ppo.py:464-501): one permutation of the
+        actors per epoch, ``num_minibatches`` contiguous slices of it.
+        Under a group the permutations are of the global actors, and this
+        rank's actors are ``rank * n_local`` onwards; the loss metrics are
+        the global minibatches'."""
+        g = self.group
+        n_local = advantages.shape[1]
+        n_actors = n_local * g.world
         mb = n_actors // num_minibatches
+        count = advantages.shape[0] * mb
+        lo = g.rank * n_local
         losses = []
         for perm in perms:
+            if g.distributed:
+                # the rows of each global slice that this rank holds, in
+                # their order within it (one read of the permutation)
+                host = perm.cpu()
             for j in range(num_minibatches):
-                idx = perm[j * mb:(j + 1) * mb]
+                if g.distributed:
+                    sl = host[j * mb:(j + 1) * mb]
+                    idx = (sl[(sl >= lo) & (sl < lo + n_local)] - lo).to(
+                        advantages.device)
+                else:
+                    idx = perm[j * mb:(j + 1) * mb]
                 batch = tree_map(lambda v: v[:, idx], traj)
                 self.opt.zero_grad(set_to_none=True)
                 total, aux = self.loss(init_h[idx], batch, advantages[:, idx],
-                                       targets[:, idx])
+                                       targets[:, idx], count)
                 total.backward()
-                self.apply_gradients()
-                losses.append(torch.cat([total.detach()[None],
-                                         aux.detach()]))
+                aux = torch.cat([total.detach()[None], aux.detach()])
+                losses.append(self.apply_gradients(aux))
         ls = torch.stack(losses).mean(dim=0)
         names = ("total_loss", "value_loss", "actor_loss", "entropy",
                  "approx_kl", "clip_frac")
@@ -280,7 +363,9 @@ class PPOLearner:
 
 def make_network(cfg: TrainConfig, i: int, action_space, obs_space
                  ) -> nn.Module:
-    """The policy network of agent type ``i`` (ref: ppo.py:131-172)."""
+    """The policy network of agent type ``i`` (ref: ppo.py:131-172):
+    ``gru``, ``vit_gru`` or ``cnn_gru``, with a ``Categorical`` head for a
+    ``Discrete`` space or a ``SquashedNormal`` one for a ``Box``."""
     kind = _per_type(cfg.network, i)
     continuous = isinstance(action_space, spaces.Box)
     if continuous:
@@ -289,6 +374,9 @@ def make_network(cfg: TrainConfig, i: int, action_space, obs_space
     else:
         action_dim = int(action_space.n)
         low = high = None
+    if kind in ("vit_gru", "cnn_gru"):
+        obs_dim = int(obs_space.spaces["obs"].shape[0])
+        levels = int(obs_space.spaces["vision_obs"].shape[0])
     if kind == "vit_gru":
         # the preset with the vit_* switches (ref: ppo.py:141-156);
         # models/vit.py raises for a mode the port does not have
@@ -301,18 +389,20 @@ def make_network(cfg: TrainConfig, i: int, action_space, obs_space
             attn_env_block=cfg.vit_attn_env_block,
             attn_ln_fold=cfg.vit_attn_ln_fold)
         return ViTActorCriticRNN(
-            obs_dim=int(obs_space.spaces["obs"].shape[0]),
-            levels=int(obs_space.spaces["vision_obs"].shape[0]),
-            action_dim=action_dim, vit=vit, fc_dim=cfg.fc_dim,
-            hidden_size=cfg.hidden_size, action_low=low, action_high=high)
+            obs_dim=obs_dim, levels=levels, action_dim=action_dim, vit=vit,
+            fc_dim=cfg.fc_dim, hidden_size=cfg.hidden_size, action_low=low,
+            action_high=high)
+    if kind == "cnn_gru":
+        return CNNActorCriticRNN(
+            obs_dim=obs_dim, levels=levels, action_dim=action_dim,
+            fc_dim=cfg.fc_dim, hidden_size=cfg.hidden_size, action_low=low,
+            action_high=high)
     if kind != "gru":
-        raise NotImplementedError(f"network {kind!r} is not ported yet")
-    if continuous:
-        raise NotImplementedError(
-            "continuous actions on the gru network are not ported yet")
+        raise ValueError(f"unknown network {kind!r}")
     return ActorCriticRNN(obs_dim=int(obs_space.shape[0]),
                           action_dim=action_dim, fc_dim=cfg.fc_dim,
-                          hidden_size=cfg.hidden_size)
+                          hidden_size=cfg.hidden_size, action_low=low,
+                          action_high=high)
 
 
 def make_networks(env: WorldEnv, cfg: TrainConfig) -> List[nn.Module]:
@@ -321,19 +411,36 @@ def make_networks(env: WorldEnv, cfg: TrainConfig) -> List[nn.Module]:
             for i in range(len(env.agent_types))]
 
 
-def check_ported(cfg: TrainConfig) -> None:
+def check_ported(cfg: TrainConfig, group: Optional[DataGroup] = None
+                 ) -> None:
     """Raise ``NotImplementedError`` for a trainer option the port would
-    otherwise accept and drop without a word: a device mesh and the
-    pipelined rollout."""
-    refused = {
-        "MESH_SHAPE": tuple(cfg.mesh_shape) != (),
-        "ROLLOUT_MODE": cfg.rollout_mode == "pipeline",
-    }
-    bad = [k for k, v in refused.items() if v]
-    if bad:
+    otherwise accept and drop without a word: a mesh axis other than the
+    data axes wider than one device (the JAX package's ``model`` axis,
+    tensor parallelism); a mesh of more data ranks than the group
+    (``group``: default one process) has; the pipelined rollout under a
+    group of more than one rank, which the JAX package refuses too."""
+    group = group or DataGroup()
+    shape, axes = tuple(cfg.mesh_shape), tuple(cfg.mesh_axes)
+    if shape:
+        other = wide_other_axes(shape, axes)
+        if other:
+            raise NotImplementedError(
+                f"MESH_SHAPE={list(shape)} over MESH_AXES={list(axes)}: "
+                f"the axes {other} are not data axes; tensor parallelism "
+                "over a 'model' axis is not ported yet (ROADMAP.md section "
+                "1, item 9); the port splits envs over 'data' and '*_data' axes")
+        need = mesh_ranks(shape, axes)
+        if need > group.world:
+            raise NotImplementedError(
+                f"MESH_SHAPE={list(shape)} needs {need} devices but only "
+                f"{group.world} are visible: start one process a device "
+                f"(torchrun --nproc-per-node {need} -m "
+                "vit_marl_tpu_torch.train ...)")
+    if cfg.rollout_mode == "pipeline" and group.world > 1:
         raise NotImplementedError(
-            f"{', '.join(bad)}: not ported yet (mesh_shape="
-            f"{tuple(cfg.mesh_shape)}, rollout_mode={cfg.rollout_mode!r})")
+            "ROLLOUT_MODE=pipeline does not compose with a multi-device "
+            "mesh yet; use loop (the mesh path shards the whole step "
+            "instead)")
 
 
 def make_eval_env(ma_config: MultiAgentConfig, cfg: TrainConfig,
@@ -458,9 +565,177 @@ def _resume(ckpt: CheckpointManager, learners: Sequence[PPOLearner]) -> int:
     return latest + 1
 
 
+class Carry(NamedTuple):
+    """The rollout's carry between steps and updates: the env states,
+    each type's observations, done flags and GRU states (actor axis
+    env-major)."""
+
+    state: object
+    obs: list
+    dones: list
+    hstates: list
+
+
+def policy_step(nets: Sequence[nn.Module], obs, dones, hstates, n_envs: int,
+                n_per_type: Sequence[int], generator):
+    """Every type's policy on one step of ``n_envs`` envs: returns the new
+    GRU states, the env's actions and, per type, (action, value,
+    log_prob) on the actor axis."""
+    hs, env_actions, outs = list(hstates), [], []
+    for i, net in enumerate(nets):
+        n = n_per_type[i]
+        obs_i = tree_map(lambda v: v[None], batchify(obs[i], n_envs * n))
+        hs[i], pi, value = net(hs[i], obs_i, dones[i][None])
+        action = pi.sample(generator)
+        outs.append((action[0], value[0], pi.log_prob(action)[0]))
+        a = action[0]
+        env_actions.append(a.reshape((n_envs, n) + a.shape[1:]) if n > 1
+                           else a)
+    return hs, env_actions, outs
+
+
+def env_step(step_fn, state, env_actions, params, n_envs: int,
+             n_per_type: Sequence[int], generator, log_env_info: bool):
+    """One env step of ``n_envs`` envs: returns the new state, the
+    observations, the new done flags on the actor axis, per type
+    (reward, global done, batchified obs) and the step's reduced info."""
+    obs, state, reward, done, info = step_fn(state, env_actions, params,
+                                             generator=generator)
+    outs, dones = [], []
+    for i, n in enumerate(n_per_type):
+        actors = n_envs * n
+        outs.append((batchify(reward[i], actors),
+                     global_done_for_actors(done["__all__"], n),
+                     batchify(obs[i], actors)))
+        dones.append(batchify(done["agents"][i], actors))
+    return state, obs, dones, outs, (_reduce_info(info) if log_env_info
+                                     else None)
+
+
+def _transitions(dones_in, pol_out, env_out):
+    """Each type's Transition of one step."""
+    return [Transition(global_done=e[1], done=d, action=p[0], value=p[1],
+                       reward=e[0], log_prob=p[2], obs=e[2])
+            for d, p, e in zip(dones_in, pol_out, env_out)]
+
+
+def _stack_steps(steps, n_types: int):
+    """Per type, one step's Transitions stacked over the steps."""
+    return [tree_map(lambda *v: torch.stack(v), *[s[i] for s in steps])
+            for i in range(n_types)]
+
+
+def rollout_loop(step_fn, nets, carry: Carry, params, n_steps: int,
+                 n_envs: int, n_per_type, pol_gen, env_gen,
+                 log_env_info: bool):
+    """``n_steps`` steps, policy then env each step (ref: ppo.py:356-402).
+    Returns (per type the stacked Transition, the per-step info
+    moments or None, the new carry)."""
+    steps, stats = [], []
+    state, obs, dones, hs = carry
+    for _ in range(n_steps):
+        hs, acts, pol_out = policy_step(nets, obs, dones, hs, n_envs,
+                                        n_per_type, pol_gen)
+        dones_in = dones
+        state, obs, dones, env_out, st = env_step(
+            step_fn, state, acts, params, n_envs, n_per_type, env_gen,
+            log_env_info)
+        steps.append(_transitions(dones_in, pol_out, env_out))
+        stats.append(st)
+    info = (tree_map(lambda *v: torch.stack(v), *stats) if log_env_info
+            else None)
+    return _stack_steps(steps, len(nets)), info, Carry(state, obs, dones, hs)
+
+
+def rollout_pipeline(step_fn, nets, carry: Carry, params, n_steps: int,
+                     n_envs: int, n_per_type, gens, log_env_info: bool,
+                     merged: bool = True):
+    """The split-batch pipelined rollout (``rl/pipeline.py``; ref:
+    ppo.py:533-653): half ``h`` runs its policy on ``gens[0][h]`` and
+    its env on ``gens[1][h]``; ``merged`` puts each tick's halves on two
+    CUDA streams.  Returns what :func:`rollout_loop` returns, the
+    halves joined on the actor (and env) axis."""
+    half = n_envs // 2
+
+    def policy_half(_, pol_state, pol_in):
+        gen, hs = pol_state
+        obs_h, done_h = pol_in
+        hs, acts, outs = policy_step(nets, obs_h, done_h, hs, half,
+                                     n_per_type, gen)
+        # the policy side of each Transition, with its done input
+        return (gen, hs), acts, (outs, done_h)
+
+    def env_half(_, env_carry, acts):
+        gen, st = env_carry
+        st, obs, dones, outs, stats = env_step(
+            step_fn, st, acts, params, half, n_per_type, gen, log_env_info)
+        return (gen, st), (obs, dones), (outs, stats)
+
+    run = make_pipelined_runner(policy_half, env_half, merged=merged)
+    actors = [n * half for n in n_per_type]
+    pol_states = [(gens[0][h], [split_half(hv, h, a) for hv, a
+                                in zip(carry.hstates, actors)])
+                  for h in (0, 1)]
+    env_states = [(gens[1][h], split_half(carry.state, h, half))
+                  for h in (0, 1)]
+    pol_ins = [([split_half(o, h, half) for o in carry.obs],
+                [split_half(d, h, a) for d, a in zip(carry.dones, actors)])
+               for h in (0, 1)]
+    pol_f, env_f, in_f, pouts, eouts = run(None, pol_states, env_states,
+                                           pol_ins, n_steps)
+    trajs_h = [_stack_steps([_transitions(pouts[h][t][1], pouts[h][t][0],
+                                          eouts[h][t][0])
+                             for t in range(n_steps)], len(nets))
+               for h in (0, 1)]
+    # (T, actors, ...) leaves: the halves join on the actor axis
+    trajs = [tree_map(lambda a, b: torch.cat([a, b], dim=1), a, b)
+             for a, b in zip(*trajs_h)]
+    info = None
+    if log_env_info:
+        # per-step moments over equal half sizes: the mean of the two
+        # halves is the full batch's
+        st = [tree_map(lambda *v: torch.stack(v),
+                       *[eouts[h][t][1] for t in range(n_steps)])
+              for h in (0, 1)]
+        info = tree_map(lambda a, b: (a + b) / 2, st[0], st[1])
+    new = Carry(concat_halves(env_f[0][1], env_f[1][1]),
+                [concat_halves(a, b) for a, b in zip(in_f[0][0],
+                                                     in_f[1][0])],
+                [concat_halves(a, b) for a, b in zip(in_f[0][1],
+                                                     in_f[1][1])],
+                [concat_halves(a, b) for a, b in zip(pol_f[0][1],
+                                                     pol_f[1][1])])
+    return trajs, info, new
+
+
+def pipeline_generators(seed: int, device) -> List[List[torch.Generator]]:
+    """The pipelined rollout's generators, ``[policy, env][half]``, each
+    seeded from (seed, role, half)."""
+    out = []
+    for role in range(2):
+        row = []
+        for h in range(2):
+            g = torch.Generator(device=device)
+            g.manual_seed(rank_seed(seed, 1 + 2 * role + h))
+            row.append(g)
+        out.append(row)
+    return out
+
+
+def resolve_group(cfg: TrainConfig, group: Optional[DataGroup] = None
+                  ) -> DataGroup:
+    """The data-parallel group of a run: with ``MESH_SHAPE``, ``group``
+    or the initialized default process group (one process, no group,
+    where there is none); without it, one process."""
+    if not tuple(cfg.mesh_shape):
+        return DataGroup()
+    return group or DataGroup.current()
+
+
 def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                env: Optional[WorldEnv] = None, device=None,
-               logger: Optional[Logger] = None):
+               logger: Optional[Logger] = None,
+               group: Optional[DataGroup] = None):
     """Build the training function (ref: ppo.py:274-833).
 
     The env (with its window table) is built here, on ``device`` (the card
@@ -470,42 +745,73 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
     ``cfg.num_updates`` (at most ``n_updates`` of them).  ``logger``
     (default: ``cfg.log_backend`` to ``cfg.log_path``) receives each
     update's metrics dict.
+
+    ``rollout_mode="pipeline"`` collects with :func:`rollout_pipeline`
+    (two CUDA streams on the card); anything else with the loop.
+
+    With ``MESH_SHAPE`` the run is data parallel over ``group`` (default:
+    the initialized process group; see :func:`resolve_group`): this rank
+    steps ``NUM_ENVS / ranks`` envs with its generator seeded from (seed,
+    rank), the networks start from rank 0's weights, the epochs'
+    permutations are rank 0's, and the update is the global batch's
+    (:class:`PPOLearner`).  Rank 0 logs, checkpoints and evaluates; every
+    rank resumes from the same checkpoint.
     """
-    check_ported(cfg)
+    group = resolve_group(cfg, group)
+    check_ported(cfg, group)
+    if tuple(cfg.mesh_shape) and mesh_ranks(cfg.mesh_shape,
+                                            cfg.mesh_axes) != group.world:
+        raise ValueError(
+            f"MESH_SHAPE={list(cfg.mesh_shape)} has "
+            f"{mesh_ranks(cfg.mesh_shape, cfg.mesh_axes)} data ranks; the "
+            f"group has {group.world}: start one process a data rank")
     if cfg.resume and not cfg.checkpoint_dir:
         raise ValueError(
             "RESUME=true needs CHECKPOINT_DIR set: with no checkpoint "
             "directory there is nothing to resume from (refusing to "
             "silently restart at update 0)")
+    pipeline = cfg.rollout_mode == "pipeline"
+    n_envs = group.local_count(cfg.num_envs)
+    if pipeline and n_envs % 2:
+        raise ValueError("rollout_mode=pipeline needs an even NUM_ENVS")
     env = env or WorldEnv(ma_config, device=device)
-    eval_env = make_eval_env(ma_config, cfg, env) if cfg.eval_every \
-        else None
-    logger = logger or Logger(cfg.log_backend, cfg.log_path)
+    lead = group.rank == 0
+    eval_env = make_eval_env(ma_config, cfg, env) \
+        if cfg.eval_every and lead else None
+    logger = logger or Logger(cfg.log_backend if lead else "none",
+                              cfg.log_path)
     dev = env.device
     n_types = len(env.agent_types)
-    num_actors = [n * cfg.num_envs for n in env.n_per_type]
+    num_actors = [n * n_envs for n in env.n_per_type]
     num_updates = max(cfg.num_updates, 1)
-    if any(a % cfg.num_minibatches for a in num_actors):
+    if any(a * group.world % cfg.num_minibatches for a in num_actors):
         raise ValueError("actors per type must divide into NUM_MINIBATCHES")
     for i, sp in enumerate(env.observation_spaces):
         if (isinstance(sp, spaces.Dict)
-                and _per_type(cfg.network, i) != "vit_gru"):
+                and _per_type(cfg.network, i) not in ("vit_gru", "cnn_gru")):
             raise ValueError(f"agent type {i} emits dict observations; set "
-                             f"network[{i}] to 'vit_gru'")
+                             f"network[{i}] to 'vit_gru' or 'cnn_gru'")
+    step_fn = make_sharded_step(env, group)
 
     def train(seed: int = 0, n_updates: Optional[int] = None):
         torch.manual_seed(seed)
         gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen.manual_seed(rank_seed(seed, group.rank))
+        half_gens = (pipeline_generators(rank_seed(seed, group.rank), dev)
+                     if pipeline else None)
         params = env.default_params
         nets = make_networks(env, cfg)
-        learners = [PPOLearner(nets[i], cfg, i, num_updates)
+        for net in nets:
+            for t in net.state_dict().values():
+                group.broadcast(t)
+        learners = [PPOLearner(nets[i], cfg, i, num_updates, group)
                     for i in range(n_types)]
         hstates = [ScannedGRU.initialize_carry(num_actors[i], cfg.hidden_size,
                                                dev) for i in range(n_types)]
-        obs, state = env.reset(env.draw_reset(cfg.num_envs, gen), params)
+        obs, state = env.reset(env.draw_reset(n_envs, gen), params)
         dones = [torch.zeros(num_actors[i], dtype=torch.bool, device=dev)
                  for i in range(n_types)]
+        carry = Carry(state, obs, dones, hstates)
         ckpt = (CheckpointManager(cfg.checkpoint_dir,
                                   max_to_keep=cfg.checkpoint_max_to_keep)
                 if cfg.checkpoint_dir else None)
@@ -518,67 +824,55 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
         metrics_history = []
         for u in range(start, stop):
             t0 = time.perf_counter()
-            initial_h = [h.clone() for h in hstates]
-            steps: List[List[Transition]] = [[] for _ in range(n_types)]
-            step_stats = []
+            initial_h = [h.clone() for h in carry.hstates]
             with torch.no_grad():
-                for _ in range(cfg.num_steps):
-                    actions, values, log_probs = [], [], []
-                    for i in range(n_types):
-                        obs_i = tree_map(lambda v: v[None],
-                                         batchify(obs[i], num_actors[i]))
-                        hstates[i], pi, value = nets[i](
-                            hstates[i], obs_i, dones[i][None])
-                        action = pi.sample(gen)
-                        log_probs.append(pi.log_prob(action)[0])
-                        values.append(value[0])
-                        actions.append(action[0])
-                    env_actions = [
-                        a.reshape((cfg.num_envs, n) + a.shape[1:])
-                        if n > 1 else a
-                        for a, n in zip(actions, env.n_per_type)]
-                    obs, state, reward, done, info = env.step_vec(
-                        state, env_actions, params, generator=gen)
-                    if cfg.log_env_info:
-                        step_stats.append(_reduce_info(info))
-                    for i in range(n_types):
-                        steps[i].append(Transition(
-                            global_done=global_done_for_actors(
-                                done["__all__"], env.n_per_type[i]),
-                            done=dones[i], action=actions[i],
-                            value=values[i],
-                            reward=batchify(reward[i], num_actors[i]),
-                            log_prob=log_probs[i],
-                            obs=batchify(obs[i], num_actors[i])))
-                        dones[i] = batchify(done["agents"][i], num_actors[i])
+                if pipeline:
+                    trajs, step_stats, carry = rollout_pipeline(
+                        step_fn, nets, carry, params, cfg.num_steps, n_envs,
+                        env.n_per_type, half_gens, cfg.log_env_info)
+                else:
+                    trajs, step_stats, carry = rollout_loop(
+                        step_fn, nets, carry, params, cfg.num_steps, n_envs,
+                        env.n_per_type, gen, gen, cfg.log_env_info)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t1 = time.perf_counter()
             metrics: Dict[str, Tensor] = {}
             for i in range(n_types):
-                traj = tree_map(lambda *v: torch.stack(v), *steps[i])
+                traj = trajs[i]
                 with torch.no_grad():
                     _, _, last_val = nets[i](
-                        hstates[i], tree_map(lambda v: v[None], batchify(
-                            obs[i], num_actors[i])), dones[i][None])
+                        carry.hstates[i], tree_map(lambda v: v[None],
+                                                   batchify(carry.obs[i],
+                                                            num_actors[i])),
+                        carry.dones[i][None])
                     adv, tgt = compute_gae(traj, last_val[0],
                                            _per_type(cfg.gamma, i),
                                            _per_type(cfg.gae_lambda, i))
-                perms = [torch.randperm(num_actors[i], generator=gen,
-                                        device=dev)
-                         for _ in range(cfg.update_epochs)]
+                n_global = num_actors[i] * group.world
+                perms = []
+                for _ in range(cfg.update_epochs):
+                    perm = (torch.randperm(n_global, generator=gen,
+                                           device=dev) if lead else
+                            torch.empty(n_global, dtype=torch.int64,
+                                        device=dev))
+                    perms.append(group.broadcast(perm))
                 loss_info = learners[i].update(initial_h[i], traj, adv, tgt,
                                                cfg.num_minibatches, perms)
                 name = names[i]
-                metrics[f"{name}/mean_reward"] = traj.reward.mean()
+                (metrics[f"{name}/mean_reward"],) = group.mean_tensors(
+                    [traj.reward.mean()])
                 for k, v in loss_info.items():
                     metrics[f"{name}/{k}"] = v
                 if cfg.log_env_info:
                     _action_metrics(traj.action, env.action_spaces[i], name,
-                                    metrics)
+                                    metrics, group)
             if cfg.log_env_info:
-                _fold_info_stats(tree_map(lambda *v: torch.stack(v),
-                                          *step_stats), names, metrics)
+                # equal counts a rank: the ranks' mean moments are the
+                # global batch's
+                means = iter(group.mean_tensors(tree_leaves(step_stats)))
+                step_stats = tree_map(lambda _: next(means), step_stats)
+                _fold_info_stats(step_stats, names, metrics)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t2 = time.perf_counter()
@@ -597,14 +891,16 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
             metrics = dict(sorted(metrics.items()))
             logger.log(metrics)
             metrics_history.append(metrics)
-            if ckpt is not None and ((u + 1) % cfg.checkpoint_every == 0
-                                     or u == num_updates - 1):
+            if lead and ckpt is not None and (
+                    (u + 1) % cfg.checkpoint_every == 0
+                    or u == num_updates - 1):
                 ckpt.save(u, [lr.net.state_dict() for lr in learners],
                           [adam_state(lr.opt) for lr in learners],
                           [lr.count for lr in learners], metrics=metrics)
         return {"metrics": metrics_history, "networks": nets,
-                "state": state, "learners": learners}
+                "state": carry.state, "learners": learners}
 
     train.env = env
     train.eval_env = eval_env
+    train.group = group
     return train

@@ -17,12 +17,21 @@ saves the learners, and ``RESUME=true`` continues from its latest update:
       --set LOG_PATH=runs/metrics.jsonl
   python -m vit_marl_tpu_torch.train --config configs/ippo_2player.yaml \
       --set CHECKPOINT_DIR=runs/ckpt --set RESUME=true
+
+Data parallel over several cards, one process a card (``MESH_SHAPE``
+names as many data ranks as processes; each steps ``NUM_ENVS / ranks``
+envs):
+
+  torchrun --nproc-per-node 8 -m vit_marl_tpu_torch.train \
+      --config configs/mesh_ippo_2player.yaml
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 from vit_marl_tpu_torch.utils.cli import apply_set_overrides
 
@@ -43,6 +52,10 @@ def main(argv=None):
     import yaml
 
     from vit_marl_tpu_torch.config import make_config
+    from vit_marl_tpu_torch.parallel.distributed import (
+        DataGroup,
+        initialize_distributed,
+    )
     from vit_marl_tpu_torch.rl.ppo import make_train
 
     raw = {}
@@ -54,8 +67,20 @@ def main(argv=None):
     if args.seed is not None:
         train_config = dataclasses.replace(train_config, seed=args.seed)
 
-    train = make_train(ma_config, train_config, device=args.device)
+    initialize_distributed()
+    group = DataGroup.current()
+    device = args.device
+    if group.world > 1:
+        if not train_config.mesh_shape:
+            raise ValueError(f"{group.world} processes were started but "
+                             "MESH_SHAPE is unset")
+        if device is None and torch.cuda.is_available():
+            device = f"cuda:{torch.cuda.current_device()}"
+    train = make_train(ma_config, train_config, device=device, group=group)
     env = train.env
+    if group.world > 1:
+        print(f"rank {group.rank} of {group.world}: "
+              f"{train_config.num_envs // group.world} envs", flush=True)
     print(f"device: {env.device} world: msgs/step={env.num_msgs_per_step} "
           f"train: envs={train_config.num_envs} "
           f"steps={train_config.num_steps} "

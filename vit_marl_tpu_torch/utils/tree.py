@@ -34,6 +34,18 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_leaves(tree):
+    """The leaves of ``tree`` in :func:`tree_map`'s order (no ``None``)."""
+    out = []
+
+    def take(leaf):
+        out.append(leaf)
+        return leaf
+
+    tree_map(take, tree)
+    return out
+
+
 def index_tree(tree, index):
     """Gather ``leaf[index]`` from every leaf: the reset-table gather
     (ref: ``vit_marl_tpu/utils/tree.py::index_tree``)."""
