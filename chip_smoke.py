@@ -74,27 +74,33 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    its published widths and NUM_ENVS=4096 on the card for 2 updates;
    losses must be finite, the env-info metrics (``LOG_ENV_INFO``, on by
    default) present, and the book scan's launch count must rise by
-   exactly NUM_STEPS x updates; then 2 updates with ``LOG_ENV_INFO``
+   exactly the rollout steps the wrapper launches (``rollout_steps``:
+   NUM_STEPS x updates under the loop, the warm-up step under the
+   scan); then 2 updates with ``LOG_ENV_INFO``
    off, and the rollout seconds of both; the card kernels of one step's
    info reduction (``torch.profiler``);
 7. debug-mode training: the same config with ``WORLD.DEBUG_MODE=true``
    (set through the port's ``--set`` parser) for 2 updates; losses must be
-   finite, the records scan must launch exactly NUM_STEPS x updates times
-   (rec_k 16) and the aggregate scan never, and the last step's trade log
+   finite, the records scan must launch exactly once a rollout step of
+   ``rollout_steps`` (rec_k 16) and the aggregate scan never, and the
+   last step's trade log
    must hold trades.  Then phase 6's training runs once more, so the
    debug path's rate stands between two warm aggregate runs;
 8. vision training: ``make_train`` on ``configs/ippo_vision_dual_ppo.yaml``
    at its published widths (ViT-Small, NUM_ENVS=1024, NUM_STEPS=128) for
-   2 updates; losses must be finite, the book scan must launch NUM_STEPS x
-   updates times and the attention kernels exactly as often as the ViT's
-   blocks run (with remat the forward runs twice per block in an update),
+   2 updates; losses must be finite, the book scan must launch once a
+   rollout step of ``rollout_steps`` and the attention kernels exactly
+   as often as the ViT's blocks run through the wrappers (with remat the
+   forward runs twice per block in an update),
    every launch on the bf16 tensor-core route;
 9. vision simplest-case training: the same for
    ``configs/ippo_vision_simplest.yaml`` (ViT-Small, 512 envs x 32 steps,
    the discrete ``simplest_case`` execution agent alone);
 10. fused-mode vision training: phase 8, 1 update in each of the three
    fused-block modes (``VIT_ATTN_LN_FOLD``, ``VIT_FUSED_BLOCK``,
-   ``VIT_FUSED_BLOCK_FULL``), with the exact launch count of every kernel,
+   ``VIT_FUSED_BLOCK_FULL``) with one PPO epoch (the config has 4: the
+   cut that makes room for phase 18), with the exact launch count of
+   every kernel,
    every launch of the four fused-block kernels on the bf16 tensor-core
    route;
 11. bench: ``vit_marl_tpu_torch/bench.py`` in-process, the loop with GRU
@@ -151,7 +157,44 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    finite losses, kernel 1's launches exact; kernel 1 at E=4,096, M=220,
    20 traders bit-equal to its plain version in all four cancel modes and
    on the world's stream, its launch plan, time, bound and plain time;
-then one JSON line describing the eight kernels, and the last line
+18. kernels 5 and 7 past 32 tokens and the rollout as a CUDA graph (the
+   port's twelfth slice), each path driven with every count set to 0
+   just before it: ``fused_block_full`` and ``fused_ln_qkv_attn`` at
+   ViT-Small's widths against their plain versions at N in 33, 41, 51,
+   64, 65, 128, 129 and 257 on 64 images in bf16 and float32 within
+   ``block_tol`` (their route past 32 tokens: LN+QKV's kernel into a
+   qkv buffer, ``csrc/long_attention.cuh``, and for the full block
+   proj+MLP's kernel; each call counted once on its dtype's route), and
+   at N=41 on 1,024 and 8,192 images again within ``block_tol`` and
+   timed beside their bounds, plain versions and the unfused sequence;
+   one update (one PPO epoch) of ``ippo_vision_simplest.yaml`` at
+   ``VISION_LEVELS=40`` under ``VIT_FUSED_BLOCK_FULL`` and under
+   ``VIT_ATTN_LN_FOLD`` (every
+   forward on the kernel, bf16 route; no attention backward kernel past
+   32 tokens), then its rollout alone under ``torch.profiler`` in both
+   modes; ``ROLLOUT_MODE=scan`` against ``loop`` on ``ippo_2player.yaml``
+   (4,096 envs, also with ``DEBUG_MODE``), ``ippo_vision_dual_ppo.yaml``
+   (1,024 envs) and its ``cnn_gru`` network (with cuDNN's deterministic
+   algorithms): update 0 under each, its metrics bit-equal, the wrappers'
+   launches exact, its peak memory; then the rollout alone (in turns:
+   loop, scan, scan, loop, loop, scan, for the 2-player and vision
+   configs) after the scan's set-up (warm-up, capture and instantiation
+   timed apart); the graph's hand-written kernel nodes (its DOT dump)
+   equal to a loop step's launches; one rollout of each under
+   ``torch.profiler``: the card's busy share of the kernel window, the
+   loop's wrappers exact, the scan's graph launched NUM_STEPS times and
+   no wrapper, each trace holding the hand-written kernels' launches
+   (counted by name) that its run made, within ``TRACE_LOSS``;
+   the bench at 4,096 envs, ``--mode loop`` and ``--mode scan`` with GRU
+   and ViT-Small policies, each line printed.
+Every training phase (6-18) collects with ``ROLLOUT_MODE``'s default,
+``auto``: on the card a CUDA graph of the env step (``rl/scan.py``),
+replayed each step.  A wrapper counts the launches it makes: under the
+scan the warm-up step's (``rollout_steps``) and the update's; the
+graph's replays launch without the wrappers; phase 18 reads the
+graph's kernel nodes, counts its launches and holds profiler traces
+against them.
+Then one JSON line describing the eight kernels, and the last line
 ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the rest of the repository beside it, the
@@ -659,7 +702,7 @@ def attention_phase(torch, attn, smi):
 
 
 def block_cost(name, B, N, W, hidden, itemsize):
-    """(bytes, bf16 product operations, float32 attention operations) of
+    """(bytes, product operations, attention operations) of
     one fused-block function: row inputs and weights read once, the output
     written once (LayerNorm parameters and biases, float32, too)."""
     rows = B * N
@@ -679,26 +722,72 @@ def block_cost(name, B, N, W, hidden, itemsize):
 
 
 def block_bound(nbytes, mm_ops, attn_ops, dtype):
-    """Least time in ms: bytes over the memory rate, or the products over
-    the tensor cores' bf16 rate (float32 products, and the attention, over
-    the float32 rate), whichever is longer."""
+    """Least time in ms: bytes over the memory rate, or the operations
+    (the products and the attention's) over the card's peak rate for the
+    inputs' type (bf16: the tensor cores' dense rate; float32: the rate
+    outside tensor cores), whichever is longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    mm_rate = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
-    t_ops = (mm_ops / mm_rate + attn_ops / F32_FLOPS) * 1e3
+    rate = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+    t_ops = (mm_ops + attn_ops) / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_calls(torch, blk, name, x, a, p, N, H):
+    """(kernel, plain version, unfused PyTorch sequence) of fused-block
+    function ``name`` on rows x (and attention rows a for proj+MLP) of
+    images of N tokens and H heads, parameters ``p``."""
+    import torch.nn.functional as F
+    W = x.shape[1]
+    D = W // H
+    dt = x.dtype
+
+    def ln(t, g, b):
+        return F.layer_norm(t.float(), (W,), g, b, 1e-6).to(dt)
+
+    def attn_sdpa(qkv):
+        q, k, v = qkv.view(-1, N, 3, H, D).permute(2, 0, 3, 1, 4)
+        o = F.scaled_dot_product_attention(q, k, v)
+        return o.transpose(1, 2).reshape(-1, W)
+
+    def tail(att, res):
+        x1 = res + F.linear(att, p["wp"], p["bp"].to(dt))
+        h = F.gelu(F.linear(ln(x1, p["g2"], p["b2"]), p["w1"],
+                            p["bm1"].to(dt)), approximate="tanh")
+        return x1 + F.linear(h, p["w2"], p["bm2"].to(dt))
+
+    def qkv_seq(t):
+        return F.linear(ln(t, p["g1"], p["b1"]), p["wqkv"], p["bqkv"].to(dt))
+
+    head = (x, p["g1"], p["b1"], p["wqkv"], p["bqkv"])
+    rest = tuple(p[k] for k in ("wp", "bp", "g2", "b2", "w1", "bm1", "w2",
+                                "bm2"))
+    if name == "fused_ln_qkv":
+        return (lambda: blk.fused_ln_qkv(*head),
+                lambda: blk.ln_qkv_reference(*head),
+                lambda: qkv_seq(x))
+    if name == "fused_proj_mlp":
+        return (lambda: blk.fused_proj_mlp(a, x, *rest),
+                lambda: blk.proj_mlp_reference(a, x, *rest),
+                lambda: tail(a, x))
+    if name == "fused_block_full":
+        return (lambda: blk.fused_block_full(*head, *rest, N, H),
+                lambda: blk.full_block_reference(*head, *rest, N, H),
+                lambda: tail(attn_sdpa(qkv_seq(x)), x))
+    return (lambda: blk.fused_ln_qkv_attn(*head, N, H),
+            lambda: blk.ln_qkv_attn_reference(*head, N, H),
+            lambda: attn_sdpa(qkv_seq(x)))
 
 
 def block_phase(torch, blk, smi):
     """Check the four fused-block kernels against their plain versions at
     the vision path's shapes and time them beside the unfused PyTorch
     sequence; returns their summary entries (without launches)."""
-    import torch.nn.functional as F
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 1)
     N, W, H = ATT_N, ATT_W, ATT_H
-    D, hidden = W // H, MLP_RATIO * W
+    hidden = MLP_RATIO * W
 
     def rand(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -709,46 +798,7 @@ def block_phase(torch, blk, smi):
         return block_params(gen, dtype, W, hidden)
 
     def calls(name, x, a, p):
-        """(kernel, plain version, unfused PyTorch sequence) on rows x (and
-        attention rows a for proj+MLP)."""
-        dt = x.dtype
-
-        def ln(t, g, b):
-            return F.layer_norm(t.float(), (W,), g, b, 1e-6).to(dt)
-
-        def attn_sdpa(qkv):
-            q, k, v = qkv.view(-1, N, 3, H, D).permute(2, 0, 3, 1, 4)
-            o = F.scaled_dot_product_attention(q, k, v)
-            return o.transpose(1, 2).reshape(-1, W)
-
-        def tail(att, res):
-            x1 = res + F.linear(att, p["wp"], p["bp"].to(dt))
-            h = F.gelu(F.linear(ln(x1, p["g2"], p["b2"]), p["w1"],
-                                p["bm1"].to(dt)), approximate="tanh")
-            return x1 + F.linear(h, p["w2"], p["bm2"].to(dt))
-
-        def qkv_seq(t):
-            return F.linear(ln(t, p["g1"], p["b1"]), p["wqkv"],
-                            p["bqkv"].to(dt))
-
-        head = (x, p["g1"], p["b1"], p["wqkv"], p["bqkv"])
-        rest = tuple(p[k] for k in ("wp", "bp", "g2", "b2", "w1", "bm1",
-                                    "w2", "bm2"))
-        if name == "fused_ln_qkv":
-            return (lambda: blk.fused_ln_qkv(*head),
-                    lambda: blk.ln_qkv_reference(*head),
-                    lambda: qkv_seq(x))
-        if name == "fused_proj_mlp":
-            return (lambda: blk.fused_proj_mlp(a, x, *rest),
-                    lambda: blk.proj_mlp_reference(a, x, *rest),
-                    lambda: tail(a, x))
-        if name == "fused_block_full":
-            return (lambda: blk.fused_block_full(*head, *rest, N, H),
-                    lambda: blk.full_block_reference(*head, *rest, N, H),
-                    lambda: tail(attn_sdpa(qkv_seq(x)), x))
-        return (lambda: blk.fused_ln_qkv_attn(*head, N, H),
-                lambda: blk.ln_qkv_attn_reference(*head, N, H),
-                lambda: attn_sdpa(qkv_seq(x)))
+        return fused_calls(torch, blk, name, x, a, p, N, H)
 
     errs = {name: 0.0 for name in BLOCK_KERNELS}
     p16, p32 = params(torch.bfloat16), params(torch.float32)
@@ -808,7 +858,8 @@ def block_phase(torch, blk, smi):
               f"plain {plain_ms:.3f} ms; unfused "
               f"sequence {seq_ms:.4f} ms; bound {bound_ms:.4f} ms by "
               f"{bound_by} ({cost[0] / 1e6:.1f} MB, {cost[1] / 1e9:.1f} GFLOP "
-              f"bf16 + {cost[2] / 1e9:.2f} GFLOP f32); B={B_ROLLOUT}: kernel "
+              f"products + {cost[2] / 1e9:.2f} GFLOP attention, bf16); "
+              f"B={B_ROLLOUT}: kernel "
               f"{roll_ms:.4f} ms, card alone {roll_dev_ms:.4f} ms, unfused "
               f"{roll_seq_ms:.4f} ms, bound {roll_bound:.4f} ms; plan {plan} "
               f"[{smi}]", flush=True)
@@ -879,7 +930,8 @@ def counters(attn, bkern, blk):
 def debug_phase(torch, count, make_train, dev, smi, agg_train, agg_rate):
     """Train ``configs/ippo_2player.yaml`` with ``WORLD.DEBUG_MODE=true``
     (through the port's ``--set`` parser) for UPDATES updates; check losses,
-    the launch counts (records scan NUM_STEPS x updates, nothing else) and
+    the launch counts (the records scan once a step of
+    :func:`rollout_steps`, nothing else) and
     the trade log in the final state.  Then trains the aggregate path of
     phase 6 (``agg_train``, rate ``agg_rate`` there) once more, so the
     debug run has a warm aggregate run on either side.  Returns the counts
@@ -903,7 +955,7 @@ def debug_phase(torch, count, make_train, dev, smi, agg_train, agg_rate):
     got = {k: get() for k, (get, _) in count.items()}
     check_metrics(out["metrics"])
     want = {k: 0 for k in count}
-    want["book_scan_records"] = tc.num_steps * UPDATES
+    want["book_scan_records"] = rollout_steps(tc, UPDATES)
     if got != want:
         raise AssertionError(f"debug-mode launch counts {got}, want {want}")
     if train.env.rec_k != REC_KS[0]:
@@ -944,17 +996,32 @@ def check_metrics(metrics, label=""):
             raise AssertionError(f"{label}non-finite metrics: {bad}")
 
 
+def rollout_steps(tc, updates, halves=1):
+    """The rollout steps of one ``train`` call of ``updates`` updates
+    whose kernels the wrappers launch: under the loop every step, under
+    the pipeline every half-batch step (``halves``); under the scan on
+    the card (``ROLLOUT_MODE=auto``, the default, or ``scan``) only the
+    warm-up step before the capture.  The graph's replays launch their
+    kernels without the wrappers; :func:`traced_rollouts` counts
+    them."""
+    from vit_marl_tpu_torch.rl.ppo import rollout_mode
+
+    if rollout_mode(tc.rollout_mode) == "scan" and DEV == "cuda":
+        return 1
+    return halves * tc.num_steps * updates
+
+
 def vision_launches(tc, depth, updates, mode=None, halves=1):
-    """The kernel launches of ``updates`` updates of a ViT config: the
-    book scan once a step (``halves``: once a half-batch step, in the
-    pipelined rollout); the rollout runs each block's forward once a
-    step (a half-batch step) and once for the last value, the update
-    twice a minibatch (remat) and its backward once.  ``mode="long"``:
-    past 32 tokens, the forwards on the counted plain route."""
+    """The wrappers' kernel launches in ``updates`` updates of a ViT
+    config: the book scan once a rollout step of :func:`rollout_steps`;
+    each block's forward once such a step and once an update for the
+    last value, the update's twice a minibatch (remat) and its backward
+    once.  ``mode="long"``: past 32 tokens, the forwards on the counted
+    plain route."""
     passes = tc.update_epochs * tc.num_minibatches * updates
-    forward = (depth * (halves * tc.num_steps + 1) * updates
-               + depth * 2 * passes)
-    want = {"book_scan": halves * tc.num_steps * updates}
+    steps = rollout_steps(tc, updates, halves)
+    forward = depth * (steps + updates) + depth * 2 * passes
+    want = {"book_scan": steps}
     if mode == "long":
         want["long_attention"] = forward
     elif mode is None:
@@ -1118,7 +1185,7 @@ def lobster_phase(torch, attn, bkern, blk, make_train, dev, smi):
     parser = "native" if native.get_native_module() is not None else "numpy"
     out, got, wall = drive(torch, count, lambda: train(tc.seed, n_updates=1))
     check_metrics(out["metrics"], "LOBSTER: ")
-    expect(got, {"book_scan": tc.num_steps}, "LOBSTER")
+    expect(got, {"book_scan": rollout_steps(tc, 1)}, "LOBSTER")
     print(f"  {os.path.basename(paths[0])}: {len(day.messages)} messages, "
           f"{train.env.n_windows} windows, loaded in {load_s:.2f}s "
           f"({parser} parser); 1 update x NUM_STEPS={tc.num_steps} x "
@@ -1493,7 +1560,7 @@ def eval_training_phase(torch, count, make_train, load_yaml_config, env,
     ma, tc = make_config(raw)
     out, got, wall = drive(torch, count, lambda: make_train(
         ma, tc, device=DEV)(tc.seed, n_updates=1))
-    expect(got, {"book_scan": 1 + tc.num_steps},
+    expect(got, {"book_scan": 1 + rollout_steps(tc, 1)},
            "sweep_fine base run (window table + steps)")
     check_metrics(out["metrics"], "sweep_fine: ")
     m = out["metrics"][0]
@@ -1504,7 +1571,7 @@ def eval_training_phase(torch, count, make_train, load_yaml_config, env,
           f"steps x {tc.num_envs} envs: {steps / m['rollout_s']:.0f} "
           f"env-steps/s in the rollout, rollout_s {m['rollout_s']:.3f}, "
           f"update_s {m['update_s']:.3f}; book-scan launches "
-          f"{got['book_scan']} ({tc.num_steps} + the window table) [{smi}]",
+          f"{got['book_scan']} (the rollout's + the window table) [{smi}]",
           flush=True)
 
     ma, tc = load_yaml_config(CONFIG)
@@ -1525,7 +1592,7 @@ def eval_training_phase(torch, count, make_train, load_yaml_config, env,
             ma, tc, env=env)(tc.seed, n_updates=1))
     finally:
         ppo.eval_rollout = plain_eval
-    expect(got, {"book_scan": 1 + tc.num_steps + EVAL_STEPS},
+    expect(got, {"book_scan": 1 + rollout_steps(tc, 1) + EVAL_STEPS},
            "2-player with eval (eval window table + steps + eval steps)")
     check_metrics(out["metrics"], "2-player with eval: ")
     m = out["metrics"][0]
@@ -1609,15 +1676,19 @@ def update_split(metrics):
 
 
 def vision_phase(torch, attn, bkern, blk, make_train, load_yaml_config, dev,
-                 smi, mode=None, config=VISION_CONFIG, updates=UPDATES):
+                 smi, mode=None, config=VISION_CONFIG, updates=UPDATES,
+                 epochs=None):
     """Train a ViT config for ``updates`` updates on the card, with the
-    default blocks or in the fused-block ``mode``; check losses and the
-    launch count of every kernel.  Returns the counts of the run."""
+    default blocks or in the fused-block ``mode`` (``epochs``: PPO epochs
+    an update, where not the config's); check losses and the launch
+    count of every kernel.  Returns the counts of the run."""
     from vit_marl_tpu_torch.models.vit import VIT_PRESETS
 
     ma, tc = load_yaml_config(config)
     if mode is not None:
         tc = dataclasses.replace(tc, **{f"vit_{mode}": True})
+    if epochs is not None:
+        tc = dataclasses.replace(tc, update_epochs=epochs)
     depth = VIT_PRESETS[tc.vit_preset].depth
     train = make_train(ma, tc, device=dev)
     count = counters(attn, bkern, blk)
@@ -1937,7 +2008,7 @@ def mesh_phase(torch, count, bkern, make_train, smi):
         group = DataGroup.current()
         _, _, train, _ = train_once(
             torch, count, make_train, ma, tc,
-            {"book_scan": tc.num_steps},
+            {"book_scan": rollout_steps(tc, 1)},
             f"mesh_ippo_2player.yaml, rank 0 of a 1-rank NCCL group, "
             f"{ma.n_agents_per_type} agents", smi, group=group)
         if train.group.group is None or train.env.num_msgs_per_step != M_MESH:
@@ -1970,7 +2041,7 @@ def slice11_phase(torch, attn, bkern, blk, make_train, smi):
     ma, tc = config_with(VISION_CONFIG, ["NETWORK=[gru, cnn_gru]",
                                          "LOG_BACKEND=none"])
     _, out["cnn_gru"], _, nets = train_once(
-        torch, count, make_train, ma, tc, {"book_scan": tc.num_steps},
+        torch, count, make_train, ma, tc, {"book_scan": rollout_steps(tc, 1)},
         "ippo_vision_dual_ppo.yaml on NETWORK=[gru, cnn_gru]", smi)
     if not isinstance(nets[1], CNNActorCriticRNN):
         raise AssertionError("NETWORK=[gru, cnn_gru] built no CNN")
@@ -1979,7 +2050,7 @@ def slice11_phase(torch, attn, bkern, blk, make_train, smi):
         "AGENT_CONFIGS.EXECUTION.N_ACTIONS=4", f"NUM_ENVS={BOX_ENVS}",
         "LOG_BACKEND=none"])
     m, out["gru_box"], train, nets = train_once(
-        torch, count, make_train, ma, tc, {"book_scan": tc.num_steps},
+        torch, count, make_train, ma, tc, {"book_scan": rollout_steps(tc, 1)},
         "ippo_2player.yaml, execution fixed_prices (a Box) on gru", smi)
     if not isinstance(train.env.action_spaces[1], spaces.Box) or \
             not nets[1].continuous or "EXE/action_std" not in m:
@@ -2005,6 +2076,496 @@ def slice11_phase(torch, attn, bkern, blk, make_train, smi):
     return out
 
 
+# phase 18: kernels 5 and 7 past 32 tokens (their route through a qkv
+# buffer and long_attention.cuh), checked at every N of LONG_TOKENS on
+# LONG_CHECK_B images and timed at N=41 on LONG_TIME_B images; the scan
+# (a CUDA graph of the step) against the loop, in turns, at the 2-player
+# and vision shapes
+LONG_TOKENS = (33, 41, 51, 64, 65, 128, 129, 257)
+LONG_CHECK_B = 64
+LONG_TIME_B = (1024, 8192)
+LONG_KERNELS = ("fused_block_full", "fused_ln_qkv_attn")
+SCAN_TURNS = ("loop", "scan", "scan", "loop", "loop", "scan")
+
+
+def long_block_phase(torch, blk, smi):
+    """Kernels 5 and 7 past 32 tokens at ViT-Small's widths (W=384, 6
+    heads of 64, hidden 1,536): against their plain versions at every N
+    of LONG_TOKENS in bf16 and float32 within ``block_tol``, each call
+    counted once on its dtype's route and not as an LN+QKV or proj+MLP
+    call; then at N=41 and LONG_TIME_B images each dtype's output within
+    ``block_tol`` of its plain version, and its time beside its bound,
+    its plain version and the port's unfused PyTorch sequence.  Returns
+    {name: entries for the summary line}."""
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    W, H, hidden = ATT_W, ATT_H, MLP_RATIO * ATT_W
+    routes0 = block_route_counts(blk)
+    inner0 = (blk.fused_ln_qkv.launches, blk.fused_proj_mlp.launches)
+    errs = {(k, d): 0.0 for k in LONG_KERNELS for d in ("bf16", "f32")}
+    params = {dt: block_params(gen, dt, W, hidden)
+              for dt in (torch.bfloat16, torch.float32)}
+    for dt, p in params.items():
+        dname = "bf16" if dt == torch.bfloat16 else "f32"
+        for N in LONG_TOKENS:
+            x = torch.randn((LONG_CHECK_B * N, W), generator=gen,
+                            device=dev).to(dt)
+            for name in LONG_KERNELS:
+                kern, plain, _ = fused_calls(torch, blk, name, x, None, p, N,
+                                             H)
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                tol = block_tol(name, want)
+                torch.testing.assert_close(
+                    got, want, **tol,
+                    msg=lambda m: f"{name} N={N} {dname}: {m}")
+                err = float((got.float() - want.float()).abs().max())
+                errs[name, dname] = max(errs[name, dname], err)
+        print(f"  kernels 5 and 7 past 32 tokens, {dname}, B={LONG_CHECK_B}"
+              f", N in {list(LONG_TOKENS)}: within block_tol of plain; max "
+              f"abs err " + ", ".join(f"{k} {errs[k, dname]:.4g}"
+                                      for k in LONG_KERNELS), flush=True)
+    routes = {k: v - routes0[k] for k, v in block_route_counts(blk).items()}
+    want = {f"{k}_{r}": (len(LONG_TOKENS) if k in LONG_KERNELS
+                         and r != "composed" else 0)
+            for k in TC_KERNELS for r in BLOCK_ROUTES}
+    inner = (blk.fused_ln_qkv.launches - inner0[0],
+             blk.fused_proj_mlp.launches - inner0[1])
+    if routes != want or inner != (0, 0):
+        raise AssertionError(f"past 32 tokens: launches by route {routes}, "
+                             f"want {want}; LN+QKV and proj+MLP {inner}")
+    rows = {k: {} for k in LONG_KERNELS}
+    N = 41
+    for dt, p in params.items():
+        dname = "bf16" if dt == torch.bfloat16 else "f32"
+        reps = {} if dt == torch.bfloat16 else dict(batches=3, per_batch=3,
+                                                   warm=1)
+        for B in LONG_TIME_B:
+            x = torch.randn((B * N, W), generator=gen, device=dev).to(dt)
+            for name in LONG_KERNELS:
+                kern, plain, seq = fused_calls(torch, blk, name, x, None, p,
+                                               N, H)
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                tol = block_tol(name, want)
+                torch.testing.assert_close(
+                    got, want, **tol,
+                    msg=lambda m: f"{name} N={N} B={B} {dname}: {m}")
+                err = float((got.float() - want.float()).abs().max())
+                errs[name, dname] = max(errs[name, dname], err)
+                del got, want
+                ms, ms_min = time_launches(kern, **reps)
+                plain_ms, _ = time_launches(plain, batches=3, per_batch=2,
+                                            warm=1)
+                seq_ms, _ = time_launches(seq, **reps)
+                cost = block_cost(name, B, N, W, hidden, dt.itemsize)
+                bnd, by = block_bound(*cost, "bfloat16" if dname == "bf16"
+                                      else "float32")
+                rows[name][f"{dname}_{B}"] = dict(
+                    ms=ms, plain_ms=plain_ms, unfused_ms=seq_ms, bound_ms=bnd,
+                    bound_by=by)
+                print(f"  {name} N={N} B={B} {dname}: within block_tol of "
+                      f"plain; {ms:.4f} ms a call "
+                      f"(min {ms_min:.4f}; three launches: LN+QKV, the "
+                      f"attention, {'proj+MLP' if 'full' in name else '-'}"
+                      f"); bound {bnd:.4f} ms by {by} ({cost[0] / 1e6:.1f} "
+                      f"MB, {cost[1] / 1e9:.1f} GFLOP products + "
+                      f"{cost[2] / 1e9:.2f} GFLOP attention); plain "
+                      f"{plain_ms:.3f} ms; unfused {seq_ms:.4f} ms [{smi}]",
+                      flush=True)
+            del x
+    for name in LONG_KERNELS:
+        rows[name].update(max_abs_err_bf16=errs[name, "bf16"],
+                          max_abs_err_f32=errs[name, "f32"])
+    return rows
+
+
+def long_training_phase(torch, count, blk, make_train, smi):
+    """One update of ``ippo_vision_simplest.yaml`` at VISION_LEVELS=40
+    (41 tokens) under ``VIT_FUSED_BLOCK_FULL`` and under
+    ``VIT_ATTN_LN_FOLD``, one PPO epoch (the config's 4 take 33 s of
+    float32 recompute a mode): losses finite, every forward on the kernel
+    (bf16: the wgmma route), and no attention backward kernel past 32
+    tokens (``attn_ln_fold`` differentiates the XLA-form attention
+    there, as the JAX package does); then the rollout alone in each mode
+    under the profiler (:func:`traced_rollouts`), the graph's launches of
+    LN+QKV's kernel, the long attention and proj+MLP's kernel counted.
+    Returns {mode: (counts, traced rollouts)}."""
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS
+
+    out = {}
+    for mode, flag in (("fused_block_full", "VIT_FUSED_BLOCK_FULL"),
+                       ("attn_ln_fold", "VIT_ATTN_LN_FOLD")):
+        ma, tc = config_with(SIMPLEST_CONFIG, [
+            f"AGENT_CONFIGS.EXECUTION.VISION_LEVELS={LONG_LEVELS}",
+            f"{flag}=true", "UPDATE_EPOCHS=1", "LOG_BACKEND=none"])
+        depth = VIT_PRESETS[tc.vit_preset].depth
+        want = vision_launches(tc, depth, 1, mode)
+        want.pop("short_attention_bwd", None)
+        r0 = block_route_counts(blk)
+        label = (f"ippo_vision_simplest.yaml, VISION_LEVELS={LONG_LEVELS} "
+                 f"({LONG_LEVELS + 1} tokens), {mode}")
+        _, got, train, _ = train_once(torch, count, make_train, ma, tc, want,
+                                      label, smi)
+        kernel = next(k for k, (_, m) in BLOCK_KERNELS.items() if m == mode)
+        routes = {k: v - r0[k] for k, v in block_route_counts(blk).items()
+                  if v - r0[k]}
+        if routes != {f"{kernel}_wgmma": want[kernel]}:
+            raise AssertionError(f"{mode} at 41 tokens: launches by route "
+                                 f"{routes}")
+        out[mode] = (got, traced_rollouts(
+            torch, count, train.env, tc, label,
+            {"book_scan": 1, kernel: depth}, LONG_LEVELS + 1, smi))
+    return out
+
+
+# the hand-written kernels in a profiler trace: a piece of the kernel's
+# name (its mangled form holds it too), and the family of launch counters
+# whose calls launch it
+KERNEL_FAMILIES = (("book_scan_kernel", "book_scan"),
+                   ("attn_fwd_", "short_attention_fwd"),
+                   ("attn_bwd_", "short_attention_bwd"),
+                   ("long_attn", "fused_block"),
+                   ("ln_qkv_attn_kernel", "fused_block"),
+                   ("qkv_kernel", "fused_block"),
+                   ("tc_kernel", "fused_block"),
+                   ("proj_mlp_kernel", "fused_block"),
+                   ("full_block_kernel", "fused_block"))
+
+
+# a profiler trace of a graph's replays drops a few kernel records (the
+# same vision rollout traced four times held 216,237-216,705 kernels,
+# NVIDIA H100 80GB HBM3): a family's traced launches may fall short of
+# the launches by at most TRACE_LOSS of them, or 2, and never exceed them
+TRACE_LOSS = 0.02
+
+
+def kernel_family(name):
+    return next((f for piece, f in KERNEL_FAMILIES if piece in name), None)
+
+
+def graph_nodes(graph):
+    """The hand-written kernels' nodes in a captured CUDA graph, by family,
+    from its DOT dump (``CUDAGraph.debug_dump``; the scan keeps its
+    graph, ``keep_graph=True``): each kernel node's label names its
+    function once."""
+    import warnings
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            graph.debug_dump(path)
+        with open(path) as f:
+            txt = f.read()
+    out = {}
+    for piece, fam in KERNEL_FAMILIES:
+        if txt.count(piece):
+            out[fam] = out.get(fam, 0) + txt.count(piece)
+    return out
+
+
+def check_traced(label, traced_, launches):
+    """Hold a trace's launches by family against the launches made."""
+    short = {f: launches.get(f, 0) - traced_.get(f, 0)
+             for f in set(launches) | set(traced_)}
+    if any(v < 0 or v > max(2, TRACE_LOSS * launches.get(f, 0))
+           for f, v in short.items()):
+        raise AssertionError(f"{label}: the trace holds {traced_} launches "
+                             f"of the hand-written kernels, want {launches}")
+
+
+def family_launches(got, tokens):
+    """The launches of each kernel family that the wrappers' counts
+    ``got`` stand for: a fused-block call past 32 tokens is three
+    launches (kernel 7: LN+QKV, the long attention, proj+MLP) or two
+    (kernel 5), every other call one."""
+    long = tokens > 32
+    per_call = {"fused_ln_qkv": 1, "fused_proj_mlp": 1,
+                "fused_block_full": 3 if long else 1,
+                "fused_ln_qkv_attn": 2 if long else 1}
+    out = {"book_scan": got["book_scan"] + got["book_scan_records"],
+           "short_attention_fwd": got["short_attention_fwd"],
+           "short_attention_bwd": got["short_attention_bwd"],
+           "fused_block": sum(got[k] * n for k, n in per_call.items())}
+    return {k: v for k, v in out.items() if v}
+
+
+def update0_both(torch, count, make_train, ma, tc, env, want_fn, label,
+                 smi):
+    """Update 0 of one config under ``ROLLOUT_MODE=loop`` and ``scan`` on
+    one world: the metrics bit-equal, each mode's wrapper launches
+    exactly ``want_fn(its config)`` (the scan's rollout launches through
+    the wrappers only in its warm-up step), the peak memory of each.
+    Returns the numbers by mode."""
+    res = {}
+    for mode in ("loop", "scan"):
+        tcm = dataclasses.replace(tc, rollout_mode=mode)
+        train = make_train(ma, tcm, env=env)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, got, wall = drive(torch, count,
+                               lambda: train(tc.seed, n_updates=1))
+        expect(got, want_fn(tcm), f"{label}, {mode}")
+        m = out["metrics"][0]
+        res[mode] = dict(metrics={k: v for k, v in m.items()
+                                  if k not in ("rollout_s", "update_s")},
+                         rollout_s=m["rollout_s"], update_s=m["update_s"],
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         wall=wall, launches={k: v for k, v in got.items()
+                                              if v})
+        del train, out
+    a, b = res["scan"]["metrics"], res["loop"]["metrics"]
+    differ = sorted(k for k in a if a[k] != b.get(k))
+    if differ or set(a) != set(b):
+        raise AssertionError(f"{label}: update 0 under scan differs from "
+                             f"loop in {differ}")
+    s, l_ = res["scan"], res["loop"]
+    print(f"  {label}, update 0: scan bit-equal to loop in all {len(a)} "
+          f"metrics; wrapper launches, scan {s['launches']} (the warm-up "
+          f"step's and the update's), loop {l_['launches']}; rollout "
+          f"{s['rollout_s']:.3f} s (with the scan's set-up) against "
+          f"{l_['rollout_s']:.3f} s; PPO {s['update_s']:.3f} / "
+          f"{l_['update_s']:.3f} s; peak memory {s['peak_gib']:.2f} / "
+          f"{l_['peak_gib']:.2f} GiB [{smi}]", flush=True)
+    return res
+
+
+def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
+                    turns=False):
+    """The rollout alone (``rl/scan.py`` against ``rollout_loop``, one
+    world, one set of networks, each run from the carry the last one
+    left), after the scan's set-up (warm-up, capture, instantiation,
+    timed apart).  With ``turns``, timed in the turns of SCAN_TURNS.
+    Checks what the graph launches: its kernel nodes by family
+    (:func:`graph_nodes`) equal what the loop's wrappers launch a step
+    (``per_step``, counter: launches a step); one rollout of each mode
+    under ``torch.profiler``, every count set to 0 just before it: the
+    loop's wrappers launch exactly ``per_step`` x NUM_STEPS, the scan
+    launches its graph NUM_STEPS times (counted at ``replay``) and no
+    wrapper, and each trace holds the launches of each family that its
+    run made, within TRACE_LOSS.  The card's busy share of each kernel
+    window.  Returns the numbers."""
+    from torch_pipeline_overlap import traced, union
+    from vit_marl_tpu_torch.rl import ppo as tppo
+    from vit_marl_tpu_torch.rl.scan import ScanRollout
+
+    E, T = tc.num_envs, tc.num_steps
+    torch.manual_seed(tc.seed)
+    nets = tppo.make_networks(env, tc)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(tc.seed)
+    params = env.default_params
+    obs, state = env.reset(env.draw_reset(E, gen), params)
+    actors = [n * E for n in env.n_per_type]
+    carry = tppo.Carry(state, obs, [torch.zeros(n, dtype=torch.bool,
+                                                device=DEV) for n in actors],
+                       [torch.zeros(n, tc.hidden_size, device=DEV)
+                        for n in actors])
+    scan = ScanRollout(env.step_vec, nets, params, T, E, env.n_per_type,
+                       gen, gen, tc.log_env_info, DEV)
+
+    def rollout(mode):
+        nonlocal carry
+        with torch.no_grad():
+            if mode == "scan":
+                _, _, c = scan.run(carry)
+            else:
+                _, _, c = tppo.rollout_loop(env.step_vec, nets, carry, params,
+                                            T, E, env.n_per_type, gen, gen,
+                                            tc.log_env_info)
+        carry = c
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rollout("scan")
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    full = {k: 0 for k in count}
+    full.update(per_step)
+    nodes = graph_nodes(scan.graph)
+    if nodes != family_launches(full, tokens):
+        raise AssertionError(f"{label}: the graph holds {nodes} nodes of the "
+                             f"hand-written kernels; a loop step launches "
+                             f"{family_launches(full, tokens)}")
+    replays = [0]
+    replay = scan.graph.replay
+
+    def counted_replay():
+        replays[0] += 1
+        replay()
+    scan.graph.replay = counted_replay
+    secs = {"loop": [], "scan": []}
+    for mode in SCAN_TURNS if turns else ():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rollout(mode)
+        torch.cuda.synchronize()
+        secs[mode].append(time.perf_counter() - t0)
+    busy, trace = {}, {}
+    for mode in ("loop", "scan"):
+        replays[0] = 0
+        (by_stream, host, names), got, _ = drive(
+            torch, count, lambda: traced(torch, lambda: rollout(mode)))
+        ivs = [iv for v in by_stream.values() for iv in v]
+        window = (max(b for _, b in ivs) - min(x for x, _ in ivs)) if ivs \
+            else 0.0
+        busy[mode] = dict(share=union(ivs) / window if window else None,
+                          kernels=len(ivs), window_s=window / 1e6,
+                          host_s=host)
+        fams = {}
+        for n, c in names.items():
+            if kernel_family(n):
+                fams[kernel_family(n)] = fams.get(kernel_family(n), 0) + c
+        trace[mode] = dict(traced=fams, replays=replays[0],
+                           wrappers={k: v for k, v in got.items() if v})
+    lw = trace["loop"]["wrappers"]
+    want = {k: n * T for k, n in per_step.items()}
+    if lw != want:
+        raise AssertionError(f"{label}: the loop's rollout launched "
+                             f"{lw} through the wrappers, want {want}")
+    if trace["scan"]["wrappers"] or trace["scan"]["replays"] != T:
+        raise AssertionError(
+            f"{label}: the scan launched its graph "
+            f"{trace['scan']['replays']} times, want {T}, and through the "
+            f"wrappers {trace['scan']['wrappers']}, want none")
+    full.update(lw)
+    trace["loop"]["launches"] = family_launches(full, tokens)
+    trace["scan"]["launches"] = {f: n * T for f, n in nodes.items()}
+    for mode, tr in trace.items():
+        check_traced(f"{label}, {mode}", tr["traced"], tr["launches"])
+    rates = {m: [E * T / x for x in v] for m, v in secs.items()}
+    timed = (f"in turns {list(SCAN_TURNS)}: scan "
+             + ", ".join(f"{x:.4f}" for x in secs["scan"]) + " s ("
+             + ", ".join(f"{r:.0f}" for r in rates["scan"])
+             + " env-steps/s), loop "
+             + ", ".join(f"{x:.4f}" for x in secs["loop"]) + " s ("
+             + ", ".join(f"{r:.0f}" for r in rates["loop"])
+             + " env-steps/s); ") if turns else ""
+    print(f"  {label}, the rollout alone ({E} envs x {T} steps), {timed}"
+          f"the scan's first run {first:.3f} s (warm-up "
+          f"{scan.warmup_s:.3f} s, capture {scan.capture_s:.3f} s, "
+          f"instantiate {scan.instantiate_s:.3f} s); the graph holds "
+          f"{nodes} hand-written kernel nodes (its DOT dump), launched "
+          f"{trace['scan']['replays']} times, no wrapper; under the "
+          f"profiler the scan's trace holds {trace['scan']['traced']}, the "
+          f"loop's {trace['loop']['traced']} (its wrappers {lw}); "
+          + "; ".join(f"{m}: {b['kernels']} kernels, busy "
+                      f"{b['share'] and round(b['share'], 4)} of a "
+                      f"{b['window_s']:.4f} s kernel window, host "
+                      f"{b['host_s']:.3f} s" for m, b in busy.items())
+          + f" [{smi}]", flush=True)
+    return dict(rollout_s=secs, env_steps_per_s=rates, busy=busy,
+                first_run_s=first, warmup_s=scan.warmup_s,
+                capture_s=scan.capture_s, instantiate_s=scan.instantiate_s,
+                graph_nodes=nodes, replays=trace["scan"]["replays"],
+                graph_launches=trace["scan"]["launches"],
+                graph_launches_traced=trace["scan"]["traced"])
+
+
+def scan_turns(torch, count, make_train, path, sets, label, want_fn,
+               per_step, smi, turns=True, traces=True, tokens=11):
+    """``ROLLOUT_MODE=scan`` against ``loop`` on one config:
+    :func:`update0_both`, then (with ``traces``) :func:`traced_rollouts`
+    on the same world.  Returns the numbers."""
+    from vit_marl_tpu_torch.env.world import WorldEnv
+
+    ma, tc = config_with(path, sets + ["LOG_BACKEND=none"])
+    env = WorldEnv(ma, device=DEV)
+    out = dict(update0=update0_both(torch, count, make_train, ma, tc, env,
+                                    want_fn, label, smi))
+    if traces:
+        out.update(traced_rollouts(torch, count, env, tc, label, per_step,
+                                   tokens, smi, turns))
+    return out
+
+
+def bench_scan_phase(torch, count, smi):
+    """``python -m vit_marl_tpu_torch.bench`` in-process at 4,096 envs (10
+    steps x 2 reps) with GRU and ViT-Small policies, ``--mode loop`` then
+    ``--mode scan``: each prints its ``env_steps_per_sec_per_chip`` line
+    (reprinted here), the scan's with a value > 0, the wrappers'
+    launches of both exact.  Returns the rates."""
+    from vit_marl_tpu_torch import bench
+
+    rates = {}
+    for policy, depth in (("gru", 0), ("vit-small", 12)):
+        for mode in ("loop", "scan"):
+            argv = BENCH_ARGS + ["--policy", policy, "--mode", mode]
+            args = bench.parse_args(argv)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out, got, wall = drive(torch, count,
+                                       lambda: bench.main(argv))
+            # the world's window table is one book scan; the loop runs one
+            # untimed step and the timed ones, the scan its warm-up step
+            # through the wrappers (its replays launch without them)
+            steps = 1 + args.steps * args.reps if mode == "loop" else 1
+            want = {"book_scan": 1 + steps}
+            if depth:
+                want["short_attention_fwd"] = depth * steps
+            expect(got, want, f"bench {policy} {mode}")
+            line = buf.getvalue().strip().splitlines()[-1]
+            if json.loads(line)["metric"] != \
+                    f"env_steps_per_sec_per_chip[{policy},{mode}]" or \
+                    not out["value"] > 0:
+                raise AssertionError(f"bench {policy} {mode}: {line}")
+            rates[f"{policy},{mode}"] = out["value"]
+            print(f"  bench --policy {policy} --mode {mode}: {line} "
+                  f"({wall:.2f} s with the world's set-up) [{smi}]",
+                  flush=True)
+    return rates
+
+
+def slice12_phase(torch, attn, bkern, blk, make_train, smi):
+    """Phase 18: kernels 5 and 7 past 32 tokens, training at 41 tokens in
+    both fused modes, the scan against the loop (the 2-player, debug-mode,
+    vision and ``cnn_gru`` configs), and the bench's ``--mode scan``;
+    each path driven with every count set to 0 just before it."""
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS
+
+    count = counters(attn, bkern, blk)
+    out = {"long": long_block_phase(torch, blk, smi)}
+    out["long_training"] = long_training_phase(torch, count, blk, make_train,
+                                               smi)
+    _, tc = config_with(CONFIG, [])
+    out["scan_2player"] = scan_turns(
+        torch, count, make_train, CONFIG, [],
+        f"ippo_2player.yaml ({tc.num_envs} envs)",
+        lambda t: {"book_scan": rollout_steps(t, 1)}, {"book_scan": 1}, smi)
+    out["scan_debug"] = scan_turns(
+        torch, count, make_train, CONFIG, ["WORLD.DEBUG_MODE=true"],
+        f"ippo_2player.yaml, DEBUG_MODE ({tc.num_envs} envs)",
+        lambda t: {"book_scan_records": rollout_steps(t, 1)},
+        {"book_scan_records": 1}, smi, turns=False)
+    _, tc = config_with(VISION_CONFIG, [])
+    depth = VIT_PRESETS[tc.vit_preset].depth
+    out["scan_vision"] = scan_turns(
+        torch, count, make_train, VISION_CONFIG, [],
+        f"ippo_vision_dual_ppo.yaml ({tc.num_envs} envs)",
+        lambda t: vision_launches(t, depth, 1),
+        {"book_scan": 1, "short_attention_fwd": depth}, smi)
+    # cuDNN's deterministic algorithms for this check: without them update
+    # 0 of cnn_gru differs between two runs of the loop itself (in
+    # EXE/actor_loss and EXE/approx_kl; tools/torch_scan_repeat.py)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["scan_cnn_gru"] = scan_turns(
+            torch, count, make_train, VISION_CONFIG,
+            ["NETWORK=[gru, cnn_gru]"],
+            f"ippo_vision_dual_ppo.yaml on NETWORK=[gru, cnn_gru] "
+            f"({tc.num_envs} envs, cudnn.deterministic)",
+            lambda t: {"book_scan": rollout_steps(t, 1)}, {"book_scan": 1},
+            smi, traces=False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out["bench"] = bench_scan_phase(torch, count, smi)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2012,6 +2573,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     sys.path.insert(1, os.path.join(ROOT, "tests"))
+    sys.path.insert(2, os.path.join(ROOT, "tools"))
     from torch_cases import add_sweeps, make_case, make_corner_case
     from vit_marl_tpu_torch.config import EngineConfig, load_yaml_config
     from vit_marl_tpu_torch.lob.book import BookState
@@ -2248,10 +2810,10 @@ def main() -> int:
         raise AssertionError("the 2-player path (GRU policies) launched the "
                              f"ViT's kernels: {others}")
     check_metrics(out["metrics"])
-    want_launches = tc.num_steps * UPDATES
+    want_launches = rollout_steps(tc, UPDATES)
     if launches != want_launches:
         raise AssertionError(f"book scan launched {launches} times, want "
-                             f"NUM_STEPS x updates = {want_launches}")
+                             f"{want_launches} (rollout_steps)")
     if not any("/info_" in k for k in out["metrics"][0]):
         raise AssertionError("LOG_ENV_INFO is on and no info metric came")
     obs_shapes = [tuple(s.shape) for s in env.observation_spaces]
@@ -2299,7 +2861,7 @@ def main() -> int:
     for mode in ("attn_ln_fold", "fused_block", "fused_block_full"):
         modes[mode] = vision_phase(torch, attn, bkern, blk, make_train,
                                    load_yaml_config, dev, smi, mode,
-                                   updates=1)
+                                   updates=1, epochs=1)
     phase("10 fused-mode vision training", t0)
 
     # ---- phase 11: the port's bench ----
@@ -2342,6 +2904,12 @@ def main() -> int:
     s11 = slice11_phase(torch, attn, bkern, blk, make_train, smi)
     phase("17 networks, layouts, pipeline, data parallelism", t0)
 
+    # ---- phase 18: kernels 5 and 7 past 32 tokens; the scan ----
+    t0 = time.perf_counter()
+    s12 = slice12_phase(torch, attn, bkern, blk, make_train, smi)
+    phase("18 kernels 5 and 7 past 32 tokens, the rollout as a CUDA "
+          "graph", t0)
+
     # ---- summary ----
     print(json.dumps({"kernels": [{
         "name": "book_scan_aggs",
@@ -2350,6 +2918,17 @@ def main() -> int:
         "replaces": "vit_marl_tpu/ops/book_kernel.py:580",
         "launches": launches,
         "launches_vision": vision["book_scan"],
+        # phase 18: the graph's replays in one update's rollout, 2-player
+        # and vision: the graph's nodes of the kernel times its launches,
+        # and the launches a profiler trace of them holds
+        "graph_launches_per_update": s12["scan_2player"][
+            "graph_launches"]["book_scan"],
+        "graph_launches_traced": s12["scan_2player"][
+            "graph_launches_traced"]["book_scan"],
+        "graph_launches_per_update_vision": s12["scan_vision"][
+            "graph_launches"]["book_scan"],
+        "graph_launches_traced_vision": s12["scan_vision"][
+            "graph_launches_traced"]["book_scan"],
         "bit_equal": max_err == 0,
         "max_abs_err": max_err,
         "ms": kernel_ms,
@@ -2376,15 +2955,36 @@ def main() -> int:
         "info_reduce_kernels": reduce_kernels,
     }, dict(records, launches=dgot["book_scan_records"],
             bit_equal_m126=m126["bit_equal_m126"],
-            launches_per_update=dgot["book_scan_records"] // UPDATES)]
+            graph_launches_per_update=s12["scan_debug"]["graph_launches"][
+                "book_scan"],
+            graph_launches_traced=s12["scan_debug"]["graph_launches_traced"][
+                "book_scan"])]
       + [dict(att[k], launches=vision[k],
                launches_attn_ln_fold=modes["attn_ln_fold"][k],
                launches_pipeline=s11["pipeline"][k],
                launches_rows_3d=s11["layouts"][1][k],
-               launches_41_tokens=s11["long"][k])
+               launches_41_tokens=s11["long"][k],
+               graph_launches_per_update=s12["scan_vision"][
+                   "graph_launches"].get(k, 0),
+               graph_launches_traced=s12["scan_vision"][
+                   "graph_launches_traced"].get(k, 0))
           for k in ("short_attention_fwd", "short_attention_bwd")]
       + [dict(fused[k], launches=modes[BLOCK_KERNELS[k][1]][k],
-              launches_mode=BLOCK_KERNELS[k][1]) for k in BLOCK_KERNELS]
+              launches_mode=BLOCK_KERNELS[k][1],
+              **({"n41": s12["long"][k],
+                  "launches_41_tokens": s12["long_training"][
+                      BLOCK_KERNELS[k][1]][0][k],
+                  # the fused-block kernels' launches of the graph's
+                  # replays in one update's rollout at 41 tokens (three a
+                  # call of kernel 7, two of kernel 5): nodes times
+                  # launches, and as a trace holds them
+                  "graph_kernel_launches_41_tokens": s12["long_training"][
+                      BLOCK_KERNELS[k][1]][1]["graph_launches"][
+                          "fused_block"],
+                  "graph_kernel_launches_41_tokens_traced": s12[
+                      "long_training"][BLOCK_KERNELS[k][1]][1][
+                          "graph_launches_traced"]["fused_block"]}
+                 if k in LONG_KERNELS else {})) for k in BLOCK_KERNELS]
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -121,9 +121,14 @@ def test_bench_without_a_card_prints_the_error_and_fails(monkeypatch,
 
 
 def test_bench_refuses_other_modes_and_the_cpu_selfcheck(capsys):
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """``--mode scan`` and ``--selfcheck`` need a card: on the CPU each
+    prints the error line and exits non-zero."""
+    with pytest.raises(SystemExit) as e:
         bench.main(["--smoke", "--device", "cpu", "--mode", "scan"])
-    assert "error" in _last_json(capsys.readouterr().out)
+    assert e.value.code != 0
+    out = _last_json(capsys.readouterr().out)
+    assert out["metric"] == "env_steps_per_sec_per_chip[vit-small,scan]"
+    assert out["value"] == 0.0 and "CUDA" in out["error"]
     with pytest.raises(SystemExit) as e:
         bench.main(["--smoke", "--device", "cpu", "--selfcheck"])
     assert e.value.code != 0

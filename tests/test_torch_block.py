@@ -222,18 +222,21 @@ def test_attention_reference_xla_matches_jax():
     (bk._launch_ln_qkv, dict(W=96, K=288), "W=96"),
     (bk._launch_ln_qkv, dict(W=576, K=1728), "W=576"),
     (bk._launch_proj_mlp, dict(W=64, hidden=96), "hidden=96"),
-    (bk._launch_full_block, dict(W=64, hidden=256, n=33, heads=2), "N=33"),
+    (bk._launch_full_block, dict(W=64, hidden=256, n=33, heads=2, rows=67),
+     "67 rows do not split into images of 33 tokens"),
     (bk._launch_ln_qkv_attn, dict(W=256, n=11, heads=1), "D=256"),
     (bk._launch_ln_qkv_attn, dict(W=64, n=11, heads=16), "D=4")],
     ids=["width-not-64", "width-over-512", "hidden", "tokens", "head-wide",
          "head-narrow"])
 def test_launchers_refuse_unsupported_shapes(launch, args, match):
     """Checked before anything reaches a card: a CUDA tensor of these
-    shapes raises; the plain version is never taken instead.  (W over
-    512 never reaches a launcher through the wrappers: they take the
-    composed route first, by shape.)"""
+    shapes raises (``NotImplementedError``; ``ValueError`` for rows that
+    do not split into images, at any number of tokens); the plain version
+    is never taken instead.  (W over 512 never reaches a launcher
+    through the wrappers: they take the composed route first, by
+    shape.)"""
     Wd, n = args["W"], args.get("n", 1)
-    rows = 2 * n
+    rows = args.get("rows", 2 * n)
     x = torch.zeros(rows, Wd)
     v = torch.zeros(Wd)
     if launch is bk._launch_ln_qkv:
@@ -253,7 +256,8 @@ def test_launchers_refuse_unsupported_shapes(launch, args, match):
     else:
         call = lambda: launch(x, v, v, torch.zeros(3 * Wd, Wd),
                               torch.zeros(3 * Wd), n, args["heads"])
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError if "rows" in args else NotImplementedError,
+                       match=match):
         call()
 
 

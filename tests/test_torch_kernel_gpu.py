@@ -39,7 +39,12 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   attention backward kernel; shapes the kernels do not take raise
   ``NotImplementedError``, but for ViT-Base's width (W=768, hidden
   3,072), which takes the counted ``composed`` route and matches the
-  plain versions at ``block_tol``.
+  plain versions at ``block_tol``.  Past 32 tokens (N = 33 to 257)
+  the whole block and LN+QKV+attention take their route through a qkv
+  buffer and the attention of ``csrc/long_attention.cuh`` in both dtypes,
+  at the same tolerances, counted once a call on their dtype's route.
+- The scan rollout (``rl/scan.py``): one CUDA graph of the 2-player step,
+  replayed, bit-equal to the loop, its launches counted a replay.
 - Kernels 1 and 2 on streams the port's worlds build: 126 messages a step
   (a ``fixed_prices`` market maker, ``fixed_prices`` and
   ``fixed_quants_1msg`` execution agents, three traders) and a
@@ -51,6 +56,8 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
 
 import itertools
 import math
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -610,7 +617,7 @@ def test_ln_qkv_attn_backward_runs_the_attention_kernel(cuda):
 def test_block_kernels_reject_unsupported_shapes(cuda):
     _, _, args = block_case("full_block", 2, 11, 64, 2, torch.float32, cuda,
                             2)
-    with pytest.raises(NotImplementedError, match="N=11, D=4"):
+    with pytest.raises(NotImplementedError, match="D=4 "):
         blk.fused_block_full(*args, 11, 16)
     x = torch.zeros(22, 96, device=cuda)
     v = torch.zeros(96, device=cuda)
@@ -649,6 +656,132 @@ def test_vit_base_width_takes_the_composed_route(cuda, kind, dtype):
                     "launches_composed": 1}
     assert got.dtype == dtype
     torch.testing.assert_close(got, want, **block_tol(COMPOSED[kind], want))
+
+
+# past 32 tokens kernels 5 and 7 take their route of three launches (the
+# qkv staged through a global buffer, csrc/long_attention.cuh): tile edges
+# of the attention's 32-key tiles and 64- (bf16) or 32-row (float32) query
+# blocks, and images longer than one CTA tile of 64 or 128 rows
+LONG_N = [33, 41, 51, 64, 65, 128, 129, 257]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["full_block", "ln_qkv_attn"])
+@pytest.mark.parametrize("N", LONG_N)
+def test_block_kernels_past_32_tokens_match_plain(cuda, kind, dtype, N):
+    """ViT-Small's widths (W=384, 6 heads of 64); each call counts once,
+    on its dtype's route, and not as an LN+QKV or proj+MLP call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kern, plain, args = block_case(kind, 7, N, 384, 6, dtype, cuda, N)
+    fn = _counter(kind)
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    inner = (blk.fused_ln_qkv, blk.fused_proj_mlp)
+    before = (fn.launches, getattr(fn, f"launches_{route}"),
+              [f.launches for f in inner])
+    got = kern(*args)
+    assert (fn.launches, getattr(fn, f"launches_{route}"),
+            [f.launches for f in inner]) == (before[0] + 1, before[1] + 1,
+                                             before[2])
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got, want, **block_tol(kind, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,N,W,H", [(5, 41, 192, 8), (3, 65, 256, 2),
+                                     (2, 33, 64, 8), (300, 41, 512, 4)])
+def test_long_attention_head_widths(cuda, dtype, B, N, W, H):
+    """D = 24 (padded to 32 columns), 128, 8 and W=512 past 32 tokens."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for kind in ("full_block", "ln_qkv_attn"):
+        kern, plain, args = block_case(kind, B, N, W, H, dtype, cuda, B + N)
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **block_tol(kind, want))
+
+
+def _kernel_launches(fn, piece):
+    """Launches of kernels whose name holds ``piece`` while ``fn()`` runs,
+    from a ``torch.profiler`` Chrome trace."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return sum(1 for ev in events
+               if ev.get("cat") == "kernel" and piece in ev.get("name", ""))
+
+
+def test_scan_graph_replays_the_loop(cuda):
+    """``rl/scan.py`` on the card: the 2-player step captured as one CUDA
+    graph (after its warm-up) and replayed 3 times gives trajectories,
+    info moments and carry bit-equal to ``rollout_loop`` from the same
+    carry and generator state.  The book scan's wrapper counts the
+    warm-up's launch and none for the capture or the replays; the graph
+    holds one book-scan kernel node (its DOT dump), and a profiler trace
+    of a second run finds the kernel launched once a replay."""
+    from vit_marl_tpu_torch import config as tcfg
+    from vit_marl_tpu_torch.env.world import WorldEnv
+    from vit_marl_tpu_torch.rl import ppo as tppo
+    from vit_marl_tpu_torch.rl.scan import ScanRollout
+    from vit_marl_tpu_torch.utils.tree import tree_leaves
+
+    E, T = 64, 3
+    ma = tcfg.MultiAgentConfig(world=tcfg.WorldConfig(
+        n_orders=64, n_messages_per_synthetic_day=4000, episode_time=2,
+        start_resolution=5))
+    env = WorldEnv(ma, device=cuda)
+    tc = tcfg.TrainConfig(num_envs=E, num_steps=T)
+    torch.manual_seed(0)
+    nets = tppo.make_networks(env, tc)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    params = env.default_params
+    obs, state = env.reset(env.draw_reset(E, gen), params)
+    actors = [n * E for n in env.n_per_type]
+    carry = tppo.Carry(state, obs,
+                       [torch.zeros(a, dtype=torch.bool, device=cuda)
+                        for a in actors],
+                       [torch.zeros(a, tc.hidden_size, device=cuda)
+                        for a in actors])
+    twin = torch.Generator(device=cuda)
+    twin.set_state(gen.get_state())
+    scan = ScanRollout(env.step_vec, nets, params, T, E, env.n_per_type,
+                       gen, gen, True, cuda)
+    with torch.no_grad():
+        want = tppo.rollout_loop(env.step_vec, nets, carry, params, T, E,
+                                 env.n_per_type, twin, twin, True)
+        before = bkern.process_step_aggs.launches
+        got = scan.run(carry)
+        torch.cuda.synchronize()
+    assert scan.graph is not None
+    assert bkern.process_step_aggs.launches == before + 1
+    la, lb = tree_leaves(got), tree_leaves(want)
+    assert len(la) == len(lb)
+    bad = [i for i, (a, b) in enumerate(zip(la, lb)) if not torch.equal(a, b)]
+    assert bad == []
+    assert gen.get_state().equal(twin.get_state())
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        scan.graph.debug_dump(path)
+        with open(path) as f:
+            assert f.read().count("book_scan_kernel") == 1
+    with torch.no_grad():
+        replayed = _kernel_launches(lambda: scan.run(got[2]),
+                                    "book_scan_kernel")
+    assert replayed == T
+    assert bkern.process_step_aggs.launches == before + 1
 
 
 def test_bench_selfcheck_and_loop_on_the_card(cuda, capsys):

@@ -192,10 +192,9 @@ def test_squashed_normal_matches_jax():
                                rtol=1e-6, atol=1e-6)
 
 
-# the modes the port still refuses: attn_ln_fold without rows_2d (as the
-# JAX package), and the fused kernels whose attention holds N <= 32 tokens
-# past that (41 tokens); every other mode takes both layouts and 41
-# tokens (tests/test_torch_networks.py)
+# attn_ln_fold without rows_2d is refused, as in the JAX package; every
+# other mode, the fused kernels' included, builds at 41 tokens and matches
+# flax there (tests/test_torch_long_tokens.py, tests/test_torch_networks.py)
 @pytest.mark.parametrize("mode", [
     dict(rows_2d=False, attn_ln_fold=True),
     dict(fused_block_full=True), dict(attn_ln_fold=True),
@@ -203,14 +202,26 @@ def test_squashed_normal_matches_jax():
     dict(attn_ln_fold=True, attn_bwd_kernel=False),
     dict(fused_block_full=True, attn_kernel=False)])
 def test_modes_not_ported_raise(mode):
-    _, tc = _cfgs("float32", **mode)
+    jc, tc = _cfgs("float32", **mode)
     if not tc.rows_2d and tc.attn_ln_fold:
         with pytest.raises(ValueError, match="rows_2d"):
             tvit.ViTEncoder(tc, LEVELS)
         return
-    with pytest.raises(NotImplementedError, match="41 tokens"):
-        tvit.ViTEncoder(tc, 40)
-    tvit.ViTEncoder(tc, LEVELS)
+    levels = 40
+    img = np.random.default_rng(7).normal(size=(2, levels, 3, 2)).astype(
+        np.float32)
+    jenc = JViTEncoder(jc)
+    params = jax.device_get(jenc.init(jax.random.PRNGKey(7),
+                                      jnp.asarray(img)))
+    enc = tvit.ViTEncoder(tc, levels)
+    enc.load_state_dict(vit_encoder_state_dict(params["params"]),
+                        strict=True)
+    with torch.no_grad():
+        got = enc(torch.from_numpy(img))
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jenc.apply(params,
+                                                     jnp.asarray(img))),
+                               **ENCODER_TOL["float32"])
 
 
 MODES = {"fused_block": dict(fused_block=True),
@@ -311,10 +322,12 @@ def test_fused_modes_keep_the_parameter_layout():
 
 
 def test_more_than_32_tokens_raise():
-    """Past 32 tokens the kernels of fused_block_full and attn_ln_fold
-    raise; the default blocks take the image on dot_product_attention."""
-    _, tc = _cfgs("float32", fused_block_full=True)
-    with pytest.raises(NotImplementedError, match="33 tokens"):
-        tvit.ViTEncoder(tc, 32)
-    _, tc = _cfgs("float32")
-    tvit.ViTEncoder(tc, 32)
+    """33 tokens build in every mode: the fused kernels of
+    fused_block_full and attn_ln_fold take the image on their route past
+    32 tokens, the others on dot_product_attention."""
+    for mode in [{}] + [dict(v) for v in MODES.values()]:
+        _, tc = _cfgs("float32", **mode)
+        enc = tvit.ViTEncoder(tc, 32)
+        with torch.no_grad():
+            y = enc(torch.zeros((2, 32, 3, 2)))
+        assert y.shape == (2, 64) and torch.isfinite(y).all(), mode

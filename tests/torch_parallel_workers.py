@@ -69,3 +69,39 @@ def make_gru(obs_dim, action_dim, hidden):
     return ActorCriticRNN(obs_dim, action_dim, fc_dim=hidden,
                           hidden_size=hidden)
 
+
+
+def scan_against_loop(group, ma, tc, seed):
+    """On this rank: ``rl/scan.py``'s body run eagerly and
+    ``rollout_loop`` from the same carry and generator states, over the
+    sharded step; returns the labels of the leaves that differ."""
+    import torch
+
+    from vit_marl_tpu_torch.parallel.shard_step import rank_seed
+    from vit_marl_tpu_torch.rl.scan import ScanRollout
+    from vit_marl_tpu_torch.utils.tree import tree_leaves
+
+    env = WorldEnv(ma, device="cpu")
+    n = group.local_count(tc.num_envs)
+    torch.manual_seed(seed)
+    nets = tppo.make_networks(env, tc)
+    gen = torch.Generator().manual_seed(rank_seed(seed, group.rank))
+    params = env.default_params
+    obs, state = env.reset(env.draw_reset(n, gen), params)
+    actors = [k * n for k in env.n_per_type]
+    carry = tppo.Carry(state, obs,
+                       [torch.zeros(a, dtype=torch.bool) for a in actors],
+                       [torch.zeros(a, tc.hidden_size) for a in actors])
+    step = make_sharded_step(env, group)
+    twin = torch.Generator()
+    twin.set_state(gen.get_state())
+    scan = ScanRollout(step, nets, params, tc.num_steps, n, env.n_per_type,
+                       gen, gen, True, "cpu")
+    with torch.no_grad():
+        got = scan.run(carry)
+        want = tppo.rollout_loop(step, nets, carry, params, tc.num_steps, n,
+                                 env.n_per_type, twin, twin, True)
+    bad = [i for i, (a, b) in enumerate(zip(tree_leaves(got),
+                                            tree_leaves(want)))
+           if not torch.equal(a, b)]
+    return bad, len(tree_leaves(want)), group.rank

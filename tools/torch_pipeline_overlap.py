@@ -53,9 +53,10 @@ def concurrent(by_stream):
     return sum(union(ivs) for ivs in by_stream.values()) - union(allk)
 
 
-def traced(bench, torch, args, dev):
-    """One run of ``args``'s mode under the profiler: kernel intervals by
-    stream (us) from the Chrome trace, and the host's seconds."""
+def traced(torch, fn):
+    """``fn()`` under the profiler: its kernels' intervals by stream (us)
+    from the Chrome trace, the host's seconds, and the kernels launched,
+    counted by name (a CUDA graph's replays included)."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
@@ -63,7 +64,7 @@ def traced(bench, torch, args, dev):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        bench.measure(args, dev)
+        fn()
         torch.cuda.synchronize()
         host = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as d:
@@ -71,13 +72,14 @@ def traced(bench, torch, args, dev):
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)
-    by_stream = {}
+    by_stream, names = {}, {}
     for ev in trace.get("traceEvents", []):
         if ev.get("cat") == "kernel" and "dur" in ev:
             s = ev.get("args", {}).get("stream", ev.get("tid"))
             by_stream.setdefault(s, []).append(
                 (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
-    return by_stream, host
+            names[ev.get("name", "")] = names.get(ev.get("name", ""), 0) + 1
+    return by_stream, host, names
 
 
 def main():
@@ -116,7 +118,8 @@ def main():
         print(f"{mode}: {', '.join(f'{v:.1f}' for v in vs)} env-steps/s "
               f"[{smi}]", flush=True)
     for mode in ("pipeline-seq", "pipeline"):
-        by_stream, host = traced(bench, torch, args_for(mode, 5, 2), dev)
+        by_stream, host, _ = traced(
+            torch, lambda: bench.measure(args_for(mode, 5, 2), dev))
         starts = sorted(x for ivs in by_stream.values() for x, _ in ivs)
         cut = starts[len(starts) // 2]
         by_stream = {k: [iv for iv in v if iv[0] >= cut]

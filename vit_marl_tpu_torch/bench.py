@@ -20,12 +20,13 @@ Usage:
   python -m vit_marl_tpu_torch.bench --selfcheck          # kernels vs plain
   python -m vit_marl_tpu_torch.bench --smoke --device cpu
 
-``--mode``: ``loop`` (Python-issued steps), ``pipeline`` (the
-split-batch pipelined rollout of ``rl/pipeline.py``, each tick's env half
-and policy half on two CUDA streams) and ``pipeline-seq`` (the same
-schedule on one stream).  ``scan`` (the JAX bench's fused ``lax.scan``
-rollout, whose counterpart is a CUDA-graph capture of the whole step) is
-not ported and raises.
+``--mode``: ``loop`` (Python-issued steps), ``scan`` (the trainer's
+rollout of ``rl/scan.py``, one CUDA graph of the step replayed
+``--steps`` times: the counterpart of the JAX bench's fused ``lax.scan``;
+it needs a card, and on the CPU prints the error line and exits
+non-zero), ``pipeline`` (the split-batch pipelined rollout of
+``rl/pipeline.py``, each tick's env half and policy half on two CUDA
+streams) and ``pipeline-seq`` (the same schedule on one stream).
 """
 
 from __future__ import annotations
@@ -325,6 +326,47 @@ def bench_pipeline(args, dev) -> dict:
                 f"msgs/step={env.num_msgs_per_step} halves of {half}")
 
 
+def bench_scan(args, dev) -> dict:
+    """Env-steps/s of the trainer's rollout as a CUDA graph of the step
+    (``rl/scan.py``; ``bench.py:398-407``): policy forward, sample and
+    env step with the trainer's done handling, written into the
+    trajectory buffers.  The first run of ``steps`` steps (warm-up,
+    capture, instantiation and its replays) is ``compile``, as the JAX
+    bench's first call of its jitted scan is; then ``reps`` timed runs.
+    ``capture`` and ``instantiate`` hold their own seconds."""
+    from vit_marl_tpu_torch.rl.ppo import Carry
+    from vit_marl_tpu_torch.rl.scan import ScanRollout
+
+    E = args.envs
+    if args.policy == "none":
+        raise ValueError("scan mode needs a policy in the loop")
+    env, params, gen, obs, state, nets, hs = _bench_setup(args, dev)
+    dones = [torch.zeros(n * E, dtype=torch.bool, device=dev)
+             for n in env.n_per_type]
+    carry = Carry(state, obs, dones, hs)
+    scan = ScanRollout(env.step_vec, nets, params, args.steps, E,
+                       env.n_per_type, gen, gen, False, dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        trajs, _, carry = scan.run(carry)
+        _sync(dev)
+        float(trajs[0].reward.sum())
+        compile_time = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(args.reps):
+            trajs, _, carry = scan.run(carry)
+        _sync(dev)
+        float(trajs[0].reward.sum())
+        dt = time.perf_counter() - t0
+    return dict(value=E * args.steps * args.reps / dt, compile=compile_time,
+                run=dt, capture=scan.capture_s,
+                instantiate=scan.instantiate_s,
+                detail=f"envs={E} steps={args.steps} reps={args.reps} "
+                f"msgs/step={env.num_msgs_per_step} capture="
+                f"{scan.capture_s:.3f}s instantiate="
+                f"{scan.instantiate_s:.3f}s")
+
+
 def bench_vit_images(args, dev) -> dict:
     """ViT fwd+bwd images/s inside a PPO update (``bench.py:630-700``): one
     minibatch step of the ViT actor-critic (clipped surrogate, value and
@@ -405,21 +447,18 @@ def measure(args, dev) -> dict:
         return selfcheck(args, dev)
     if args.mode.startswith("pipeline"):
         return bench_pipeline(args, dev)
+    if args.mode == "scan":
+        return bench_scan(args, dev)
     return bench_loop(args, dev)
 
 
 def main(argv=None):
     """Run the bench; returns the printed result dict.  After printing
-    the error line, raises ``SystemExit`` (non-zero) when there is no card
-    or the selfcheck fails, and ``NotImplementedError`` for a mode that
-    is not ported."""
+    the error line, raises ``SystemExit`` (non-zero) when there is no
+    card, when the selfcheck or ``--mode scan`` is asked of the CPU, or
+    when the selfcheck fails."""
     args = parse_args(argv)
     metric, unit = metric_label(args)
-    if args.mode == "scan":
-        why = ("--mode scan is not ported yet (ROADMAP.md section 1, item "
-               "10: the rollout as one CUDA graph)")
-        print(_error_json(metric, why, unit), flush=True)
-        raise NotImplementedError(why)
     from vit_marl_tpu_torch.utils.device import resolve_device
     try:
         dev = resolve_device(args.device)
@@ -429,6 +468,11 @@ def main(argv=None):
     if args.selfcheck and dev.type != "cuda":
         print(_error_json(metric, "the selfcheck needs a CUDA device", unit),
               flush=True)
+        raise SystemExit(1)
+    if args.mode == "scan" and not args.vit_images and not args.selfcheck \
+            and dev.type != "cuda":
+        print(_error_json(metric, "--mode scan replays a CUDA graph: it "
+                                  "needs a CUDA device", unit), flush=True)
         raise SystemExit(1)
     watchdog = arm_deadline(metric, args.deadline, unit)
     try:

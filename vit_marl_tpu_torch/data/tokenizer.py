@@ -20,6 +20,8 @@ from dataclasses import dataclass
 
 import torch
 
+from vit_marl_tpu_torch.utils.device import const
+
 Tensor = torch.Tensor
 
 _BAND = 1 << 16  # each band holds one 16-bit half-word
@@ -103,11 +105,11 @@ def tokenize_book(cfg: TokenizerConfig, l2_state: Tensor, time: Tensor,
                           dim=1)
     halves = torch.stack([with_time & 0xFFFF, (with_time >> 16) & 0xFFFF],
                          dim=-1).reshape(with_time.shape[0], -1)
-    shift = torch.tensor(
+    shift = const(
         [cfg.TIME_B_START] * 4
         + [cfg.PRICE_B_START, cfg.PRICE_B_START,
            cfg.SIZE_B_START, cfg.SIZE_B_START] * 2 * n_levels,
-        dtype=torch.int32, device=halves.device)
+        torch.int32, halves.device)
     return halves + shift
 
 

@@ -11,6 +11,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from vit_marl_tpu_torch.config import TradeCol
+from vit_marl_tpu_torch.utils.device import const
 
 Tensor = torch.Tensor
 
@@ -277,7 +278,7 @@ def build_action_msgs(types: Tensor, sides: Tensor, quants: Tensor,
                                    prices.shape, trader_ids.shape)
     t = (time[:, None, :] + time_delay[None, :, None]).to(torch.int32)
     cols = [types, sides, quants, prices,
-            torch.as_tensor(order_ids, device=time.device), trader_ids,
+            const(order_ids, torch.int32, time.device), trader_ids,
             t[:, :, None, 0], t[:, :, None, 1]]
     return torch.stack([c.to(torch.int32).expand(shape) for c in cols],
                        dim=-1)

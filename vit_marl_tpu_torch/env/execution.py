@@ -39,6 +39,7 @@ from vit_marl_tpu_torch.env.structs import (
     WorldState,
 )
 from vit_marl_tpu_torch.lob import book as bk
+from vit_marl_tpu_torch.utils.device import const
 from vit_marl_tpu_torch.utils.ints import hamilton_apportionment_permuted
 
 Tensor = torch.Tensor
@@ -185,14 +186,18 @@ class ExecutionAgent:
         return torch.where(quants.sum(dim=-1, keepdim=True) <= quant_left,
                            quants, first_row * quant_left).to(torch.int32)
 
+    @staticmethod
+    def _ft_nt(action: Tensor) -> Tensor:
+        """The far- and near-touch columns (0 and 2) of the task prices."""
+        return const([0, 2], torch.int64, action.device)
+
     def _quants_fixed_quants(self, action, world, state):
         """5 actions: no trade or one of 4 levels (ref: execution.py:
         152-162); ``larger_far_touch_quant`` sends 10x at the far touch."""
         row1 = [10, 0, 0, 0] if self.cfg.larger_far_touch_quant \
             else [1, 0, 0, 0]
-        qa = torch.tensor([[0, 0, 0, 0], row1, [0, 1, 0, 0], [0, 0, 1, 0],
-                           [0, 0, 0, 1]], dtype=torch.int32,
-                          device=action.device)
+        qa = const([[0, 0, 0, 0], row1, [0, 1, 0, 0], [0, 0, 1, 0],
+                    [0, 0, 0, 1]], torch.int32, action.device)
         quants = qa[action.long()] * self.cfg.fixed_quant_value
         return (self._cap_quants(quants, qa[1], state),
                 self._task_prices(world, state))
@@ -200,8 +205,7 @@ class ExecutionAgent:
     def _quants_fixed_quants_complex(self, action, world, state):
         """(quants, prices) ``(E, n, 4)`` (ref: vision_env.py:1537-1587)."""
         prices = self._task_prices(world, state)
-        qa = torch.tensor(_QUANT_ARRAY, dtype=torch.int32,
-                          device=action.device)
+        qa = const(_QUANT_ARRAY, torch.int32, action.device)
         quants = qa[action.long()] * self.cfg.fixed_quant_value  # (E, n, 4)
         return self._cap_quants(quants, qa[1], state), prices
 
@@ -252,7 +256,7 @@ class ExecutionAgent:
     def _quants_twap_v3(self, action, world, state, draw: ExecStepDraw):
         """twapV3 baseline (ref: execution.py:248-266); the policy action
         is ignored."""
-        prices = self._task_prices(world, state)[..., [0, 2]]   # (FT, NT)
+        prices = self._task_prices(world, state)[..., self._ft_nt(action)]
         quants = self._twap_v3_quants(world, state, draw.swap)
         return self._fit_task(quants, state, draw.ties), prices
 
@@ -273,7 +277,8 @@ class ExecutionAgent:
             world.best_bids[:, -10:, 0].to(torch.float32).mean(dim=1), tick)
         full = self._ladder(best_ask.to(torch.int32)[:, None],
                             best_bid.to(torch.int32)[:, None], state)
-        prices = full[..., _LADDER_ROWS[self.cfg.n_actions]]
+        prices = full[..., const(_LADDER_ROWS[self.cfg.n_actions],
+                                 torch.int64, full.device)]
         if self.cfg.n_actions == 4:
             combine = (prices[..., 1] == prices[..., 2])[..., None]
             moved = torch.stack([quants[..., 0], torch.zeros_like(
@@ -292,9 +297,8 @@ class ExecutionAgent:
                                  - world.step_counter - 1, min=1)[:, None]
         quant_left = state.task_to_execute - state.quant_executed
         step_quant = torch.ceil(quant_left / steps_left).to(torch.int32)
-        prices = self._task_prices(world, state)[..., [0, 2]]   # (FT, NT)
-        qa = torch.tensor([[1, 0], [0, 1]], dtype=torch.int32,
-                          device=action.device)
+        prices = self._task_prices(world, state)[..., self._ft_nt(action)]
+        qa = const([[1, 0], [0, 1]], torch.int32, action.device)
         return qa[action.long()] * step_quant[..., None], prices
 
     def _quants_simplest_case(self, action: Tensor, world: WorldState,
@@ -303,10 +307,9 @@ class ExecutionAgent:
         ``(E, n, 2)`` (ref: execution.py:188-197, vision_env.py:1145-1211).
         Over the remainder the far-touch row ``[fq, 0]`` scales it, so the
         order is ``fq`` times the remainder, as in the reference."""
-        prices = self._task_prices(world, state)[..., [0, 2]]   # (FT, NT)
+        prices = self._task_prices(world, state)[..., self._ft_nt(action)]
         fq = self.cfg.fixed_quant_value
-        qa = torch.tensor([[0, 0], [fq, 0], [0, fq]], dtype=torch.int32,
-                          device=action.device)
+        qa = const([[0, 0], [fq, 0], [0, fq]], torch.int32, action.device)
         return self._cap_quants(qa[action.long()], qa[1], state), prices
 
     def _quants_policy_blending(self, action: Tensor, world: WorldState,

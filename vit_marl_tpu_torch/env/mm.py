@@ -37,6 +37,7 @@ from vit_marl_tpu_torch.env.structs import (
     WorldState,
 )
 from vit_marl_tpu_torch.lob import book as bk
+from vit_marl_tpu_torch.utils.device import const
 
 Tensor = torch.Tensor
 
@@ -131,15 +132,14 @@ class MarketMakingAgent:
         p = torch.stack(torch.broadcast_tensors(bid_price, ask_price), -1)
         return common.build_action_msgs(
             types=torch.ones(2, dtype=torch.int32, device=dev),
-            sides=torch.tensor([1, -1], dtype=torch.int32, device=dev),
+            sides=const([1, -1], torch.int32, dev),
             quants=q.to(torch.int32), prices=p.to(torch.int32),
             order_ids=self.wcfg.placeholder_order_id,
             trader_ids=params.trader_id[None, :, None],
             time=world.time, time_delay=params.time_delay_obs_act)
 
     def _table(self, values, action: Tensor, dtype=torch.float32) -> Tensor:
-        return torch.tensor(values, dtype=dtype,
-                            device=action.device)[action.long()]
+        return const(values, dtype, action.device)[action.long()]
 
     def _action_fixed_quants(self, action, world, state, params):
         """(ref: mm_env.py:959-1037)"""
@@ -283,8 +283,7 @@ class MarketMakingAgent:
                 2: [best_ask, best_ask + tick * nt], 1: [best_ask]}[n // 2]
         prices = torch.stack(buy + sell, dim=-1).to(torch.int32)  # (E,1,n)
         dev = action.device
-        sides = torch.tensor([1] * (n // 2) + [-1] * (n // 2),
-                             dtype=torch.int32, device=dev)
+        sides = const([1] * (n // 2) + [-1] * (n // 2), torch.int32, dev)
         return common.build_action_msgs(
             types=torch.ones(n, dtype=torch.int32, device=dev), sides=sides,
             quants=action.to(torch.int32), prices=prices,

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from vit_marl_tpu_torch.config import EMPTY_SLOT, EngineConfig, MsgCol
+from vit_marl_tpu_torch.utils.device import const
 
 ASK, BID = 0, 1
 PRICE, QUANT, OID, TID, TS, TNS = range(6)
@@ -196,8 +197,7 @@ def make_cancel_msgs(side: SideState, agent_id: torch.Tensor, size: int,
 
     E, n = agent_id.shape
     shape = (E, n, size)
-    sign = torch.as_tensor(side_sign, dtype=torch.int32,
-                           device=match.device)
+    sign = const(side_sign, torch.int32, match.device)
     if sign.dim() == 2:
         sign = sign[:, :, None]
     msgs = torch.stack([

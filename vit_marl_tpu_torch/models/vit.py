@@ -40,9 +40,9 @@ attention (``attention_nhd``); past 32 tokens either layout takes
 counted in its ``.calls``.  The fused modes take both layouts (the rank-3
 one as flat rows, as ``_fused_block`` does); past 32 tokens
 ``fused_block`` runs ``dot_product_attention`` between its kernels, and
-``fused_block_full`` and ``attn_ln_fold`` raise ``NotImplementedError``:
-their CUDA kernels hold an image's attention for N <= 32 only, where the
-JAX package's Pallas kernels take any N.  ``attn_ln_fold`` with
+``fused_block_full`` and ``attn_ln_fold`` keep their kernels, which take
+any number of tokens (their route past 32, ``ops/block_kernel.py``), as
+the JAX package's Pallas kernels do.  ``attn_ln_fold`` with
 ``rows_2d=False`` raises ``ValueError``, as in the JAX package.
 
 ``remat`` recomputes each block's activations in the backward pass
@@ -106,22 +106,11 @@ VIT_PRESETS = {
 }
 
 def check_ported(cfg: ViTConfig, n_tokens: int) -> None:
-    """Raise for a mode the port does not run at ``n_tokens`` tokens:
-    ``ValueError`` for ``attn_ln_fold`` without ``rows_2d`` (as the JAX
-    package raises), ``NotImplementedError`` for ``fused_block_full`` or
-    ``attn_ln_fold`` past 32 tokens."""
+    """Raise ``ValueError`` for ``attn_ln_fold`` without ``rows_2d``, as
+    the JAX package raises; every other mode runs at any ``n_tokens``."""
     if cfg.attn_ln_fold and not (cfg.fused_block or cfg.fused_block_full) \
             and not cfg.rows_2d:
         raise ValueError("attn_ln_fold requires the rows_2d layout")
-    fused = ("fused_block_full" if cfg.fused_block_full else
-             None if cfg.fused_block else
-             "attn_ln_fold" if cfg.attn_ln_fold else None)
-    if fused and n_tokens > MAX_TOKENS:
-        raise NotImplementedError(
-            f"{fused} at {n_tokens} tokens: its CUDA kernel holds an "
-            f"image's attention for at most {MAX_TOKENS} tokens (widening "
-            "it is a later kernel PR, ROADMAP.md section 1, item 8); the "
-            "default blocks and fused_block take this image")
 
 
 def attention(qkv: torch.Tensor, n_tokens: int, heads: int,

@@ -45,7 +45,7 @@ import threading
 
 import torch
 
-from vit_marl_tpu_torch.ops import nvcc
+from vit_marl_tpu_torch.ops import nvcc, tally
 
 SOURCE = os.path.join(nvcc.CSRC, "short_attention.cu")
 MAX_TOKENS = 32
@@ -151,7 +151,7 @@ def dot_product_attention(qkv: torch.Tensor, n_tokens: int,
     k, v = x[1].to(acc), x[2].to(acc)
     p = torch.softmax(q @ k.transpose(-1, -2), dim=-1).to(qkv.dtype)
     out = (p.to(acc) @ v).to(qkv.dtype)                    # (B, H, N, D)
-    dot_product_attention.calls += 1
+    tally(qkv, dot_product_attention, "calls")
     return out.transpose(1, 2).reshape(rows, W)
 
 
@@ -223,10 +223,6 @@ def _check_aligned(*tensors: torch.Tensor) -> None:
             raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
 
 
-def _count(name: str) -> None:
-    setattr(short_attention, name, getattr(short_attention, name) + 1)
-
-
 def _on_device(device: torch.device):
     """Makes ``device`` current for a launch; nothing to do when it is
     (the common case, which then skips the context's host time)."""
@@ -255,8 +251,7 @@ def _launch_fwd(qkv: torch.Tensor, n_tokens: int, heads: int):
             qkv.data_ptr(), out.data_ptr(), B, n_tokens, heads, D,
             D ** -0.5, stream)
     _raise_on(err, f"short_attention_fwd_{route}")
-    short_attention.launches_fwd += 1
-    _count(f"launches_fwd_{route}")
+    tally(qkv, short_attention, "launches_fwd", f"launches_fwd_{route}")
     return out
 
 
@@ -277,8 +272,7 @@ def _launch_bwd(qkv: torch.Tensor, g: torch.Tensor, n_tokens: int,
             qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), B, n_tokens,
             heads, D, D ** -0.5, stream)
     _raise_on(err, f"short_attention_bwd_{route}")
-    short_attention.launches_bwd += 1
-    _count(f"launches_bwd_{route}")
+    tally(qkv, short_attention, "launches_bwd", f"launches_bwd_{route}")
     return dqkv
 
 

@@ -28,7 +28,13 @@ may be float32.  Each function has two implementations:
   of :func:`wgmma_plan`, computed here and checked by the C entry;
   :func:`fused_ln_qkv_attn`'s attention on ``mma.sync`` tiles), float32
   the CUDA-core kernels; each counts its launches in ``.launches_wgmma``
-  / ``.launches_simt`` beside the total ``.launches``.
+  / ``.launches_simt`` beside the total ``.launches``.  Past 32 tokens
+  :func:`fused_block_full` and :func:`fused_ln_qkv_attn` run on their
+  route as three kernels on one stream, the qkv rows staged through a
+  global buffer: ``fused_ln_qkv``'s kernel (K = 3W), the attention of
+  ``csrc/long_attention.cuh`` (keys in tiles of 32, online softmax; bf16
+  on ``mma.sync``), and for the full block ``fused_proj_mlp``'s kernel;
+  the call counts once, under its own name and route.
 
 A third route, ``composed``, runs the JAX package's composed XLA
 reference (``_ln_qkv_reference``, ``_proj_mlp_reference``,
@@ -48,16 +54,18 @@ backend conditions are not taken: the kernels take ragged rows.
 Otherwise a CPU tensor takes the plain versions, and a CUDA tensor
 launches the kernel or raises (``NotImplementedError`` for a shape the
 kernels do not take: W a multiple of 64 up to 512, the MLP hidden and the
-qkv width multiples of 64 up to 2048, N <= 32, D a multiple of 8 up to
-128).
+qkv width multiples of 64 up to 2048, D a multiple of 8 up to 128; any
+number of tokens).
 
 Gradients, as in the JAX package, recompute in plain ops: the backward of
 each function is autograd of the composition the JAX package
 differentiates (``_ln_qkv_reference``, ``_proj_mlp_reference``,
 ``_full_block_reference``, whose attention is
 :func:`attention_reference_xla`); :func:`fused_ln_qkv_attn`'s backward
-recomputes qkv and runs the attention backward kernel (``bwd_kernel``) or
-autograd of :func:`attention_reference_xla`.  Each public function counts
+recomputes qkv and runs the attention backward kernel (``bwd_kernel``,
+up to 32 tokens, as the JAX package's ``_ln_qkv_attn_bwd`` takes it only
+where its ``attention_ok`` holds) or autograd of
+:func:`attention_reference_xla`.  Each public function counts
 its kernel launches in ``.launches``.
 """
 
@@ -71,7 +79,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
-from vit_marl_tpu_torch.ops import nvcc
+from vit_marl_tpu_torch.ops import nvcc, tally
 from vit_marl_tpu_torch.ops.attention_kernel import (
     MAX_TOKENS,
     attention_bwd,
@@ -175,7 +183,7 @@ def fits_kernel(name: str, width: int, hidden: int = 0) -> bool:
 
 def _composed(name: str, fn, *args):
     """Run the composed route of ``name`` and count it."""
-    _count(name, "composed")
+    tally(args[0], globals()[name], "launches_composed")
     return fn(*args)
 
 
@@ -407,12 +415,15 @@ def _library():
             lib.fused_ln_qkv_attn_tc.argtypes = ([p] * 6 + [i] * 4
                                                  + [f, p, p])
             lib.fused_block_tc_info.argtypes = [i, p] + [i] * 4 + [p]
+            lib.fused_block_long_attention.argtypes = ([p] * 2 + [i] * 4
+                                                       + [f, i, p])
             for fn in (lib.fused_ln_qkv, lib.fused_proj_mlp,
                        lib.fused_block_full, lib.fused_ln_qkv_attn,
                        lib.fused_ln_qkv_tc, lib.fused_proj_mlp_tc,
                        lib.fused_block_full_tc, lib.fused_ln_qkv_attn_tc,
                        lib.fused_block_tc_info,
-                       lib.fused_block_tc_plan_fields):
+                       lib.fused_block_tc_plan_fields,
+                       lib.fused_block_long_attention):
                 fn.restype = i
             if lib.fused_block_tc_plan_fields() != len(TC_FIELDS):
                 raise RuntimeError("fused_block.cu's tc::Plan does not "
@@ -441,9 +452,8 @@ def _check_heads(name: str, rows: int, W: int, n_tokens: int,
         raise ValueError(f"{name}: width {W} does not split into {heads} "
                          "heads")
     D = W // heads
-    if not 1 <= n_tokens <= MAX_TOKENS or D % 8 or D > 128:
-        _unsupported(name, f"N={n_tokens}, D={D} (N <= {MAX_TOKENS}, D a "
-                     "multiple of 8 up to 128)")
+    if D % 8 or D > 128:
+        _unsupported(name, f"D={D} (a multiple of 8 up to 128)")
 
 
 def _kernel_tensors(name: str, rows_args, params):
@@ -471,29 +481,35 @@ def _kernel_tensors(name: str, rows_args, params):
     return out, _DTYPES[dt]
 
 
-def _run(name: str, x: torch.Tensor, args, route: str = "") -> None:
-    """Launch the C entry ``name`` (``name_tc`` on the tensor-core route)
-    on x's card and count it, in total and on its route."""
+def _run(entry: str, x: torch.Tensor, args) -> None:
+    """Launch the C entry ``entry`` on x's card."""
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        entry = name + ("_tc" if route == "wgmma" else "")
         err = getattr(lib, entry)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
+        raise RuntimeError(f"{entry} launch failed: "
                            + lib.fused_block_error_string(err).decode())
-    globals()[name].launches += 1
-    if route:
-        _count(name, route)
 
 
-def _count(name: str, route: str) -> None:
-    fn = globals()[name]
-    setattr(fn, f"launches_{route}", getattr(fn, f"launches_{route}") + 1)
+def _entry(name: str, x: torch.Tensor) -> str:
+    """The C entry of ``name`` for x's type: ``name_tc`` on the bf16
+    tensor-core route, ``name`` on the float32 one."""
+    return name + ("_tc" if x.dtype == torch.bfloat16 else "")
+
+
+def _tally(name: str, x: torch.Tensor) -> None:
+    """Count one call of ``name`` on x's card, in total and on its route
+    (each public function counts its call once, whatever it launches)."""
+    tally(x, globals()[name], "launches", f"launches_{_route(x)}")
 
 
 def _ptrs(ts):
     return [t.data_ptr() for t in ts]
+
+
+def _route(x: torch.Tensor) -> str:
+    return "wgmma" if x.dtype == torch.bfloat16 else "simt"
 
 
 def _launch_ln_qkv(x, gamma, beta, w, bias):
@@ -506,10 +522,9 @@ def _launch_ln_qkv(x, gamma, beta, w, bias):
         name, (x, w), (gamma, beta, bias))
     out = torch.empty((rows, K), dtype=x.dtype, device=x.device)
     args = _ptrs((x, gamma, beta, w, bias, out)) + [rows, W, K]
-    if x.dtype == torch.bfloat16:
-        _run(name, x, args + [_plan_ptr(name, W, K, 1, 1)], "wgmma")
-    else:
-        _run(name, x, args + [code], "simt")
+    plan = (_plan_ptr(name, W, K, 1, 1) if x.dtype == torch.bfloat16
+            else code)
+    _run(_entry(name, x), x, args + [plan])
     return out
 
 
@@ -523,11 +538,21 @@ def _launch_proj_mlp(attn, x, wp, bp, gamma, beta, w1, b1, w2, b2):
     out = torch.empty_like(x)
     args = (_ptrs((attn, x, wp, bp, gamma, beta, w1, b1, w2, b2, out))
             + [rows, W, w1.shape[0]])
-    if x.dtype == torch.bfloat16:
-        _run(name, x, args + [_plan_ptr(name, W, w1.shape[0], 1, 1)],
-             "wgmma")
-    else:
-        _run(name, x, args + [code], "simt")
+    plan = (_plan_ptr(name, W, w1.shape[0], 1, 1)
+            if x.dtype == torch.bfloat16 else code)
+    _run(_entry(name, x), x, args + [plan])
+    return out
+
+
+def _launch_long_attention(qkv, n_tokens: int, heads: int):
+    """The attention of ``(B*N, 3W)`` qkv rows past 32 tokens
+    (``csrc/long_attention.cuh``), the middle launch of kernels 5 and 7
+    there."""
+    rows, W = qkv.shape[0], qkv.shape[1] // 3
+    out = torch.empty((rows, W), dtype=qkv.dtype, device=qkv.device)
+    _run("fused_block_long_attention", qkv,
+         [qkv.data_ptr(), out.data_ptr(), rows, n_tokens, heads, W,
+          (W // heads) ** -0.5, _DTYPES[qkv.dtype]])
     return out
 
 
@@ -541,15 +566,17 @@ def _launch_full_block(x, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, bm1, w2,
     (x, wqkv, wp, w1, w2, g1, b1, bqkv, bp, g2, b2, bm1, bm2), code = \
         _kernel_tensors(name, (x, wqkv, wp, w1, w2),
                         (g1, b1, bqkv, bp, g2, b2, bm1, bm2))
+    if n_tokens > MAX_TOKENS:
+        qkv = _launch_ln_qkv(x, g1, b1, wqkv, bqkv)
+        attn = _launch_long_attention(qkv, n_tokens, heads)
+        return _launch_proj_mlp(attn, x, wp, bp, g2, b2, w1, bm1, w2, bm2)
     out = torch.empty_like(x)
     args = (_ptrs((x, g1, b1, wqkv, bqkv, wp, bp, g2, b2, w1, bm1, w2, bm2,
                    out))
             + [rows, n_tokens, heads, W, w1.shape[0], (W // heads) ** -0.5])
-    if x.dtype == torch.bfloat16:
-        _run(name, x, args + [_plan_ptr(name, W, w1.shape[0], n_tokens,
-                                        heads)], "wgmma")
-    else:
-        _run(name, x, args + [code], "simt")
+    plan = (_plan_ptr(name, W, w1.shape[0], n_tokens, heads)
+            if x.dtype == torch.bfloat16 else code)
+    _run(_entry(name, x), x, args + [plan])
     return out
 
 
@@ -560,14 +587,15 @@ def _launch_ln_qkv_attn(x, gamma, beta, w, bias, n_tokens, heads):
     _check_heads(name, rows, W, n_tokens, heads)
     (x, w, gamma, beta, bias), code = _kernel_tensors(
         name, (x, w), (gamma, beta, bias))
+    if n_tokens > MAX_TOKENS:
+        return _launch_long_attention(
+            _launch_ln_qkv(x, gamma, beta, w, bias), n_tokens, heads)
     out = torch.empty_like(x)
     args = (_ptrs((x, gamma, beta, w, bias, out))
             + [rows, n_tokens, heads, W, (W // heads) ** -0.5])
-    if x.dtype == torch.bfloat16:
-        _run(name, x, args + [_plan_ptr(name, W, 0, n_tokens, heads)],
-             "wgmma")
-    else:
-        _run(name, x, args + [code], "simt")
+    plan = (_plan_ptr(name, W, 0, n_tokens, heads)
+            if x.dtype == torch.bfloat16 else code)
+    _run(_entry(name, x), x, args + [plan])
     return out
 
 
@@ -625,7 +653,9 @@ class _LnQkv(torch.autograd.Function):
             return _composed("fused_ln_qkv", ln_qkv_reference, *args)
         if _on_cpu(x):
             return ln_qkv_reference(*args)
-        return _launch_ln_qkv(*args)
+        out = _launch_ln_qkv(*args)
+        _tally("fused_ln_qkv", x)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -641,7 +671,9 @@ class _ProjMlp(torch.autograd.Function):
             return _composed("fused_proj_mlp", proj_mlp_reference, *args)
         if _on_cpu(x):
             return proj_mlp_reference(*args)
-        return _launch_proj_mlp(*args)
+        out = _launch_proj_mlp(*args)
+        _tally("fused_proj_mlp", x)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -659,7 +691,9 @@ class _FullBlock(torch.autograd.Function):
             return _composed("fused_block_full", _full_block_xla, *args)
         if _on_cpu(x):
             return full_block_reference(*args)
-        return _launch_full_block(*args)
+        out = _launch_full_block(*args)
+        _tally("fused_block_full", x)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -678,14 +712,17 @@ class _LnQkvAttn(torch.autograd.Function):
             return _composed("fused_ln_qkv_attn", _ln_qkv_attn_xla, *args)
         if _on_cpu(x):
             return ln_qkv_attn_reference(*args)
-        return _launch_ln_qkv_attn(*args)
+        out = _launch_ln_qkv_attn(*args)
+        _tally("fused_ln_qkv_attn", x)
+        return out
 
     @staticmethod
     def backward(ctx, g):
         """qkv recomputed in plain ops, the attention's backward by the
-        kernel (or autograd of the XLA-form attention), then autograd of
-        LN1 + QKV."""
-        bwd = attention_bwd if ctx.bwd_kernel else attention_xla_bwd
+        kernel up to 32 tokens (else, or without ``bwd_kernel``, autograd
+        of the XLA-form attention), then autograd of LN1 + QKV."""
+        bwd = (attention_bwd if ctx.bwd_kernel
+               and ctx.n_tokens <= MAX_TOKENS else attention_xla_bwd)
         return _vjp(ctx, ln_qkv_reference,
                     lambda qkv: bwd(qkv, g, ctx.n_tokens, ctx.heads)
                     ) + (None,) * 3

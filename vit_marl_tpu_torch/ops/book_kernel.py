@@ -49,7 +49,7 @@ from vit_marl_tpu_torch.lob.book import (
     TS,
     BookState,
 )
-from vit_marl_tpu_torch.ops import nvcc
+from vit_marl_tpu_torch.ops import nvcc, tally
 
 AGG_STATS = 8    # buy_q, sell_q, buy_pqt, sell_pqt, a_q, a_pqt, dur, signed
 AGG_TOTALS = 2   # total_q, total_pq_tick
@@ -471,7 +471,7 @@ def _launch(cfg: EngineConfig, msgs, book: BookState, tids, prev, tick,
             aggs.data_ptr(), E, M, S, n_agg, int(cfg.cancel_mode),
             int(cfg.init_id), int(tick), int(cfg.maxint), smem, stream)
     _raise_on(err, lib, "book_scan_aggs")
-    process_step_aggs.launches += 1
+    tally(book_out, process_step_aggs, "launches")
     per_agent = aggs[:, :AGG_STATS * n_agg].reshape(E, n_agg, AGG_STATS)
     return (BookState(book_out), (bidask[:, :, 0:2], bidask[:, :, 2:4]),
             (per_agent, aggs[:, AGG_STATS * n_agg:]))
@@ -499,7 +499,7 @@ def _launch_records(cfg: EngineConfig, msgs, book: BookState, prev,
             counts.data_ptr(), E, M, S, rec_k, int(cfg.cancel_mode),
             int(cfg.init_id), int(cfg.maxint), smem, stream)
     _raise_on(err, lib, "book_scan_records")
-    process_step_records.launches += 1
+    tally(book_out, process_step_records, "launches")
     return (BookState(book_out), (bidask[:, :, 0:2], bidask[:, :, 2:4]),
             (records, counts))
 

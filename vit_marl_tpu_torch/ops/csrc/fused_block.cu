@@ -45,6 +45,13 @@
 // accepted bf16 shape has a tc plan (tests/test_torch_block.py walks
 // them), so no shape rule sends bf16 to the first design.
 //
+// Past 32 tokens (both dtypes) kernels 5 and 7 attend on the route of
+// long_attention.cuh: their entries here take N <= 32 only, and the
+// wrappers run the same function as three launches on one stream, the
+// qkv staged through a global buffer: fused_ln_qkv's kernel (K = 3W),
+// fused_block_long_attention (keys in tiles, online softmax), and for
+// kernel 7 fused_proj_mlp's kernel.  long_attention.cuh says why.
+//
 // First design (all four functions, float32).  The TPU kernels keep
 // every weight in fast memory under constant index maps; ViT-Small's
 // block weights are 3.5 MB in bf16, far more than the 227 KB of shared
@@ -77,6 +84,7 @@
 #include <tuple>
 
 #include "attention_body.cuh"
+#include "long_attention.cuh"
 #include "mma_attention.cuh"
 
 namespace {
@@ -2216,6 +2224,17 @@ extern "C" int fused_block_tc_info(int kind, const int* plan, int N, int H,
 }
 
 extern "C" int fused_block_tc_plan_fields() { return tc::kPlanFields; }
+
+// The attention of images of more than 32 tokens (long_attention.cuh), the
+// middle stage of kernels 5 and 7 past 32 tokens: qkv (rows, 3W) and out
+// (rows, W) in bf16 (dtype 1, tensor cores) or float32 (dtype 0).
+extern "C" int fused_block_long_attention(const void* qkv, void* out,
+                                          int rows, int N, int H, int W,
+                                          float scale, int dtype,
+                                          void* stream) {
+  return (int)long_attn::launch(qkv, out, rows, N, H, W, scale, dtype,
+                                static_cast<cudaStream_t>(stream));
+}
 
 // Profile builds (-DFUSED_BLOCK_PROFILE) only: the cycles by phase of the
 // last launch of each tc kernel, [kind][warpgroup][phase] (warpgroup 0

@@ -5,9 +5,9 @@ Port of ``vit_marl_tpu/rl/ppo.py::make_train`` for GRU policies
 "vision_obs"}`` dict observations (``vit_gru``, ``cnn_gru``), each with
 discrete or continuous (``Box``) actions:
 one network, optimizer and hidden state per agent type; each update collects
-``num_steps`` batched env steps (a Python loop where the reference scans),
-computes per-type GAE (a reverse loop) and runs per-type clipped-PPO epochs
-over shuffled minibatches of actors.  The optimizer is the reference's
+``num_steps`` batched env steps, computes per-type GAE (a reverse loop)
+and runs per-type clipped-PPO epochs over shuffled minibatches of actors.
+The optimizer is the reference's
 ``optax.chain(clip_by_global_norm, adam(eps=1e-5))``: a hand-written
 global-norm clip (optax's, without the ``1e-6`` that
 ``torch.nn.utils.clip_grad_norm_`` adds), then Adam with the learning rate
@@ -39,8 +39,13 @@ With ``eval_every`` the policies are evaluated greedily every
 adds ``{name}/eval_mean_reward`` and, with ``log_env_info``, the
 ``eval_``-prefixed action and info metrics to the update's metrics.
 
-``ROLLOUT_MODE=pipeline`` collects with the split-batch pipelined
-rollout (:func:`rollout_pipeline`, ``rl/pipeline.py``); ``MESH_SHAPE``
+The rollout mode resolves as in the JAX package (:func:`rollout_mode`):
+``scan``, and ``auto`` (the JAX package's ``auto`` is the scan on every
+backend but a TPU), collect with ``rl/scan.py`` (on a card one CUDA
+graph of the step, replayed ``num_steps`` times; on the CPU the same body
+run eagerly); ``loop`` with the host loop :func:`rollout_loop`;
+``pipeline`` with the split-batch pipelined rollout
+(:func:`rollout_pipeline`, ``rl/pipeline.py``).  ``MESH_SHAPE``
 over data axes trains data parallel over ``torch.distributed``, one
 process a device (``parallel/``, :class:`PPOLearner`).  Refused by
 :func:`check_ported`: a ``model`` axis (tensor parallelism), a mesh of
@@ -78,6 +83,7 @@ from vit_marl_tpu_torch.rl.checkpoint import (
     load_adam_state,
 )
 from vit_marl_tpu_torch.rl.logger import Logger
+from vit_marl_tpu_torch.rl.scan import ScanRollout
 from vit_marl_tpu_torch.utils.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -722,6 +728,18 @@ def pipeline_generators(seed: int, device) -> List[List[torch.Generator]]:
     return out
 
 
+ROLLOUT_MODES = ("auto", "scan", "loop", "pipeline")
+
+
+def rollout_mode(mode: str) -> str:
+    """The collection ``ROLLOUT_MODE`` names (ref: ppo.py:744-745): ``auto``
+    is the scan, as in the JAX package on every backend but a TPU;
+    ``scan``, ``loop`` and ``pipeline`` name themselves."""
+    if mode not in ROLLOUT_MODES:
+        raise ValueError(f"ROLLOUT_MODE={mode!r}: one of {ROLLOUT_MODES}")
+    return "scan" if mode == "auto" else mode
+
+
 def resolve_group(cfg: TrainConfig, group: Optional[DataGroup] = None
                   ) -> DataGroup:
     """The data-parallel group of a run: with ``MESH_SHAPE``, ``group``
@@ -746,8 +764,10 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
     (default: ``cfg.log_backend`` to ``cfg.log_path``) receives each
     update's metrics dict.
 
-    ``rollout_mode="pipeline"`` collects with :func:`rollout_pipeline`
-    (two CUDA streams on the card); anything else with the loop.
+    :func:`rollout_mode` picks the collection: the scan
+    (``rl/scan.py::ScanRollout``, built once a ``train`` call; on the card
+    a CUDA graph of the step, captured before the first update), the loop
+    or :func:`rollout_pipeline` (two CUDA streams on the card).
 
     With ``MESH_SHAPE`` the run is data parallel over ``group`` (default:
     the initialized process group; see :func:`resolve_group`): this rank
@@ -770,7 +790,8 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
             "RESUME=true needs CHECKPOINT_DIR set: with no checkpoint "
             "directory there is nothing to resume from (refusing to "
             "silently restart at update 0)")
-    pipeline = cfg.rollout_mode == "pipeline"
+    mode = rollout_mode(cfg.rollout_mode)
+    pipeline = mode == "pipeline"
     n_envs = group.local_count(cfg.num_envs)
     if pipeline and n_envs % 2:
         raise ValueError("rollout_mode=pipeline needs an even NUM_ENVS")
@@ -812,6 +833,9 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
         dones = [torch.zeros(num_actors[i], dtype=torch.bool, device=dev)
                  for i in range(n_types)]
         carry = Carry(state, obs, dones, hstates)
+        scan = (ScanRollout(step_fn, nets, params, cfg.num_steps, n_envs,
+                            env.n_per_type, gen, gen, cfg.log_env_info, dev)
+                if mode == "scan" else None)
         ckpt = (CheckpointManager(cfg.checkpoint_dir,
                                   max_to_keep=cfg.checkpoint_max_to_keep)
                 if cfg.checkpoint_dir else None)
@@ -830,6 +854,8 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                     trajs, step_stats, carry = rollout_pipeline(
                         step_fn, nets, carry, params, cfg.num_steps, n_envs,
                         env.n_per_type, half_gens, cfg.log_env_info)
+                elif scan is not None:
+                    trajs, step_stats, carry = scan.run(carry)
                 else:
                     trajs, step_stats, carry = rollout_loop(
                         step_fn, nets, carry, params, cfg.num_steps, n_envs,

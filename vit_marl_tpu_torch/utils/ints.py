@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from vit_marl_tpu_torch.utils.device import const
+
 Tensor = torch.Tensor
 
 
@@ -37,7 +39,7 @@ def clip_by_sum_int(a: Tensor, max_sum: Tensor) -> Tensor:
     """Clip integer vectors so each sums to at most ``max_sum``, keeping
     proportions, ties resolved left-to-right (ref: utils.py:20-52);
     ``a`` is ``(..., k)``, ``max_sum`` ``(...)``."""
-    max_sum = torch.as_tensor(max_sum, dtype=a.dtype, device=a.device)
+    max_sum = const(max_sum, a.dtype, a.device)
     max_sum = max_sum.expand(a.shape[:-1])[..., None]
     a_sum = a.sum(dim=-1, keepdim=True, dtype=a.dtype)
     over = a_sum > max_sum
@@ -73,7 +75,7 @@ def hamilton_apportionment_permuted(votes: Tensor, seats: Tensor,
     Returns float32 seats, as the reference does.
     """
     votes = votes.to(torch.float32)
-    seats = torch.as_tensor(seats, device=votes.device).expand(
+    seats = const(seats, None, votes.device).expand(
         votes.shape[:-1])
     std_divisor = votes.sum(dim=-1) / seats.to(torch.float32)
     init_seats, rem = _float_divmod(votes, std_divisor[..., None])
