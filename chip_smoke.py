@@ -121,22 +121,19 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    route and none on a kernel, counted exactly; their times;
 15. entry: ``vit_marl_tpu_torch/graft_entry.py::entry`` on the card,
    against the same weights on the CPU;
-16. agent spaces and evaluation: one update of ``configs/sweep_fine.yaml``'s
+16. agent spaces: one update of ``configs/sweep_fine.yaml``'s
    base run (its ``SWEEP:`` dropped; 512 envs x 128 steps, MM ``basic``,
-   execution ``fixed_quants`` + ``basic``); one update of
-   ``configs/ippo_2player.yaml`` at 4,096 envs with ``EVAL_EVERY=1``,
-   ``EVAL_STEPS=32`` (the eval keys finite) and a checkpoint; worlds of
+   execution ``fixed_quants`` + ``basic``); worlds of
    every newly ported agent space and a ``fixed_time`` world (``SPACE_
    WORLDS``), 4 steps each at 4,096 envs, then one step of the same state
    and draws at E=256 through the kernel and through the plain book scan
    on the card (books, best quotes and integer state bit-equal, rewards
    and observations within 1e-5); kernel 1 timed at M=126 beside its
-   bound, kernel 2 checked at M=126 in ``debug_mode``; ``evaluate.py`` in
-   process on the 2-player checkpoint and on the ``AvSt``/``twap``
-   baseline world (4,096 envs x 50 steps, all four labels); the launch
-   count of every run exact;
+   bound, kernel 2 checked at M=126 in ``debug_mode``; the launch
+   count of every run exact (the evaluation moved to phase 19);
 17. networks, layouts, pipeline and data parallelism (the port's
-   eleventh slice), each path one update with every count set to 0 just
+   eleventh slice), each path one update (one PPO epoch, the cut that
+   makes room for phases 19-20) with every count set to 0 just
    before it and its launches exact: ``configs/ippo_vision_dual_ppo.yaml``
    on ``NETWORK=[gru, cnn_gru]`` (1,024 envs); ``ippo_2player.yaml`` with
    a ``fixed_prices`` execution agent (a ``Box`` on ``gru``, 512 envs x
@@ -177,8 +174,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    (1,024 envs) and its ``cnn_gru`` network (with cuDNN's deterministic
    algorithms): update 0 under each, its metrics bit-equal, the wrappers'
    launches exact, its peak memory; then the rollout alone (in turns:
-   loop, scan, scan, loop, loop, scan, for the 2-player and vision
-   configs) after the scan's set-up (warm-up, capture and instantiation
+   loop, scan, scan, loop, for the 2-player and vision configs) after
+   the scan's set-up (warm-up, capture and instantiation
    timed apart); the graph's hand-written kernel nodes (its DOT dump)
    equal to a loop step's launches; one rollout of each under
    ``torch.profiler``: the card's busy share of the kernel window, the
@@ -186,8 +183,31 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    no wrapper, each trace holding the hand-written kernels' launches
    (counted by name) that its run made, within ``TRACE_LOSS``;
    the bench at 4,096 envs, ``--mode loop`` and ``--mode scan`` with GRU
-   and ViT-Small policies, each line printed.
-Every training phase (6-18) collects with ``ROLLOUT_MODE``'s default,
+   and ViT-Small policies, each line printed.  Update 0 of each config
+   takes one PPO epoch, and the rollout's turns are loop, scan, scan,
+   loop (the cuts that make room for phases 19-20);
+19. greedy eval and ``evaluate.py`` as CUDA graphs (the port's
+   fourteenth slice): one update (one PPO epoch) of
+   ``ippo_2player.yaml`` at 4,096 envs and of
+   ``ippo_vision_dual_ppo.yaml`` at 1,024 envs with ``EVAL_EVERY=1``,
+   ``EVAL_STEPS=32`` (the eval on its graph, launches exact, the eval
+   keys finite; the 2-player run checkpointed); then each eval alone,
+   ``rl/ppo.py::EvalRollout`` against ``eval_rollout_loop`` in turns
+   (loop, graph, graph, loop), each pair from one generator
+   state and bit-equal in every metric, with seconds and env-steps/s
+   beside the earlier host-issued rate; ``evaluate.py`` at 4,096 envs x 50
+   steps on the 2-player checkpoint (graphs), then on the
+   ``AvSt``/``twap`` baseline world under ``ROLLOUT_MODE`` loop and scan
+   (the summaries of the modes equal), each label's seconds;
+20. the ``model`` mesh axis: one update of ``ippo_vision_dual_ppo.yaml``
+   at ViT-Small width, cut to 256 envs x 32 steps, 2 minibatches and one
+   epoch, in one process, then on a ``(1, 2)`` data x model mesh as two
+   processes on the card in a gloo group (NCCL puts no two ranks on one
+   card): each rank's launches exact, the ranks' weights identical,
+   their metrics within rtol 5e-4 / atol 1e-5 and their weights within 3
+   x the learning rate of one process's; each rank's bytes of stored
+   parameters and Adam state against one process's.
+Every training phase (6-20) collects with ``ROLLOUT_MODE``'s default,
 ``auto``: on the card a CUDA graph of the env step (``rl/scan.py``),
 replayed each step.  A wrapper counts the launches it makes: under the
 scan the warm-up step's (``rollout_steps``) and the update's; the
@@ -1546,17 +1566,13 @@ def m126_checks(torch, bkern, world_mod, env, state, params, gen, smi):
                 bit_equal_m126=True)
 
 
-def eval_training_phase(torch, count, make_train, load_yaml_config, env,
-                        ckpt_dir, smi):
-    """One update of ``sweep_fine.yaml``'s base run, then one of the
-    2-player config with greedy eval every update and a checkpoint.
-    Returns the eval rollout's env-steps/s."""
-    from vit_marl_tpu_torch.config import make_config
-    from vit_marl_tpu_torch.rl import ppo
-
+def sweep_fine_phase(torch, count, make_train, smi):
+    """One update of ``sweep_fine.yaml``'s base run."""
     with open(SWEEP_CONFIG) as f:
         raw = yaml.safe_load(f)
     raw.pop("SWEEP")                 # as vit_marl_tpu/rl/sweep.py:168
+    from vit_marl_tpu_torch.config import make_config
+
     ma, tc = make_config(raw)
     out, got, wall = drive(torch, count, lambda: make_train(
         ma, tc, device=DEV)(tc.seed, n_updates=1))
@@ -1573,100 +1589,6 @@ def eval_training_phase(torch, count, make_train, load_yaml_config, env,
           f"update_s {m['update_s']:.3f}; book-scan launches "
           f"{got['book_scan']} (the rollout's + the window table) [{smi}]",
           flush=True)
-
-    ma, tc = load_yaml_config(CONFIG)
-    tc = dataclasses.replace(tc, eval_every=1, eval_steps=EVAL_STEPS,
-                             checkpoint_dir=ckpt_dir)
-    evals = []
-    plain_eval = ppo.eval_rollout
-
-    def timed_eval(*a, **k):
-        t = time.perf_counter()
-        res = plain_eval(*a, **k)
-        torch.cuda.synchronize()
-        evals.append(time.perf_counter() - t)
-        return res
-    ppo.eval_rollout = timed_eval
-    try:
-        out, got, wall = drive(torch, count, lambda: make_train(
-            ma, tc, env=env)(tc.seed, n_updates=1))
-    finally:
-        ppo.eval_rollout = plain_eval
-    expect(got, {"book_scan": 1 + rollout_steps(tc, 1) + EVAL_STEPS},
-           "2-player with eval (eval window table + steps + eval steps)")
-    check_metrics(out["metrics"], "2-player with eval: ")
-    m = out["metrics"][0]
-    keys = [k for k in m if "eval" in k]
-    for k in ("MM/eval_mean_reward", "EXE/eval_mean_reward",
-              "eval_MM/action_pct_0", "eval_EXE/info_reward_mean",
-              "eval_world/end_mid_price_mean"):
-        if k not in m:
-            raise AssertionError(f"eval key {k} missing")
-    rate = tc.num_envs * EVAL_STEPS / evals[0]
-    print(f"  2-player with EVAL_EVERY=1, EVAL_STEPS={EVAL_STEPS}: "
-          f"{len(keys)} eval keys, MM/eval_mean_reward "
-          f"{m['MM/eval_mean_reward']:.5g}, EXE/eval_mean_reward "
-          f"{m['EXE/eval_mean_reward']:.5g}; eval rollout {evals[0]:.3f}s "
-          f"= {rate:.0f} env-steps/s; training rollout_s "
-          f"{m['rollout_s']:.3f}, update_s {m['update_s']:.3f} [{smi}]",
-          flush=True)
-    return rate
-
-
-def evaluate_phase(torch, count, ckpt_dir, smi):
-    """``vit_marl_tpu_torch/evaluate.py`` in process at E_MAIN envs x
-    EVAL_LABEL_STEPS steps: on the 2-player config from the checkpoint of
-    ``eval_training_phase``, and on the AvSt/twap baseline world without
-    one.  Each label's seconds; combinations.json must hold finite
-    rewards; launches exact."""
-    from vit_marl_tpu_torch import evaluate
-    from vit_marl_tpu_torch.eval import combinations
-
-    runs = {"2-player, checkpoint": ["--config", CONFIG, "--checkpoint-dir",
-                                     ckpt_dir],
-            "AvSt/twap baseline world": [
-                "--config", CONFIG,
-                "--set", "AGENT_CONFIGS.MarketMaking.ACTION_SPACE=AvSt",
-                "--set", "AGENT_CONFIGS.Execution.ACTION_SPACE=twap"]}
-    out = {}
-    plain_rollout = combinations.rollout
-    for label, args in runs.items():
-        secs = []
-
-        def timed(*a, **k):
-            t = time.perf_counter()
-            res = plain_rollout(*a, **k)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t)
-            return res
-        combinations.rollout = timed
-        with tempfile.TemporaryDirectory() as d:
-            try:
-                argv = args + ["--num-envs", str(E_MAIN), "--num-steps",
-                               str(EVAL_LABEL_STEPS), "--out-dir", d,
-                               "--device", DEV]
-                with contextlib.redirect_stdout(io.StringIO()):
-                    res, got, wall = drive(torch, count,
-                                           lambda: evaluate.main(argv))
-            finally:
-                combinations.rollout = plain_rollout
-            with open(os.path.join(d, "combinations.json")) as f:
-                summary = json.load(f)
-        expect(got, {"book_scan": 1 + 4 * EVAL_LABEL_STEPS},
-               f"evaluate.py, {label}")
-        if sorted(summary) != ["BB", "BL", "LB", "LL"] or not all(
-                np.isfinite(r["mean_rewards"]).all()
-                for r in summary.values()):
-            raise AssertionError(f"evaluate.py, {label}: {summary}")
-        rates = ", ".join(
-            f"{c} {s:.2f}s ({E_MAIN * EVAL_LABEL_STEPS / s:.0f} "
-            f"env-steps/s, mean rewards "
-            f"{[round(v, 4) for v in summary[c]['mean_rewards']]})"
-            for c, s in zip(res, secs))
-        print(f"  evaluate.py, {label}: {rates}; {wall:.2f}s in all "
-              f"[{smi}]", flush=True)
-        out[label] = dict(zip(res, secs))
-    return out
 
 
 def update_split(metrics):
@@ -1998,7 +1920,8 @@ def mesh_phase(torch, count, bkern, make_train, smi):
 
     ma, tc = config_with(MESH_CONFIG, [f"NUM_ENVS={MESH_ENVS}",
                                        "MESH_SHAPE=[1]",
-                                       "LOG_BACKEND=none"])
+                                       "LOG_BACKEND=none",
+                                       "UPDATE_EPOCHS=1"])
     dist.init_process_group(
         "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
         world_size=1, timeout=datetime.timedelta(seconds=300))
@@ -2030,8 +1953,9 @@ def mesh_phase(torch, count, bkern, make_train, smi):
 def slice11_phase(torch, attn, bkern, blk, make_train, smi):
     """Phase 17: the networks, layouts, rollout and data parallelism of
     the port's eleventh slice, each path driven once with every count
-    set to 0 just before it.  Returns the counts and the kernel-1
-    numbers at M=220."""
+    set to 0 just before it, each update with one PPO epoch (the cut
+    that makes room for phases 19-20).  Returns the counts and the
+    kernel-1 numbers at M=220."""
     from vit_marl_tpu_torch.env import spaces
     from vit_marl_tpu_torch.models.cnn import CNNActorCriticRNN
     from vit_marl_tpu_torch.models.vit import VIT_PRESETS
@@ -2039,7 +1963,8 @@ def slice11_phase(torch, attn, bkern, blk, make_train, smi):
     count = counters(attn, bkern, blk)
     out = {}
     ma, tc = config_with(VISION_CONFIG, ["NETWORK=[gru, cnn_gru]",
-                                         "LOG_BACKEND=none"])
+                                         "LOG_BACKEND=none",
+                                         "UPDATE_EPOCHS=1"])
     _, out["cnn_gru"], _, nets = train_once(
         torch, count, make_train, ma, tc, {"book_scan": rollout_steps(tc, 1)},
         "ippo_vision_dual_ppo.yaml on NETWORK=[gru, cnn_gru]", smi)
@@ -2048,7 +1973,7 @@ def slice11_phase(torch, attn, bkern, blk, make_train, smi):
     ma, tc = config_with(CONFIG, [
         "AGENT_CONFIGS.EXECUTION.ACTION_SPACE=fixed_prices",
         "AGENT_CONFIGS.EXECUTION.N_ACTIONS=4", f"NUM_ENVS={BOX_ENVS}",
-        "LOG_BACKEND=none"])
+        "LOG_BACKEND=none", "UPDATE_EPOCHS=1"])
     m, out["gru_box"], train, nets = train_once(
         torch, count, make_train, ma, tc, {"book_scan": rollout_steps(tc, 1)},
         "ippo_2player.yaml, execution fixed_prices (a Box) on gru", smi)
@@ -2058,7 +1983,7 @@ def slice11_phase(torch, attn, bkern, blk, make_train, smi):
     out["layouts"] = layouts_check(torch, count, smi)
     ma, tc = config_with(SIMPLEST_CONFIG, [
         f"AGENT_CONFIGS.EXECUTION.VISION_LEVELS={LONG_LEVELS}",
-        "LOG_BACKEND=none"])
+        "LOG_BACKEND=none", "UPDATE_EPOCHS=1"])
     depth = VIT_PRESETS[tc.vit_preset].depth
     _, out["long"], _, _ = train_once(
         torch, count, make_train, ma, tc,
@@ -2066,7 +1991,8 @@ def slice11_phase(torch, attn, bkern, blk, make_train, smi):
         f"ippo_vision_simplest.yaml, VISION_LEVELS={LONG_LEVELS} "
         f"({LONG_LEVELS + 1} tokens)", smi)
     ma, tc = config_with(VISION_CONFIG, ["ROLLOUT_MODE=pipeline",
-                                         "LOG_BACKEND=none"])
+                                         "LOG_BACKEND=none",
+                                         "UPDATE_EPOCHS=1"])
     _, out["pipeline"], _, _ = train_once(
         torch, count, make_train, ma, tc,
         vision_launches(tc, depth, 1, halves=2),
@@ -2334,11 +2260,11 @@ def update0_both(torch, count, make_train, ma, tc, env, want_fn, label,
 
 
 def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
-                    turns=False):
+                    turns=()):
     """The rollout alone (``rl/scan.py`` against ``rollout_loop``, one
     world, one set of networks, each run from the carry the last one
     left), after the scan's set-up (warm-up, capture, instantiation,
-    timed apart).  With ``turns``, timed in the turns of SCAN_TURNS.
+    timed apart).  Timed in ``turns`` (modes in order, e.g. SCAN_TURNS).
     Checks what the graph launches: its kernel nodes by family
     (:func:`graph_nodes`) equal what the loop's wrappers launch a step
     (``per_step``, counter: launches a step); one rollout of each mode
@@ -2398,7 +2324,7 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
         replay()
     scan.graph.replay = counted_replay
     secs = {"loop": [], "scan": []}
-    for mode in SCAN_TURNS if turns else ():
+    for mode in turns or ():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rollout(mode)
@@ -2437,7 +2363,7 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
     for mode, tr in trace.items():
         check_traced(f"{label}, {mode}", tr["traced"], tr["launches"])
     rates = {m: [E * T / x for x in v] for m, v in secs.items()}
-    timed = (f"in turns {list(SCAN_TURNS)}: scan "
+    timed = (f"in turns {list(turns)}: scan "
              + ", ".join(f"{x:.4f}" for x in secs["scan"]) + " s ("
              + ", ".join(f"{r:.0f}" for r in rates["scan"])
              + " env-steps/s), loop "
@@ -2466,16 +2392,20 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
 
 
 def scan_turns(torch, count, make_train, path, sets, label, want_fn,
-               per_step, smi, turns=True, traces=True, tokens=11):
-    """``ROLLOUT_MODE=scan`` against ``loop`` on one config:
+               per_step, smi, turns=SCAN_TURNS, traces=True, tokens=11,
+               env=None):
+    """``ROLLOUT_MODE=scan`` against ``loop`` on one config, with one PPO
+    epoch (the config's epochs are the same code again):
     :func:`update0_both`, then (with ``traces``) :func:`traced_rollouts`
-    on the same world.  Returns the numbers."""
+    on the same world (``env``: one built for the config already).
+    Returns the numbers, and the world in ``env``."""
     from vit_marl_tpu_torch.env.world import WorldEnv
 
-    ma, tc = config_with(path, sets + ["LOG_BACKEND=none"])
-    env = WorldEnv(ma, device=DEV)
+    ma, tc = config_with(path, sets + ["LOG_BACKEND=none",
+                                       "UPDATE_EPOCHS=1"])
+    env = env or WorldEnv(ma, device=DEV)
     out = dict(update0=update0_both(torch, count, make_train, ma, tc, env,
-                                    want_fn, label, smi))
+                                    want_fn, label, smi), env=env)
     if traces:
         out.update(traced_rollouts(torch, count, env, tc, label, per_step,
                                    tokens, smi, turns))
@@ -2534,19 +2464,21 @@ def slice12_phase(torch, attn, bkern, blk, make_train, smi):
     out["scan_2player"] = scan_turns(
         torch, count, make_train, CONFIG, [],
         f"ippo_2player.yaml ({tc.num_envs} envs)",
-        lambda t: {"book_scan": rollout_steps(t, 1)}, {"book_scan": 1}, smi)
+        lambda t: {"book_scan": rollout_steps(t, 1)}, {"book_scan": 1}, smi,
+        turns=SCAN_TURNS[:4])
     out["scan_debug"] = scan_turns(
         torch, count, make_train, CONFIG, ["WORLD.DEBUG_MODE=true"],
         f"ippo_2player.yaml, DEBUG_MODE ({tc.num_envs} envs)",
         lambda t: {"book_scan_records": rollout_steps(t, 1)},
-        {"book_scan_records": 1}, smi, turns=False)
+        {"book_scan_records": 1}, smi, turns=())
     _, tc = config_with(VISION_CONFIG, [])
     depth = VIT_PRESETS[tc.vit_preset].depth
     out["scan_vision"] = scan_turns(
         torch, count, make_train, VISION_CONFIG, [],
         f"ippo_vision_dual_ppo.yaml ({tc.num_envs} envs)",
         lambda t: vision_launches(t, depth, 1),
-        {"book_scan": 1, "short_attention_fwd": depth}, smi)
+        {"book_scan": 1, "short_attention_fwd": depth}, smi,
+        turns=SCAN_TURNS[:4])
     # cuDNN's deterministic algorithms for this check: without them update
     # 0 of cnn_gru differs between two runs of the loop itself (in
     # EXE/actor_loss and EXE/approx_kl; tools/torch_scan_repeat.py)
@@ -2559,11 +2491,392 @@ def slice12_phase(torch, attn, bkern, blk, make_train, smi):
             f"ippo_vision_dual_ppo.yaml on NETWORK=[gru, cnn_gru] "
             f"({tc.num_envs} envs, cudnn.deterministic)",
             lambda t: {"book_scan": rollout_steps(t, 1)}, {"book_scan": 1},
-            smi, traces=False)
+            smi, traces=False, env=out["scan_vision"]["env"])
     finally:
         torch.backends.cudnn.deterministic = deterministic
     out["bench"] = bench_scan_phase(torch, count, smi)
+    for k in ("scan_2player", "scan_debug", "scan_vision", "scan_cnn_gru"):
+        out[k].pop("env")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: greedy eval and evaluate.py as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the eval alone: pairs from one generator state, graph and host loop in
+# turns (loop, graph, graph, loop)
+EVAL_TURNS = (("loop", "graph"), ("graph", "loop"))
+# the greedy eval's rate before it had a graph (this script's evaluation
+# phase, NVIDIA H100 80GB HBM3, 700 W): the 2-player eval at 4,096 envs x
+# 32 steps, host-issued
+EARLIER_EVAL_RATE = 232_669
+# evaluate.py on the baseline world, after the checkpoint's run (scan)
+EVALUATE_TURNS = ("loop", "scan")
+
+
+def eval_turns(torch, count, env, nets, tc, label, per_step, smi):
+    """The greedy eval alone on one trainer's eval world and networks:
+    ``rl/ppo.py::EvalRollout`` (one graph of the step) against
+    ``eval_rollout_loop`` in :data:`EVAL_TURNS`, each pair from one
+    generator state and bit-equal in every metric; the wrappers launch
+    ``per_step`` once (the graph's warm-up, its first run) and none on
+    later replays, ``per_step`` a step in the loop.  Returns the seconds
+    of each run by kind and the set-up."""
+    from vit_marl_tpu_torch.rl import ppo
+
+    n_ev = tc.eval_envs or tc.num_envs
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    graph = ppo.EvalRollout(env, nets, n_ev, tc.eval_steps, tc.hidden_size,
+                            tc.log_env_info, gen)
+
+    def loop():
+        return ppo.eval_rollout_loop(env, nets, n_ev, tc.eval_steps,
+                                     tc.hidden_size, tc.log_env_info, gen)
+
+    secs = {"graph": [], "loop": []}
+    for pair in EVAL_TURNS:
+        start, res = gen.get_state(), {}
+        for how in pair:
+            gen.set_state(start)
+            first = how == "graph" and graph.graph is None
+            res[how], got, wall = drive(
+                torch, count, graph.run if how == "graph" else loop)
+            want = {k: v * (tc.eval_steps if how == "loop" else int(first))
+                    for k, v in per_step.items()}
+            expect(got, want, f"{label}, eval {how}")
+            secs[how].append(wall)
+        differ = [k for k in res["loop"]
+                  if not torch.equal(res["graph"][k], res["loop"][k])]
+        if differ or list(res["graph"]) != list(res["loop"]):
+            raise AssertionError(f"{label}: the eval graph differs from the "
+                                 f"host-issued eval in {differ}")
+    if graph.captures != int(DEV == "cuda"):
+        raise AssertionError(f"{label}: {graph.captures} eval captures")
+    steps = n_ev * tc.eval_steps
+    print(f"  {label}, greedy eval alone ({n_ev} envs x {tc.eval_steps} "
+          f"steps), in turns: " + ", ".join(
+              f"{how} {secs[how][k]:.4f} s ({steps / secs[how][k]:.0f} "
+              f"env-steps/s)" for how, k in _turn_index(EVAL_TURNS))
+          + f"; the graph's first run holds its set-up (warm-up "
+          f"{graph.warmup_s:.3f} s, capture {graph.capture_s:.3f} s, "
+          f"instantiate {graph.instantiate_s:.3f} s); every pair "
+          f"bit-equal in all {len(res['loop'])} metrics; the earlier "
+          f"host-issued rate {EARLIER_EVAL_RATE} env-steps/s [{smi}]",
+          flush=True)
+    return dict(secs, setup=[graph.warmup_s, graph.capture_s,
+                             graph.instantiate_s], steps=steps)
+
+
+def _turn_index(turns):
+    """(kind, its k-th run) of each run of ``turns`` in order."""
+    seen = {}
+    for pair in turns:
+        for how in pair:
+            yield how, seen.get(how, 0)
+            seen[how] = seen.get(how, 0) + 1
+
+
+def eval_training(torch, count, make_train, path, sets, label, want_fn,
+                  smi, ckpt_dir=None):
+    """One update of a config with ``EVAL_EVERY=1`` (the trainer's eval on
+    its graph), launches exact (``want_fn(tc)``), the eval keys there;
+    returns (the train function's output, its eval world, tc)."""
+    from vit_marl_tpu_torch.env.world import WorldEnv
+
+    ma, tc = config_with(path, sets + [
+        "LOG_BACKEND=none", "EVAL_EVERY=1", f"EVAL_STEPS={EVAL_STEPS}",
+        "UPDATE_EPOCHS=1"])
+    if ckpt_dir:
+        tc = dataclasses.replace(tc, checkpoint_dir=ckpt_dir)
+    env = WorldEnv(ma, device=DEV)
+    train = make_train(ma, tc, env=env)
+    out, got, wall = drive(torch, count, lambda: train(tc.seed, n_updates=1))
+    expect(got, want_fn(tc), f"{label} with eval")
+    m = out["metrics"][0]
+    for k in ("MM/eval_mean_reward", "EXE/eval_mean_reward",
+              "eval_MM/action_pct_0", "eval_EXE/info_reward_mean",
+              "eval_world/end_mid_price_mean"):
+        if not np.isfinite(m.get(k, np.nan)):
+            raise AssertionError(f"{label}: eval key {k} missing or "
+                                 "not finite")
+    n_eval = sum(1 for k in m if "eval" in k)
+    print(f"  {label} with EVAL_EVERY=1, EVAL_STEPS={tc.eval_steps}, one "
+          f"PPO epoch: 1 update in {wall:.2f} s (rollout "
+          f"{m['rollout_s']:.3f} s, PPO {m['update_s']:.3f} s, then the "
+          f"eval on its graph); {n_eval} eval keys, MM/eval_mean_reward "
+          f"{m['MM/eval_mean_reward']:.5g}, EXE/eval_mean_reward "
+          f"{m['EXE/eval_mean_reward']:.5g}; launches {got} [{smi}]",
+          flush=True)
+    return out, train.eval_env, tc
+
+
+def evaluate_turns(torch, count, ckpt_dir, smi):
+    """``vit_marl_tpu_torch/evaluate.py`` in process at E_MAIN envs x
+    EVAL_LABEL_STEPS steps, every label a graph of its step: on the
+    2-player checkpoint of :func:`eval_graph_phase` once, and on the
+    AvSt/twap baseline world under ``ROLLOUT_MODE`` scan and loop in
+    turns (:data:`EVALUATE_TURNS`), the summaries of the two modes
+    equal; each label's seconds; launches exact (the window table and a
+    label's warm-up step under the graph, every step under the loop)."""
+    from vit_marl_tpu_torch import evaluate
+    from vit_marl_tpu_torch.eval import combinations
+
+    runs = [("2-player, checkpoint", "scan", [
+        "--config", CONFIG, "--checkpoint-dir", ckpt_dir])]
+    base = ["--config", CONFIG,
+            "--set", "AGENT_CONFIGS.MarketMaking.ACTION_SPACE=AvSt",
+            "--set", "AGENT_CONFIGS.Execution.ACTION_SPACE=twap"]
+    runs += [("AvSt/twap baseline world", mode,
+              base + ["--set", f"ROLLOUT_MODE={mode}"])
+             for mode in EVALUATE_TURNS]
+    out, summaries = {}, {}
+    plain = {"rollout": combinations.rollout,
+             "rollout_loop": combinations.rollout_loop}
+    for label, mode, args in runs:
+        secs = []
+
+        def timed(fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                res = fn(*a, **k)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                return res
+            return run
+        for name, fn in plain.items():
+            setattr(combinations, name, timed(fn))
+        with tempfile.TemporaryDirectory() as d:
+            try:
+                argv = args + ["--num-envs", str(E_MAIN), "--num-steps",
+                               str(EVAL_LABEL_STEPS), "--out-dir", d,
+                               "--device", DEV]
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res, got, wall = drive(torch, count,
+                                           lambda: evaluate.main(argv))
+            finally:
+                for name, fn in plain.items():
+                    setattr(combinations, name, fn)
+            with open(os.path.join(d, "combinations.json")) as f:
+                summary = json.load(f)
+        per_label = 1 if mode == "scan" else EVAL_LABEL_STEPS
+        expect(got, {"book_scan": 1 + 4 * per_label},
+               f"evaluate.py, {label}, {mode}")
+        if sorted(summary) != ["BB", "BL", "LB", "LL"] or not all(
+                np.isfinite(r["mean_rewards"]).all()
+                for r in summary.values()):
+            raise AssertionError(f"evaluate.py, {label}: {summary}")
+        if label in summaries and summaries[label] != summary:
+            raise AssertionError(f"evaluate.py, {label}: {mode} gives "
+                                 f"{summary}, the other mode "
+                                 f"{summaries[label]}")
+        summaries[label] = summary
+        rates = ", ".join(
+            f"{c} {s:.3f}s ({E_MAIN * EVAL_LABEL_STEPS / s:.0f} "
+            f"env-steps/s, mean rewards "
+            f"{[round(v, 4) for v in summary[c]['mean_rewards']]})"
+            for c, s in zip(res, secs))
+        print(f"  evaluate.py, {label}, ROLLOUT_MODE={mode}: {rates}; "
+              f"{wall:.2f}s in all [{smi}]", flush=True)
+        out.setdefault(f"{label}, {mode}", []).append(dict(zip(res, secs)))
+    print(f"  evaluate.py, AvSt/twap baseline world: the summaries of "
+          f"scan and loop equal in every label", flush=True)
+    return out
+
+
+def eval_graph_phase(torch, count, make_train, smi):
+    """Phase 19: the trainer's greedy eval and ``evaluate.py`` on CUDA
+    graphs of their steps.  ``ippo_2player.yaml`` at 4,096 envs and
+    ``ippo_vision_dual_ppo.yaml`` at 1,024 envs, each one update with
+    ``EVAL_EVERY=1`` (one PPO epoch: the cut that makes room), then the
+    eval alone in turns (:func:`eval_turns`); ``evaluate.py``
+    (:func:`evaluate_turns`).  Returns the numbers."""
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS
+
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        res, eval_env, tc = eval_training(
+            torch, count, make_train, CONFIG, [], "ippo_2player.yaml",
+            # the rollout's warm-up step, the eval's warm-up step (the
+            # worlds' window tables are built before)
+            lambda t: {"book_scan": rollout_steps(t, 1) + 1}, smi,
+            ckpt_dir=ckpt_dir)
+        out["2-player"] = eval_turns(
+            torch, count, eval_env, res["networks"], tc,
+            f"ippo_2player.yaml ({tc.num_envs} envs)", {"book_scan": 1},
+            smi)
+        out["evaluate"] = evaluate_turns(torch, count, ckpt_dir, smi)
+    del res, eval_env
+    _, tcv = config_with(VISION_CONFIG, [])
+    depth = VIT_PRESETS[tcv.vit_preset].depth
+
+    def vision_want(t):
+        want = vision_launches(t, depth, 1)
+        want["book_scan"] += 1
+        want["short_attention_fwd"] += depth
+        return want
+    res, eval_env, tc = eval_training(
+        torch, count, make_train, VISION_CONFIG, [],
+        "ippo_vision_dual_ppo.yaml", vision_want, smi)
+    out["vision"] = eval_turns(
+        torch, count, eval_env, res["networks"], tc,
+        f"ippo_vision_dual_ppo.yaml ({tc.num_envs} envs)",
+        {"book_scan": 1, "short_attention_fwd": depth}, smi)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the model mesh axis on the card
+# ---------------------------------------------------------------------------
+
+# the vision config at ViT-Small width, cut in envs, steps and epochs
+MODEL_AXIS_SETS = ["NUM_ENVS=256", "NUM_STEPS=32", "NUM_MINIBATCHES=2",
+                   "UPDATE_EPOCHS=1", "LOG_BACKEND=none"]
+MODEL_AXIS_MESH = ["MESH_SHAPE=[1,2]", "MESH_AXES=[data,model]"]
+
+
+def learner_bytes(learners):
+    """Bytes of the stored parameters (a split leaf's shard), of the Adam
+    moments, and of the networks' whole weights (the gathered copy the
+    compute reads), summed over agent types."""
+    def size(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    stored = size(q for lr in learners for q in lr.opt_params)
+    adam = size(t for lr in learners for st in lr.opt.state.values()
+                for k, t in st.items() if k != "step")
+    whole = size(p for lr in learners for p in lr.net.parameters())
+    return {"params": stored, "adam": adam, "whole_weights": whole}
+
+
+def _model_axis_run(torch, group, ref_path=None):
+    """One update of the cut vision config: on a ``(1, 2)`` data x model
+    mesh under ``group``, or in one process (``group`` None).  Returns
+    its metrics, launches, bytes, peak memory, weight hashes and, with
+    ``ref_path``, the largest difference from those weights."""
+    import hashlib
+
+    from vit_marl_tpu_torch.env.world import WorldEnv
+    from vit_marl_tpu_torch.ops import attention_kernel as attn
+    from vit_marl_tpu_torch.ops import block_kernel as blk
+    from vit_marl_tpu_torch.ops import book_kernel as bkern
+    from vit_marl_tpu_torch.rl.ppo import make_train
+
+    ma, tc = config_with(VISION_CONFIG, MODEL_AXIS_SETS + (
+        MODEL_AXIS_MESH if group is not None else []))
+    count = counters(attn, bkern, blk)
+    env = WorldEnv(ma, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, got, wall = drive(torch, count, lambda: make_train(
+        ma, tc, env=env, group=group)(tc.seed, n_updates=1))
+    # the run's own peak, above what the process held before it
+    peak = torch.cuda.max_memory_allocated() - base
+    nets = out["networks"]
+    weights = [{k: v.detach().float().cpu() for k, v in
+                net.state_dict().items()} for net in nets]
+    diff = None
+    if ref_path is not None:
+        ref = torch.load(ref_path, weights_only=True)
+        diff = max(float((w[k].double() - r[k].double()).abs().max())
+                   for w, r in zip(weights, ref) for k in w)
+    hashes = [hashlib.sha256(w[k].numpy().tobytes()).hexdigest()
+              for w in weights for k in sorted(w)]
+    metrics = {k: v for k, v in out["metrics"][0].items()
+               if k not in ("rollout_s", "update_s")}
+    secs = {k: out["metrics"][0][k] for k in ("rollout_s", "update_s")}
+    g = out.get("learners")[0].group
+    place = (None if g.model is None else
+             (g.rank, g.world, g.model.rank, g.model.world))
+    return dict(metrics=metrics, launches=got, wall=wall, peak=peak,
+                secs=secs,
+                bytes=learner_bytes(out["learners"]), diff=diff,
+                hashes=hashes, place=place, lr=tc.lr,
+                weights=weights if ref_path is None else None)
+
+
+def model_axis_rank(group, ref_path):
+    """A rank of :func:`model_axis_phase` (a child process on the card)."""
+    import torch
+
+    torch.cuda.set_device(0)
+    return _model_axis_run(torch, group, ref_path)
+
+
+def model_axis_phase(torch, make_train, smi):
+    """Phase 20: one update of ``ippo_vision_dual_ppo.yaml`` at ViT-Small
+    width (cut to :data:`MODEL_AXIS_SETS`) in one process, then on a
+    ``(1, 2)`` data x model mesh as two processes on the card (a gloo
+    group: NCCL puts no two ranks on one card; gloo carries the CUDA
+    tensors of the collectives itself): each rank's launches exact, the
+    two ranks' weights identical, their metrics within rtol 5e-4 / atol
+    1e-5 of one process's and their weights within 3 x the learning
+    rate; each rank's bytes of parameters and Adam state against one
+    process's.  Returns the numbers."""
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS
+    from vit_marl_tpu_torch.parallel.distributed import run_group
+
+    one = _model_axis_run(torch, None)
+    _, tc = config_with(VISION_CONFIG, MODEL_AXIS_SETS)
+    depth = VIT_PRESETS[tc.vit_preset].depth
+    want = vision_launches(tc, depth, 1)
+    expect(one["launches"], want, "vision, one process")
+    with tempfile.TemporaryDirectory() as d:
+        ref_path = os.path.join(d, "weights.pt")
+        torch.save(one.pop("weights"), ref_path)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        ranks = run_group(model_axis_rank, 2, (ref_path,), deadline_s=600.0)
+        wall = time.perf_counter() - t
+    lr = max(tc.lr) if isinstance(tc.lr, (tuple, list)) else tc.lr
+    for r, res in enumerate(ranks):
+        expect(res["launches"], want, f"vision, model rank {r}")
+        if tuple(res["place"]) != (0, 1, r, 2):
+            raise AssertionError(f"rank {r} placed at {res['place']}")
+        bad = [k for k, v in one["metrics"].items() if not np.isclose(
+            res["metrics"][k], v, rtol=5e-4, atol=1e-5)]
+        if bad or set(res["metrics"]) != set(one["metrics"]):
+            raise AssertionError(f"model rank {r}: metrics {bad} differ "
+                                 "from one process's")
+        if not res["diff"] <= 3 * lr:
+            raise AssertionError(f"model rank {r}: weights {res['diff']} "
+                                 f"from one process's, over 3 x lr")
+    if ranks[0]["hashes"] != ranks[1]["hashes"]:
+        raise AssertionError("the two model ranks' weights differ")
+    # the largest share of the tolerance a metric takes
+    worst = max(abs(ranks[0]["metrics"][k] - v) / (1e-5 + 5e-4 * abs(v))
+                for k, v in one["metrics"].items())
+    ob = one["bytes"]
+    print(f"  ippo_vision_dual_ppo.yaml (ViT-Small; "
+          f"{', '.join(MODEL_AXIS_SETS[:4])}), "
+          f"one update on a (1, 2) data x model mesh, two gloo processes "
+          f"on the card: {len(one['metrics'])} metrics within rtol 5e-4 of "
+          f"one process's (the largest takes {worst:.3g} of its tolerance), "
+          f"weights within {max(r['diff'] for r in ranks):.3g} (3 x lr = "
+          f"{3 * lr:.3g}), the two ranks' weights identical; launches a "
+          f"rank {ranks[0]['launches']}; make_train and one update "
+          f"{ranks[0]['wall']:.2f} / {ranks[1]['wall']:.2f} s on the two "
+          f"ranks at once (rollout_s " + " / ".join(
+              f"{r['secs']['rollout_s']:.3f}" for r in ranks)
+          + ", update_s " + " / ".join(
+              f"{r['secs']['update_s']:.3f}" for r in ranks)
+          + f"; the ranks' first CUDA work in their processes) against "
+          f"{one['wall']:.2f} s in one process (rollout_s "
+          f"{one['secs']['rollout_s']:.3f}, update_s "
+          f"{one['secs']['update_s']:.3f}); wall {wall:.1f} s for the two "
+          f"processes (spawn, world build and update) [{smi}]", flush=True)
+    for r, res in enumerate(ranks):
+        b = res["bytes"]
+        print(f"  model rank {r}: parameters stored {b['params']} B + Adam "
+              f"state {b['adam']} B = {b['params'] + b['adam']} B "
+              f"(whole weights for the compute {b['whole_weights']} B); "
+              f"one process {ob['params']} + {ob['adam']} = "
+              f"{ob['params'] + ob['adam']} B; the update's peak "
+              f"allocation {res['peak'] / 2**20:.1f} MiB against one "
+              f"process's {one['peak'] / 2**20:.1f} MiB [{smi}]",
+              flush=True)
+    return dict(one=one, ranks=ranks, wall=wall)
 
 
 def main() -> int:
@@ -2892,12 +3205,9 @@ def main() -> int:
 
     # ---- phase 16: agent spaces and evaluation ----
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        eval_rate = eval_training_phase(torch, count, make_train,
-                                        load_yaml_config, env, ckpt_dir, smi)
-        m126 = spaces_phase(torch, count, bkern, smi)
-        evaluate_phase(torch, count, ckpt_dir, smi)
-    phase("16 agent spaces and evaluation", t0)
+    sweep_fine_phase(torch, count, make_train, smi)
+    m126 = spaces_phase(torch, count, bkern, smi)
+    phase("16 agent spaces", t0)
 
     # ---- phase 17: networks, layouts, pipeline, data parallelism ----
     t0 = time.perf_counter()
@@ -2909,6 +3219,16 @@ def main() -> int:
     s12 = slice12_phase(torch, attn, bkern, blk, make_train, smi)
     phase("18 kernels 5 and 7 past 32 tokens, the rollout as a CUDA "
           "graph", t0)
+
+    # ---- phase 19: greedy eval and evaluate.py as CUDA graphs ----
+    t0 = time.perf_counter()
+    evals = eval_graph_phase(torch, count, make_train, smi)
+    phase("19 greedy eval and evaluate.py as CUDA graphs", t0)
+
+    # ---- phase 20: the model mesh axis ----
+    t0 = time.perf_counter()
+    model_axis_phase(torch, make_train, smi)
+    phase("20 a (1, 2) data x model mesh on the card", t0)
 
     # ---- summary ----
     print(json.dumps({"kernels": [{
@@ -2951,7 +3271,11 @@ def main() -> int:
         **s11["m220"],
         "launches_phase17": {k: s11[k]["book_scan"] for k in
                              ("cnn_gru", "gru_box", "long", "pipeline")},
-        "eval_env_steps_per_s": eval_rate,
+        # phase 19: the 2-player greedy eval (4,096 envs x EVAL_STEPS),
+        # graph and host loop, every run in turns
+        "eval_env_steps_per_s": {
+            how: [evals["2-player"]["steps"] / t for t in
+                  evals["2-player"][how]] for how in ("graph", "loop")},
         "info_reduce_kernels": reduce_kernels,
     }, dict(records, launches=dgot["book_scan_records"],
             bit_equal_m126=m126["bit_equal_m126"],

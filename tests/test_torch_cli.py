@@ -1,6 +1,7 @@
 """The port's training entry points: ``--set`` overrides against the JAX
-package's ``utils/cli.py``, and the trainer options the port does not
-honour, which ``make_train`` refuses instead of dropping."""
+package's ``utils/cli.py``, the trainer options the port does not
+honour, which ``make_train`` refuses instead of dropping, and the JAX
+CLI's ``--cpu`` and ``--timing`` flags."""
 
 import copy
 import json
@@ -146,3 +147,33 @@ def test_train_cli_checkpoints_logs_and_resumes(tmp_path):
         steps = [json.loads(line)["update_step"] for line in f]
     assert steps == [0, 1, 2]
     assert sorted(os.listdir(ckpt)) == ["1", "2"]
+
+
+def test_train_cli_takes_the_jax_clis_cpu_and_timing(capsys):
+    """``--cpu`` is ``--device cpu`` and ``--timing`` prints the JAX CLI's
+    ``throughput:`` line after the port's own rate line (both flags
+    were an argparse error before); ``--cpu`` with another device is an
+    error."""
+    out = ttrain.main([
+        "--config", os.path.join(ROOT, "configs", "ippo_2player.yaml"),
+        "--cpu", "--timing",
+        *[a for s in SMALL_WORLD for a in ("--set", s)],
+        "--set", "NUM_ENVS=4", "--set", "NUM_STEPS=4", "--set",
+        "NUM_MINIBATCHES=2", "--set", "UPDATE_EPOCHS=1", "--set",
+        "TOTAL_TIMESTEPS=16", "--set", "LOG_BACKEND=none"])
+    assert out["state"].world.step_counter.device.type == "cpu"
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-2].startswith("done: 1 updates, 16 env-steps in ")
+    assert "env-steps/s over the run" in lines[-2]
+    assert lines[-1].startswith("throughput: ")
+    assert lines[-1].endswith("as the JAX CLI prints it)")
+    with pytest.raises(SystemExit):
+        ttrain.main(["--cpu", "--device", "cuda"])
+    assert "--cpu and --device cuda disagree" in capsys.readouterr().err
+    ttrain.main(["--cpu", "--device", "cpu", "--config",
+                 os.path.join(ROOT, "configs", "ippo_2player.yaml"),
+                 *[a for s in SMALL_WORLD for a in ("--set", s)],
+                 "--set", "NUM_ENVS=4", "--set", "NUM_STEPS=4", "--set",
+                 "NUM_MINIBATCHES=2", "--set", "UPDATE_EPOCHS=1", "--set",
+                 "TOTAL_TIMESTEPS=16", "--set", "LOG_BACKEND=none"])
+    assert "throughput" not in capsys.readouterr().out

@@ -52,6 +52,11 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   end.
 - The bench (``--selfcheck`` passes, the GRU loop reports a rate) and
   the entry module's forward step, on the card.
+- The greedy eval's graph (``rl/ppo.py::EvalRollout``) bit-equal to the
+  host-issued eval, twice, its warm-up the wrapper's one launch, and
+  ``combinations.rollout``'s graph bit-equal to ``rollout_loop`` in both
+  modes; an eval after an optimizer step, and after a parameter is
+  replaced (captured again), sees the new weights.
 """
 
 import itertools
@@ -804,3 +809,100 @@ def test_entry_on_the_card(cuda):
     assert h2.shape == (32, 64) and mode.shape == (1, 32, 3)
     assert value.shape == (1, 32)
     assert all(bool(torch.isfinite(t).all()) for t in (h2, mode, value))
+
+
+def _eval_world(cuda, E):
+    from vit_marl_tpu_torch import config as tcfg
+    from vit_marl_tpu_torch.env.world import WorldEnv
+    from vit_marl_tpu_torch.rl import ppo as tppo
+
+    ma = tcfg.MultiAgentConfig(world=tcfg.WorldConfig(
+        n_orders=64, n_messages_per_synthetic_day=4000, episode_time=2,
+        start_resolution=5))
+    env = WorldEnv(ma, device=cuda)
+    tc = tcfg.TrainConfig(num_envs=E)
+    torch.manual_seed(0)
+    return env, tppo.make_networks(env, tc), tc.hidden_size
+
+
+def _twin_generators(cuda, seed):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    twin = torch.Generator(device=cuda)
+    twin.set_state(gen.get_state())
+    return gen, twin
+
+
+def test_eval_graph_replays_the_eager_eval(cuda):
+    """``rl/ppo.py::EvalRollout`` on the card: one captured step replayed
+    T times gives every metric of the host-issued eval bit for bit, on
+    the same generator state; the book scan's wrapper counts the
+    warm-up's launch only, a second run captures nothing new, and
+    ``combinations.rollout`` (a graph a label) equals ``rollout_loop``
+    in both modes."""
+    from vit_marl_tpu_torch.eval import baselines as tbase
+    from vit_marl_tpu_torch.eval import combinations as tcomb
+    from vit_marl_tpu_torch.rl import ppo as tppo
+    from vit_marl_tpu_torch.utils.tree import tree_leaves
+
+    E, T = 64, 3
+    env, nets, hidden = _eval_world(cuda, E)
+    gen, twin = _twin_generators(cuda, 1)
+    body = tppo.EvalRollout(env, nets, E, T, hidden, True, gen)
+    for rnd in range(2):
+        before = bkern.process_step_aggs.launches
+        got = body.run()
+        want = tppo.eval_rollout_loop(env, nets, E, T, hidden, True, twin)
+        torch.cuda.synchronize()
+        assert list(got) == list(want)
+        assert [k for k in want if not torch.equal(got[k], want[k])] == []
+        assert gen.get_state().equal(twin.get_state())
+        # the graph's warm-up (first run only), then the loop's T
+        assert bkern.process_step_aggs.launches == \
+            before + T + (1 if rnd == 0 else 0)
+    assert body.use_graph and body.captures == 1
+    n = [sp.n for sp in env.action_spaces]
+    pols = [tbase.LearnedPolicy(nets[0]), tbase.FixedActionPolicy(1, n[1])]
+    for mode in ("sample", "greedy"):
+        gen, twin = _twin_generators(cuda, 2)
+        got = tcomb.rollout(env, env.default_params, pols, E, T, gen,
+                            hidden_size=hidden, mode=mode)
+        want = tcomb.rollout_loop(env, env.default_params, pols, E, T, twin,
+                                  hidden_size=hidden, mode=mode)
+        la, lb = tree_leaves(got), tree_leaves(want)
+        assert len(la) == len(lb) > 0
+        assert [i for i, (a, b) in enumerate(zip(la, lb))
+                if a.dtype != b.dtype or not torch.equal(a, b)] == []
+        assert gen.get_state().equal(twin.get_state())
+
+
+def test_eval_graph_sees_the_trained_weights(cuda):
+    """The eval graph reads the networks' weights from their storage: an
+    optimizer step between two runs (in place) and a parameter replaced
+    by ``load_state_dict(assign=True)`` (a new tensor: the graph is
+    captured again) both give the eager eval of the new weights, never
+    the old ones."""
+    from vit_marl_tpu_torch.rl import ppo as tppo
+
+    E, T = 64, 3
+    env, nets, hidden = _eval_world(cuda, E)
+    gen, twin = _twin_generators(cuda, 3)
+    body = tppo.EvalRollout(env, nets, E, T, hidden, True, gen)
+    first = body.run()
+    tppo.eval_rollout_loop(env, nets, E, T, hidden, True, twin)
+    opt = torch.optim.Adam(nets[0].parameters(), lr=0.5)
+    for p in nets[0].parameters():
+        p.grad = torch.randn_like(p)
+    opt.step()                              # the trainer's in-place step
+    for label in ("in place", "assign"):
+        if label == "assign":
+            sd = {k: v.clone() + 0.25 for k, v in
+                  nets[1].state_dict().items()}
+            nets[1].load_state_dict(sd, assign=True)
+        got = body.run()
+        want = tppo.eval_rollout_loop(env, nets, E, T, hidden, True, twin)
+        torch.cuda.synchronize()
+        assert [k for k in want if not torch.equal(got[k], want[k])] == [], \
+            label
+        assert not all(torch.equal(got[k], first[k]) for k in first), label
+    assert body.captures == 2

@@ -19,8 +19,11 @@ the test fails), so no rendezvous can hang the run.
   both: the update index continues, every rank's metrics and weights
   are equal, the optimizer's step count continues;
 - ``graft_entry.py::dryrun_multichip(2)``;
-- the refusals: a ``model`` axis, an uneven split of the envs, the
-  pipeline under a group of 2, a mesh of more ranks than the group.
+- the refusals: a ``model`` axis of more ranks than the group, an axis
+  that is neither a data axis nor ``model``, an uneven split of the
+  envs, the pipeline under a group of 2 (data or model ranks), a mesh
+  of more ranks than the group.  The ``model`` axis itself:
+  ``tests/test_torch_model_axis.py``.
 """
 
 import functools
@@ -223,15 +226,20 @@ def test_dryrun_multichip_two_ranks(capsys):
 
 @pytest.mark.parametrize("kw,group,error,match", [
     (dict(mesh_shape=(2, 2), mesh_axes=("data", "model")), DataGroup(0, 2),
-     NotImplementedError, "model"),
+     NotImplementedError, "needs 4 devices"),
     (dict(mesh_shape=(4,)), DataGroup(0, 2), NotImplementedError,
      "needs 4 devices"),
     (dict(mesh_shape=(2,), rollout_mode="pipeline"), DataGroup(0, 2),
      NotImplementedError, "ROLLOUT_MODE=pipeline"),
     (dict(mesh_shape=(2,), num_envs=3), DataGroup(0, 2), ValueError,
      "not divisible"),
+    (dict(mesh_shape=(1, 2), mesh_axes=("data", "model"),
+          rollout_mode="pipeline"), DataGroup(0, 2), NotImplementedError,
+     "ROLLOUT_MODE=pipeline"),
+    (dict(mesh_shape=(1, 2), mesh_axes=("data", "seq")), DataGroup(0, 2),
+     NotImplementedError, "neither data axes nor 'model'"),
 ], ids=["model_axis", "more_ranks_than_the_group", "pipeline_under_a_group",
-        "uneven_split"])
+        "uneven_split", "pipeline_under_a_model_axis", "other_axis"])
 def test_refusals(kw, group, error, match):
     tc = tcfg.TrainConfig(**kw)
     with pytest.raises(error, match=match):

@@ -105,3 +105,33 @@ def scan_against_loop(group, ma, tc, seed):
                                             tree_leaves(want)))
            if not torch.equal(a, b)]
     return bad, len(tree_leaves(want)), group.rank
+
+
+def count_model_ranks():
+    """A planted fault: the loss's global row count takes the model ranks
+    too (``graft_entry.py::dryrun_multichip``'s twin check must see it)."""
+    def rows(n_local, group):
+        model = group.model.world if group.model is not None else 1
+        return n_local * group.world * model
+    tppo.global_actors = rows
+
+
+def train_with_state(group, ma, tc, seed):
+    """:func:`train`, plus each learner's parameters as stored: per
+    parameter (name, whole shape, the optimizer's shape, the Adam
+    moment's shape) and the whole Adam moments (every rank gathers)."""
+    out = tppo.make_train(ma, tc, device="cpu", group=group)(seed)
+    metrics = [{k: v for k, v in m.items()
+                if k not in ("rollout_s", "update_s")}
+               for m in out["metrics"]]
+    weights = [{k: v.numpy() for k, v in net.state_dict().items()}
+               for net in out["networks"]]
+    stored, moments = [], []
+    for lr in out["learners"]:
+        stored.append([(name, tuple(p.shape), tuple(q.shape),
+                        tuple(lr.opt.state[q]["exp_avg"].shape))
+                       for (name, p), q in zip(lr.net.named_parameters(),
+                                               lr.opt_params)])
+        moments.append(lr.adam_state())
+    return metrics, weights, [lr.count for lr in out["learners"]], \
+        stored, moments

@@ -6,12 +6,18 @@ value)`` with ``(1, actors, ...)`` observations, so learned and baseline
 agents are interchangeable in rollouts.  The canonical baselines are the
 ``AvSt`` action space for the market maker and ``twap`` for the execution
 agent, driven by these fixed or random action pickers.
+
+Every call can be captured in a CUDA graph (``eval/combinations.py``):
+no host read, no branch on a tensor's value, the same shapes each step,
+and no copy from the host (a fixed continuous action is moved to a
+device once, at its first call there, which is the eager warm-up).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -52,12 +58,15 @@ class FixedActionPolicy:
         self.action = action
         self.n_actions = n_actions
         self.continuous = continuous
+        self._on = {}           # device -> the continuous action there
 
     def __call__(self, hidden, obs, dones):
         batch, dev = _batch(obs)
         if self.continuous:
-            a = torch.as_tensor(self.action, dtype=torch.float32,
-                                device=dev)
+            a = self._on.get(dev)
+            if a is None:
+                a = self._on[dev] = torch.as_tensor(
+                    np.array(self.action, np.float32), device=dev)
             pi = _DeterministicBox(a.expand(batch + tuple(a.shape)))
         else:
             logits = torch.full(batch + (self.n_actions,), -1e9, device=dev)

@@ -15,7 +15,10 @@ Usage:
       --checkpoint-dir runs/ckpt --num-envs 64 --num-steps 50 \\
       --out-dir eval_out
 
-Runs on the card; ``--device cpu`` runs on the CPU.  Where matplotlib is
+Runs on the card, each label's rollout one CUDA graph of its step
+replayed (``eval/combinations.py``); ``--set ROLLOUT_MODE=loop`` issues
+every step from the host, as the trainer's option does.  ``--device
+cpu`` runs on the CPU.  Where matplotlib is
 not installed, the figures are not drawn: their data goes to
 ``episodes_{label}/trajectory.npz`` beside the JSON, and one line on
 stderr names the figures left out.
@@ -97,7 +100,7 @@ def main(argv=None):
         RandomPolicy,
     )
     from vit_marl_tpu_torch.eval.combinations import evaluate_combinations
-    from vit_marl_tpu_torch.rl.ppo import make_network
+    from vit_marl_tpu_torch.rl.ppo import make_network, rollout_mode
 
     raw = {}
     if args.config:
@@ -159,7 +162,8 @@ def main(argv=None):
     results = evaluate_combinations(
         env, params, learned, baseline, args.num_envs, args.num_steps, gen,
         mode="greedy" if args.greedy else "sample",
-        hidden_size=train_config.hidden_size)
+        hidden_size=train_config.hidden_size,
+        rollout_mode=rollout_mode(train_config.rollout_mode))
 
     os.makedirs(args.out_dir, exist_ok=True)
     summary = {combo: {"mean_rewards": r["mean_rewards"],

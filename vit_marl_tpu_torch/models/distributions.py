@@ -18,12 +18,15 @@ class Categorical:
     def __init__(self, logits: torch.Tensor):
         self.logits = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
 
-    def sample(self, generator: Optional[torch.Generator] = None
-               ) -> torch.Tensor:
+    def sample(self, generator: Optional[torch.Generator] = None,
+               uniforms: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Gumbel-max sample from ``generator`` (the JAX package draws
-        ``jax.random.categorical``; the streams differ)."""
-        u = torch.rand(self.logits.shape, generator=generator,
-                       device=self.logits.device)
+        ``jax.random.categorical``; the streams differ), or from
+        ``uniforms`` in ``[0, 1)`` of the logits' shape."""
+        u = uniforms
+        if u is None:
+            u = torch.rand(self.logits.shape, generator=generator,
+                           device=self.logits.device)
         u = u.clamp(min=torch.finfo(u.dtype).tiny)
         return torch.argmax(self.logits - torch.log(-torch.log(u)), dim=-1)
 

@@ -1,11 +1,17 @@
-"""Data parallelism over ``torch.distributed``: one process a device.
+"""Data and model parallelism over ``torch.distributed``: one process a
+device.
 
 Counterpart of ``vit_marl_tpu/parallel/distributed.py`` and of the
 collectives GSPMD derives in the JAX package's mesh training.  Each
-process (rank) steps its own share of the env batch and holds a full
-copy of the networks; the PPO update all-reduces sums, counts and
-gradients so that every rank takes the same optimizer step
-(``rl/ppo.py::PPOLearner``).  NCCL on the card, gloo on the CPU.
+data rank steps its own share of the env batch; the PPO update
+all-reduces sums, counts and gradients over the data ranks so that every
+rank takes the same optimizer step (``rl/ppo.py::PPOLearner``).  Under a
+``model`` axis the ranks form a ``data x model`` grid
+(:func:`mesh_groups`): the model ranks of one data index step the same
+envs, and each stores its share of the split weights and their Adam
+moments (``parallel/mesh.py``).  NCCL on cards, gloo on the CPU; gloo
+also joins processes that share one card (NCCL will not put two ranks
+on one card), and then carries CUDA tensors itself.
 
 - :func:`initialize_distributed` joins the group that ``torchrun`` (or a
   launcher setting ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
@@ -13,9 +19,11 @@ gradients so that every rank takes the same optimizer step
   does nothing, as the JAX package's does;
 - :class:`DataGroup` is what the trainer holds: its rank, the number of
   ranks and the process group, with the few collectives the trainer
-  makes.  ``DataGroup()`` is one process with no group, whose
-  collectives are no-ops; a group of one rank (a 1-rank NCCL group)
-  still runs every collective;
+  makes, and under a ``model`` axis its model sub-group (``model``, a
+  :class:`DataGroup` of the ranks that share its data index).
+  ``DataGroup()`` is one process with no group, whose collectives are
+  no-ops; a group of one rank (a 1-rank NCCL group) still runs every
+  collective;
 - :func:`run_group` starts ``world`` CPU processes on a free local port
   in a gloo group, runs a function in each, and returns their results,
   within a deadline (``graft_entry.py::dryrun_multichip`` and the tests
@@ -33,7 +41,7 @@ import queue as queue_mod
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -67,10 +75,19 @@ class DataGroup:
 
     ``DataGroup()``: one process, no group; every collective returns its
     input.  ``DataGroup.current()``: the default process group where one
-    is initialized."""
+    is initialized.  ``model``: the rank's model sub-group under a
+    ``model`` axis wider than one (:func:`mesh_groups`), else ``None``."""
 
-    def __init__(self, rank: int = 0, world: int = 1, group=None):
+    def __init__(self, rank: int = 0, world: int = 1, group=None,
+                 model: Optional["DataGroup"] = None):
         self.rank, self.world, self.group = rank, world, group
+        self.model = model
+
+    @property
+    def writer(self) -> bool:
+        """The one rank that logs and writes checkpoints: data rank 0 and,
+        under a model axis, model rank 0."""
+        return self.rank == 0 and (self.model is None or self.model.rank == 0)
 
     @classmethod
     def current(cls) -> "DataGroup":
@@ -91,9 +108,19 @@ class DataGroup:
         return t
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """``t`` of the group's rank ``src``, on every rank, in place."""
         if self.distributed:
-            dist.broadcast(t, src, group=self.group)
+            dist.broadcast(t, dist.get_global_rank(self.group, src),
+                           group=self.group)
         return t
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """``(world, *t.shape)``: every rank's ``t`` in rank order."""
+        if not self.distributed:
+            return t[None].clone()
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.stack(parts)
 
     def mean_tensors(self, ts: Sequence[torch.Tensor]
                      ) -> List[torch.Tensor]:
@@ -118,6 +145,36 @@ class DataGroup:
                 f"NUM_ENVS={n} is not divisible by the {self.world} data "
                 "ranks: every rank steps an equal share of the envs")
         return n // self.world
+
+
+def mesh_groups(base: DataGroup, shape: Sequence[int],
+                axes: Sequence[str]) -> DataGroup:
+    """Cut ``base`` (every rank of the mesh, in the mesh's row-major
+    order) into the ``data x model`` grid of a mesh with a ``model`` axis
+    wider than one: returns this rank's data sub-group (the ranks of its
+    model index; its rank is the data index) with ``model``, its model
+    sub-group (the ranks of its data index).  Every rank builds every
+    sub-group, in one order, as ``new_group`` asks.  Without such an axis
+    ``base`` is returned."""
+    from vit_marl_tpu_torch.parallel.mesh import mesh_coords, model_axis_size
+
+    m = model_axis_size(shape, axes)
+    if m <= 1:
+        return base
+    coords = [mesh_coords(r, shape, axes) for r in range(base.world)]
+    n_data = base.world // m
+    mine = coords[base.rank]
+    data_g = model_g = None
+    for k in range(m):
+        g = dist.new_group([r for r, c in enumerate(coords) if c[1] == k])
+        if k == mine[1]:
+            data_g = g
+    for d in range(n_data):
+        g = dist.new_group([r for r, c in enumerate(coords) if c[0] == d])
+        if d == mine[0]:
+            model_g = g
+    model = DataGroup(mine[1], m, model_g)
+    return DataGroup(mine[0], n_data, data_g, model=model)
 
 
 def free_port() -> int:

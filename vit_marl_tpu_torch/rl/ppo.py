@@ -38,6 +38,10 @@ With ``eval_every`` the policies are evaluated greedily every
 ``eval_steps`` steps of ``eval_envs`` envs (:func:`eval_rollout`), which
 adds ``{name}/eval_mean_reward`` and, with ``log_env_info``, the
 ``eval_``-prefixed action and info metrics to the update's metrics.
+Under ``scan`` (and ``auto``) the eval replays one CUDA graph of its step
+on a card (:class:`EvalRollout`, captured at the first eval), its body
+eagerly on the CPU; ``loop`` and ``pipeline`` issue it step by step
+(:func:`eval_rollout_loop`).
 
 The rollout mode resolves as in the JAX package (:func:`rollout_mode`):
 ``scan``, and ``auto`` (the JAX package's ``auto`` is the scan on every
@@ -47,9 +51,12 @@ run eagerly); ``loop`` with the host loop :func:`rollout_loop`;
 ``pipeline`` with the split-batch pipelined rollout
 (:func:`rollout_pipeline`, ``rl/pipeline.py``).  ``MESH_SHAPE``
 over data axes trains data parallel over ``torch.distributed``, one
-process a device (``parallel/``, :class:`PPOLearner`).  Refused by
-:func:`check_ported`: a ``model`` axis (tensor parallelism), a mesh of
-more ranks than the group, the pipeline under a group of several ranks.
+process a device (``parallel/``, :class:`PPOLearner`); a ``model`` axis
+adds tensor parallelism: each model rank stores its share of the split
+weights and of their Adam moments (``parallel/mesh.py``).  Refused by
+:func:`check_ported`: an axis wider than one that is neither a data axis
+nor ``model``, a mesh of more ranks than the group, the pipeline under
+a group of several ranks.
 """
 
 from __future__ import annotations
@@ -69,8 +76,14 @@ from vit_marl_tpu_torch.env.world import WorldEnv
 from vit_marl_tpu_torch.models.cnn import CNNActorCriticRNN
 from vit_marl_tpu_torch.models.rnn import ActorCriticRNN, ScannedGRU
 from vit_marl_tpu_torch.models.vit import VIT_PRESETS, ViTActorCriticRNN
-from vit_marl_tpu_torch.parallel.distributed import DataGroup
-from vit_marl_tpu_torch.parallel.mesh import mesh_ranks, wide_other_axes
+from vit_marl_tpu_torch.parallel.distributed import DataGroup, mesh_groups
+from vit_marl_tpu_torch.parallel.mesh import (
+    join_shards,
+    mesh_ranks,
+    placement_plan,
+    shard,
+    wide_other_axes,
+)
 from vit_marl_tpu_torch.parallel.shard_step import make_sharded_step, rank_seed
 from vit_marl_tpu_torch.rl.pipeline import (
     concat_halves,
@@ -83,7 +96,7 @@ from vit_marl_tpu_torch.rl.checkpoint import (
     load_adam_state,
 )
 from vit_marl_tpu_torch.rl.logger import Logger
-from vit_marl_tpu_torch.rl.scan import ScanRollout
+from vit_marl_tpu_torch.rl.scan import ScanRollout, StepGraph, assign
 from vit_marl_tpu_torch.utils.tree import tree_leaves, tree_map
 
 Tensor = torch.Tensor
@@ -227,6 +240,13 @@ def linear_schedule(lr: float, count: int, n_mb: int,
     return lr * (1.0 - (count // n_mb) / num_updates)
 
 
+def global_actors(n_local: int, group: DataGroup) -> int:
+    """A type's actors over the data ranks: the model ranks of one data
+    index hold the same actors, so the loss's row count takes no model
+    rank."""
+    return n_local * group.world
+
+
 class PPOLearner:
     """One agent type's network and optimizer state.
 
@@ -240,7 +260,22 @@ class PPOLearner:
     normalisation's mean and centred second moment are all-reduced first,
     the gradients (with the loss terms, for the metrics) are all-reduced
     in one buffer, and every rank clips by the same global norm and takes
-    the same Adam step."""
+    the same Adam step.
+
+    Under a ``model`` axis (``group.model``) the weights that
+    ``parallel/mesh.py::placement_plan`` splits are stored, with their
+    Adam moments, as shards: the optimizer's parameter for such a leaf
+    is this model rank's block of it (a view of the network's weight),
+    and the network's whole weights are the gathered copy the rollout
+    and the PPO forward and backward read.  A step all-reduces over the
+    data ranks this rank's block of each split leaf's gradient and the
+    whole gradient of each replicated one, takes the global norm from
+    the replicated part and the model ranks' all-reduced split part,
+    takes the Adam step on the blocks, and all-gathers the updated
+    blocks into the whole weights (in place: a captured graph reading
+    them sees the new values).  Every collective is outside the
+    rollout's graph, and the fused kernels take whole weights, as the
+    JAX package's Pallas calls do under GSPMD."""
 
     def __init__(self, net: nn.Module, cfg: TrainConfig, i: int,
                  num_updates: int, group: Optional[DataGroup] = None):
@@ -254,7 +289,17 @@ class PPOLearner:
         self.anneal = cfg.anneal_lr
         self.n_mb = cfg.num_minibatches * cfg.update_epochs
         self.num_updates = num_updates
-        self.opt = torch.optim.Adam(net.parameters(), lr=self.lr, eps=1e-5)
+        model = self.group.model
+        self.splits = (list(placement_plan(net, model.world).values())
+                       if model is not None else
+                       [None] * len(list(net.parameters())))
+        # the optimizer's parameters: this rank's block of a split leaf (a
+        # view of the network's weight), a replicated leaf whole
+        self.opt_params = [
+            p if s is None else nn.Parameter(
+                shard(p.detach(), s, model.rank, model.world))
+            for p, s in zip(net.parameters(), self.splits)]
+        self.opt = torch.optim.Adam(self.opt_params, lr=self.lr, eps=1e-5)
         self.count = 0     # optimizer steps taken (optax's schedule count)
 
     def loss(self, init_h: Tensor, traj: Transition, gae: Tensor,
@@ -301,20 +346,37 @@ class PPOLearner:
         Under a group the gradients, and ``aux`` with them, are summed
         over ranks first (one all-reduce); returns the summed ``aux``."""
         params = list(self.net.parameters())
+        model = self.group.model
         if self.group.distributed:
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params]
+            if model is not None:
+                # this rank's block of each split leaf's gradient
+                grads = [g if s is None else shard(g, s, model.rank,
+                                                   model.world)
+                         for g, s in zip(grads, self.splits)]
             extra = [] if aux is None else [aux]
             flat = self.group.all_reduce(torch.cat(
                 [t.reshape(-1) for t in grads + extra]))
             off = 0
-            for p in params:
-                p.grad = flat[off:off + p.numel()].view_as(p)
-                off += p.numel()
+            for q, g in zip(self.opt_params, grads):
+                q.grad = flat[off:off + g.numel()].view(g.shape)
+                off += g.numel()
             if aux is not None:
                 aux = flat[off:]
-        params = [p for p in params if p.grad is not None]
-        g_norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params))
+        params = [q for q in self.opt_params if q.grad is not None]
+        if model is None:
+            g_norm = torch.sqrt(sum((p.grad.float() ** 2).sum()
+                                    for p in params))
+        else:
+            sq = [sum(((q.grad.float() ** 2).sum()
+                       for q, s in zip(self.opt_params, self.splits)
+                       if (s is None) is rep), torch.zeros(
+                           (), device=params[0].device))
+                  for rep in (True, False)]
+            # the split leaves' blocks are disjoint: their squares add
+            # over the model ranks
+            g_norm = torch.sqrt(sq[0] + model.all_reduce(sq[1][None])[0])
         keep = g_norm < self.max_grad_norm
         for p in params:
             p.grad = torch.where(keep, p.grad,
@@ -325,7 +387,80 @@ class PPOLearner:
             group["lr"] = lr
         self.opt.step()
         self.count += 1
+        if model is not None:
+            self.gather_weights()
         return aux
+
+    def gather_weights(self) -> None:
+        """Every model rank's blocks of the split leaves into the
+        network's whole weights (one all-gather), and model rank 0's
+        replicated leaves to the others (one broadcast: a card's
+        backward need not repeat bit for bit, and the model ranks must
+        hold one set of weights)."""
+        model = self.group.model
+        split = [(p, q, s) for p, q, s in zip(self.net.parameters(),
+                                              self.opt_params, self.splits)
+                 if s is not None]
+        rep = [p for p, s in zip(self.net.parameters(), self.splits)
+               if s is None]
+        with torch.no_grad():
+            if rep:
+                flat = model.broadcast(torch.cat([p.reshape(-1)
+                                                  for p in rep]))
+                off = 0
+                for p in rep:
+                    p.copy_(flat[off:off + p.numel()].view_as(p))
+                    off += p.numel()
+            if not split:
+                return
+            blocks = model.all_gather(torch.cat(
+                [q.detach().reshape(-1) for _, q, _ in split]))
+            off = 0
+            for p, q, s in split:
+                join_shards(p.data, blocks[:, off:off + q.numel()].view(
+                    (model.world,) + tuple(q.shape)), s)
+                off += q.numel()
+
+    def adam_state(self) -> Dict[str, List[Tensor]]:
+        """The Adam moments and step counts in ``net.parameters()`` order,
+        whole (``rl/checkpoint.py``'s format, the same as one process's);
+        under a model axis the blocks are all-gathered, so every model
+        rank must call this."""
+        st = adam_state(self.opt)
+        model = self.group.model
+        if model is None:
+            return st
+        idx = [j for j, s in enumerate(self.splits) if s is not None]
+        params = list(self.net.parameters())
+        for key in ("exp_avg", "exp_avg_sq"):
+            moments = st[key]
+            blocks = model.all_gather(torch.cat(
+                [moments[j].reshape(-1) for j in idx]))
+            off = 0
+            for j in idx:
+                k = moments[j].numel()
+                full = torch.empty_like(params[j])
+                moments[j] = join_shards(full, blocks[:, off:off + k].view(
+                    (model.world,) + tuple(moments[j].shape)),
+                    self.splits[j])
+                off += k
+        return st
+
+    def load_adam_state(self, saved, label: str = "") -> None:
+        """Put whole saved moments and step counts (:meth:`adam_state`'s
+        format) into the optimizer; under a model axis each split leaf's
+        block of them."""
+        model = self.group.model
+        if model is not None:
+            params = list(self.net.parameters())
+            if len(saved["exp_avg"]) == len(params):
+                saved = dict(saved)
+                for key in ("exp_avg", "exp_avg_sq"):
+                    saved[key] = [
+                        m if s is None or m.shape != p.shape
+                        else shard(m, s, model.rank, model.world)
+                        for m, p, s in zip(saved[key], params, self.splits)]
+        load_adam_state(self.opt, saved, label)
 
     def update(self, init_h: Tensor, traj: Transition, advantages: Tensor,
                targets: Tensor, num_minibatches: int,
@@ -337,7 +472,7 @@ class PPOLearner:
         the global minibatches'."""
         g = self.group
         n_local = advantages.shape[1]
-        n_actors = n_local * g.world
+        n_actors = global_actors(n_local, g)
         mb = n_actors // num_minibatches
         count = advantages.shape[0] * mb
         lo = g.rank * n_local
@@ -355,7 +490,7 @@ class PPOLearner:
                 else:
                     idx = perm[j * mb:(j + 1) * mb]
                 batch = tree_map(lambda v: v[:, idx], traj)
-                self.opt.zero_grad(set_to_none=True)
+                self.net.zero_grad(set_to_none=True)
                 total, aux = self.loss(init_h[idx], batch, advantages[:, idx],
                                        targets[:, idx], count)
                 total.backward()
@@ -420,9 +555,9 @@ def make_networks(env: WorldEnv, cfg: TrainConfig) -> List[nn.Module]:
 def check_ported(cfg: TrainConfig, group: Optional[DataGroup] = None
                  ) -> None:
     """Raise ``NotImplementedError`` for a trainer option the port would
-    otherwise accept and drop without a word: a mesh axis other than the
-    data axes wider than one device (the JAX package's ``model`` axis,
-    tensor parallelism); a mesh of more data ranks than the group
+    otherwise accept and drop without a word: a mesh axis wider than one
+    device that is neither a data axis nor ``model``; a mesh of more
+    ranks (data ranks times the ``model`` axis) than the group
     (``group``: default one process) has; the pipelined rollout under a
     group of more than one rank, which the JAX package refuses too."""
     group = group or DataGroup()
@@ -432,9 +567,9 @@ def check_ported(cfg: TrainConfig, group: Optional[DataGroup] = None
         if other:
             raise NotImplementedError(
                 f"MESH_SHAPE={list(shape)} over MESH_AXES={list(axes)}: "
-                f"the axes {other} are not data axes; tensor parallelism "
-                "over a 'model' axis is not ported yet (ROADMAP.md section "
-                "1, item 9); the port splits envs over 'data' and '*_data' axes")
+                f"the axes {other} are neither data axes nor 'model'; the "
+                "port splits envs over 'data' and '*_data' axes and "
+                "weights over 'model'")
         need = mesh_ranks(shape, axes)
         if need > group.world:
             raise NotImplementedError(
@@ -493,7 +628,114 @@ def eval_rollout(env: WorldEnv, nets: Sequence[nn.Module], n_envs: int,
     each step's mean reward) and, with ``log_env_info``, the
     ``eval_{name}/action_*`` and ``eval_``-prefixed info metrics.
     ``draws``: (reset draws, a step's draws each step), which tests feed
-    from the JAX package's keys; else the env draws from ``generator``."""
+    from the JAX package's keys; else the env draws from ``generator``.
+    Runs :class:`EvalRollout` (on a card a graph of the step, captured
+    for this call; with ``draws`` its body eagerly)."""
+    return EvalRollout(env, nets, n_envs, n_steps, hidden_size,
+                       log_env_info, generator).run(draws)
+
+
+class EvalRollout(StepGraph):
+    """The greedy evaluation of :func:`eval_rollout` over static buffers,
+    the JAX package's ``jax.lax.scan`` over ``eval_steps``
+    (``vit_marl_tpu/rl/ppo.py:703``): the carry (env state, each type's
+    observations, done flags and GRU states), ``(n_steps, ...)`` buffers
+    of each step's mean rewards and, with ``log_env_info``, of the
+    actions and the info moments, and the step index on the device.  On
+    a card one step is captured once (``rl/scan.py::StepGraph``: a
+    warm-up on a side stream, ``generator`` registered with the graph,
+    the carry and the generator put back after the capture) and replayed
+    ``n_steps`` times a :meth:`run`; on the CPU the same body runs
+    eagerly.  The reset before the steps is eager, as the JAX package's
+    is outside its scan (``ppo.py:668-678``).
+
+    The graph reads the networks' parameters from their storage: the
+    trainer's optimizer updates them in place, so every :meth:`run`
+    sees the current weights.  Replacing a parameter tensor (a resume
+    with ``load_state_dict(assign=True)``, a new ``nn.Parameter``)
+    would leave a stale graph; :meth:`StepGraph.replay` sees the moved
+    tensor and captures again.  A capture that fails raises."""
+
+    def __init__(self, env: WorldEnv, nets: Sequence[nn.Module],
+                 n_envs: int, n_steps: int, hidden_size: int,
+                 log_env_info: bool,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(n_steps, [generator], env.device)
+        self.env, self.nets = env, list(nets)
+        self.n_envs, self.hidden_size = n_envs, hidden_size
+        self.log_env_info = log_env_info
+        self.generator = generator
+        self.params = env.default_params
+        self.actors = [n * n_envs for n in env.n_per_type]
+        self.rews = self.acts = self.stats = None
+
+    def step(self, draws=None) -> None:
+        """One greedy step from the carry into slot ``t``: the body the
+        graph captures (``draws``: eager runs only)."""
+        env, c = self.env, self.carry
+        hs, acts, step_acts = list(c.hstates), [], []
+        for i, net in enumerate(self.nets):
+            obs_i = tree_map(lambda v: v[None],
+                             batchify(c.obs[i], self.actors[i]))
+            hs[i], pi, _ = net(c.hstates[i], obs_i, c.dones[i][None])
+            a = pi.mode()[0]
+            a = a.reshape((self.n_envs, env.n_per_type[i])
+                          + tuple(a.shape[1:]))
+            acts.append(a)
+            step_acts.append(a[:, 0] if env.n_per_type[i] == 1 else a)
+        obs, state, rew, done, info = env.step_vec(
+            c.state, step_acts, self.params, draws=draws,
+            generator=self.generator)
+        dones = [done["agents"][i].reshape(self.actors[i])
+                 for i in range(len(self.nets))]
+        rew = torch.stack([r.float().mean() for r in rew])
+        stats = _reduce_info(info) if self.log_env_info else None
+        if self.rews is None:     # the first (eager) step sizes the slots
+            self.rews = self._slots(rew)
+            if self.log_env_info:
+                self.acts, self.stats = self._slots(acts), self._slots(stats)
+        self._put(self.rews, rew)
+        if self.log_env_info:
+            self._put(self.acts, acts)
+            self._put(self.stats, stats)
+        assign(c, Carry(state, obs, dones, hs))
+        self.t.add_(1)
+
+    def run(self, draws=None) -> Dict[str, Tensor]:
+        """Reset (eagerly), ``n_steps`` steps, and the metrics of
+        :func:`eval_rollout`.  ``draws`` (the reset's and each step's)
+        run the body eagerly, on any device."""
+        env, dev = self.env, self.device
+        obs, state = env.reset(draws[0] if draws else env.draw_reset(
+            self.n_envs, self.generator), self.params)
+        carry = Carry(state, obs,
+                      [torch.zeros(a, dtype=torch.bool, device=dev)
+                       for a in self.actors],
+                      [ScannedGRU.initialize_carry(a, self.hidden_size, dev)
+                       for a in self.actors])
+        self.set_carry(carry)
+        with torch.no_grad():
+            self.replay(draws[1] if draws else None)
+        names = [a.cfg.short_name for a in env.agent_types]
+        mean_rew = self.rews.mean(dim=0)
+        out = {f"{names[i]}/eval_mean_reward": mean_rew[i]
+               for i in range(len(names))}
+        if self.log_env_info:
+            for i in range(len(names)):
+                _action_metrics(self.acts[i], env.action_spaces[i],
+                                f"eval_{names[i]}", out)
+            _fold_info_stats(self.stats, names, out, prefix="eval_")
+        return out
+
+
+def eval_rollout_loop(env: WorldEnv, nets: Sequence[nn.Module],
+                      n_envs: int, n_steps: int, hidden_size: int,
+                      log_env_info: bool,
+                      generator: Optional[torch.Generator] = None,
+                      draws=None) -> Dict[str, Tensor]:
+    """Greedy evaluation issued step by step from the host (the trainer's
+    ``ROLLOUT_MODE=loop``): what :func:`eval_rollout` returns, from the
+    same draws."""
     n_types = len(env.agent_types)
     actors = [n * n_envs for n in env.n_per_type]
     dev = env.device
@@ -564,7 +806,7 @@ def _resume(ckpt: CheckpointManager, learners: Sequence[PPOLearner]) -> int:
                     "(hidden_size/fc_dim/preset?). Start fresh or match "
                     "the original config.")
         lr.net.load_state_dict(saved)
-        load_adam_state(lr.opt, restored["opt"][i], f" (agent type {i})")
+        lr.load_adam_state(restored["opt"][i], f" (agent type {i})")
         lr.count = int(restored["count"][i])
     print(f"resumed from checkpoint update {latest} "
           f"(next update: {latest + 1})", flush=True)
@@ -775,7 +1017,13 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
     rank), the networks start from rank 0's weights, the epochs'
     permutations are rank 0's, and the update is the global batch's
     (:class:`PPOLearner`).  Rank 0 logs, checkpoints and evaluates; every
-    rank resumes from the same checkpoint.
+    rank resumes from the same checkpoint.  With a ``model`` axis the
+    group is cut into a ``data x model`` grid
+    (``parallel/distributed.py::mesh_groups``): "rank" above is the data
+    rank, so the model ranks of one data index step the same envs from
+    the same seed, each stores its share of the split weights and Adam
+    moments, and every model rank of data rank 0 evaluates (their
+    generators stay in step) while one of them logs and writes.
     """
     group = resolve_group(cfg, group)
     check_ported(cfg, group)
@@ -783,8 +1031,10 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                                             cfg.mesh_axes) != group.world:
         raise ValueError(
             f"MESH_SHAPE={list(cfg.mesh_shape)} has "
-            f"{mesh_ranks(cfg.mesh_shape, cfg.mesh_axes)} data ranks; the "
-            f"group has {group.world}: start one process a data rank")
+            f"{mesh_ranks(cfg.mesh_shape, cfg.mesh_axes)} ranks; the "
+            f"group has {group.world}: start one process a rank")
+    if tuple(cfg.mesh_shape):
+        group = mesh_groups(group, cfg.mesh_shape, cfg.mesh_axes)
     if cfg.resume and not cfg.checkpoint_dir:
         raise ValueError(
             "RESUME=true needs CHECKPOINT_DIR set: with no checkpoint "
@@ -796,10 +1046,13 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
     if pipeline and n_envs % 2:
         raise ValueError("rollout_mode=pipeline needs an even NUM_ENVS")
     env = env or WorldEnv(ma_config, device=device)
+    # data rank 0 evaluates and draws the epochs' permutations (under a
+    # model axis each model rank of it, so that their generators stay
+    # in step); one rank logs and writes checkpoints
     lead = group.rank == 0
     eval_env = make_eval_env(ma_config, cfg, env) \
         if cfg.eval_every and lead else None
-    logger = logger or Logger(cfg.log_backend if lead else "none",
+    logger = logger or Logger(cfg.log_backend if group.writer else "none",
                               cfg.log_path)
     dev = env.device
     n_types = len(env.agent_types)
@@ -836,6 +1089,10 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
         scan = (ScanRollout(step_fn, nets, params, cfg.num_steps, n_envs,
                             env.n_per_type, gen, gen, cfg.log_env_info, dev)
                 if mode == "scan" else None)
+        evaluator = (EvalRollout(eval_env, nets, cfg.eval_envs
+                                 or cfg.num_envs, cfg.eval_steps,
+                                 cfg.hidden_size, cfg.log_env_info, gen)
+                     if mode == "scan" and eval_env is not None else None)
         ckpt = (CheckpointManager(cfg.checkpoint_dir,
                                   max_to_keep=cfg.checkpoint_max_to_keep)
                 if cfg.checkpoint_dir else None)
@@ -875,7 +1132,7 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                     adv, tgt = compute_gae(traj, last_val[0],
                                            _per_type(cfg.gamma, i),
                                            _per_type(cfg.gae_lambda, i))
-                n_global = num_actors[i] * group.world
+                n_global = global_actors(num_actors[i], group)
                 perms = []
                 for _ in range(cfg.update_epochs):
                     perm = (torch.randperm(n_global, generator=gen,
@@ -903,9 +1160,12 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                 torch.cuda.synchronize(dev)
             t2 = time.perf_counter()
             if eval_env is not None and (u + 1) % cfg.eval_every == 0:
-                metrics.update(eval_rollout(
-                    eval_env, nets, cfg.eval_envs or cfg.num_envs,
-                    cfg.eval_steps, cfg.hidden_size, cfg.log_env_info, gen))
+                metrics.update(evaluator.run() if evaluator is not None
+                               else eval_rollout_loop(
+                                   eval_env, nets,
+                                   cfg.eval_envs or cfg.num_envs,
+                                   cfg.eval_steps, cfg.hidden_size,
+                                   cfg.log_env_info, gen))
             # one read of every metric
             values = torch.stack([v.to(torch.float64)
                                   for v in metrics.values()]).tolist()
@@ -917,12 +1177,15 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
             metrics = dict(sorted(metrics.items()))
             logger.log(metrics)
             metrics_history.append(metrics)
-            if lead and ckpt is not None and (
+            if ckpt is not None and (
                     (u + 1) % cfg.checkpoint_every == 0
                     or u == num_updates - 1):
-                ckpt.save(u, [lr.net.state_dict() for lr in learners],
-                          [adam_state(lr.opt) for lr in learners],
-                          [lr.count for lr in learners], metrics=metrics)
+                # whole moments: under a model axis every rank gathers
+                opt_states = [lr.adam_state() for lr in learners]
+                if group.writer:
+                    ckpt.save(u, [lr.net.state_dict() for lr in learners],
+                              opt_states, [lr.count for lr in learners],
+                              metrics=metrics)
         return {"metrics": metrics_history, "networks": nets,
                 "state": carry.state, "learners": learners}
 

@@ -38,6 +38,12 @@ the replays counts those launches.
 
 On the CPU (which must be asked for) the same body runs eagerly ``T``
 times: the CPU tests hold the captured function against the loop.
+
+:class:`StepGraph` holds what any such rollout needs (the buffers' slot
+index, the capture with its generators and carry put back, the replays,
+the eager body); the greedy eval (``rl/ppo.py::EvalRollout``) and
+``evaluate.py``'s rollouts (``eval/combinations.py::
+CombinationRollout``) are its other bodies.
 """
 
 from __future__ import annotations
@@ -73,40 +79,42 @@ def assign(dst, src) -> None:
             d.copy_(s)
 
 
-class ScanRollout:
-    """``n_steps`` steps of policy then env over static buffers (see the
-    module docstring).  ``step_fn``, ``nets``, ``params``, ``n_envs``,
-    ``n_per_type``, the generators and ``log_env_info`` are
-    :func:`vit_marl_tpu_torch.rl.ppo.rollout_loop`'s; ``device`` decides
-    between the graph (``cuda``) and the eager body (``cpu``).
+class StepGraph:
+    """``n_steps`` steps of one body over static buffers: on a card one
+    CUDA graph of :meth:`step`, captured at the first :meth:`replay` and
+    replayed ``n_steps`` times a call; on the CPU the body eagerly.
 
-    :meth:`run` returns what ``rollout_loop`` returns; the trajectories,
-    moments and carry it returns are the buffers themselves, valid until
-    the next :meth:`run`.  ``warmup_s``, ``capture_s`` and
-    ``instantiate_s`` hold the set-up's seconds once captured."""
+    A subclass writes :meth:`step` (reading ``self.carry``, writing its
+    outputs into slot ``self.t`` of its buffers with :meth:`_put`, the
+    new carry over the old with :func:`assign`, and adding one to
+    ``self.t``), hands the carry to :meth:`set_carry` before each
+    :meth:`replay` and names its modules in ``self.nets``.  ``gens``: the generators the body
+    draws from, registered with the graph.
 
-    def __init__(self, step_fn, nets: Sequence[torch.nn.Module], params,
-                 n_steps: int, n_envs: int, n_per_type: Sequence[int],
-                 pol_gen: torch.Generator, env_gen: torch.Generator,
-                 log_env_info: bool, device):
-        self.step_fn, self.nets, self.params = step_fn, list(nets), params
-        self.n_steps, self.n_envs = n_steps, n_envs
-        self.n_per_type = tuple(n_per_type)
-        self.gens = [pol_gen] if env_gen is pol_gen else [pol_gen, env_gen]
-        self.pol_gen, self.env_gen = pol_gen, env_gen
-        self.log_env_info = log_env_info
+    The graph reads the modules' parameters and buffers from their
+    storage: an in-place update (the optimizer's step, ``copy_``,
+    ``load_state_dict``) is seen by the next replay.  Replacing a
+    tensor (``load_state_dict(assign=True)``, a new ``nn.Parameter``)
+    would leave the graph reading the old one; :meth:`replay` compares
+    the tensors' addresses with the captured ones and captures again
+    where they moved, so it never replays stale weights."""
+
+    def __init__(self, n_steps: int, gens: Sequence[torch.Generator],
+                 device):
+        self.n_steps = n_steps
+        self.gens = []
+        for g in gens:
+            if g is not None and all(g is not h for h in self.gens):
+                self.gens.append(g)
         self.device = torch.device(device)
         self.use_graph = self.device.type == "cuda"
-        self.t = None           # the step index, made at the first run
-        self.carry = None       # the carry buffers (a Carry)
-        self.traj = None        # per type a (T, ...) Transition
-        self.info = None        # (T, ...) moments, or None
+        self.nets: List[torch.nn.Module] = []
+        self.t = None           # the step index, made at the first replay
+        self.carry = None       # the carry buffers
         self.graph = None
+        self.captures = 0
+        self._weights = None
         self.warmup_s = self.capture_s = self.instantiate_s = 0.0
-
-    # ------------------------------------------------------------------
-    # the body
-    # ------------------------------------------------------------------
 
     def _slots(self, tree):
         """``(T,) + leaf.shape`` buffers for one step's tree."""
@@ -119,39 +127,15 @@ class ScanRollout:
             b.index_copy_(0, self.t, v.unsqueeze(0))
 
     def step(self) -> None:
-        """One step from the carry buffers into slot ``t`` and the carry:
-        the body the graph captures."""
-        from vit_marl_tpu_torch.rl.ppo import (
-            Carry,
-            _transitions,
-            env_step,
-            policy_step,
-        )
+        raise NotImplementedError
 
-        c = self.carry
-        hs, acts, pol_out = policy_step(self.nets, c.obs, c.dones, c.hstates,
-                                        self.n_envs, self.n_per_type,
-                                        self.pol_gen)
-        state, obs, dones, env_out, stats = env_step(
-            self.step_fn, c.state, acts, self.params, self.n_envs,
-            self.n_per_type, self.env_gen, self.log_env_info)
-        trans = _transitions(c.dones, pol_out, env_out)
-        if self.traj is None:     # the first (eager) run sizes the slots
-            self.traj = self._slots(trans)
-            self.info = self._slots(stats) if self.log_env_info else None
-        self._put(self.traj, trans)
-        if self.log_env_info:
-            self._put(self.info, stats)
-        assign(c, Carry(state, obs, dones, hs))
-        self.t.add_(1)
-
-    # ------------------------------------------------------------------
-    # capture and replay
-    # ------------------------------------------------------------------
+    def _weight_addresses(self):
+        return tuple(t.data_ptr() for net in self.nets
+                     for t in list(net.parameters()) + list(net.buffers()))
 
     def _capture(self) -> None:
         """Warm up on a side stream, capture one step, then put back the
-        carry and the generators as they were."""
+        carry, the generators and the step index as they were."""
         carry0 = tree_map(lambda v: v.clone() if isinstance(v, Tensor)
                           else v, self.carry)
         gen_states = [g.get_state() for g in self.gens]
@@ -182,23 +166,94 @@ class ScanRollout:
             g.set_state(s)
         self.t.copy_(t0)
         self.graph = graph
+        self.captures += 1
+        self._weights = self._weight_addresses()
 
-    def run(self, carry):
-        """``n_steps`` steps from ``carry``; returns (per type the
-        trajectory, the per-step info moments or None, the new carry)."""
+    def set_carry(self, carry) -> None:
+        """Start the next :meth:`replay` from ``carry``: copied into the
+        carry buffers (made from it on the first call)."""
         if self.carry is None:
-            self.t = torch.zeros(1, dtype=torch.int64, device=self.device)
             self.carry = tree_map(lambda v: v.clone() if isinstance(
                 v, Tensor) else v, carry)
         elif carry is not self.carry:
             assign(self.carry, carry)
+
+    def replay(self, step_draws=None) -> None:
+        """``n_steps`` steps from slot 0 and the carry buffers.
+        ``step_draws`` (each step's draws, as tests feed them) run the
+        body eagerly, ``step(step_draws[k])``, on any device."""
+        if self.t is None:
+            self.t = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.t.zero_()
-        if not self.use_graph:
-            for _ in range(self.n_steps):
-                self.step()
-            return self.traj, self.info, self.carry
+        if step_draws is not None or not self.use_graph:
+            for k in range(self.n_steps):
+                self.step(*(() if step_draws is None else
+                            (step_draws[k],)))
+            return
+        if self.graph is not None and \
+                self._weights != self._weight_addresses():
+            self.graph = None           # a weight was replaced: capture anew
         if self.graph is None:
             self._capture()
         for _ in range(self.n_steps):
             self.graph.replay()
+
+
+class ScanRollout(StepGraph):
+    """``n_steps`` steps of policy then env over static buffers (see the
+    module docstring).  ``step_fn``, ``nets``, ``params``, ``n_envs``,
+    ``n_per_type``, the generators and ``log_env_info`` are
+    :func:`vit_marl_tpu_torch.rl.ppo.rollout_loop`'s; ``device`` decides
+    between the graph (``cuda``) and the eager body (``cpu``).
+
+    :meth:`run` returns what ``rollout_loop`` returns; the trajectories,
+    moments and carry it returns are the buffers themselves, valid until
+    the next :meth:`run`.  ``warmup_s``, ``capture_s`` and
+    ``instantiate_s`` hold the set-up's seconds once captured."""
+
+    def __init__(self, step_fn, nets: Sequence[torch.nn.Module], params,
+                 n_steps: int, n_envs: int, n_per_type: Sequence[int],
+                 pol_gen: torch.Generator, env_gen: torch.Generator,
+                 log_env_info: bool, device):
+        super().__init__(n_steps, [pol_gen, env_gen], device)
+        self.step_fn, self.nets, self.params = step_fn, list(nets), params
+        self.n_envs = n_envs
+        self.n_per_type = tuple(n_per_type)
+        self.pol_gen, self.env_gen = pol_gen, env_gen
+        self.log_env_info = log_env_info
+        self.traj = None        # per type a (T, ...) Transition
+        self.info = None        # (T, ...) moments, or None
+
+    def step(self) -> None:
+        """One step from the carry buffers into slot ``t`` and the carry:
+        the body the graph captures."""
+        from vit_marl_tpu_torch.rl.ppo import (
+            Carry,
+            _transitions,
+            env_step,
+            policy_step,
+        )
+
+        c = self.carry
+        hs, acts, pol_out = policy_step(self.nets, c.obs, c.dones, c.hstates,
+                                        self.n_envs, self.n_per_type,
+                                        self.pol_gen)
+        state, obs, dones, env_out, stats = env_step(
+            self.step_fn, c.state, acts, self.params, self.n_envs,
+            self.n_per_type, self.env_gen, self.log_env_info)
+        trans = _transitions(c.dones, pol_out, env_out)
+        if self.traj is None:     # the first (eager) run sizes the slots
+            self.traj = self._slots(trans)
+            self.info = self._slots(stats) if self.log_env_info else None
+        self._put(self.traj, trans)
+        if self.log_env_info:
+            self._put(self.info, stats)
+        assign(c, Carry(state, obs, dones, hs))
+        self.t.add_(1)
+
+    def run(self, carry):
+        """``n_steps`` steps from ``carry``; returns (per type the
+        trajectory, the per-step info moments or None, the new carry)."""
+        self.set_carry(carry)
+        self.replay()
         return self.traj, self.info, self.carry

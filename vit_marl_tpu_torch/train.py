@@ -7,7 +7,11 @@ Usage:
   python -m vit_marl_tpu_torch.train --config configs/ippo_2player.yaml \
       --set WORLD.DEBUG_MODE=true
 
-Runs on the card; ``--device cpu`` runs the plain PyTorch path on the CPU.
+Runs on the card; ``--device cpu`` (or ``--cpu``, the JAX CLI's flag)
+runs the plain PyTorch path on the CPU.  The last line gives the run's
+env-steps/s; ``--timing`` adds the JAX CLI's ``throughput:`` line after it
+(both over the whole run, set-up and the first update's capture
+included).
 Each update's metrics go to ``LOG_BACKEND`` (``print``, ``jsonl`` to
 ``LOG_PATH``, ``wandb`` where installed, ``none``); ``CHECKPOINT_DIR``
 saves the learners, and ``RESUME=true`` continues from its latest update:
@@ -24,6 +28,14 @@ envs):
 
   torchrun --nproc-per-node 8 -m vit_marl_tpu_torch.train \
       --config configs/mesh_ippo_2player.yaml
+
+With a ``model`` axis the split weights and their Adam moments are
+stored as shards over the model ranks (``parallel/mesh.py``); the
+processes are ``data x model`` ranks:
+
+  torchrun --nproc-per-node 4 -m vit_marl_tpu_torch.train \
+      --config configs/ippo_vision_dual_ppo.yaml \
+      --set MESH_SHAPE=[2,2] --set MESH_AXES=[data,model]
 """
 
 from __future__ import annotations
@@ -45,7 +57,16 @@ def main(argv=None):
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; cpu on request)")
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--timing", action="store_true",
+                   help="print the JAX CLI's throughput line after "
+                        "training")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU (the same as --device cpu)")
     args = p.parse_args(argv)
+    if args.cpu:
+        if args.device not in (None, "cpu"):
+            p.error(f"--cpu and --device {args.device} disagree")
+        args.device = "cpu"
 
     import dataclasses
 
@@ -79,8 +100,12 @@ def main(argv=None):
     train = make_train(ma_config, train_config, device=device, group=group)
     env = train.env
     if group.world > 1:
-        print(f"rank {group.rank} of {group.world}: "
-              f"{train_config.num_envs // group.world} envs", flush=True)
+        g = train.group         # the data group, cut by a model axis
+        model = (f", model rank {g.model.rank} of {g.model.world}"
+                 if g.model is not None else "")
+        print(f"rank {group.rank} of {group.world}: data rank {g.rank} of "
+              f"{g.world}{model}: {train_config.num_envs // g.world} envs",
+              flush=True)
     print(f"device: {env.device} world: msgs/step={env.num_msgs_per_step} "
           f"train: envs={train_config.num_envs} "
           f"steps={train_config.num_steps} "
@@ -91,7 +116,10 @@ def main(argv=None):
     n_steps = (train_config.num_envs * train_config.num_steps
                * len(out["metrics"]))
     print(f"done: {len(out['metrics'])} updates, {n_steps} env-steps in "
-          f"{wall:.1f}s ({n_steps / wall:.0f} env-steps/s)")
+          f"{wall:.1f}s ({n_steps / wall:.0f} env-steps/s over the run)")
+    if args.timing:
+        print(f"throughput: {n_steps / wall:.0f} env-steps/s (incl. "
+              "set-up and capture; --timing, as the JAX CLI prints it)")
     return out
 
 
