@@ -177,11 +177,14 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    loop, scan, scan, loop, for the 2-player and vision configs) after
    the scan's set-up (warm-up, capture and instantiation
    timed apart); the graph's hand-written kernel nodes (its DOT dump)
-   equal to a loop step's launches; one rollout of each under
-   ``torch.profiler``: the card's busy share of the kernel window, the
-   loop's wrappers exact, the scan's graph launched NUM_STEPS times and
+   equal to a loop step's launches, the graph replayed NUM_STEPS times
+   in each run of the scan (counted where it replays); the first
+   ``TRACE_STEPS`` (32) steps of each mode under ``torch.profiler`` (the
+   scan's on the same graph): the card's busy share of the kernel window,
+   the loop's wrappers exact, the scan's graph replayed once a step and
    no wrapper, each trace holding the hand-written kernels' launches
-   (counted by name) that its run made, within ``TRACE_LOSS``;
+   (counted by name) that its run made, within ``TRACE_LOSS`` (or 2
+   records a 128 steps traced);
    the bench at 4,096 envs, ``--mode loop`` and ``--mode scan`` with GRU
    and ViT-Small policies, each line printed.  Update 0 of each config
    takes one PPO epoch, and the rollout's turns are loop, scan, scan,
@@ -206,14 +209,29 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    card): each rank's launches exact, the ranks' weights identical,
    their metrics within rtol 5e-4 / atol 1e-5 and their weights within 3
    x the learning rate of one process's; each rank's bytes of stored
-   parameters and Adam state against one process's.
+   parameters and Adam state against one process's;
+21. the order-book engine and the tools (the port's fifteenth slice):
+   the ``OrderBook`` facade and ``lob/engine.py``'s scans at E=256,
+   M=112, S=128 in each cancel mode on corner streams, every output
+   (books, logs, best quotes, saved states, queries) bit-equal on the
+   card and the CPU; on the corners both JAX engines share, the engine
+   against kernel 2 at ``rec_k = S`` and the log built from its records;
+   the engine's ms a message and kernel 2's ms a step at E=4,096; then,
+   each driven with every count set to 0 just before it,
+   ``eval/speed_test.py::run_speed_grid`` ((1, 1) and (10, 10) agents,
+   100 data messages, 4,096 envs x 20 steps; kernel 1 once a step),
+   ``rl/sweep.py::run_sweep`` over two combinations of
+   ``sweep_fine.yaml``'s grid at one update each, and one update (one
+   PPO epoch) of ``ippo_vision_dual_ppo.yaml`` under
+   ``utils/profiling.py::trace`` with its drain, its ten largest CUDA ops
+   by self time.
 Every training phase (6-20) collects with ``ROLLOUT_MODE``'s default,
 ``auto``: on the card a CUDA graph of the env step (``rl/scan.py``),
 replayed each step.  A wrapper counts the launches it makes: under the
 scan the warm-up step's (``rollout_steps``) and the update's; the
 graph's replays launch without the wrappers; phase 18 reads the
-graph's kernel nodes, counts its launches and holds profiler traces
-against them.
+graph's kernel nodes, counts its replays where they are made
+(``StepGraph.replays``) and holds profiler traces against them.
 Then one JSON line describing the eight kernels, and the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -1570,10 +1588,10 @@ def sweep_fine_phase(torch, count, make_train, smi):
     """One update of ``sweep_fine.yaml``'s base run."""
     with open(SWEEP_CONFIG) as f:
         raw = yaml.safe_load(f)
-    raw.pop("SWEEP")                 # as vit_marl_tpu/rl/sweep.py:168
     from vit_marl_tpu_torch.config import make_config
+    from vit_marl_tpu_torch.rl.sweep import split_sweep
 
-    ma, tc = make_config(raw)
+    ma, tc = make_config(split_sweep(raw)[0])
     out, got, wall = drive(torch, count, lambda: make_train(
         ma, tc, device=DEV)(tc.seed, n_updates=1))
     expect(got, {"book_scan": 1 + rollout_steps(tc, 1)},
@@ -2161,11 +2179,17 @@ KERNEL_FAMILIES = (("book_scan_kernel", "book_scan"),
                    ("full_block_kernel", "fused_block"))
 
 
+# phase 18 traces rollouts of at most TRACE_STEPS steps (the turns and
+# the update keep NUM_STEPS): a vision trace of 128 steps held about
+# 216,700 kernel records, and the traces' export and reading took much of
+# the script's time
+TRACE_STEPS = 32
 # a profiler trace of a graph's replays drops a few kernel records (the
 # same vision rollout traced four times held 216,237-216,705 kernels,
 # NVIDIA H100 80GB HBM3): a family's traced launches may fall short of
-# the launches by at most TRACE_LOSS of them, or 2, and never exceed them
-TRACE_LOSS = 0.02
+# the launches by at most TRACE_LOSS of them, or TRACE_FLOOR for every 128
+# steps traced (2 of 128 book scans), and never exceed them
+TRACE_LOSS, TRACE_FLOOR = 0.02, 2
 
 
 def kernel_family(name):
@@ -2193,11 +2217,13 @@ def graph_nodes(graph):
     return out
 
 
-def check_traced(label, traced_, launches):
-    """Hold a trace's launches by family against the launches made."""
+def check_traced(label, traced_, launches, steps):
+    """Hold a trace of ``steps`` steps' launches by family against the
+    launches made."""
     short = {f: launches.get(f, 0) - traced_.get(f, 0)
              for f in set(launches) | set(traced_)}
-    if any(v < 0 or v > max(2, TRACE_LOSS * launches.get(f, 0))
+    floor = TRACE_FLOOR * steps / 128
+    if any(v < 0 or v > max(floor, TRACE_LOSS * launches.get(f, 0))
            for f, v in short.items()):
         raise AssertionError(f"{label}: the trace holds {traced_} launches "
                              f"of the hand-written kernels, want {launches}")
@@ -2267,18 +2293,21 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
     timed apart).  Timed in ``turns`` (modes in order, e.g. SCAN_TURNS).
     Checks what the graph launches: its kernel nodes by family
     (:func:`graph_nodes`) equal what the loop's wrappers launch a step
-    (``per_step``, counter: launches a step); one rollout of each mode
-    under ``torch.profiler``, every count set to 0 just before it: the
-    loop's wrappers launch exactly ``per_step`` x NUM_STEPS, the scan
-    launches its graph NUM_STEPS times (counted at ``replay``) and no
-    wrapper, and each trace holds the launches of each family that its
-    run made, within TRACE_LOSS.  The card's busy share of each kernel
-    window.  Returns the numbers."""
+    (``per_step``, counter: launches a step); every run of the scan
+    replays its one graph NUM_STEPS times (``StepGraph.replays``, counted
+    where it replays); one rollout of each mode under ``torch.profiler``,
+    of min(TRACE_STEPS, NUM_STEPS) steps (the scan's the first steps of
+    the same graph), every count set to 0 just before it: the loop's
+    wrappers launch exactly ``per_step`` a step, the scan replays its
+    graph once a step and launches no wrapper, and each trace holds the
+    launches of each family that its run made, within TRACE_LOSS.  The
+    card's busy share of each kernel window.  Returns the numbers."""
     from torch_pipeline_overlap import traced, union
     from vit_marl_tpu_torch.rl import ppo as tppo
     from vit_marl_tpu_torch.rl.scan import ScanRollout
 
     E, T = tc.num_envs, tc.num_steps
+    Tt = min(TRACE_STEPS, T)
     torch.manual_seed(tc.seed)
     nets = tppo.make_networks(env, tc)
     gen = torch.Generator(device=DEV)
@@ -2292,16 +2321,20 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
                         for n in actors])
     scan = ScanRollout(env.step_vec, nets, params, T, E, env.n_per_type,
                        gen, gen, tc.log_env_info, DEV)
+    runs = []                   # the graph's replays in each full run
 
-    def rollout(mode):
+    def rollout(mode, steps=T):
         nonlocal carry
         with torch.no_grad():
             if mode == "scan":
-                _, _, c = scan.run(carry)
+                r0 = scan.replays
+                _, _, c = scan.run(carry, steps=steps)
+                if steps == T:
+                    runs.append(scan.replays - r0)
             else:
                 _, _, c = tppo.rollout_loop(env.step_vec, nets, carry, params,
-                                            T, E, env.n_per_type, gen, gen,
-                                            tc.log_env_info)
+                                            steps, E, env.n_per_type, gen,
+                                            gen, tc.log_env_info)
         carry = c
 
     torch.cuda.synchronize()
@@ -2316,13 +2349,6 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
         raise AssertionError(f"{label}: the graph holds {nodes} nodes of the "
                              f"hand-written kernels; a loop step launches "
                              f"{family_launches(full, tokens)}")
-    replays = [0]
-    replay = scan.graph.replay
-
-    def counted_replay():
-        replays[0] += 1
-        replay()
-    scan.graph.replay = counted_replay
     secs = {"loop": [], "scan": []}
     for mode in turns or ():
         torch.cuda.synchronize()
@@ -2331,10 +2357,13 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
         torch.cuda.synchronize()
         secs[mode].append(time.perf_counter() - t0)
     busy, trace = {}, {}
+    if runs != [T] * len(runs):
+        raise AssertionError(f"{label}: the scan's runs replayed its graph "
+                             f"{runs} times, want {T} each")
     for mode in ("loop", "scan"):
-        replays[0] = 0
+        r0 = scan.replays
         (by_stream, host, names), got, _ = drive(
-            torch, count, lambda: traced(torch, lambda: rollout(mode)))
+            torch, count, lambda: traced(torch, lambda: rollout(mode, Tt)))
         ivs = [iv for v in by_stream.values() for iv in v]
         window = (max(b for _, b in ivs) - min(x for x, _ in ivs)) if ivs \
             else 0.0
@@ -2345,23 +2374,23 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
         for n, c in names.items():
             if kernel_family(n):
                 fams[kernel_family(n)] = fams.get(kernel_family(n), 0) + c
-        trace[mode] = dict(traced=fams, replays=replays[0],
+        trace[mode] = dict(traced=fams, replays=scan.replays - r0,
                            wrappers={k: v for k, v in got.items() if v})
     lw = trace["loop"]["wrappers"]
-    want = {k: n * T for k, n in per_step.items()}
+    want = {k: n * Tt for k, n in per_step.items()}
     if lw != want:
         raise AssertionError(f"{label}: the loop's rollout launched "
                              f"{lw} through the wrappers, want {want}")
-    if trace["scan"]["wrappers"] or trace["scan"]["replays"] != T:
+    if trace["scan"]["wrappers"] or trace["scan"]["replays"] != Tt:
         raise AssertionError(
             f"{label}: the scan launched its graph "
-            f"{trace['scan']['replays']} times, want {T}, and through the "
+            f"{trace['scan']['replays']} times, want {Tt}, and through the "
             f"wrappers {trace['scan']['wrappers']}, want none")
     full.update(lw)
     trace["loop"]["launches"] = family_launches(full, tokens)
-    trace["scan"]["launches"] = {f: n * T for f, n in nodes.items()}
+    trace["scan"]["launches"] = {f: n * Tt for f, n in nodes.items()}
     for mode, tr in trace.items():
-        check_traced(f"{label}, {mode}", tr["traced"], tr["launches"])
+        check_traced(f"{label}, {mode}", tr["traced"], tr["launches"], Tt)
     rates = {m: [E * T / x for x in v] for m, v in secs.items()}
     timed = (f"in turns {list(turns)}: scan "
              + ", ".join(f"{x:.4f}" for x in secs["scan"]) + " s ("
@@ -2374,10 +2403,12 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
           f"the scan's first run {first:.3f} s (warm-up "
           f"{scan.warmup_s:.3f} s, capture {scan.capture_s:.3f} s, "
           f"instantiate {scan.instantiate_s:.3f} s); the graph holds "
-          f"{nodes} hand-written kernel nodes (its DOT dump), launched "
-          f"{trace['scan']['replays']} times, no wrapper; under the "
-          f"profiler the scan's trace holds {trace['scan']['traced']}, the "
-          f"loop's {trace['loop']['traced']} (its wrappers {lw}); "
+          f"{nodes} hand-written kernel nodes (its DOT dump), replayed "
+          f"{runs} times in the scan's runs; under the profiler, the "
+          f"first {Tt} steps: the graph launched "
+          f"{trace['scan']['replays']} times, no wrapper, the scan's trace "
+          f"holds {trace['scan']['traced']}, the loop's "
+          f"{trace['loop']['traced']} (its wrappers {lw}); "
           + "; ".join(f"{m}: {b['kernels']} kernels, busy "
                       f"{b['share'] and round(b['share'], 4)} of a "
                       f"{b['window_s']:.4f} s kernel window, host "
@@ -2387,7 +2418,9 @@ def traced_rollouts(torch, count, env, tc, label, per_step, tokens, smi,
                 first_run_s=first, warmup_s=scan.warmup_s,
                 capture_s=scan.capture_s, instantiate_s=scan.instantiate_s,
                 graph_nodes=nodes, replays=trace["scan"]["replays"],
-                graph_launches=trace["scan"]["launches"],
+                replays_per_run=runs,
+                graph_launches={f: n * runs[0] for f, n in nodes.items()},
+                traced_steps=Tt,
                 graph_launches_traced=trace["scan"]["traced"])
 
 
@@ -2879,6 +2912,283 @@ def model_axis_phase(torch, make_train, smi):
     return dict(one=one, ranks=ranks, wall=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the order-book engine, the speed grid, the sweep, the PPO split
+# ---------------------------------------------------------------------------
+
+ENGINE_SHAPE = (256, 112, 128)  # E, M, S of the engine's checks
+ENGINE_TIME_E = 4096
+SPEED_GRID = dict(agents_grid=((1, 1), (10, 10)), n_data_msgs=(100,),
+                  num_envs=4096, num_steps=20)
+TOP_OPS = 10
+
+
+def finite(metrics, label):
+    bad = [k for k, v in metrics.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"{label}: non-finite metrics {bad}")
+
+
+def engine_checks(torch, smi):
+    """(a) The engine on the card: in each cancel mode the ``OrderBook``
+    facade (reset from L2 rows, a stream, its queries) and the engine's
+    scans with saved best quotes and states, on corner streams, bit-equal
+    to the same calls on the CPU; on the corners both JAX engines share,
+    the engine against kernel 2 at ``rec_k = S`` and the log built from
+    its records."""
+    from torch_cases import (TIDS, add_sweeps, engine_against_records,
+                             make_corner_case, make_l2_rows)
+    from vit_marl_tpu_torch.config import EngineConfig
+    from vit_marl_tpu_torch.lob import OrderBook, engine
+    from vit_marl_tpu_torch.lob.book import BookState
+
+    E, M, S = ENGINE_SHAPE
+    fills = {}
+    for mode in range(4):
+        cfg = EngineConfig(n_orders=S, n_trades=1024, cancel_mode=mode)
+        book, msgs, _ = make_corner_case(E, M, S, seed=210 + mode, fill=0.7)
+        u = torch.rand((M, E), generator=torch.Generator().manual_seed(mode))
+        l2 = make_l2_rows(E, seed=mode)
+        got = {}
+        for dev in ("cpu", DEV):
+            on = lambda x: torch.from_numpy(x).to(dev)      # noqa: E731
+            ob = OrderBook(cfg, device=dev)
+            st = ob.reset(l2)
+            st = ob.process_orders_array(st, msgs, uniforms=u)
+            log0 = torch.full((E, cfg.n_trades, 8), -1, dtype=torch.int32,
+                              device=dev)
+            b, log, quotes = engine.process_messages_save_bidask(
+                cfg, on(msgs), BookState(on(book)), log0, M, u.to(dev))
+            asks, bids, slog = engine.process_messages_save_states(
+                cfg, on(msgs), BookState(on(book)), log0, 4, u.to(dev))
+            got[dev] = ([st[0].data, st[1], ob.get_l2_state(st),
+                         ob.get_vision_l2_state(st),
+                         *ob.get_best_bid_and_ask(st),
+                         ob.get_agent_trades(st, TIDS[0]),
+                         b.data, log, *quotes, slog]
+                        + [getattr(side, f) for side in (asks, bids)
+                           for f in ("price", "quant", "oid", "tid",
+                                     "time_s", "time_ns")])
+        for i, (g, w) in enumerate(zip(got[DEV], got["cpu"])):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"engine, mode {mode}: output {i} on "
+                                     "the card differs from the CPU")
+        n_log = int((got["cpu"][7][..., 0] != -1).sum())
+        sbook, smsgs, sprev = make_corner_case(E, M, S, seed=220 + mode,
+                                               fill=0.7, shared=True,
+                                               fresh_ids=True)
+        smsgs = add_sweeps(smsgs, every=4, seed=mode, fresh_ids=True)
+        n, most = engine_against_records(
+            cfg, torch.from_numpy(smsgs).to(DEV),
+            BookState(torch.from_numpy(sbook).to(DEV)),
+            torch.from_numpy(sprev).to(DEV), u.to(DEV))
+        fills[mode] = (n_log, n, most)
+    print(f"  engine at E={E}, M={M}, S={S}, cancel modes 0-3: the "
+          "OrderBook facade (reset, stream, queries) and the scans with "
+          "saved quotes and states bit-equal on the card and the CPU "
+          "(fills logged "
+          + ", ".join(f"{v[0]}" for v in fills.values())
+          + "); on shared corners with sweeps equal to kernel 2 at "
+          f"rec_k={S} and its log (fills "
+          + ", ".join(f"{v[1]} (most {v[2]} an env)" for v in fills.values())
+          + f") [{smi}]", flush=True)
+    return fills
+
+
+def engine_timing(torch, bkern, smi):
+    """The engine's ms a message and kernel 2's ms a step (rec_k = S, and
+    the log built from its records) at E=4,096 on one stream, cancel mode
+    1; the engine is a host loop of plain PyTorch, timed on the host clock
+    between synchronisations (median of three calls after one)."""
+    from torch_cases import make_case
+    from vit_marl_tpu_torch.config import EngineConfig
+    from vit_marl_tpu_torch.lob import engine
+    from vit_marl_tpu_torch.lob.book import BookState
+
+    E, (_, M, S) = ENGINE_TIME_E, ENGINE_SHAPE
+    cfg = EngineConfig(n_orders=S, n_trades=1024)
+    book, msgs, prev = make_case(E, M, S, seed=230, fill=0.7)
+    msgs = torch.from_numpy(msgs).to(DEV)
+    prev = torch.from_numpy(prev).to(DEV)
+    book = BookState(torch.from_numpy(book).to(DEV))
+    log0 = torch.full((E, cfg.n_trades, 8), -1, dtype=torch.int32,
+                      device=DEV)
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.process_messages(cfg, msgs, book, log0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    eng_ms = float(np.median(walls[1:]))
+
+    def k2():
+        _, _, (rec, cnt) = bkern.process_step_records(cfg, msgs, book, prev,
+                                                      S)
+        return bkern.finalize_trade_log_from_records(log0, rec, msgs, cnt)
+
+    k2_ms, _ = time_launches(k2, batches=5, per_batch=10, warm=2)
+    print(f"  engine at E={E}, M={M}, S={S}: {eng_ms:.2f} ms a step of {M} "
+          f"messages = {eng_ms / M:.4f} ms a message (host loop); kernel 2 "
+          f"at rec_k={S} with its log: {k2_ms:.4f} ms a step "
+          f"({eng_ms / k2_ms:.0f}x) [{smi}]", flush=True)
+    return dict(engine_ms_per_step=eng_ms, engine_ms_per_message=eng_ms / M,
+                records_rec_k_s_ms=k2_ms)
+
+
+def speed_grid_check(torch, count, smi):
+    """(b) ``run_speed_grid`` on the card: every row's env-steps/s, kernel
+    1 launched once a step (the warm-up step and the window table's
+    replay of each configuration's L2 rows included)."""
+    from vit_marl_tpu_torch.eval.speed_test import run_speed_grid
+
+    rows, got, wall = drive(torch, count,
+                            lambda: run_speed_grid(device=DEV, **SPEED_GRID))
+    n_cfg = len(SPEED_GRID["agents_grid"]) * len(SPEED_GRID["n_data_msgs"])
+    expect(got, {"book_scan": n_cfg * (SPEED_GRID["num_steps"] + 2)},
+           "speed grid (each configuration: window table, warm-up, steps)")
+    for r in rows:
+        if not r["env_steps_per_sec"] > 0:
+            raise AssertionError(f"speed grid row {r}")
+    print(f"  speed grid in {wall:.1f}s: "
+          + "; ".join(f"({r['n_mm']}, {r['n_exec']}) agents, "
+                      f"{r['msgs_per_step']} messages a step: "
+                      f"{r['env_steps_per_sec']} env-steps/s" for r in rows)
+          + f"; kernel 1 launches {got['book_scan']} [{smi}]", flush=True)
+    return rows, got["book_scan"]
+
+
+def sweep_check(torch, count, smi):
+    """(c) ``run_sweep`` on the card over two combinations of
+    ``sweep_fine.yaml``'s grid (its two ``LR`` values, the other keys at
+    their first), one update each: the rows, finite metrics, kernel 1's
+    launches."""
+    from vit_marl_tpu_torch.config import make_config
+    from vit_marl_tpu_torch.rl.sweep import run_sweep, split_sweep
+
+    with open(SWEEP_CONFIG) as f:
+        base, grid = split_sweep(yaml.safe_load(f))
+    base["TOTAL_TIMESTEPS"] = base["NUM_ENVS"] * base["NUM_STEPS"]
+    grid = {k: v if k == "LR" else v[:1] for k, v in grid.items()}
+    _, tc = make_config(base)
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "sweep.jsonl")
+        rows, got, wall = drive(torch, count, lambda: run_sweep(
+            base, grid, out_path=out, seed=SEED, device=DEV))
+        with open(out) as f:
+            lines = [json.loads(x) for x in f]
+    expect(got, {"book_scan": 2 * (1 + rollout_steps(tc, 1))},
+           "sweep (each run: window table, rollout)")
+    if len(rows) != 2 or lines != json.loads(json.dumps(rows)):
+        raise AssertionError(f"sweep rows {rows}, file {lines}")
+    for r in rows:
+        finite(r["final_metrics"], f"sweep {r['overrides']}")
+    print(f"  sweep_fine grid, 2 runs x 1 update x {tc.num_steps} steps x "
+          f"{tc.num_envs} envs in {wall:.1f}s: "
+          + "; ".join(f"{r['overrides']} {r['wall_seconds']}s" for r in rows)
+          + f"; kernel 1 launches {got['book_scan']} [{smi}]", flush=True)
+    return rows
+
+
+# the card's kernels of a PPO update by family, by the first substring of
+# its name that matches (the rest: "other")
+OP_FAMILIES = (("products", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+               ("layer norm", ("layer_norm",)),
+               ("GELU", ("gelu",)),
+               ("copies and casts", ("copy", "cast", "fill", "memcpy",
+                                     "memset")),
+               ("optimizer", ("multi_tensor", "foreach", "adam")),
+               ("attention kernels", ("attn_",)),
+               ("book scan", ("book_scan",)),
+               ("softmax and losses", ("softmax", "log_", "nll")),
+               ("reductions", ("reduce",)),
+               ("other elementwise", ("elementwise",)))
+
+
+def op_family(name):
+    low = name.lower()
+    for family, keys in OP_FAMILIES:
+        if any(k in low for k in keys):
+            return family
+    return "other"
+
+
+def ppo_split(torch, count, make_train, smi):
+    """(d) One update (one PPO epoch) of ``ippo_vision_dual_ppo.yaml``
+    under ``utils/profiling.py::trace`` with its drain: the launches
+    exact; the card's kernels from the Chrome trace it writes, by family
+    and the ten with the most time; the trace's size."""
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS
+    from vit_marl_tpu_torch.utils.profiling import kernel_events, trace
+
+    ma, tc = config_with(VISION_CONFIG, ["UPDATE_EPOCHS=1"])
+    train = make_train(ma, tc, device=DEV)
+    names = {}
+    with tempfile.TemporaryDirectory() as d:
+        tt = time.perf_counter()
+        with trace(d, drain=True) as prof:
+            out, got, wall = drive(torch, count,
+                                   lambda: train(tc.seed, n_updates=1))
+        traced = time.perf_counter() - tt
+        trace_mb = os.path.getsize(prof.trace_path) / 2**20
+        for ev in kernel_events(prof.trace_path):
+            n, t = names.get(ev["name"], (0, 0.0))
+            names[ev["name"]] = (n + 1, t + float(ev["dur"]))
+    expect(got, vision_launches(tc, VIT_PRESETS[tc.vit_preset].depth, 1),
+           "vision update under the profiler")
+    finite(out["metrics"][0], "traced vision update")
+    kernels = sorted(names.items(), key=lambda kv: -kv[1][1])
+    total = sum(t for _, (_, t) in kernels)
+    if not total > 0:
+        raise AssertionError("the profiler saw no kernel on the card")
+    families = {}
+    for name, (_, t) in kernels:
+        f = op_family(name)
+        families[f] = families.get(f, 0.0) + t
+    m = out["metrics"][0]
+    print(f"  vision update (1 PPO epoch, {tc.num_envs} envs x "
+          f"{tc.num_steps} steps) traced: {wall:.2f}s (rollout "
+          f"{m['rollout_s']:.2f}s, PPO {m['update_s']:.2f}s), "
+          f"{traced:.1f}s with the trace's export ({trace_mb:.0f} MiB); "
+          f"kernel time {total / 1e3:.1f} ms in "
+          f"{sum(n for _, (n, _) in kernels)} kernels of {len(kernels)} "
+          "names; by family: " + ", ".join(
+              f"{f} {t / 1e3:.1f} ms ({t / total:.1%})" for f, t in sorted(
+                  families.items(), key=lambda kv: -kv[1]))
+          + f"; the {TOP_OPS} largest [{smi}]:", flush=True)
+    for name, (n, t) in kernels[:TOP_OPS]:
+        print(f"    {t / 1e3:9.2f} ms {t / total:6.1%} x{n:<7d} "
+              f"{name[:110]}", flush=True)
+    return dict(kernel_ms=total / 1e3, by_family={
+        f: t / 1e3 for f, t in families.items()}, top=[
+            (name[:110], t / 1e3) for name, (_, t) in kernels[:TOP_OPS]])
+
+
+def tools_phase(torch, attn, bkern, blk, make_train, smi):
+    """Phase 21: (a) the engine on the card against the CPU and kernel 2,
+    and its time; (b) the speed grid; (c) the sweep; (d) the PPO update's
+    split, each path driven with every count set to 0 just before it."""
+    count = counters(attn, bkern, blk)
+    t0 = [time.perf_counter()]
+
+    def part(label):
+        now = time.perf_counter()
+        print(f"  21{label}: {now - t0[0]:.2f}s", flush=True)
+        t0[0] = now
+
+    res = dict(fills=engine_checks(torch, smi))
+    res.update(engine_timing(torch, bkern, smi))
+    part("a, the engine")
+    res["speed_grid"], res["speed_grid_launches"] = speed_grid_check(
+        torch, count, smi)
+    part("b, the speed grid")
+    res["sweep"] = sweep_check(torch, count, smi)
+    part("c, the sweep")
+    res["ppo_split"] = ppo_split(torch, count, make_train, smi)
+    part("d, the PPO update's split")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3230,6 +3540,11 @@ def main() -> int:
     model_axis_phase(torch, make_train, smi)
     phase("20 a (1, 2) data x model mesh on the card", t0)
 
+    # ---- phase 21: the engine, the speed grid, the sweep, the PPO split ----
+    t0 = time.perf_counter()
+    tools = tools_phase(torch, attn, bkern, blk, make_train, smi)
+    phase("21 the order-book engine and the tools", t0)
+
     # ---- summary ----
     print(json.dumps({"kernels": [{
         "name": "book_scan_aggs",
@@ -3239,8 +3554,9 @@ def main() -> int:
         "launches": launches,
         "launches_vision": vision["book_scan"],
         # phase 18: the graph's replays in one update's rollout, 2-player
-        # and vision: the graph's nodes of the kernel times its launches,
-        # and the launches a profiler trace of them holds
+        # and vision: the graph's nodes of the kernel times the replays
+        # counted in a run, and the launches a profiler trace of the
+        # first TRACE_STEPS steps holds
         "graph_launches_per_update": s12["scan_2player"][
             "graph_launches"]["book_scan"],
         "graph_launches_traced": s12["scan_2player"][
@@ -3277,6 +3593,9 @@ def main() -> int:
             how: [evals["2-player"]["steps"] / t for t in
                   evals["2-player"][how]] for how in ("graph", "loop")},
         "info_reduce_kernels": reduce_kernels,
+        # phase 21: the speed grid's steps (and each configuration's
+        # window table and warm-up step)
+        "launches_speed_grid": tools["speed_grid_launches"],
     }, dict(records, launches=dgot["book_scan_records"],
             bit_equal_m126=m126["bit_equal_m126"],
             graph_launches_per_update=s12["scan_debug"]["graph_launches"][
@@ -3300,8 +3619,9 @@ def main() -> int:
                       BLOCK_KERNELS[k][1]][0][k],
                   # the fused-block kernels' launches of the graph's
                   # replays in one update's rollout at 41 tokens (three a
-                  # call of kernel 7, two of kernel 5): nodes times
-                  # launches, and as a trace holds them
+                  # call of kernel 7, two of kernel 5): nodes times the
+                  # counted replays, and as a trace of TRACE_STEPS holds
+                  # them
                   "graph_kernel_launches_41_tokens": s12["long_training"][
                       BLOCK_KERNELS[k][1]][1]["graph_launches"][
                           "fused_block"],

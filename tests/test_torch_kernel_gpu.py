@@ -52,6 +52,11 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
   end.
 - The bench (``--selfcheck`` passes, the GRU loop reports a rate) and
   the entry module's forward step, on the card.
+- The order-book engine (``lob/engine.py``) on the card bit-equal to the
+  same calls on the CPU in every cancel mode, on ordinary and corner
+  streams (books, logs, best quotes, saved states); on the corners both
+  JAX engines share, the engine against kernel 2 at ``rec_k = S`` and the
+  log built from its records (``torch_cases.engine_against_records``).
 - The greedy eval's graph (``rl/ppo.py::EvalRollout``) bit-equal to the
   host-issued eval, twice, its warm-up the wrapper's one launch, and
   ``combinations.rollout``'s graph bit-equal to ``rollout_loop`` in both
@@ -75,7 +80,8 @@ from vit_marl_tpu_torch.ops import block_kernel as blk
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 
 from torch_cases import (TICK, TIDS, add_sweeps, dispatch_index,
-                         make_case, make_corner_case, plant_negative_cancel)
+                         engine_against_records, make_case,
+                         make_corner_case, plant_negative_cancel)
 
 pytestmark = pytest.mark.gpu
 
@@ -710,22 +716,14 @@ def test_long_attention_head_widths(cuda, dtype, B, N, W, H):
 
 def _kernel_launches(fn, piece):
     """Launches of kernels whose name holds ``piece`` while ``fn()`` runs,
-    from a ``torch.profiler`` Chrome trace."""
-    import json
+    from a ``torch.profiler`` Chrome trace ended by its drain."""
+    from vit_marl_tpu_torch.utils.profiling import kernel_events, trace
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f).get("traceEvents", [])
-    return sum(1 for ev in events
-               if ev.get("cat") == "kernel" and piece in ev.get("name", ""))
+        with trace(d, drain=True) as prof:
+            fn()
+        events = kernel_events(prof.trace_path)
+    return sum(1 for ev in events if piece in ev.get("name", ""))
 
 
 def test_scan_graph_replays_the_loop(cuda):
@@ -735,7 +733,9 @@ def test_scan_graph_replays_the_loop(cuda):
     carry and generator state.  The book scan's wrapper counts the
     warm-up's launch and none for the capture or the replays; the graph
     holds one book-scan kernel node (its DOT dump), and a profiler trace
-    of a second run finds the kernel launched once a replay."""
+    of a second run finds the kernel launched once a replay, as
+    ``StepGraph.replays`` counts; a run of the first 2 steps replays the
+    same graph twice."""
     from vit_marl_tpu_torch import config as tcfg
     from vit_marl_tpu_torch.env.world import WorldEnv
     from vit_marl_tpu_torch.rl import ppo as tppo
@@ -770,7 +770,7 @@ def test_scan_graph_replays_the_loop(cuda):
         before = bkern.process_step_aggs.launches
         got = scan.run(carry)
         torch.cuda.synchronize()
-    assert scan.graph is not None
+    assert scan.graph is not None and scan.replays == T
     assert bkern.process_step_aggs.launches == before + 1
     la, lb = tree_leaves(got), tree_leaves(want)
     assert len(la) == len(lb)
@@ -785,7 +785,11 @@ def test_scan_graph_replays_the_loop(cuda):
     with torch.no_grad():
         replayed = _kernel_launches(lambda: scan.run(got[2]),
                                     "book_scan_kernel")
-    assert replayed == T
+    assert replayed == T and scan.replays == 2 * T
+    with torch.no_grad():
+        first = _kernel_launches(lambda: scan.run(got[2], steps=2),
+                                 "book_scan_kernel")
+    assert first == 2 and scan.replays == 2 * T + 2
     assert bkern.process_step_aggs.launches == before + 1
 
 
@@ -906,3 +910,44 @@ def test_eval_graph_sees_the_trained_weights(cuda):
             label
         assert not all(torch.equal(got[k], first[k]) for k in first), label
     assert body.captures == 2
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("shared", [False, True], ids=["corner", "shared"])
+def test_engine_on_the_card_equals_the_cpu(cuda, mode, shared):
+    from vit_marl_tpu_torch.lob import engine
+
+    E, M, S = 96, 40, 128
+    book, msgs, _ = make_corner_case(E, M, S, seed=5 + mode, fill=0.7,
+                                     shared=shared)
+    u = torch.rand((M, E), generator=torch.Generator().manual_seed(mode))
+    cfg = EngineConfig(n_orders=S, n_trades=256, cancel_mode=mode)
+    out = {}
+    for dev in ("cpu", cuda):
+        on = lambda x: torch.from_numpy(x).to(dev)          # noqa: E731
+        log0 = torch.full((E, 256, 8), -1, dtype=torch.int32, device=dev)
+        b, log, quotes = engine.process_messages_save_bidask(
+            cfg, on(msgs), BookState(on(book)), log0, M, u.to(dev))
+        asks, bids, log2 = engine.process_messages_save_states(
+            cfg, on(msgs), BookState(on(book)), log0, 3, u.to(dev))
+        out[str(dev)] = [b.data, log, *quotes, asks.price, bids.quant, log2]
+    for g, w in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(g.cpu(), w)
+    assert int((out["cpu"][1][..., 0] != -1).sum()) > 0
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_engine_against_records_kernel_on_shared_corners(cuda, mode):
+    E, M, S = 256, 112, 128
+    book, msgs, prev = make_corner_case(E, M, S, seed=11 + mode, fill=0.7,
+                                        shared=True, fresh_ids=True)
+    msgs = add_sweeps(msgs, every=4, seed=mode, fresh_ids=True)
+    u = torch.rand((M, E), generator=torch.Generator().manual_seed(mode))
+    before = bkern.process_step_records.launches
+    n, most = engine_against_records(
+        EngineConfig(n_orders=S, cancel_mode=mode),
+        torch.from_numpy(msgs).to(cuda),
+        BookState(torch.from_numpy(book).to(cuda)),
+        torch.from_numpy(prev).to(cuda), u.to(cuda))
+    assert bkern.process_step_records.launches == before + 1
+    assert n > 0 and most > 16

@@ -9,7 +9,8 @@ captured function:
   from the same carry and generator state: the 2-player world, the
   vision world (a micro ViT), ``debug_mode``, a ``Box`` action on
   ``gru``, and each rank of a 2-rank gloo group over the sharded step;
-  a second run from the returned carry continues both;
+  a second run from the returned carry continues both; ``run(carry,
+  steps=k)`` is the loop's first ``k`` steps;
 - ``make_train`` under ``scan`` and ``loop`` gives bit-equal metrics over
   2 updates and a resume (the port's counterpart of
   ``tests/test_ppo.py:153-154``);
@@ -107,6 +108,40 @@ def test_scan_body_is_the_loop(kind):
                            for t in got[0]]).any())
     if kind == "debug":
         assert got[2].state.world.trades is not None
+
+
+def test_scan_runs_its_first_steps():
+    """``run(carry, steps=k)`` runs the first ``k`` of the buffers' ``T``
+    steps: slots ``:k`` and the carry are the loop's over ``k`` steps; more
+    than ``T`` steps raise."""
+    E, T, k = 4, 5, 2
+    env = WorldEnv(_world("two_player"), device="cpu")
+    tc = tcfg.TrainConfig(num_envs=E, num_steps=T)
+    torch.manual_seed(0)
+    nets = tppo.make_networks(env, tc)
+    gen = torch.Generator().manual_seed(2)
+    params = env.default_params
+    obs, state = env.reset(env.draw_reset(E, gen), params)
+    actors = [n * E for n in env.n_per_type]
+    carry = tppo.Carry(state, obs, [torch.zeros(a, dtype=torch.bool)
+                                    for a in actors],
+                       [torch.zeros(a, tc.hidden_size) for a in actors])
+    twin = _twin(gen)
+    scan = ScanRollout(env.step_vec, nets, params, T, E, env.n_per_type,
+                       gen, gen, True, "cpu")
+    with torch.no_grad():
+        want = tppo.rollout_loop(env.step_vec, nets, carry, params, k, E,
+                                 env.n_per_type, twin, twin, True)
+        got = scan.run(carry, steps=k)
+    for i in range(len(nets)):
+        _assert_equal_trees([x[:k] for x in tree_leaves(got[0][i])],
+                            tree_leaves(want[0][i]), f"type {i}")
+    _assert_equal_trees([x[:k] for x in tree_leaves(got[1])],
+                        tree_leaves(want[1]), "info moments")
+    _assert_equal_trees(got[2], want[2], "final carry")
+    assert torch.equal(scan.t, torch.tensor([k])) and scan.replays == 0
+    with pytest.raises(ValueError, match="buffers hold 5"):
+        scan.run(carry, steps=T + 1)
 
 
 def test_scan_under_a_two_rank_group():

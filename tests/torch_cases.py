@@ -1,6 +1,6 @@
 """Seeded book-scan inputs shared by the port's kernel tests and
-``chip_smoke.py`` (numpy only, so what runs on a card needs nothing of
-JAX)."""
+``chip_smoke.py`` (numpy, and the port in :func:`engine_against_records`,
+so what runs on a card needs nothing of JAX)."""
 
 import numpy as np
 
@@ -53,10 +53,14 @@ def make_case(E, M, S, seed, fill=0.6, tids=TIDS):
     return book, msgs.astype(np.int32), prev.astype(np.int32)
 
 
-def add_sweeps(msgs, every=3, seed=0):
+def add_sweeps(msgs, every=3, seed=0, fresh_ids=False):
     """Turn the first message of every ``every``-th env into a limit order
     that crosses the whole opposite side: one message with as many fills
-    as that side holds orders (more than 16 at the usual fill)."""
+    as that side holds orders (more than 16 at the usual fill).  With
+    ``fresh_ids`` a sweep that carried order id -1 (a cancel of an empty
+    slot) gets a fresh one: its remainder rests, and a live order of id -1
+    is a corner on which the JAX package's engines differ
+    (:func:`make_corner_case`)."""
     rng = np.random.default_rng(seed)
     msgs = msgs.copy()
     rows = np.arange(0, msgs.shape[0], every)
@@ -65,14 +69,22 @@ def add_sweeps(msgs, every=3, seed=0):
     msgs[rows, 0, 1] = side
     msgs[rows, 0, 2] = 10**6
     msgs[rows, 0, 3] = np.where(side == 1, 3_000_000, 1_000_000)
+    if fresh_ids:
+        msgs[rows, 0, 4] = np.where(msgs[rows, 0, 4] == -1, SWEEP_IDS + rows,
+                                    msgs[rows, 0, 4])
     return msgs
 
 
 MAX_INT32 = 2**31 - 1
 INIT_ID = -2
+# order ids no book or message of make_case carries, for ``fresh_ids``:
+# limit orders that would rest with id -1 from FRESH_IDS, sweeps from
+# SWEEP_IDS, stale order ids of holes from STALE_IDS on
+FRESH_IDS, SWEEP_IDS, STALE_IDS = 10**6, 1_900_000, 2 * 10**6
 
 
-def make_corner_case(E, M, S, seed, fill=0.6, tids=TIDS, shared=False):
+def make_corner_case(E, M, S, seed, fill=0.6, tids=TIDS, shared=False,
+                     fresh_ids=False):
     """``make_case`` with the corners of the scan's semantics added:
 
     - every env: holes whose other planes hold stale values; live orders
@@ -90,14 +102,23 @@ def make_corner_case(E, M, S, seed, fill=0.6, tids=TIDS, shared=False):
       negative quantity lifts it past (``plant_negative_cancel``, the bid
       side in envs 3, 11, ..., the ask side in envs 7, 15, ...).
 
-    With ``shared`` the case keeps to the corners on which the JAX
-    package's two engines, its Pallas kernel and its XLA scan
+    With ``shared`` the case keeps to the corners on which the JAX package's
+    two engines, its Pallas kernel and its XLA scan
     (``vit_marl_tpu/lob/engine.py``) with the trade summary of its log,
     agree (the XLA scan leaves stale planes in holes, which the kernel
-    wipes); the others follow the Pallas kernel.  A side other than +-1
-    signs a fill's quantity in the log as ``-side * quant`` but not in the
-    kernel's sums.  Envs without those corners keep positive quantities
-    that sum far below 2^31."""
+    wipes), but for two corners of order ids that grow likelier with the
+    number of envs; the others follow the Pallas kernel. The XLA scan's
+    cancel takes the first slot whose order-id plane holds the id, a
+    hole's too, and the kernel the first live one: so a cancel of a live
+    order whose id a hole before it holds (a stale id, or -1 on a limit
+    order that an odd type made of a cancel of an empty slot) differs
+    (``tests/test_torch_engine.py::test_engines_differ_on_order_id_corners``).
+    With ``shared`` and ``fresh_ids`` those corners are kept out too: a
+    hole's stale order id is one no order carries (from STALE_IDS on), and
+    a limit order of id -1 takes a fresh id. A side other than +-1 signs a
+    fill's quantity in the log as ``-side * quant`` but not in the kernel's
+    sums. Envs without those corners keep positive quantities that sum far
+    below 2^31."""
     rng = np.random.default_rng(seed + 1000)
     book, msgs, prev = make_case(E, M, S, seed, fill=fill, tids=tids)
     book, msgs = book.astype(np.int64), msgs.astype(np.int64)
@@ -121,7 +142,14 @@ def make_corner_case(E, M, S, seed, fill=0.6, tids=TIDS, shared=False):
     sides = rng.choice([-1, 1], (E, M)) if shared else rng.integers(
         -2, 3, (E, M))
     msgs[..., 1] = np.where(odd, sides, msgs[..., 1])
-    if not shared:
+    if shared and fresh_ids:
+        oid = book[:, :, 2, :]
+        book[:, :, 2, :] = np.where(~live & (oid != -1), STALE_IDS + oid + 5,
+                                    oid)
+        fresh = (dispatch_index(msgs) <= 1) & (msgs[..., 4] == -1)
+        msgs[..., 4] = np.where(fresh, FRESH_IDS + np.arange(E * M).reshape(
+            E, M), msgs[..., 4])
+    elif not shared:
         low = (env % 4 == 0)[:, None, None] & live & (rng.random(shape) < .2)
         book[:, :, 1, :] = np.where(low, rng.integers(-300, 1, shape),
                                     book[:, :, 1, :])
@@ -173,3 +201,55 @@ def dispatch_index(msgs):
                       (s == -1) & ((t == 2) | (t == 3)),
                       (s == 1) & ((t == 2) | (t == 3)),
                       (s == 0) & (t == 0)], [1, 2, 3, 4], 0)
+
+
+def make_l2_rows(E, seed, levels=10, mid=2_200_000):
+    """(E, 4 * levels) int32 LOBSTER order-book rows [ask_p, ask_q, bid_p,
+    bid_q] per level around ``mid``, the levels a tick or two apart."""
+    rng = np.random.default_rng(seed)
+    ask = mid + TICK * np.cumsum(rng.integers(1, 3, (E, levels)), axis=1)
+    bid = mid - TICK * np.cumsum(rng.integers(1, 3, (E, levels)), axis=1)
+    q = rng.integers(1, 400, (E, levels, 2))
+    return np.stack([ask, q[..., 0], bid, q[..., 1]], 2).reshape(
+        E, -1).astype(np.int32)
+
+
+def engine_against_records(cfg, msgs, book, prev, uniforms=None,
+                           n_trades=2048):
+    """The port's engine (``lob/engine.py``) and the book scan in records
+    mode with ``rec_k = S`` (kernel 2 on CUDA tensors, its plain version on
+    CPU ones) followed by ``finalize_trade_log_from_records``, on one case
+    given as tensors: the books with the engine's holes wiped in every
+    plane, the best quotes (the engine's forward-filled from ``prev``) and
+    the ``(E, n_trades, 8)`` trade logs must be equal.  Holds on the
+    corners both JAX engines share (``make_corner_case(..., shared=True,
+    fresh_ids=True)``);
+    raises ``AssertionError`` where they differ, else returns the number of
+    fills logged and the most of one env."""
+    import torch
+
+    from vit_marl_tpu_torch.env.common import ffill_best_prices
+    from vit_marl_tpu_torch.lob import engine
+    from vit_marl_tpu_torch.ops import book_kernel as bkern
+
+    E, M, _ = msgs.shape
+    S = book.data.shape[-1]
+    empty = torch.full((E, n_trades, 8), -1, dtype=torch.int32,
+                       device=msgs.device)
+    eb, elog, (ea, ebb) = engine.process_messages_save_bidask(
+        cfg, msgs, book, empty, M, uniforms)
+    kb, (ka, kbb), (rec, counts) = bkern.process_step_records(
+        cfg, msgs, book, prev, S, uniforms)
+    klog = bkern.finalize_trade_log_from_records(empty, rec, msgs, counts)
+    wiped = torch.where(eb.data[:, :, :1] == -1, -1, eb.data)
+    checks = {"book": (wiped, kb.data),
+              "best asks": (ffill_best_prices(ea, prev[:, 0]), ka),
+              "best bids": (ffill_best_prices(ebb, prev[:, 1]), kbb),
+              "trade log": (elog, klog)}
+    for what, (want, got) in checks.items():
+        if not torch.equal(want, got):
+            raise AssertionError(f"engine and records scan differ: {what}")
+    n = (elog[..., 0] != -1).sum(dim=1)
+    if int(n.max()) >= n_trades:
+        raise AssertionError("the trade log overflowed: raise n_trades")
+    return int(n.sum()), int(n.max())

@@ -22,7 +22,6 @@ and the host's seconds for the whole call.
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import subprocess
 import sys
@@ -53,47 +52,28 @@ def concurrent(by_stream):
     return sum(union(ivs) for ivs in by_stream.values()) - union(allk)
 
 
-# the profiler now and then loses the records of the last kernels before
-# it stops, although the card has finished them (the vision rollout as a
-# CUDA graph, traced on an NVIDIA H100 80GB HBM3: up to the last 5 steps'
-# book scans and attentions of 128; tools/torch_trace_loss.py): DRAIN spin
-# kernels and DRAIN_S seconds of sleep after the traced work let those
-# records arrive, and the spin kernels are left out of what a trace returns
-DRAIN, DRAIN_S, DRAIN_KERNEL = 2048, 0.2, "spin_kernel"
-
-
 def traced(torch, fn):
-    """``fn()`` under the profiler: its kernels' intervals by stream (us)
-    from the Chrome trace, the host's seconds, and the kernels launched,
-    counted by name (a CUDA graph's replays included); the drain after it
-    (``DRAIN``) left out."""
+    """``fn()`` under ``utils/profiling.py::trace`` with its drain: its
+    kernels' intervals by stream (us) from the Chrome trace, the host's
+    seconds, and the kernels launched, counted by name (a CUDA graph's
+    replays included); the drain left out."""
     import time
 
-    from torch.profiler import ProfilerActivity, profile
+    from vit_marl_tpu_torch.utils.profiling import kernel_events, trace
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        host = time.perf_counter() - t0
-        for _ in range(DRAIN):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        time.sleep(DRAIN_S)
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
+        with trace(d, drain=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host = time.perf_counter() - t0
+        events = kernel_events(prof.trace_path)
     by_stream, names = {}, {}
-    for ev in trace.get("traceEvents", []):
-        if ev.get("cat") == "kernel" and "dur" in ev \
-                and DRAIN_KERNEL not in ev.get("name", ""):
-            s = ev.get("args", {}).get("stream", ev.get("tid"))
-            by_stream.setdefault(s, []).append(
-                (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
-            names[ev.get("name", "")] = names.get(ev.get("name", ""), 0) + 1
+    for ev in events:
+        s = ev.get("args", {}).get("stream", ev.get("tid"))
+        by_stream.setdefault(s, []).append(
+            (float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
+        names[ev.get("name", "")] = names.get(ev.get("name", ""), 0) + 1
     return by_stream, host, names
 
 

@@ -9,10 +9,11 @@ rollout as a CUDA graph (``rl/scan.py::ScanRollout``), captured once, then
 traced ``--reps`` times in each of two ways, in turns:
 
 - ``plain``: the profiler stops right after a synchronize;
-- ``drained``: ``tools/torch_pipeline_overlap.py::traced``, which follows
-  the traced work with its drain (``DRAIN`` spin kernels, a synchronize and
-  ``DRAIN_S`` of sleep) before the profiler stops, and leaves the spin
-  kernels out.
+- ``drained``: ``tools/torch_pipeline_overlap.py::traced``, which traces
+  with ``vit_marl_tpu_torch/utils/profiling.py::trace(drain=True)``: the
+  traced work is followed by its drain (``DRAIN`` spin kernels, a
+  synchronize and ``DRAIN_S`` of sleep) before the profiler stops, and the
+  spin kernels are left out.
 
 For each trace: the book-scan and short-attention records against the
 graph's nodes (its DOT dump) x NUM_STEPS, and all kernel records.  First,
@@ -71,6 +72,7 @@ def main():
     from vit_marl_tpu_torch.rl.scan import ScanRollout
 
     import torch_pipeline_overlap as tpo
+    from vit_marl_tpu_torch.utils import profiling
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -110,11 +112,12 @@ def main():
     torch.cuda.synchronize()
     nodes = cs.graph_nodes(scan.graph)
     want = {f: n * T for f, n in nodes.items()}
+    spin = profiling.DRAIN_KERNEL
     drain = trace(torch, lambda: [torch.cuda._sleep(1)
-                                  for _ in range(tpo.DRAIN)])
+                                  for _ in range(profiling.DRAIN)])
     print(f"a drain alone: {drain}; left out by name: "
-          f"{sum(c for n, c in drain.items() if tpo.DRAIN_KERNEL in n)} "
-          f"of {tpo.DRAIN}", flush=True)
+          f"{sum(c for n, c in drain.items() if spin in n)} "
+          f"of {profiling.DRAIN}", flush=True)
     ways = {"plain": lambda: trace(torch, rollout),
             "drained": lambda: tpo.traced(torch, rollout)[2]}
     print(f"{E} envs x {T} steps; the graph's hand-written nodes {nodes}, "
@@ -129,7 +132,7 @@ def main():
                     fams[f] = fams.get(f, 0) + c
             print(f"rep {r} {way}: traced {fams}, want {want}; "
                   f"{sum(names.values())} kernel records, "
-                  f"{sum(c for n, c in names.items() if tpo.DRAIN_KERNEL in n)}"
+                  f"{sum(c for n, c in names.items() if spin in n)}"
                   f" of them spin kernels [{smi}]", flush=True)
     return 0
 

@@ -420,3 +420,12 @@ class WorldEnv:
         new_states = tree_map(sel, st_re, st_st)
         obs = tree_map(sel, obs_re, obs_st)
         return obs, new_states, rewards, dones, infos
+
+
+def make_world_env(ma_config: Optional[MultiAgentConfig] = None,
+                   data: Optional[LoadedData] = None,
+                   device=None) -> WorldEnv:
+    """Convenience constructor with the default 2-player MM+Exec setup
+    (ref: ``vit_marl_tpu/env/world.py::make_world_env``), on ``device``
+    (the card unless ``device="cpu"``)."""
+    return WorldEnv(ma_config or MultiAgentConfig(), data=data, device=device)

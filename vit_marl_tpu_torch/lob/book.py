@@ -1,6 +1,6 @@
 """Order-book state for a batch of environments, and its queries.
 
-Port of the main-path parts of ``vit_marl_tpu/lob/book.py``.  The JAX
+Port of ``vit_marl_tpu/lob/book.py``.  The JAX
 package keeps each side as six ``(n_orders,)`` int32 vectors and adds the
 env axis with ``vmap``; the port keeps the whole batch in one int32 tensor
 ``data`` of shape ``(E, 2, 6, S)``: env, side (ask, bid), field (price,
@@ -20,7 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from vit_marl_tpu_torch.config import EMPTY_SLOT, EngineConfig, MsgCol
+from vit_marl_tpu_torch.config import (EMPTY_SLOT, EngineConfig, MsgCol,
+                                       TradeCol)
 from vit_marl_tpu_torch.utils.device import const
 
 ASK, BID = 0, 1
@@ -74,21 +75,162 @@ def init_trades(cfg: EngineConfig, n_envs: int, device: torch.device
                       dtype=torch.int32, device=device)
 
 
+def init_side(n_orders: int, n_envs: int,
+              device: Optional[torch.device] = None) -> SideState:
+    """All-empty sides, fields ``(E, S)``
+    (ref: JaxOrderBookArrays.py:901-911)."""
+    empty = torch.full((n_envs, n_orders), EMPTY_SLOT, dtype=torch.int32,
+                       device=device)
+    return SideState(*(empty.clone() for _ in range(N_FIELDS)))
+
+
+def book_from_sides(asks: SideState, bids: SideState) -> BookState:
+    """The ``(E, 2, 6, S)`` book of two sides."""
+    side = lambda s: torch.stack(  # noqa: E731
+        [s.price, s.quant, s.oid, s.tid, s.time_s, s.time_ns], dim=1)
+    return BookState(torch.stack([side(asks), side(bids)], dim=1)
+                     .to(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# Dense <-> field views (reference layout: (S, 6) [p, q, oid, tid, s, ns])
+# --------------------------------------------------------------------------
+
+
+def side_to_dense(side: SideState) -> torch.Tensor:
+    """``(E, S, 6)`` int32 rows of the reference layout."""
+    return torch.stack([side.price, side.quant, side.oid, side.tid,
+                        side.time_s, side.time_ns], dim=-1).to(torch.int32)
+
+
+def side_from_dense(dense: torch.Tensor) -> SideState:
+    """Views of ``(E, S, 6)`` reference-layout rows."""
+    dense = dense.to(torch.int32)
+    return SideState(*(dense[..., f] for f in range(N_FIELDS)))
+
+
+# --------------------------------------------------------------------------
+# Canonical layout
+# --------------------------------------------------------------------------
+
+
+def sort_side(side: SideState, is_bid: bool) -> SideState:
+    """Each env's side in the sorted-arena layout: occupied slots first in
+    price-time priority (ascending price for asks, descending for bids,
+    then time_s, time_ns, then the original slot), every plane of the
+    holes behind them ``EMPTY_SLOT`` (ref: ``vit_marl_tpu/lob/book.py::
+    sort_side``, a stable 5-key ``lax.sort``).
+
+    Stable sorts from the least significant key to the most give the same
+    order; the keys are not packed into one integer, whose products of
+    price and time would overflow."""
+    inel = (side.price == EMPTY_SLOT).to(torch.int32)
+    price_key = -side.price if is_bid else side.price
+    E, S = side.price.shape
+    perm = torch.arange(S, device=side.price.device).expand(E, S)
+    for key in (side.time_ns, side.time_s, price_key, inel):
+        order = torch.sort(torch.gather(key, 1, perm), dim=1,
+                           stable=True).indices
+        perm = torch.gather(perm, 1, order)
+    hole = torch.gather(inel, 1, perm) == 1
+    return SideState(*(torch.where(hole, EMPTY_SLOT, torch.gather(v, 1, perm))
+                       for v in _fields(side)))
+
+
+def canonicalize_book(book: BookState) -> BookState:
+    """:func:`sort_side` on both sides of every env's book."""
+    return book_from_sides(sort_side(book.asks, is_bid=False),
+                           sort_side(book.bids, is_bid=True))
+
+
+def _prev_occupied(v: torch.Tensor, occ: torch.Tensor, first
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(E, S)`` value of ``v`` at the last occupied slot before each slot
+    (``first`` where there is none), and whether there is one."""
+    E, S = v.shape
+    slot = torch.arange(S, device=v.device).expand(E, S)
+    last_occ = torch.where(occ, slot, -1).cummax(dim=1).values
+    prev_idx = torch.cat([torch.full((E, 1), -1, device=v.device,
+                                     dtype=last_occ.dtype),
+                          last_occ[:, :-1]], dim=1)
+    prev_o = prev_idx >= 0
+    prev_v = torch.where(prev_o, torch.gather(v, 1, prev_idx.clamp(min=0)),
+                         first)
+    return prev_v, prev_o
+
+
+def is_sorted_arena(side: SideState, is_bid: bool) -> torch.Tensor:
+    """``(E,)`` bool: the occupied slots' prices are in priority order
+    (non-decreasing for asks, non-increasing for bids), the precondition
+    of :func:`_side_levels` and of the engine (ref: ``vit_marl_tpu/lob/
+    book.py::is_sorted_arena``; time keys are not checked)."""
+    occ = side.price != EMPTY_SLOT
+    key = -side.price if is_bid else side.price
+    prev_k, prev_o = _prev_occupied(key, occ, torch.iinfo(torch.int32).min)
+    return (~occ | ~prev_o | (key >= prev_k)).all(dim=1)
+
+
+# --------------------------------------------------------------------------
+# Queries
+# --------------------------------------------------------------------------
+
+
+def _fields(side: SideState):
+    return (side.price, side.quant, side.oid, side.tid, side.time_s,
+            side.time_ns)
+
+
+def _col(v, like: torch.Tensor) -> torch.Tensor:
+    """A number or an ``(E,)`` tensor as an int32 column against the
+    ``(E, S)`` fields of ``like``."""
+    v = torch.as_tensor(v, dtype=torch.int32, device=like.device)
+    return v.reshape(-1, 1) if v.dim() else v
+
+
+def best_ask(cfg: EngineConfig, asks: SideState) -> torch.Tensor:
+    """``(E,)`` lowest ask price, -1 where there is no ask
+    (ref: JaxOrderBookArrays.py:846-855)."""
+    lo = torch.where(asks.price == EMPTY_SLOT, cfg.maxint, asks.price
+                     ).amin(dim=-1)
+    return torch.where(lo == cfg.maxint, EMPTY_SLOT, lo)
+
+
+def best_bid(cfg: EngineConfig, bids: SideState) -> torch.Tensor:
+    """``(E,)`` highest bid price, -1 where there is no bid
+    (ref: JaxOrderBookArrays.py:857-865)."""
+    return bids.price.amax(dim=-1)
+
+
+def best_bid_and_ask(cfg: EngineConfig, asks: SideState, bids: SideState
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(best_ask, best_bid)``, each ``(E,)`` (ref: JaxOrderBookArrays.py:
+    867-879)."""
+    return best_ask(cfg, asks), best_bid(cfg, bids)
+
+
+def volume_at_price(side: SideState, price) -> torch.Tensor:
+    """``(E,)`` total standing quantity at ``price`` (a number or ``(E,)``),
+    an int32 sum (ref: JaxOrderBookArrays.py:833-844)."""
+    return torch.where(side.price == _col(price, side.price), side.quant,
+                       0).sum(dim=-1, dtype=torch.int32)
+
+
+def init_volume_at_price(cfg: EngineConfig, side: SideState, price
+                         ) -> torch.Tensor:
+    """``(E,)`` volume of initialisation orders (oid <= init_id) at
+    ``price`` (ref: JaxOrderBookArrays.py:944-960)."""
+    mask = (side.price == _col(price, side.price)) & (side.oid <= cfg.init_id)
+    return torch.where(mask, side.quant, 0).sum(dim=-1, dtype=torch.int32)
+
+
 def best_bid_and_ask_incl_quants(cfg: EngineConfig, book: BookState
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``((E, 2) [ask_p, ask_q], (E, 2) [bid_p, bid_q])`` int32
     (ref: JaxOrderBookArrays.py:881-898)."""
     asks, bids = book.asks, book.bids
-    lo = torch.where(asks.price == EMPTY_SLOT, cfg.maxint, asks.price
-                     ).amin(dim=-1)
-    a = torch.where(lo == cfg.maxint, EMPTY_SLOT, lo)
-    b = bids.price.amax(dim=-1)
-    a_q = torch.where(asks.price == a[:, None], asks.quant, 0).sum(
-        dim=-1, dtype=torch.int32)
-    b_q = torch.where(bids.price == b[:, None], bids.quant, 0).sum(
-        dim=-1, dtype=torch.int32)
-    return (torch.stack([a, a_q], dim=1).to(torch.int32),
-            torch.stack([b, b_q], dim=1).to(torch.int32))
+    a, b = best_bid_and_ask(cfg, asks, bids)
+    return (torch.stack([a, volume_at_price(asks, a)], dim=1).to(torch.int32),
+            torch.stack([b, volume_at_price(bids, b)], dim=1).to(torch.int32))
 
 
 def _side_levels(side: SideState, n_levels: int
@@ -103,14 +245,7 @@ def _side_levels(side: SideState, n_levels: int
     price = side.price
     E, S = price.shape
     occ = price != EMPTY_SLOT
-    # previous occupied price (exclusive forward fill along the slots)
-    slot = torch.arange(S, device=price.device).expand(E, S)
-    last_occ = torch.where(occ, slot, -1).cummax(dim=1).values
-    prev_idx = torch.cat([torch.full((E, 1), -1, device=price.device,
-                                     dtype=last_occ.dtype),
-                          last_occ[:, :-1]], dim=1)
-    prev_o = prev_idx >= 0
-    prev_p = torch.gather(price, 1, prev_idx.clamp(min=0))
+    prev_p, prev_o = _prev_occupied(price, occ, EMPTY_SLOT)
     is_new = occ & (~prev_o | (price != prev_p))
     lvl = torch.where(occ, is_new.to(torch.int32).cumsum(dim=1), 0)
     take = min(n_levels, S)
@@ -145,6 +280,94 @@ def get_vision_l2_state(cfg: EngineConfig, n_levels: int, book: BookState
     ask = torch.stack([ap, av], dim=2)                 # (E, L, 2)
     bid = torch.stack([bp, bv], dim=2)
     return torch.stack([ask, bid], dim=3).to(torch.int32)
+
+
+def _rows_at(side: SideState, idx: torch.Tensor) -> torch.Tensor:
+    """``(E, 6)`` rows of the slots ``idx`` ``(E,)``."""
+    at = idx.long().reshape(-1, 1)
+    return torch.stack([torch.gather(v, 1, at)[:, 0] for v in _fields(side)],
+                       dim=1).to(torch.int32)
+
+
+def _lookup(side: SideState, mask: torch.Tensor, not_found_val: int
+            ) -> torch.Tensor:
+    """``(E, 6)`` row of each env's first slot in ``mask``, else a row of
+    ``not_found_val``."""
+    row = _rows_at(side, mask.to(torch.int8).argmax(dim=1))
+    return torch.where(mask.any(dim=1, keepdim=True), row, not_found_val
+                       ).to(torch.int32)
+
+
+def get_order_by_id(side: SideState, order_id) -> torch.Tensor:
+    """First order row matching the order id, a -1 row where none does
+    (ref: JaxOrderBookArrays.py:962-985)."""
+    return _lookup(side, side.oid == _col(order_id, side.oid), -1)
+
+
+def get_order_by_id_and_price(side: SideState, order_id, price
+                              ) -> torch.Tensor:
+    """(ref: JaxOrderBookArrays.py:987-1012)."""
+    return _lookup(side, (side.oid == _col(order_id, side.oid))
+                   & (side.price == _col(price, side.price)), -1)
+
+
+def get_order_by_time(side: SideState, time_s, time_ns) -> torch.Tensor:
+    """A -2 row where no order has the time, the reference's sentinel
+    (ref: JaxOrderBookArrays.py:1015-1042)."""
+    return _lookup(side, (side.time_s == _col(time_s, side.time_s))
+                   & (side.time_ns == _col(time_ns, side.time_ns)), -2)
+
+
+def get_order_ids(side: SideState) -> torch.Tensor:
+    """``(E, S)`` each env's distinct order ids in ascending order, padded
+    with 1 (ref: JaxOrderBookArrays.py:1044-1053, ``jnp.unique(size=S,
+    fill_value=1)``; an empty slot's -1 counts as an id)."""
+    v = torch.sort(side.oid, dim=1).values
+    E, S = v.shape
+    first = torch.ones_like(v, dtype=torch.bool)
+    first[:, 1:] = v[:, 1:] != v[:, :-1]
+    rank = first.to(torch.int32).cumsum(dim=1) - 1
+    out = torch.ones((E, S + 1), dtype=torch.int32, device=v.device)
+    out.scatter_(1, torch.where(first, rank, S).long(), v)
+    return out[:, :S]
+
+
+def top_order_index(cfg: EngineConfig, side: SideState, is_bid: bool
+                    ) -> torch.Tensor:
+    """``(E,)`` slot of the price-time-priority top order
+    (ref: JaxOrderBookArrays.py:240-267): best price (max for bids, min
+    over occupied slots for asks), then earliest (time_s, time_ns), then
+    the lowest slot."""
+    if is_bid:
+        price_key = -side.price
+    else:
+        price_key = torch.where(side.price == EMPTY_SLOT, cfg.maxint,
+                                side.price)
+    best_p = price_key.amin(dim=1, keepdim=True)
+    t = torch.where(price_key == best_p, side.time_s, cfg.maxint)
+    best_t = t.amin(dim=1, keepdim=True)
+    tns = torch.where(t == best_t, side.time_ns, cfg.maxint)
+    best_tns = tns.amin(dim=1, keepdim=True)
+    return (tns == best_tns).to(torch.int8).argmax(dim=1)
+
+
+def get_next_executable_order(cfg: EngineConfig, side_idx: int,
+                              side: SideState) -> torch.Tensor:
+    """``(E, 6)`` top order row; ``side_idx`` 0 for asks, 1 for bids
+    (ref: JaxOrderBookArrays.py:1055-1073)."""
+    return _rows_at(side, top_order_index(cfg, side, is_bid=side_idx == 1))
+
+
+def get_agent_trades(trades: torch.Tensor, agent_id) -> torch.Tensor:
+    """``(E, n_trades, 8)`` trade logs with every row zeroed that is no
+    executed trade of ``agent_id`` (a number or ``(E,)``) as passive or
+    aggressive trader (ref: JaxOrderBookArrays.py:824-831)."""
+    executed = torch.where(trades[..., TradeCol.PRICE:TradeCol.PRICE + 1]
+                           >= 0, trades, 0)
+    aid = _col(agent_id, trades[..., 0])
+    mask = ((executed[..., TradeCol.PASS_TID] == aid)
+            | (executed[..., TradeCol.AGR_TID] == aid))
+    return torch.where(mask[..., None], executed, 0).to(torch.int32)
 
 
 def init_msgs_from_l2(cfg: EngineConfig, book_l2: torch.Tensor,

@@ -33,8 +33,9 @@ raises; nothing falls back to the loop.
 
 The kernel wrappers count the launches they make: the warm-up's, and
 not the capture's, which only records them (``ops.tally``).  A replay
-launches the graph's kernels without the wrappers; a profiler trace of
-the replays counts those launches.
+launches the graph's kernels without the wrappers; ``StepGraph.replays``
+counts the replays where they are made, and a profiler trace of the
+replays counts those launches.
 
 On the CPU (which must be asked for) the same body runs eagerly ``T``
 times: the CPU tests hold the captured function against the loop.
@@ -113,6 +114,7 @@ class StepGraph:
         self.carry = None       # the carry buffers
         self.graph = None
         self.captures = 0
+        self.replays = 0        # graph replays made, of any graph captured
         self._weights = None
         self.warmup_s = self.capture_s = self.instantiate_s = 0.0
 
@@ -178,15 +180,20 @@ class StepGraph:
         elif carry is not self.carry:
             assign(self.carry, carry)
 
-    def replay(self, step_draws=None) -> None:
-        """``n_steps`` steps from slot 0 and the carry buffers.
-        ``step_draws`` (each step's draws, as tests feed them) run the
-        body eagerly, ``step(step_draws[k])``, on any device."""
+    def replay(self, step_draws=None, steps=None) -> None:
+        """``n_steps`` steps from slot 0 and the carry buffers, or the first
+        ``steps`` of them.  ``step_draws`` (each step's draws, as tests
+        feed them) run the body eagerly, ``step(step_draws[k])``, on any
+        device."""
+        n = self.n_steps if steps is None else steps
+        if not 0 <= n <= self.n_steps:
+            raise ValueError(f"steps={steps}: the buffers hold "
+                             f"{self.n_steps}")
         if self.t is None:
             self.t = torch.zeros(1, dtype=torch.int64, device=self.device)
         self.t.zero_()
         if step_draws is not None or not self.use_graph:
-            for k in range(self.n_steps):
+            for k in range(n):
                 self.step(*(() if step_draws is None else
                             (step_draws[k],)))
             return
@@ -195,8 +202,9 @@ class StepGraph:
             self.graph = None           # a weight was replaced: capture anew
         if self.graph is None:
             self._capture()
-        for _ in range(self.n_steps):
+        for _ in range(n):
             self.graph.replay()
+            self.replays += 1
 
 
 class ScanRollout(StepGraph):
@@ -251,9 +259,10 @@ class ScanRollout(StepGraph):
         assign(c, Carry(state, obs, dones, hs))
         self.t.add_(1)
 
-    def run(self, carry):
-        """``n_steps`` steps from ``carry``; returns (per type the
+    def run(self, carry, steps=None):
+        """``n_steps`` steps from ``carry`` (or the first ``steps``: the
+        later slots keep what they held); returns (per type the
         trajectory, the per-step info moments or None, the new carry)."""
         self.set_carry(carry)
-        self.replay()
+        self.replay(steps=steps)
         return self.traj, self.info, self.carry

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` leaf-wise to ``tree`` and the same-shaped ``rest``.
@@ -50,3 +52,16 @@ def index_tree(tree, index):
     """Gather ``leaf[index]`` from every leaf: the reset-table gather
     (ref: ``vit_marl_tpu/utils/tree.py::index_tree``)."""
     return tree_map(lambda leaf: leaf[index], tree)
+
+
+def tree_stack(trees):
+    """Stack a list of identically-shaped trees along a new leading axis
+    (ref: ``vit_marl_tpu/utils/tree.py::tree_stack``)."""
+    return tree_map(lambda *v: torch.stack(v), trees[0], *trees[1:])
+
+
+def tree_unstack(tree):
+    """Inverse of :func:`tree_stack`: the list of trees along the leading
+    axis."""
+    n = tree_leaves(tree)[0].shape[0]
+    return [tree_map(lambda leaf, i=i: leaf[i], tree) for i in range(n)]
