@@ -179,7 +179,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    timed apart); the graph's hand-written kernel nodes (its DOT dump)
    equal to a loop step's launches, the graph replayed NUM_STEPS times
    in each run of the scan (counted where it replays); the first
-   ``TRACE_STEPS`` (32) steps of each mode under ``torch.profiler`` (the
+   ``TRACE_STEPS`` (16) steps of each mode under ``torch.profiler`` (the
    scan's on the same graph): the card's busy share of the kernel window,
    the loop's wrappers exact, the scan's graph replayed once a step and
    no wrapper, each trace holding the hand-written kernels' launches
@@ -224,8 +224,25 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    ``sweep_fine.yaml``'s grid at one update each, and one update (one
    PPO epoch) of ``ippo_vision_dual_ppo.yaml`` under
    ``utils/profiling.py::trace`` with its drain, its ten largest CUDA ops
-   by self time.
-Every training phase (6-20) collects with ``ROLLOUT_MODE``'s default,
+   by self time;
+22. the book scan at every capacity (the port's sixteenth slice):
+   kernels 1 and 2 against their plain versions, bit-equal, at S in
+   ``CAPACITIES`` (2, 24, 100, 200, 384, 1,024: the masked route) and
+   E=1,024 in cancel modes 0 (random streams) and 3 (corner streams),
+   both with sweeps, on full bid books below -1 at S=24 and 100, and at
+   S=32, 64 and 256 (the exact route); each route's launch plan; both
+   kernels timed at E=4,096 at S=128 and 100 in turns, the masked route
+   at S=128 on the same data, and S=1,024, beside their plain versions
+   (every output bit-equal to the kernels' on the same inputs) and
+   bounds; both at S=100, E=4,096 in cancel mode 3, records at rec_k 100
+   (the ``debug_mode`` path), bit-equal to their plain versions; one
+   update (one epoch) of ``ippo_2player.yaml`` at 100 orders a side,
+   4,096 envs x 128 steps on the graph, and the same in
+   ``debug_mode`` with cancel mode 3, kernel launches counted through the
+   wrapper and on the graph; ``WorldEnv.reset_env`` and 8 ``step``s with
+   sampled actions on the card and on the CPU, equal; and
+   ``tools/torch_fuzz_engine.py --kernel --minutes 0.5``.
+Every training phase (6-20, 22) collects with ``ROLLOUT_MODE``'s default,
 ``auto``: on the card a CUDA graph of the env step (``rl/scan.py``),
 replayed each step.  A wrapper counts the launches it makes: under the
 scan the warm-up step's (``rollout_steps``) and the update's; the
@@ -2183,7 +2200,7 @@ KERNEL_FAMILIES = (("book_scan_kernel", "book_scan"),
 # the update keep NUM_STEPS): a vision trace of 128 steps held about
 # 216,700 kernel records, and the traces' export and reading took much of
 # the script's time
-TRACE_STEPS = 32
+TRACE_STEPS = 16
 # a profiler trace of a graph's replays drops a few kernel records (the
 # same vision rollout traced four times held 216,237-216,705 kernels,
 # NVIDIA H100 80GB HBM3): a family's traced launches may fall short of
@@ -3189,6 +3206,362 @@ def tools_phase(torch, attn, bkern, blk, make_train, smi):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the book scan at every capacity (the upstream's 100 orders a
+# side), the per-env API on the card, the engine fuzzer
+# ---------------------------------------------------------------------------
+
+CAPACITIES = (2, 24, 100, 200, 384, 1024)   # the masked route's capacities
+EXACT_CHECKS = (32, 64, 256)                # the exact route's, but 128
+CAPACITY_E = 1024
+UPSTREAM_ORDERS = 100
+CAPACITY_TURNS = (128, 100, 100, 128)       # S, timed in turns at E=4,096
+WIDE_S = 1024
+WIDE_REC_K = 256        # records a message at S >= 256 in the checks
+REC_K_DEBUG = REC_KS[0]
+ENV_API_STEPS = 8
+FUZZ_MINUTES = 0.5
+
+
+def capacity_case(torch, S, mode, seed, kind, E=None):
+    """(msgs, book, prev, uniforms) on the card at E envs (CAPACITY_E),
+    M_MAIN: ``random`` streams or ``corners`` (make_corner_case), both with
+    sweeps of a whole side, or ``negative``: full bid sides at prices below
+    -1 (``torch_cases.full_negative_bids``)."""
+    from torch_cases import (add_sweeps, full_negative_bids, make_case,
+                             make_corner_case)
+    from vit_marl_tpu_torch.lob.book import BookState
+
+    E, M = E or CAPACITY_E, M_MAIN
+    maker = make_corner_case if kind == "corners" else make_case
+    book, msgs, prev = maker(E, M, S, seed, tids=AGENT_TIDS)
+    msgs = add_sweeps(msgs, every=5, seed=seed)
+    if kind == "negative":
+        book, msgs = full_negative_bids(book, msgs, seed)
+    u = np.random.default_rng(seed).random((M, E), dtype=np.float32)
+    return (torch.from_numpy(msgs).to(DEV),
+            BookState(torch.from_numpy(book).to(DEV)),
+            torch.from_numpy(prev).to(DEV), torch.from_numpy(u).to(DEV))
+
+
+def both_kernels_equal(torch, bkern, cfg, case, rec_k, label):
+    """Kernels 1 and 2 against their plain versions on one case, every
+    output bit-equal; returns the fills."""
+    msgs, book, prev, u = case
+    tids = torch.tensor(AGENT_TIDS, dtype=torch.int32, device=DEV)
+    got = bkern.process_step_aggs(cfg, msgs, book, tids, prev, TICK, u)
+    want = bkern.process_step_aggs_reference(cfg, msgs, book, tids, prev,
+                                             TICK, u)
+    got2 = bkern.process_step_records(cfg, msgs, book, prev, rec_k, u)
+    want2 = bkern.process_step_records_reference(cfg, msgs, book, prev,
+                                                 rec_k, u)
+    for k, (g, w) in (("kernel 1", (got, want)), ("kernel 2", (got2, want2))):
+        pairs = [(g[0].data, w[0].data), (g[1][0], w[1][0]),
+                 (g[1][1], w[1][1]), (g[2][0], w[2][0]), (g[2][1], w[2][1])]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{k} != plain at {label}")
+    return int(want2[2][1].sum())
+
+
+def capacity_checks(torch, bkern, smi):
+    """Kernels 1 and 2 against their plain versions at every capacity of
+    CAPACITIES (the masked route) in cancel modes 0 (random streams) and 3
+    (corner streams), both with sweeps, on full negative bid books at the
+    masked route's smallest slot maps, and at EXACT_CHECKS in mode 1;
+    records at rec_k min(16, S) in mode 0 and min(S, WIDE_REC_K) in mode
+    3 (``debug_mode`` keeps n_orders in modes 2-3).  Prints each route's
+    launch plan."""
+    from vit_marl_tpu_torch.config import EngineConfig
+
+    for S in CAPACITIES:
+        for n_agg, rec_k in ((2, 1), (None, min(16, S)),
+                             (None, min(S, WIDE_REC_K))):
+            plan = bkern.launch_plan(S, n_agg, DEV, rec_k)
+            print(f"  book scan launch plan, S={S}, "
+                  + (f"records, rec_k={rec_k}" if n_agg is None
+                     else f"n_agg={n_agg}") + ": "
+                  + ", ".join(f"{k} {v}" for k, v in plan.items()),
+                  flush=True)
+    checks = [(S, 0, "random") for S in CAPACITIES]
+    checks += [(S, 3, "corners") for S in CAPACITIES]
+    checks += [(S, 1, "negative") for S in (24, UPSTREAM_ORDERS)]
+    checks += [(S, 1, "corners") for S in EXACT_CHECKS]
+    for S, mode, kind in checks:
+        rec_k = min(16, S) if mode < 2 else min(S, WIDE_REC_K)
+        fills = both_kernels_equal(
+            torch, bkern, EngineConfig(n_orders=S, cancel_mode=mode),
+            capacity_case(torch, S, mode, SEED + 7 * S + mode, kind), rec_k,
+            f"S={S}, mode {mode}, {kind}")
+        print(f"  S={S}, cancel mode {mode}, {kind} streams: kernels 1 and "
+              f"2 bit-equal to their plain versions (E={CAPACITY_E}, "
+              f"rec_k={rec_k}, {fills} fills) [{smi}]", flush=True)
+    return len(checks)
+
+
+def capacity_timing(torch, bkern, smi):
+    """Kernels 1 and 2 at E=4,096, M=112 in the 2-player path's cancel mode
+    (1): S=128 and S=100 in turns (CAPACITY_TURNS), the masked route at
+    S=128 on S=128's data (what the masks cost; ``torch_cases.
+    launch_slot_map``), and S=1,024; the plain versions, each output
+    bit-equal to the kernels' on the same inputs, and the bounds; then
+    both kernels in the ``debug_mode`` path's cancel mode 3 at S=100,
+    records at rec_k 100, against their plain versions.  Returns the rows
+    by S."""
+    from torch_cases import launch_slot_map, make_case
+    from vit_marl_tpu_torch.config import EngineConfig
+    from vit_marl_tpu_torch.lob.book import BookState
+
+    tids = torch.tensor(AGENT_TIDS, dtype=torch.int32, device=DEV)
+    data = {}
+    for S in sorted(set(CAPACITY_TURNS) | {WIDE_S}):
+        book, msgs, prev = make_case(E_MAIN, M_MAIN, S, SEED + S,
+                                     tids=AGENT_TIDS)
+        data[S] = (torch.from_numpy(msgs).to(DEV),
+                   BookState(torch.from_numpy(book).to(DEV)),
+                   torch.from_numpy(prev).to(DEV))
+    cfgs = {S: EngineConfig(n_orders=S, cancel_mode=1) for S in data}
+    lib = bkern._library()
+    masked = lambda S: (  # noqa: E731
+        lambda: launch_slot_map(lib, cfgs[S], *data[S], 4, True, tids=tids),
+        lambda: launch_slot_map(lib, cfgs[S], *data[S], 4, True,
+                                rec_k=REC_K_DEBUG))
+    rows = {}
+
+    def timed(S, label, fns=None):
+        msgs, book, prev = data[S]
+        cfg = cfgs[S]
+        k1, k2 = fns or (
+            lambda: bkern._launch(cfg, msgs, book, tids, prev, TICK, None),
+            lambda: bkern._launch_records(cfg, msgs, book, prev,
+                                          REC_K_DEBUG, None))
+        k1, k2 = time_launches(k1), time_launches(k2)
+        print(f"  {label}: kernel 1 {k1[0]:.4f} ms (min {k1[1]:.4f}), "
+              f"kernel 2 at rec_k {REC_K_DEBUG} {k2[0]:.4f} ms (min "
+              f"{k2[1]:.4f}) a launch at E={E_MAIN} [{smi}]", flush=True)
+        return k1[0], k2[0]
+
+    for S in CAPACITY_TURNS:
+        rows.setdefault(S, dict(ms=[], records_ms=[]))
+        k1, k2 = timed(S, f"S={S}, {'masked' if S != 128 else 'exact'}")
+        rows[S]["ms"].append(k1)
+        rows[S]["records_ms"].append(k2)
+    rows["128_masked"] = dict(zip(("ms", "records_ms"), timed(
+        128, "S=128 on the masked route (4 slots a lane)", masked(128))))
+    rows[WIDE_S] = dict(zip(("ms", "records_ms"), timed(
+        WIDE_S, f"S={WIDE_S}, masked")))
+    for S in (128, UPSTREAM_ORDERS, WIDE_S):
+        msgs, book, prev = data[S]
+        cfg = cfgs[S]
+        plain, want = [], []
+        for fn in (lambda: bkern.process_step_aggs_reference(
+                       cfg, msgs, book, tids, prev, TICK),
+                   lambda: bkern.process_step_records_reference(
+                       cfg, msgs, book, prev, REC_K_DEBUG)):
+            torch.cuda.synchronize()
+            tp = time.perf_counter()
+            want.append(fn())
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - tp) * 1e3)
+        got = {"": (bkern.process_step_aggs(cfg, msgs, book, tids, prev,
+                                            TICK),
+                    bkern.process_step_records(cfg, msgs, book, prev,
+                                               REC_K_DEBUG))}
+        if S == 128:
+            got[" (masked route)"] = tuple(f() for f in masked(128))
+        for route, outs in got.items():
+            for k, g, w in zip((1, 2), outs, want):
+                pairs = [(g[0].data, w[0].data), *zip(g[1], w[1]),
+                         *zip(g[2], w[2])]
+                if not all(torch.equal(x, y) for x, y in pairs):
+                    raise AssertionError(f"kernel {k}{route} != plain at "
+                                         f"S={S}, E={E_MAIN}, mode 1")
+        r = rows[S]
+        r.update(plain_ms=plain[0], records_plain_ms=plain[1],
+                 bound_ms=scan_bytes(E_MAIN, M_MAIN, S, len(AGENT_TIDS))
+                 / HBM_BYTES_PER_S * 1e3,
+                 records_bound_ms=records_bytes(E_MAIN, M_MAIN, S,
+                                                REC_K_DEBUG, 1)
+                 / HBM_BYTES_PER_S * 1e3)
+        print(f"  S={S}: kernels 1 and 2" + (", and both on the masked "
+              "route," if S == 128 else "") + " bit-equal to their plain "
+              f"versions at E={E_MAIN}, mode 1; plain {plain[0]:.2f} / "
+              f"{plain[1]:.2f} ms (kernel 1 / 2); bounds "
+              f"{r['bound_ms']:.4f} / {r['records_bound_ms']:.4f} ms, "
+              f"bytes [{smi}]", flush=True)
+    S = UPSTREAM_ORDERS
+    fills = both_kernels_equal(
+        torch, bkern, EngineConfig(n_orders=S, cancel_mode=3),
+        capacity_case(torch, S, 3, SEED + 3 * S, "random", E=E_MAIN), S,
+        f"S={S}, mode 3, E={E_MAIN}")
+    print(f"  S={S}, cancel mode 3 (debug_mode's path): kernels 1 and 2 "
+          f"(rec_k={S}) bit-equal to their plain versions at E={E_MAIN} "
+          f"({fills} fills) [{smi}]", flush=True)
+    return rows
+
+
+class RecordedScans:
+    """Every ``rl/scan.py::ScanRollout`` a trainer makes inside the
+    block, kept to read its graph replays after."""
+
+    def __init__(self):
+        self.made = []
+
+    def __enter__(self):
+        from vit_marl_tpu_torch.rl import ppo as tppo
+
+        made, base = self.made, tppo.ScanRollout
+
+        class Kept(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+
+        self._ppo, self._base = tppo, base
+        tppo.ScanRollout = Kept
+        return self
+
+    def __exit__(self, *exc):
+        self._ppo.ScanRollout = self._base
+
+
+def upstream_training(torch, count, make_train, smi):
+    """One update (one PPO epoch) of ``ippo_2player.yaml`` at 100 orders a
+    side, 4,096 envs x 128 steps, on the graph; then the same in
+    ``debug_mode`` with cancel mode 3 (kernel 2 at rec_k 100).  Returns
+    each run's kernel launches: the wrappers' (the warm-up step) and the
+    graph's (its book-scan nodes times the replays counted)."""
+    out, env = {}, None
+    for label, sets, name in (
+            ("n_orders=100", [], "book_scan"),
+            ("n_orders=100, debug_mode, cancel mode 3",
+             ["WORLD.DEBUG_MODE=true", "WORLD.CANCEL_MODE=3"],
+             "book_scan_records")):
+        ma, tc = config_with(CONFIG, [f"WORLD.N_ORDERS={UPSTREAM_ORDERS}",
+                                      "UPDATE_EPOCHS=1", *sets])
+        with RecordedScans() as rec:
+            m, got, train, _ = train_once(
+                torch, count, make_train, ma, tc,
+                {name: rollout_steps(tc, 1)}, f"2-player, {label}", smi)
+        env = env or train.env
+        scan = rec.made[-1]
+        nodes = graph_nodes(scan.graph).get("book_scan", 0)
+        if scan.replays != tc.num_steps or nodes != 1:
+            raise AssertionError(f"{label}: the graph replayed "
+                                 f"{scan.replays} times with {nodes} book "
+                                 "scan nodes")
+        out[label] = dict(wrapper=got[name], graph=nodes * scan.replays,
+                          rollout_s=m["rollout_s"], update_s=m["update_s"])
+        print(f"  {label}: kernel {1 if name == 'book_scan' else 2} "
+              f"launched {got[name]} time through the wrapper (the warm-up) "
+              f"and {nodes * scan.replays} on the graph ({scan.replays} "
+              f"replays); rollout {m['rollout_s']:.3f}s, PPO "
+              f"{m['update_s']:.3f}s [{smi}]", flush=True)
+    return out, env
+
+
+def env_draws(d):
+    """One env's draws of a batch of one (``draw_step(1, ...)``), as the
+    per-env API takes them."""
+    from vit_marl_tpu_torch.env.structs import ResetDraws, StepDraws
+    from vit_marl_tpu_torch.utils.tree import tree_map
+
+    first = lambda t: tree_map(lambda v: v[0], t)  # noqa: E731
+    return StepDraws(
+        shuffle=None if d.shuffle is None else d.shuffle[0],
+        uniforms=None if d.uniforms is None else d.uniforms[:, 0],
+        reset=ResetDraws(window=d.reset.window[0],
+                         agents=first(d.reset.agents)),
+        agents=first(d.agents))
+
+
+def env_api_check(torch, env_card, smi):
+    """``reset_env`` and ENV_API_STEPS ``step``s of the 2-player world at
+    100 orders a side with actions sampled from its spaces, on the card
+    and on the CPU with the same draws: integer leaves bit-equal, float
+    ones within 1e-5 (the tests' tolerance).  Returns ms a step on the
+    card."""
+    from vit_marl_tpu_torch.env.world import WorldEnv
+    from vit_marl_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    ma, _ = config_with(CONFIG, [f"WORLD.N_ORDERS={UPSTREAM_ORDERS}"])
+    env_cpu = WorldEnv(ma, device="cpu")
+    gen = torch.Generator().manual_seed(SEED)
+    to_card = lambda t: tree_map(lambda v: v.to(DEV), t)  # noqa: E731
+    params = {"cpu": env_cpu.default_params, DEV: env_card.default_params}
+    reset = env_draws(env_cpu.draw_step(1, gen)).reset
+    outs = {"cpu": env_cpu.reset_env(reset, params["cpu"]),
+            DEV: env_card.reset_env(to_card(reset), params[DEV])}
+    states = {k: v[1] for k, v in outs.items()}
+
+    def same(a, b, label):
+        for x, y in zip(tree_leaves(a), tree_leaves(b)):
+            y = y.cpu()
+            if x.is_floating_point():
+                ok = torch.allclose(x, y, rtol=1e-5, atol=1e-5)
+            else:
+                ok = torch.equal(x, y)
+            if not ok:
+                raise AssertionError(f"per-env API, card != CPU: {label}")
+
+    same(outs["cpu"], outs[DEV], "reset_env")
+    dones = fills = 0
+    step_s = 0.0
+    for t in range(ENV_API_STEPS):
+        draws = env_draws(env_cpu.draw_step(1, gen))
+        acts = [sp.sample(gen) for sp in env_cpu.action_space()]
+        outs["cpu"] = env_cpu.step(states["cpu"], acts, params["cpu"],
+                                   draws=draws)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        outs[DEV] = env_card.step(states[DEV], to_card(acts), params[DEV],
+                                  draws=to_card(draws))
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - ts
+        same(outs["cpu"][:4], outs[DEV][:4], f"step {t}")
+        states = {k: v[1] for k, v in outs.items()}
+        dones += int(outs["cpu"][3]["__all__"])
+        fills += int((states["cpu"].world.trades[:, 0] != -1).sum())
+    ms = step_s * 1e3 / ENV_API_STEPS
+    print(f"  per-env API at n_orders={UPSTREAM_ORDERS}: reset_env and "
+          f"{ENV_API_STEPS} steps (sampled actions, {fills} fills logged, "
+          f"{dones} auto-resets) equal on the card and the CPU; "
+          f"{ms:.1f} ms a step on the card [{smi}]", flush=True)
+    return ms
+
+
+def capacity_phase(torch, attn, bkern, blk, make_train, smi):
+    """Phase 22: (a) kernels 1 and 2 at every capacity against their plain
+    versions; (b) their times at S=100 against S=128 and at S=1,024; (c)
+    one update at 100 orders a side, default and ``debug_mode``, each
+    driven with every count set to 0 just before it; (d) the per-env API
+    on the card against the CPU; (e) the engine fuzzer with its kernel
+    checks."""
+    import torch_fuzz_engine
+
+    count = counters(attn, bkern, blk)
+    t0 = [time.perf_counter()]
+
+    def part(label):
+        now = time.perf_counter()
+        print(f"  22{label}: {now - t0[0]:.2f}s", flush=True)
+        t0[0] = now
+
+    res = dict(checks=capacity_checks(torch, bkern, smi))
+    part("a, kernels 1 and 2 at every capacity")
+    res["timing"] = capacity_timing(torch, bkern, smi)
+    part("b, their times")
+    res["training"], env = upstream_training(torch, count, make_train, smi)
+    part("c, training at 100 orders a side")
+    res["env_api_ms"] = env_api_check(torch, env, smi)
+    part("d, the per-env API")
+    rc = torch_fuzz_engine.main(["--kernel", "--minutes", str(FUZZ_MINUTES),
+                                 "--device", DEV])
+    if rc != 0:
+        raise AssertionError(f"the engine fuzzer failed (exit {rc})")
+    part("e, the engine fuzzer")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3545,6 +3918,15 @@ def main() -> int:
     tools = tools_phase(torch, attn, bkern, blk, make_train, smi)
     phase("21 the order-book engine and the tools", t0)
 
+    # ---- phase 22: every book capacity, the per-env API, the fuzzer ----
+    t0 = time.perf_counter()
+    cap = capacity_phase(torch, attn, bkern, blk, make_train, smi)
+    phase("22 the book scan at every capacity, the per-env API, the "
+          "fuzzer", t0)
+    ct = cap["timing"]
+    by_s = lambda key: {str(S): ct[S][key]  # noqa: E731
+                        for S in (128, UPSTREAM_ORDERS, WIDE_S)}
+
     # ---- summary ----
     print(json.dumps({"kernels": [{
         "name": "book_scan_aggs",
@@ -3596,12 +3978,27 @@ def main() -> int:
         # phase 21: the speed grid's steps (and each configuration's
         # window table and warm-up step)
         "launches_speed_grid": tools["speed_grid_launches"],
+        # phase 22: E=4,096, M=112, cancel mode 1 at S=128 (exact), 100
+        # (masked, times in turns with 128's) and 1,024; the masked route
+        # on S=128's data; one update at 100 orders a side
+        "ms_by_capacity": by_s("ms"),
+        "plain_ms_by_capacity": by_s("plain_ms"),
+        "bound_ms_by_capacity": by_s("bound_ms"),
+        "ms_masked_route_at_128": ct["128_masked"]["ms"],
+        "launches_n_orders_100": cap["training"]["n_orders=100"],
+        "capacities_checked": list(CAPACITIES) + list(EXACT_CHECKS),
     }, dict(records, launches=dgot["book_scan_records"],
             bit_equal_m126=m126["bit_equal_m126"],
             graph_launches_per_update=s12["scan_debug"]["graph_launches"][
                 "book_scan"],
             graph_launches_traced=s12["scan_debug"]["graph_launches_traced"][
-                "book_scan"])]
+                "book_scan"],
+            ms_by_capacity=by_s("records_ms"),
+            plain_ms_by_capacity=by_s("records_plain_ms"),
+            bound_ms_by_capacity=by_s("records_bound_ms"),
+            ms_masked_route_at_128=ct["128_masked"]["records_ms"],
+            launches_n_orders_100_debug=cap["training"][
+                "n_orders=100, debug_mode, cancel mode 3"])]
       + [dict(att[k], launches=vision[k],
                launches_attn_ln_fold=modes["attn_ln_fold"][k],
                launches_pipeline=s11["pipeline"][k],

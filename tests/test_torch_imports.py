@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import nothing of JAX or the JAX package."""
+"""The port, chip_smoke.py, the engine fuzzer and the cases they share
+import nothing of JAX or the JAX package."""
 
 import ast
 import glob
@@ -10,7 +11,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vit_marl_tpu"}
 FILES = sorted(glob.glob(os.path.join(ROOT, "vit_marl_tpu_torch", "**",
                                       "*.py"), recursive=True)
-               + [os.path.join(ROOT, "chip_smoke.py")])
+               + [os.path.join(ROOT, "chip_smoke.py"),
+                  os.path.join(ROOT, "tools", "torch_fuzz_engine.py"),
+                  os.path.join(ROOT, "tests", "torch_cases.py")])
 
 
 def _imports(path):

@@ -4,8 +4,9 @@ Marked ``gpu``: each test skips without a CUDA device.  On a machine with
 one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
 
 - Book scan: every output bit-equal, including ragged batches (E not a
-  multiple of the kernel's 4 envs per block) and every supported book
-  capacity; in records mode at rec_k 16 and 128 with messages of more
+  multiple of the kernel's 4 envs per block) and book capacities of
+  both routes (the exact 32-256 and the masked 1-1,024, full bid books
+  below -1 among them; 1,025 raises); in records mode at rec_k 16 and 128 with messages of more
   than 16 fills, and the trade log built from the kernel's records equal
   to the one built on the CPU from the plain version's.  On corner books
   and streams (``torch_cases.make_corner_case``) in both modes, at every
@@ -80,8 +81,9 @@ from vit_marl_tpu_torch.ops import block_kernel as blk
 from vit_marl_tpu_torch.ops import book_kernel as bkern
 
 from torch_cases import (TICK, TIDS, add_sweeps, dispatch_index,
-                         engine_against_records, make_case,
-                         make_corner_case, plant_negative_cancel)
+                         engine_against_records, full_negative_bids,
+                         launch_slot_map, make_case, make_corner_case,
+                         plant_negative_cancel)
 
 pytestmark = pytest.mark.gpu
 
@@ -377,13 +379,102 @@ def test_records_kernel_rejects_bad_rec_k(cuda):
 
 
 def test_kernel_rejects_unsupported_capacity(cuda):
-    book, msgs, prev = make_case(4, 8, 48, seed=1)
+    """Past 1,024 slots no kernel takes the book: both modes raise, with no
+    route to the plain version."""
+    S = bkern.MAX_CAPACITY + 1
+    book, msgs, prev = make_case(4, 8, S, seed=1)
+    args = (EngineConfig(n_orders=S), torch.from_numpy(msgs).to(cuda),
+            BookState(torch.from_numpy(book).to(cuda)))
     with pytest.raises(ValueError, match="capacity"):
         bkern.process_step_aggs(
-            EngineConfig(n_orders=48), torch.from_numpy(msgs).to(cuda),
-            BookState(torch.from_numpy(book).to(cuda)),
-            torch.tensor(TIDS, dtype=torch.int32, device=cuda),
+            *args, torch.tensor(TIDS, dtype=torch.int32, device=cuda),
             torch.from_numpy(prev).to(cuda), TICK)
+    with pytest.raises(ValueError, match="capacity"):
+        bkern.process_step_records(*args, torch.from_numpy(prev).to(cuda),
+                                   16)
+
+
+def _both_kernels(cuda, S, mode, book, msgs, prev, rec_k, n_agg=2):
+    """Kernels 1 and 2 against their plain versions on one case; every
+    output bit-equal, one launch each."""
+    E, M = msgs.shape[:2]
+    u = torch.from_numpy(np.random.default_rng(S).random(
+        (M, E), dtype=np.float32)).to(cuda)
+    cfg = EngineConfig(n_orders=S, cancel_mode=mode)
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    tids = torch.tensor(CORNER_TIDS[:n_agg], dtype=torch.int32, device=cuda)
+    for fn, ref, args in (
+            (bkern.process_step_aggs, bkern.process_step_aggs_reference,
+             (cfg, t(msgs), BookState(t(book)), tids, t(prev), TICK, u)),
+            (bkern.process_step_records,
+             bkern.process_step_records_reference,
+             (cfg, t(msgs), BookState(t(book)), t(prev), rec_k, u))):
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1
+        want = ref(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].data, want[0].data)
+        for g, w in zip(got[1] + got[2], want[1] + want[2]):
+            assert torch.equal(g, w)
+    return want
+
+
+MASKED = (1, 2, 24, 48, 100, 101, 200, 384, 1000, 1024)
+
+
+@pytest.mark.parametrize("mode", [0, 3])
+@pytest.mark.parametrize("S", MASKED)
+def test_kernels_bit_equal_at_every_capacity(cuda, mode, S):
+    """The masked route (``capacity_route``): S not a multiple of 32 or 4,
+    S of 1 and 2, S past 256 (16 and 32 slots a lane); corner streams with
+    sweeps at a ragged E and M, 1-3 traders, records at rec_k = min(S,
+    256)."""
+    E, M = 67, 23
+    book, msgs, prev = make_corner_case(E, M, S, seed=S + mode,
+                                        tids=CORNER_TIDS)
+    msgs = add_sweeps(msgs, every=3, seed=S)
+    want = _both_kernels(cuda, S, mode, book, msgs, prev, min(S, 256),
+                         n_agg=S % 3 + 1)
+    assert int(want[2][1].sum()) > 0
+
+
+@pytest.mark.parametrize("S", [24, 100, 200])
+def test_kernels_bit_equal_on_full_negative_bid_books(cuda, S):
+    """Full bid sides below -1: a slot past the capacity is no hole, so
+    the best bid stays below -1 until a real hole opens."""
+    book, msgs, prev = make_case(130, 40, S, seed=S)
+    book, msgs = full_negative_bids(book, msgs, S)
+    want = _both_kernels(cuda, S, 1, book, msgs, prev, 16)
+    assert (want[1][1][..., 0] < -1).any()
+
+
+def test_launch_plans_of_every_route(cuda):
+    """Each capacity's plan names its slot map; past 256 slots the kernels
+    keep fewer blocks an SM; the masked route at S=128 (what the masks
+    cost) gives the exact route's results."""
+    for S in (2, 32, 100, 128, 200, 256, 384, 1024):
+        for n_agg, rec_k in ((2, 1), (None, min(S, 128))):
+            plan = bkern.launch_plan(S, n_agg, cuda, rec_k)
+            spl, masked = bkern.capacity_route(S)
+            assert (plan["slots_per_lane"], plan["masked"]) == (spl, masked)
+            assert plan["blocks_per_sm"] >= 1, plan
+    assert bkern.launch_plan(1024, 2, cuda)["blocks_per_sm"] == 1
+    book, msgs, prev = make_case(129, 40, 128, seed=5)
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    cfg, msgs, book, prev = (EngineConfig(n_orders=128), t(msgs),
+                             BookState(t(book)), t(prev))
+    tids = torch.tensor(TIDS, dtype=torch.int32, device=cuda)
+    for exact, kw in (
+            (bkern._launch(cfg, msgs, book, tids, prev, TICK, None),
+             dict(tids=tids)),
+            (bkern._launch_records(cfg, msgs, book, prev, 16, None),
+             dict(rec_k=16))):
+        masked = launch_slot_map(bkern._library(), cfg, msgs, book, prev, 4,
+                                 True, **kw)
+        assert torch.equal(exact[0].data, masked[0].data)
+        for g, w in zip(exact[1] + exact[2], masked[1] + masked[2]):
+            assert torch.equal(g, w)
 
 
 ATTN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),

@@ -26,6 +26,7 @@ from vit_marl_tpu_torch.rl import sweep
 from vit_marl_tpu_torch.utils import profiling
 from vit_marl_tpu_torch.utils.tree import tree_stack, tree_unstack
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = {
     "NUM_ENVS": 4, "NUM_STEPS": 4, "TOTAL_TIMESTEPS": 16,
     "NUM_MINIBATCHES": 2, "UPDATE_EPOCHS": 1, "LOG_BACKEND": "none",
@@ -38,6 +39,30 @@ BASE = {
                       "REWARD_SPACE": "simplest_case"},
     },
 }
+
+
+@pytest.mark.parametrize("edits", ["ABLATIONS", "VARIANTS",
+                                   "MASK_VARIANTS"])
+def test_book_copies_find_their_edits(edits):
+    """Each copy of ``book_scan.cu`` that ``tools/torch_ab_book.py``
+    builds (``--ablate``, ``--variants``, ``--masks``) finds every text it
+    replaces once in the source: a source that drifted from its edits
+    stops the tool on the card."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    try:
+        import torch_ab_book
+    finally:
+        sys.path.pop(0)
+    from vit_marl_tpu_torch.ops import book_kernel
+
+    with open(book_kernel.SOURCE) as f:
+        source = f.read()
+    for label, old, new, *_ in getattr(torch_ab_book, edits):
+        olds, news = ((old, new) if isinstance(old, tuple)
+                      else ((old,), (new,)))
+        assert len(olds) == len(news), label
+        for o in olds:
+            assert source.count(o) == 1, (label, o[:60])
 
 
 def test_tree_stack_unstack_round_trip():

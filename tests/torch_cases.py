@@ -1,6 +1,9 @@
 """Seeded book-scan inputs shared by the port's kernel tests and
-``chip_smoke.py`` (numpy, and the port in :func:`engine_against_records`,
-so what runs on a card needs nothing of JAX)."""
+``chip_smoke.py`` (numpy, and the port in :func:`engine_against_records`
+and :func:`launch_slot_map`, so what runs on a card needs nothing of
+JAX)."""
+
+import functools
 
 import numpy as np
 
@@ -167,6 +170,31 @@ def make_corner_case(E, M, S, seed, fill=0.6, tids=TIDS, shared=False,
     return book.astype(np.int32), msgs.astype(np.int32), prev
 
 
+def full_negative_bids(book, msgs, seed):
+    """Every env's bid side full (no hole) at prices of -200 and below, and
+    a share of the messages priced to reach it: bids at negative prices
+    (the full side drops its worst order) and sells that cross them.  The
+    bid side's best price is below -1 until a fill or a cancel opens a
+    hole, whose -1 then counts as the highest: the corner where a slot
+    past the capacity must not read as a hole."""
+    rng = np.random.default_rng(seed + 2000)
+    book, msgs = book.copy(), msgs.copy()
+    E, M = msgs.shape[:2]
+    S = book.shape[-1]
+    book[:, 1, 0] = -200 - TICK * np.arange(S)
+    book[:, 1, 1] = rng.integers(1, 50, (E, S))
+    book[:, 1, 2] = book[:, 1, 3] = 70_000 + np.arange(S)
+    book[:, 1, 4] = 34_200
+    book[:, 1, 5] = np.arange(S)
+    bid = msgs[..., 1] == 1
+    msgs[..., 3] = np.where(bid, -200 - TICK * rng.integers(0, S + 5, (E, M)),
+                            msgs[..., 3])
+    sell = (msgs[..., 1] == -1) & (rng.random((E, M)) < 0.2)
+    msgs[..., 3] = np.where(sell, -TICK * rng.integers(2, S + 2, (E, M)),
+                            msgs[..., 3])
+    return book, msgs
+
+
 def plant_negative_cancel(book, msgs, e, x, at=0):
     """Env ``e``: side ``x`` (0 ask, 1 bid) of the book gets live
     quantities that sum to 2^31 - 2^20, the second live slot holding most
@@ -253,3 +281,66 @@ def engine_against_records(cfg, msgs, book, prev, uniforms=None,
     if int(n.max()) >= n_trades:
         raise AssertionError("the trade log overflowed: raise n_trades")
     return int(n.sum()), int(n.max())
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_map_plan(lib, S, spl, masked, n_agg, rec_k, device):
+    """The launch plan of ``lib`` for a slot map, once per device (as the
+    wrappers' ``launch_plan``, so a timed launch asks the runtime for
+    nothing)."""
+    from vit_marl_tpu_torch.ops import book_kernel as bkern
+
+    return bkern._plan(lib, S, spl, masked, n_agg, rec_k)
+
+
+def launch_slot_map(lib, cfg, msgs, book, prev, spl, masked, tids=None,
+                    tick=TICK, rec_k=1, uniforms=None):
+    """One launch of a book-scan library ``lib`` (``ctypes``, the C
+    interface of ``book_scan.cu``) on a slot map of the caller's choosing
+    (``spl`` slots a lane, ``masked`` or not), which the wrappers never
+    take: the masked map at an exact capacity times what the masks cost.
+    Kernel 1 with ``tids``, else kernel 2 at ``rec_k``; counts no launch.
+    Returns the wrappers' ``(book, (asks, bids), (sums or records, totals
+    or counts))``."""
+    import torch
+
+    from vit_marl_tpu_torch.ops import book_kernel as bkern
+
+    E, M, _ = msgs.shape
+    S = book.data.shape[-1]
+    dev = msgs.device
+    msgs, book_in, prev, uniforms, u_ptr = bkern._kernel_inputs(
+        cfg, msgs, book, prev, uniforms)
+    n_agg = None if tids is None else tids.shape[0]
+    book_out = torch.empty_like(book_in)
+    bidask = torch.empty((E, M, 4), dtype=torch.int32, device=dev)
+    common = (E, M, S, spl, int(masked))
+    with torch.cuda.device(dev):
+        smem = _slot_map_plan(lib, S, spl, masked, n_agg, rec_k,
+                              dev)["dynamic_smem"]
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if tids is None:
+            out = (torch.empty((E, M, rec_k, bkern.N_REC_PLANES),
+                               dtype=torch.int32, device=dev),
+                   torch.empty((E, M), dtype=torch.int32, device=dev))
+            err = lib.book_scan_records(
+                msgs.data_ptr(), book_in.data_ptr(), prev.data_ptr(), u_ptr,
+                book_out.data_ptr(), bidask.data_ptr(), out[0].data_ptr(),
+                out[1].data_ptr(), *common, rec_k, int(cfg.cancel_mode),
+                int(cfg.init_id), int(cfg.maxint), smem, stream)
+        else:
+            tids = tids.to(device=dev, dtype=torch.int32).contiguous()
+            aggs = torch.empty((E, bkern.AGG_STATS * n_agg + bkern.AGG_TOTALS),
+                               dtype=torch.int32, device=dev)
+            err = lib.book_scan_aggs(
+                msgs.data_ptr(), book_in.data_ptr(), prev.data_ptr(),
+                tids.data_ptr(), u_ptr, book_out.data_ptr(),
+                bidask.data_ptr(), aggs.data_ptr(), *common, n_agg,
+                int(cfg.cancel_mode), int(cfg.init_id), int(tick),
+                int(cfg.maxint), smem, stream)
+            out = (aggs[:, :bkern.AGG_STATS * n_agg].reshape(
+                E, n_agg, bkern.AGG_STATS), aggs[:, bkern.AGG_STATS * n_agg:])
+    bkern._raise_on(err, lib, "book_scan_" + ("records" if tids is None
+                                              else "aggs"))
+    return (bkern.BookState(book_out), (bidask[:, :, 0:2], bidask[:, :, 2:4]),
+            out)

@@ -5,6 +5,7 @@
     python3 tools/torch_ab_book.py --kernels-only .
     python3 tools/torch_ab_book.py --ablate
     python3 tools/torch_ab_book.py --variants
+    python3 tools/torch_ab_book.py --masks
 
 Each argument is the root of a checkout (a ``git archive`` of another
 commit unpacked in a directory that ``.gitignore`` lists, or ``.``).  For
@@ -57,10 +58,28 @@ stream with sweeps, both at E=4096) and times each, the whole kernel
 first and last: kernel 1 at E=4096 and kernel 2 at rec_k 16 to 128,
 through the wrapper and on the card alone, with each copy's launch
 plans.
+
+``--masks`` asks what the masked slot map costs (any capacity but 32,
+64, 128 and 256 runs it).  It launches kernel 1 and kernel 2 (rec_k 16)
+through ``torch_cases.launch_slot_map`` at E=4096, M=112, cancel mode 1
+on ``chip_smoke.py`` phase 22's inputs (books and streams that hold the
+two traders' orders, and the same without them): S=128 on the exact
+map, S=128's data on the masked map of 4 slots a lane, and S=100, timed
+in two turns over back-to-back launches and on the card alone, with each
+map's
+registers and spill bytes.  It does so for this checkout's
+``book_scan.cu`` and for copies with one thing about the masks made
+otherwise: the masked book (the register planes and the shared ones)
+moved with 16-byte accesses where the capacity is a multiple of 4 (the
+exact maps' book traffic), or the capacity a constant of the build (100
+or 128, so the compiler folds the masks; each copy runs at its own
+capacity).  Each copy's outputs must equal the plain version's on the
+timed inputs.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import os
 import re
@@ -533,28 +552,84 @@ VARIANTS = [
     ("wide rows at every rec_k (4 blocks an SM)",
      "constexpr int kWideRows = 96;", "constexpr int kWideRows = 0;"),
     ("wide rows at 6 blocks an SM",
-     "SPL <= 4 && KIND != kRecordsWide ? 8 : 4)",
-     "SPL <= 4 ? (KIND != kRecordsWide ? 8 : 6) : 4)"),
+     "return spl <= 4 && kind != kRecordsWide ? 8\n",
+     "return spl <= 4 ? (kind != kRecordsWide ? 8 : 6)\n"),
 ]
 
 
 WHOLE = ("whole kernel", "", "")
 
+# (label, old texts, new texts, capacity or None: every S) for --masks:
+# copies that compute the same function
+VEC_LOAD = """#pragma unroll
+    for (int j = 0; j < SPL; ++j) v[j] = base + j < n ? p[base + j] : fill;"""
+VEC_STORE = """#pragma unroll
+    for (int j = 0; j < SPL; ++j)
+      if (base + j < n) p[base + j] = v[j];"""
+VEC_SHARED = """  } else {
+    for (int i = lane; i < 2 * NPL * S; i += 32) {"""
+CAPACITY = ("const int n = MASK ? env.n : S;", "const int n = MASK ? a.n : S;")
+MASK_VARIANTS = [
+    ("masked book traffic in 16-byte accesses",
+     (VEC_LOAD, VEC_STORE, VEC_SHARED), (
+        """    if constexpr (SPL % 4 == 0) {
+      if (n % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < SPL; j += 4) {
+          int4 t = make_int4(fill, fill, fill, fill);
+          if (base + j < n) t = *reinterpret_cast<const int4*>(p + base + j);
+          v[j] = t.x; v[j + 1] = t.y; v[j + 2] = t.z; v[j + 3] = t.w;
+        }
+        return;
+      }
+    }
+""" + VEC_LOAD,
+        """    if constexpr (SPL % 4 == 0) {
+      if (n % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < SPL; j += 4)
+          if (base + j < n)
+            *reinterpret_cast<int4*>(p + base + j) =
+                make_int4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+        return;
+      }
+    }
+""" + VEC_STORE,
+        """  } else if ((n & 3) == 0) {
+    for (int i = lane; i < 2 * NPL * S / 4; i += 32) {
+      const int flat = 4 * i, sf = flat / S, slot = flat % S;
+      if (slot < n)
+        cp_async16(w + flat, bk + ((sf / NPL) * 6 + 2 + sf % NPL) * n + slot);
+      else
+        w[flat] = w[flat + 1] = w[flat + 2] = w[flat + 3] = kEmpty;
+    }
+""" + VEC_SHARED), None),
+    *[(f"capacity {c} a constant of the build", CAPACITY,
+       tuple(o.replace("env.n", str(c)).replace("a.n", str(c))
+             for o in CAPACITY), c) for c in (100, 128)],
+]
+
 
 def copy_kernels(source, edits, bkern, nvcc):
     """Yield (label, changed) after loading into ``bkern`` a copy of
     ``book_scan.cu`` with each (label, old, new) edit in turn (an empty
-    ``old``: the source as it is)."""
+    ``old``: the source as it is; tuples of ``old`` and ``new``: one
+    replacement a pair), built with the wrapper's flags."""
     tmp = tempfile.mkdtemp(prefix="book_copies_")
     try:
         for n, (label, old, new) in enumerate(edits):
-            if old and source.count(old) != 1:
-                raise SystemExit(f"{label}: {old[:60]!r} not once in the "
-                                 "source")
+            pairs = (list(zip(old, new)) if isinstance(old, tuple)
+                     else [(old, new)] if old else [])
+            text = source
+            for o, w in pairs:
+                if text.count(o) != 1:
+                    raise SystemExit(f"{label}: {o[:60]!r} not once in the "
+                                     "source")
+                text = text.replace(o, w)
             path = os.path.join(tmp, "book_scan.cu")
             with open(path, "w") as f:
-                f.write(source.replace(old, new) if old else source)
-            lib = nvcc.build(path, f"libbook_copy_{n}.so")
+                f.write(text)
+            lib = nvcc.build(path, f"libbook_copy_{n}.so", bkern.NVCC_FLAGS)
             bkern._lib = None
             bkern.build_library = lambda lib=lib: lib
             bkern.launch_plan.cache_clear()
@@ -641,6 +716,72 @@ def variants() -> None:
                   flush=True)
 
 
+def masks() -> None:
+    torch, bkern, nvcc, smi, timers, source = setup()
+
+    from torch_cases import TIDS as OTHER_TIDS
+    from torch_cases import launch_slot_map, make_case
+    from vit_marl_tpu_torch.config import EngineConfig
+    from vit_marl_tpu_torch.lob.book import BookState
+
+    dev = torch.device("cuda")
+    E, rec_k = 4096, 16
+    tids = torch.tensor(timers.AGENT_TIDS, dtype=torch.int32, device=dev)
+    data, want = {}, {}
+    for inputs, owners in (("the traders' orders", timers.AGENT_TIDS),
+                           ("no trader orders", OTHER_TIDS)):
+        for cap in (128, 100):
+            book, msgs, prev = make_case(E, M, cap, timers.SEED + cap,
+                                         tids=owners)
+            key = (inputs, cap)
+            data[key] = (EngineConfig(n_orders=cap, cancel_mode=1),
+                         torch.from_numpy(msgs).to(dev),
+                         BookState(torch.from_numpy(book).to(dev)),
+                         torch.from_numpy(prev).to(dev))
+            want[key] = (bkern.process_step_aggs_reference(
+                *data[key][:3], tids, data[key][3], TICK),
+                bkern.process_step_records_reference(*data[key], rec_k))
+    flat = lambda out: [out[0].data, *out[1], *out[2]]   # noqa: E731
+    edits = [(label, old, new) for label, old, new, _ in MASK_VARIANTS]
+    only = {label: cap for label, _, _, cap in MASK_VARIANTS}
+    maps = (("S=128, exact map", 128, False), ("S=128, masked map", 128, True),
+            ("S=100, masked map", 100, True))
+    for label, _ in copy_kernels(source, [WHOLE, *edits, WHOLE], bkern,
+                                 nvcc):
+        lib = bkern._library()
+        runs = []
+        for (inputs, cap), args in data.items():
+            for name, c, masked in maps:
+                if c != cap or only.get(label) not in (None, cap) or (
+                        only.get(label) and not masked):
+                    continue
+                k1 = functools.partial(launch_slot_map, lib, *args, 4,
+                                       masked, tids=tids)
+                k2 = functools.partial(launch_slot_map, lib, *args, 4,
+                                       masked, rec_k=rec_k)
+                if not all(torch.equal(g, w) for g, w in zip(
+                        flat(k1()) + flat(k2()),
+                        flat(want[inputs, cap][0])
+                        + flat(want[inputs, cap][1]))):
+                    raise SystemExit(f"{label}, {name}, {inputs}: not "
+                                     "bit-equal to the plain version")
+                plan = [bkern._plan(lib, cap, 4, masked, n_agg, k)
+                        for n_agg, k in ((2, 1), (None, rec_k))]
+                runs.append((f"{name}, {inputs}", k1, k2, plan))
+        for _turn in range(2):
+            for name, k1, k2, plan in runs:
+                t1, t2 = timers.time_launches(k1), timers.time_launches(k2)
+                g1, g2 = timers.graph_ms(k1), timers.graph_ms(k2)
+                print(f"{label}, {name}: kernel 1 {t1[0]:.4f} ms (min "
+                      f"{t1[1]:.4f}; card alone {g1:.4f}; "
+                      f"{plan[0]['registers']} registers, "
+                      f"{plan[0]['spill_bytes']} spill bytes), kernel 2 at "
+                      f"rec_k {rec_k} {t2[0]:.4f} ms (min {t2[1]:.4f}; card "
+                      f"alone {g2:.4f}; {plan[1]['registers']} registers, "
+                      f"{plan[1]['spill_bytes']} spill bytes) a launch at "
+                      f"E={E}, bit-equal [{smi}]", flush=True)
+
+
 def ablate() -> None:
     torch, bkern, nvcc, smi, timers, source = setup()
 
@@ -677,6 +818,9 @@ def main() -> int:
         return 0
     if args == ["--variants"]:
         variants()
+        return 0
+    if args == ["--masks"]:
+        masks()
         return 0
     if len(args) >= 2 and args[0] == "--one":
         one(args[-1], "--kernels-only" in args)

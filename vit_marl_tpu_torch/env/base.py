@@ -2,12 +2,14 @@
 
 Port of ``vit_marl_tpu/env/base.py``.  The initial book of every window is
 replayed once, for all windows together, through the book scan; a reset is
-then a gather from that table.
+then a gather from that table.  :func:`state_from_data` replays one
+window through the XLA-scan engine (``lob/engine.py``), as the JAX
+function does; on the init messages (limit orders only) the two agree.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -15,10 +17,57 @@ from vit_marl_tpu_torch.config import MsgCol, WorldConfig
 from vit_marl_tpu_torch.data.lobster import LoadedData, load_data
 from vit_marl_tpu_torch.env.structs import LoadedState, WorldParams
 from vit_marl_tpu_torch.lob import book as bk
+from vit_marl_tpu_torch.lob import engine
 from vit_marl_tpu_torch.ops.book_kernel import process_step_aggs
 from vit_marl_tpu_torch.utils.tree import index_tree
 
 Tensor = torch.Tensor
+
+
+def _window_start(cfg: WorldConfig, window_index: Tensor,
+                  first_msg_time: Tensor) -> Tensor:
+    """A window's ``(..., 2)`` start time: its first message's, or in
+    ``fixed_time`` episodes the ``start_resolution`` grid of the trading
+    day (ref: base.py:37-44)."""
+    if cfg.ep_type != "fixed_time":
+        return first_msg_time.to(torch.int32)
+    start = ((window_index * cfg.start_resolution)
+             % (cfg.day_end - cfg.day_start - cfg.episode_time
+                + cfg.start_resolution) + cfg.day_start)
+    return torch.stack([start, torch.zeros_like(start)], dim=-1).to(
+        torch.int32)
+
+
+def state_from_data(cfg: WorldConfig, first_msg_time, book_row, max_steps,
+                    window_index, start_index, device=None
+                    ) -> Tuple[LoadedState, Tensor]:
+    """One window's reset state (ref: base.py:29-54): the L2 snapshot
+    ``book_row`` ``(4 L,)`` replayed into an empty book through
+    :func:`vit_marl_tpu_torch.lob.engine.process_messages`, at
+    ``first_msg_time`` ``(2,)``.  Returns the state, its leaves without an
+    env axis (the book ``(2, 6, S)``), and the replay's ``(n_trades, 8)``
+    trade log, which the JAX ``LoadedState`` holds as ``trades``."""
+    dev = torch.device(device) if device is not None else (
+        book_row.device if isinstance(book_row, Tensor)
+        else torch.device("cpu"))
+    as_i32 = lambda v: torch.as_tensor(  # noqa: E731
+        v, device=dev).to(torch.int32)
+    first_msg_time, window_index = as_i32(first_msg_time), as_i32(
+        window_index)
+    init_msgs = bk.init_msgs_from_l2(cfg, as_i32(book_row)[None],
+                                     first_msg_time[None])
+    # limit orders only: the random-cancel draws are never consulted
+    book, trades = engine.process_messages(
+        cfg, init_msgs, bk.init_book(cfg, 1, dev),
+        bk.init_trades(cfg, 1, dev),
+        uniforms=torch.zeros((init_msgs.shape[1], 1), device=dev))
+    state = LoadedState(
+        book=book.data[0],
+        init_time=_window_start(cfg, window_index, first_msg_time),
+        window_index=window_index, max_steps_in_episode=as_i32(max_steps),
+        start_index=as_i32(start_index),
+        step_counter=torch.zeros_like(as_i32(start_index)))
+    return state, trades[0]
 
 
 def build_init_states(cfg: WorldConfig, data: LoadedData,
@@ -46,15 +95,9 @@ def build_init_states(cfg: WorldConfig, data: LoadedData,
         data.max_msgs_per_window // cfg.n_data_msg_per_step + 1,
         dtype=torch.int32, device=device)
     window_index = torch.arange(n, dtype=torch.int32, device=device)
-    init_time = first_times
-    if cfg.ep_type == "fixed_time":
-        start = ((window_index * cfg.start_resolution)
-                 % (cfg.day_end - cfg.day_start - cfg.episode_time
-                    + cfg.start_resolution) + cfg.day_start)
-        init_time = torch.stack([start, torch.zeros_like(start)],
-                                dim=1).to(torch.int32)
     return LoadedState(
-        book=book.data, init_time=init_time,
+        book=book.data,
+        init_time=_window_start(cfg, window_index, first_times),
         window_index=window_index,
         max_steps_in_episode=max_steps,
         start_index=torch.as_tensor(data.starts, dtype=torch.int32,

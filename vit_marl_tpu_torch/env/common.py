@@ -1,7 +1,9 @@
 """Shared agent machinery: message netting, price forward fill, trade sums.
 
-Port of ``vit_marl_tpu/env/common.py`` (main-path parts), batched: message
-tensors carry leading ``(E, n)`` env and instance axes.
+Port of ``vit_marl_tpu/env/common.py``, batched: message tensors carry
+leading ``(E, n)`` env and instance axes, and the trade-log helpers
+(:func:`extract_trade_stats`, :func:`add_artificial_trade`) take any
+leading axes, none for one env's log as the JAX functions take it.
 """
 
 from __future__ import annotations
@@ -105,6 +107,49 @@ class TradeSummary(NamedTuple):
     @property
     def other_pq_tick(self) -> Tensor:
         return self.total_pq_tick - self.agent_pq_tick
+
+
+class TradeStats(NamedTuple):
+    """An agent's trades of a step (ref: common.py:85-96,
+    mm_env.py:1906-1937): its rows of the log and the others', its buys and
+    sells, and their absolute quantities."""
+
+    agent_trades: Tensor
+    other_trades: Tensor
+    agent_buys: Tensor
+    agent_sells: Tensor
+    buy_quant: Tensor
+    sell_quant: Tensor
+    traded_volume: Tensor
+    inventory_delta: Tensor
+
+
+def extract_trade_stats(trades: Tensor, trader_id) -> TradeStats:
+    """Split a ``(..., n_trades, 8)`` trade log into one trader's buys and
+    sells and the others' rows, ``trader_id`` of shape ``(...)`` (ref:
+    common.py:99-122).  The API of the reference's trade-log workflow: the
+    rewards read :class:`TradeSummary` sums (:func:`summarize_trades`, or
+    the book scan's) and never scan the log."""
+    trader_id = torch.as_tensor(trader_id, device=trades.device)[..., None]
+    executed = torch.where((trades[..., TradeCol.PRICE] >= 0)[..., None],
+                           trades, 0)
+    mine = ((trader_id == executed[..., TradeCol.PASS_TID])
+            | (trader_id == executed[..., TradeCol.AGR_TID]))
+    agent_trades = torch.where(mine[..., None], executed, 0)
+    other_trades = torch.where(mine[..., None], 0, executed)
+    q = agent_trades[..., TradeCol.QUANT]
+    is_pass = trader_id == agent_trades[..., TradeCol.PASS_TID]
+    is_agr = trader_id == agent_trades[..., TradeCol.AGR_TID]
+    # q > 0: a passive buy filled or an aggressive sell
+    mask_buy = ((q >= 0) & is_pass) | ((q < 0) & is_agr)
+    mask_sell = ((q < 0) & is_pass) | ((q >= 0) & is_agr)
+    agent_buys = torch.where(mask_buy[..., None], agent_trades, 0)
+    agent_sells = torch.where(mask_sell[..., None], agent_trades, 0)
+    buy_quant = agent_buys[..., 1].abs().sum(dim=-1, dtype=trades.dtype)
+    sell_quant = agent_sells[..., 1].abs().sum(dim=-1, dtype=trades.dtype)
+    return TradeStats(agent_trades, other_trades, agent_buys, agent_sells,
+                      buy_quant, sell_quant, buy_quant + sell_quant,
+                      buy_quant - sell_quant)
 
 
 def summarize_trades(trades: Tensor, trader_id: Tensor, tick: int
@@ -263,6 +308,43 @@ def f32_product(*factors: float) -> Tensor:
     return out
 
 
+def add_artificial_trade(wcfg, trades: Tensor, price, quant, time,
+                         trader_id) -> Tensor:
+    """The episode-end unwind or doom trade written into a ``(...,
+    n_trades, 8)`` log (ref: common.py:271-286): ``[price, quant,
+    artificial id, placeholder id, time_s, time_ns, artificial id,
+    trader_id]`` over the first empty row, or the last row when none is
+    empty.  As the JAX function: where some field is -1 but no row is
+    empty, row 0.  ``price``, ``quant``, ``trader_id`` of shape ``(...)``,
+    ``time`` ``(..., 2)``.  The rewards take the same trade through
+    :func:`summary_add_trade`."""
+    dev = trades.device
+    lead = trades.shape[:-2]
+    col = lambda v: torch.as_tensor(v, device=dev).to(  # noqa: E731
+        torch.int32).expand(lead)
+    time = torch.as_tensor(time, device=dev).to(torch.int32).expand(
+        lead + (2,))
+    row = torch.stack([col(price), col(quant),
+                       col(wcfg.artificial_id_end_episode),
+                       col(wcfg.placeholder_order_id), time[..., 0],
+                       time[..., 1], col(wcfg.artificial_id_end_episode),
+                       col(trader_id)], dim=-1).to(trades.dtype)
+    empty = trades == -1
+    first_empty = torch.where(
+        empty.flatten(-2).any(dim=-1),
+        empty.all(dim=-1).to(torch.int8).argmax(dim=-1),
+        trades.shape[-2] - 1)
+    at = torch.arange(trades.shape[-2], device=dev) == first_empty[..., None]
+    return torch.where(at[..., None], row[..., None, :], trades)
+
+
+def rolling_mean(avg: Tensor, new: Tensor, step_counter: Tensor) -> Tensor:
+    """``(avg * n + new) / (n + 1)`` (ref: common.py:289-291), the product
+    and sum rounded once as the JAX package's XLA fuses them
+    (:func:`mul_add`)."""
+    return mul_add(new, avg, step_counter) / (step_counter + 1)
+
+
 def floor_tick(x: Tensor, tick: int) -> Tensor:
     """Floor a price to the tick grid (the reference's ``// tick * tick``)."""
     return torch.div(x, tick, rounding_mode="floor") * tick
@@ -282,6 +364,12 @@ def build_action_msgs(types: Tensor, sides: Tensor, quants: Tensor,
             t[:, :, None, 0], t[:, :, None, 1]]
     return torch.stack([c.to(torch.int32).expand(shape) for c in cols],
                        dim=-1)
+
+
+def normalize_obs_dict(obs: Dict[str, Tensor], means: Dict[str, object],
+                       stds: Dict[str, object]) -> Dict[str, Tensor]:
+    """``(obs - mean) / std`` entry by entry (ref: common.py:306-307)."""
+    return {k: (v - means[k]) / stds[k] for k, v in obs.items()}
 
 
 def flatten_obs_dict(obs: Dict[str, Tensor]) -> Tensor:

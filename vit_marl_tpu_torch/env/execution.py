@@ -260,17 +260,21 @@ class ExecutionAgent:
         quants = self._twap_v3_quants(world, state, draw.swap)
         return self._fit_task(quants, state, draw.ties), prices
 
-    def _quants_fixed_prices(self, action, world, state,
-                             draw: ExecStepDraw):
-        """A quantity a price level (ref: execution.py:199-228, :268-285):
-        the ladder from the mean of the last 10 best quotes; with
-        ``action_type='delta'`` the action adds to the twapV3 split; the
-        quantities are fitted to the task.  With 4 levels and mid equal to
-        near touch, the mid order joins the near-touch one."""
-        tick = self.wcfg.tick_size
+    def _reshape_action(self, action, world, state, draw: ExecStepDraw):
+        """A ``fixed_prices`` action's quantities (ref: execution.py:
+        268-285): with ``action_type='delta'`` the action adds to the
+        twapV3 split; then they are fitted to the task."""
         if self.cfg.action_type == "delta":
             action = self._twap_v3_quants(world, state, draw.swap) + action
-        quants = self._fit_task(action, state, draw.ties)
+        return self._fit_task(action, state, draw.ties)
+
+    def _quants_fixed_prices(self, action, world, state):
+        """A quantity a price level (ref: execution.py:199-228) from the
+        reshaped action: the ladder from the mean of the last 10 best
+        quotes.  With 4 levels and mid equal to near touch, the mid order
+        joins the near-touch one."""
+        tick = self.wcfg.tick_size
+        quants = action.to(torch.int32)
         best_ask = common.floor_tick(
             world.best_asks[:, -10:, 0].to(torch.float32).mean(dim=1), tick)
         best_bid = common.floor_tick(
@@ -352,33 +356,50 @@ class ExecutionAgent:
         return (torch.cat([target, pad], dim=-1),
                 torch.cat([prices3, pad], dim=-1))
 
-    def get_messages(self, action: Tensor, world: WorldState,
-                     state: ExecState, params: ExecParams,
-                     draw: Optional[ExecStepDraw] = None
-                     ) -> Tuple[Tensor, Tensor]:
-        """Action and cancel messages, ``(E, n, k, 8)`` each
-        (ref: execution.py:349-389); ``draw``: this step's draws of the
-        spaces that draw (:meth:`draw_step`)."""
+    def _need_draw(self, draw: Optional[ExecStepDraw]) -> None:
+        space = self.cfg.action_space
+        if draw is None and space in ("twap_v3", "fixed_prices"):
+            raise ValueError(f"action_space={space!r} draws each step: "
+                             "pass its ExecStepDraw")
+
+    def get_action_msgs(self, action: Tensor, world: WorldState,
+                        state: ExecState, params: ExecParams,
+                        draw: Optional[ExecStepDraw] = None) -> Tensor:
+        """The action's messages, ``(E, n, k, 8)`` (ref: execution.py:
+        349-362).  ``twap_v3`` takes this step's :class:`ExecStepDraw`
+        where the JAX function takes a key; a ``fixed_prices`` action is
+        taken as :meth:`get_messages` reshapes it, as the JAX function
+        takes it."""
         dev = action.device
         space = self.cfg.action_space
-        if space in ("twap_v3", "fixed_prices"):
-            if draw is None:
-                raise ValueError(f"action_space={space!r} draws each step: "
-                                 "pass its ExecStepDraw")
-            quants, prices = getattr(self, f"_quants_{space}")(
-                action, world, state, draw)
+        if space == "twap_v3":
+            self._need_draw(draw)
+            quants, prices = self._quants_twap_v3(action, world, state, draw)
         else:
             quants, prices = getattr(self, f"_quants_{space}")(
                 action, world, state)
         n = self.cfg.num_action_messages
         side = (1 - state.is_sell_task * 2)[..., None]
-        action_msgs = common.build_action_msgs(
+        return common.build_action_msgs(
             types=torch.ones(n, dtype=torch.int32, device=dev),
             sides=side * torch.ones(n, dtype=torch.int32, device=dev),
             quants=quants, prices=prices,
             order_ids=self.wcfg.placeholder_order_id,
             trader_ids=params.trader_id[None, :, None],
             time=world.time, time_delay=params.time_delay_obs_act)
+
+    def get_messages(self, action: Tensor, world: WorldState,
+                     state: ExecState, params: ExecParams,
+                     draw: Optional[ExecStepDraw] = None
+                     ) -> Tuple[Tensor, Tensor]:
+        """Action and cancel messages, ``(E, n, k, 8)`` each
+        (ref: execution.py:364-389); ``draw``: this step's draws of the
+        spaces that draw (:meth:`draw_step`)."""
+        self._need_draw(draw)
+        if self.cfg.action_space == "fixed_prices":
+            action = self._reshape_action(action, world, state, draw)
+        action_msgs = self.get_action_msgs(action, world, state, params,
+                                           draw)
         # cancels target the task's own side: asks for a sell task
         books = world.books
         tid = params.trader_id[None, :].expand(action.shape[0], -1)
@@ -438,7 +459,7 @@ class ExecutionAgent:
         step = col(world.step_counter)
 
         def rm(avg, new):
-            return common.mul_add(new, avg, step) / (step + 1)
+            return common.rolling_mean(avg, new, step)
 
         trade_duration_step = ((s.dur_wsum - col(world.init_time[:, 0])
                                 * agent_quant) / state.task_to_execute)
@@ -581,7 +602,7 @@ class ExecutionAgent:
                      "best_bid_price": 1_550_000, "remaining_quant": 0}
             stds = {"best_ask_price": 1e3, "best_bid_price": 1e3,
                     "remaining_quant": self.cfg.task_size}
-            obs = {k: (v - means[k]) / stds[k] for k, v in obs.items()}
+            obs = common.normalize_obs_dict(obs, means, stds)
         return common.flatten_obs_dict(obs)
 
     def _obs_engineered(self, world: WorldState, state: ExecState) -> Tensor:
@@ -633,7 +654,8 @@ class ExecutionAgent:
                 "time": 1e5, "delta_time": 10,
                 "time_remaining": self.wcfg.episode_time,
             }
-            obs = {k: (v - means.get(k, 0)) / stds[k] for k, v in obs.items()}
+            obs = common.normalize_obs_dict(
+                obs, {k: means.get(k, 0) for k in obs}, stds)
         return common.flatten_obs_dict(obs)
 
     def _obs_simplest(self, world: WorldState, state: ExecState) -> Tensor:
@@ -657,7 +679,7 @@ class ExecutionAgent:
                      "percent_remaining_quant": 0.5, "mid_price": 7_560_000}
             stds = {"percent_time_remaining": 1, "percent_remaining_quant": 1,
                     "mid_price": 1e3}
-            obs = {k: (v - means[k]) / stds[k] for k, v in obs.items()}
+            obs = common.normalize_obs_dict(obs, means, stds)
         return common.flatten_obs_dict(obs)
 
     def normalize_vision_obs(self, raw: Tensor, world: WorldState
@@ -736,7 +758,8 @@ class ExecutionAgent:
                 "remaining_quant": ts, "step_counter": 30,
                 "remaining_ratio": 1,
             }
-            priv = {k: (v - 0) / stds[k] for k, v in priv.items()}
+            priv = common.normalize_obs_dict(priv, dict.fromkeys(priv, 0),
+                                             stds)
         order = ("is_sell_task", "init_price", "current_task_size",
                  "executed_quant", "remaining_quant", "step_counter",
                  "remaining_ratio", "time", "delta_time", "time_remaining")

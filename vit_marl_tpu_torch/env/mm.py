@@ -291,11 +291,9 @@ class MarketMakingAgent:
             trader_ids=params.trader_id[None, :, None],
             time=world.time, time_delay=params.time_delay_obs_act)
 
-    def get_messages(self, action: Tensor, world: WorldState,
-                     state: MMState, params: MMParams, draw=None
-                     ) -> Tuple[Tensor, Tensor]:
-        """Action and cancel messages, ``(E, n, k, 8)`` each
-        (ref: mm_env.py:1554-1587)."""
+    def get_action_msgs(self, action: Tensor, world: WorldState,
+                        state: MMState, params: MMParams) -> Tensor:
+        """The action's messages, ``(E, n, k, 8)`` (ref: mm.py:262-275)."""
         build = {
             "fixed_quants": self._action_fixed_quants,
             "simple": self._action_simple,
@@ -304,7 +302,14 @@ class MarketMakingAgent:
             "directional_trading": self._action_directional,
             "fixed_prices": self._action_fixed_prices,
         }[self.cfg.action_space]
-        action_msgs = build(action, world, state, params)
+        return build(action, world, state, params)
+
+    def get_messages(self, action: Tensor, world: WorldState,
+                     state: MMState, params: MMParams, draw=None
+                     ) -> Tuple[Tensor, Tensor]:
+        """Action and cancel messages, ``(E, n, k, 8)`` each
+        (ref: mm_env.py:1554-1587)."""
+        action_msgs = self.get_action_msgs(action, world, state, params)
         per_side = self.cfg.num_messages // 4
         tid = params.trader_id[None, :].expand(action.shape[0], -1)
         books = world.books
@@ -533,7 +538,8 @@ class MarketMakingAgent:
         if o == "basic":
             obs = {"inventory": state.inventory}
             if self.cfg.normalize:
-                obs = {"inventory": state.inventory / 10}
+                obs = common.normalize_obs_dict(obs, {"inventory": 0},
+                                                {"inventory": 10})
             return common.flatten_obs_dict(obs)
         n = state.inventory.shape[1]
         if o == "messages":
@@ -580,7 +586,7 @@ class MarketMakingAgent:
             obs["time_remaining"] = w(self.wcfg.episode_time - elapsed)
             stds.update(delta_time=10, time_remaining=self.wcfg.episode_time)
         if self.cfg.normalize:
-            obs = {k: (v - 0) / stds[k] for k, v in obs.items()}
+            obs = common.normalize_obs_dict(obs, dict.fromkeys(obs, 0), stds)
         return common.flatten_obs_dict(obs)
 
     # ------------------------------------------------------------------

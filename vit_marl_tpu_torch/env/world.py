@@ -1,9 +1,9 @@
 """The multi-agent world environment, batched over envs.
 
-Port of ``vit_marl_tpu/env/world.py::WorldEnv`` (``reset_env``,
-``_build_messages``, ``_post_engine``, ``step_vec_presplit``).  The JAX
-package writes one env and adds the batch with ``vmap``; here every stage
-takes the whole ``(E, ...)`` batch.  One step:
+Port of ``vit_marl_tpu/env/world.py::WorldEnv``.  The JAX package writes
+one env and adds the batch with ``vmap``; here every stage takes the
+whole ``(E, ...)`` batch, and the training path is the batched
+:meth:`WorldEnv.reset` and :meth:`WorldEnv.step_vec`.  One step:
 
   data msgs -> per-type action + cancel messages -> central order ids and
   shuffle -> [cancels, actions, data] -> book scan (ops/book_kernel.py)
@@ -17,9 +17,21 @@ step's trade log is built from the records and carried in the world
 state and ``info["world"]``, and the rewards read their trade sums from
 the log, as the JAX package's ``debug_mode`` step does.
 
-Randomness enters as :class:`StepDraws` / :class:`ResetDraws`; without
-them the env draws from the caller's ``torch.Generator``.  The streams
-differ from the JAX package's threefry draws by design.
+The per-env gymnax/JaxMARL API of the JAX package is here too, on one
+env with the JAX package's shapes (no env axis, per-type leaves ``(n,
+...)``): :meth:`WorldEnv.reset_env`, :meth:`WorldEnv.step_env` (no
+auto-reset; the XLA-scan engine ``lob/engine.py`` with the uncapped trade
+log, which rides in the world state as the JAX ``WorldState.trades``
+does, and the rewards' sums read from it), :meth:`WorldEnv.step`
+(``step_env``, then ``reset_env`` where every agent is done),
+:meth:`WorldEnv.action_space` and :meth:`WorldEnv.observation_space`.
+The JAX package's ``reset`` is its per-env one; the port's :meth:`reset`
+keeps the batched signature its trainers call.
+
+Randomness enters as :class:`StepDraws` / :class:`ResetDraws` (one env's
+for the per-env API: a per-message uniform ``(M,)``); without them the env
+draws from the caller's ``torch.Generator``.  The streams differ from the
+JAX package's threefry draws by design.
 
 ``VIT_MARL_ABLATE`` (a comma list of ``data``, ``agents``, ``shuffle``,
 ``build``, ``obs``, ``reset``) skips those stages of the step, as the JAX
@@ -38,7 +50,11 @@ import torch
 from vit_marl_tpu_torch.config import CancelMode, MsgCol, MultiAgentConfig
 from vit_marl_tpu_torch.data.lobster import LoadedData
 from vit_marl_tpu_torch.env import base as env_base
-from vit_marl_tpu_torch.env.common import summarize_trades, summary_from_aggs
+from vit_marl_tpu_torch.env.common import (
+    ffill_best_prices,
+    summarize_trades,
+    summary_from_aggs,
+)
 from vit_marl_tpu_torch.env.execution import ExecutionAgent
 from vit_marl_tpu_torch.env.mm import MarketMakingAgent
 from vit_marl_tpu_torch.env.structs import (
@@ -51,6 +67,7 @@ from vit_marl_tpu_torch.env.structs import (
     WorldState,
 )
 from vit_marl_tpu_torch.lob import book as bk
+from vit_marl_tpu_torch.lob import engine
 from vit_marl_tpu_torch.ops.book_kernel import (
     REC_K,
     finalize_trade_log_from_records,
@@ -66,6 +83,41 @@ AGENT_REGISTRY = {
     "market_making": MarketMakingAgent,
     "execution": ExecutionAgent,
 }
+
+
+def _one_env(tree):
+    """A batch of one env: an env axis of 1 on every leaf."""
+    return tree_map(lambda v: v[None], tree)
+
+
+def _one_env_draws(draws: StepDraws) -> StepDraws:
+    """One env's step draws as a batch of one (the uniforms' env axis is
+    the last)."""
+    return StepDraws(
+        shuffle=None if draws.shuffle is None else draws.shuffle[None],
+        uniforms=None if draws.uniforms is None else draws.uniforms[:, None],
+        reset=_one_env(draws.reset), agents=_one_env(draws.agents))
+
+
+def _env0(tree):
+    """A batch of one env without its env axis; an :class:`Info` becomes
+    a dict."""
+    if isinstance(tree, Info):
+        return {k: v[0] for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _env0(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_env0(v) for v in tree)
+    return tree_map(lambda v: v[0], tree)
+
+
+def _where_done(done: Tensor, reset_tree, step_tree):
+    """Leaf by leaf the reset's values in the envs that are ``done``
+    ``(E,)``, the step's elsewhere (ref: marl_env.py:737-766)."""
+    def sel(x, y):
+        return torch.where(done.reshape(done.shape + (1,) * (x.dim() - 1)),
+                           x, y)
+    return tree_map(sel, reset_tree, step_tree)
 
 
 class WorldEnv:
@@ -333,26 +385,29 @@ class WorldEnv:
             return self.wcfg.n_orders
         return min(REC_K, self.wcfg.n_orders)
 
+    def _log_summaries(self, trades: Tensor, params: MultiAgentParams):
+        """Each agent instance's trade sums read from the ``(E, n_trades,
+        8)`` log, per type (ref: mm.py:304-306, execution.py:411-413)."""
+        E = trades.shape[0]
+        return [summarize_trades(trades[:, None].expand(E, n, -1, -1),
+                                 p.trader_id[None, :].expand(E, n),
+                                 self.wcfg.tick_size)
+                for p, n in zip(params.agents, self.n_per_type)]
+
     def _debug_scan(self, combined: Tensor, books: bk.BookState,
                     prev: Tensor, params: MultiAgentParams,
                     uniforms: Optional[Tensor]):
         """The ``debug_mode`` engine stage (ref: world.py:426-434): the
         records scan, the step's trade log, and each agent instance's
-        trade sums read from the log (ref: mm.py:304-306,
-        execution.py:411-413).  Returns (book, (bestasks, bestbids),
-        per-type summaries, trades)."""
+        trade sums read from the log.  Returns (book, (bestasks,
+        bestbids), per-type summaries, trades)."""
         E = combined.shape[0]
         book, best, (records, counts) = process_step_records(
             self.wcfg, combined, books, prev, self.rec_k, uniforms)
         trades = finalize_trade_log_from_records(
             bk.init_trades(self.wcfg, E, combined.device), records,
             combined, counts)
-        summaries = []
-        for p, n in zip(params.agents, self.n_per_type):
-            summaries.append(summarize_trades(
-                trades[:, None].expand(E, n, -1, -1),
-                p.trader_id[None, :].expand(E, n), self.wcfg.tick_size))
-        return book, best, summaries, trades
+        return book, best, self._log_summaries(trades, params), trades
 
     def step_vec(self, state: MultiAgentState, actions: Sequence[Tensor],
                  params: MultiAgentParams,
@@ -412,14 +467,102 @@ class WorldEnv:
         # vectorised auto-reset (ref: marl_env.py:737-766)
         obs_re, st_re = self.reset(draws.reset, params)
         done = dones["__all__"]
+        return (_where_done(done, obs_re, obs_st),
+                _where_done(done, st_re, st_st), rewards, dones, infos)
 
-        def sel(x, y):
-            d = done.reshape((E,) + (1,) * (x.dim() - 1))
-            return torch.where(d, x, y)
+    # ------------------------------------------------------------------
+    # the per-env gymnax API (ref: world.py:115-152, :317-332, :484-507)
+    # ------------------------------------------------------------------
 
-        new_states = tree_map(sel, st_re, st_st)
-        obs = tree_map(sel, obs_re, obs_st)
-        return obs, new_states, rewards, dones, infos
+    def _reset_logged(self, draws: ResetDraws, params: MultiAgentParams):
+        """:meth:`reset` with an empty trade log in every world state."""
+        obs, state = self.reset(draws, params)
+        trades = bk.init_trades(self.wcfg, draws.window.shape[0],
+                                state.world.book.device)
+        return obs, state.replace(world=state.world.replace(trades=trades))
+
+    def reset_env(self, draws: Optional[ResetDraws],
+                  params: MultiAgentParams,
+                  generator: Optional[torch.Generator] = None):
+        """Reset one env (ref: world.py:115-152).  ``draws``: the env's
+        :class:`ResetDraws` (a window index ``()``, per type a draw ``()``
+        or None), else drawn from ``generator``.  Returns ``(obs,
+        state)``: per type ``(n, d)`` observations, the state's leaves
+        without an env axis, its world state holding an empty ``(n_trades,
+        8)`` trade log (the JAX one holds the window replay's, empty but
+        where a snapshot crosses)."""
+        draws = (self.draw_reset(1, generator) if draws is None
+                 else _one_env(draws))
+        return _env0(self._reset_logged(draws, params))
+
+    def _step_engine(self, state: MultiAgentState, actions: List[Tensor],
+                     params: MultiAgentParams, draws: StepDraws):
+        """:meth:`step_env` on a batch: the messages, the XLA-scan engine
+        with the uncapped trade log and the best quotes forward-filled,
+        the rewards' sums read from the log (ref: world.py:317-332)."""
+        world = state.world
+        E = world.step_counter.shape[0]
+        actions = self._actions(actions)
+        lob_before = (bk.get_l2_state(self.wcfg, 10, world.books)
+                      if self.needs_stream else None)
+        combined, new_id_counter = self._build_messages(
+            state, actions, params, draws.shuffle, draws.agents)
+        book, trades, (asks, bids) = engine.process_messages_save_bidask(
+            self.wcfg, combined, world.books,
+            bk.init_trades(self.wcfg, E, combined.device),
+            self.num_msgs_per_step, uniforms=draws.uniforms)
+        bestasks = ffill_best_prices(asks, world.best_asks[:, -1, 0])
+        bestbids = ffill_best_prices(bids, world.best_bids[:, -1, 0])
+        return self._post_engine(state, params, book, bestasks, bestbids,
+                                 combined, new_id_counter,
+                                 self._log_summaries(trades, params),
+                                 trades, lob_before)
+
+    def _env_inputs(self, state, actions, draws, generator):
+        draws = (self.draw_step(1, generator) if draws is None
+                 else _one_env_draws(draws))
+        acts = [torch.as_tensor(a, device=self.device)[None]
+                for a in actions]
+        return _one_env(state), acts, draws
+
+    def step_env(self, state: MultiAgentState, actions: Sequence,
+                 params: MultiAgentParams,
+                 draws: Optional[StepDraws] = None,
+                 generator: Optional[torch.Generator] = None):
+        """Step one env, without auto-reset (ref: world.py:317-332).
+
+        ``state`` as :meth:`reset_env` returns it; ``actions`` one per
+        type, unbatched for a single instance (``()`` or ``(d,)``), else
+        ``(n, ...)``; ``draws`` the env's :class:`StepDraws` (uniforms
+        ``(M,)``, shuffle ``(n_action_msgs,)``), else drawn from
+        ``generator``.  The book runs through ``lob/engine.py``, not the
+        book-scan kernel, and the step's uncapped ``(n_trades, 8)`` log is
+        the new world state's ``trades``.  Returns ``(obs, state, rewards,
+        dones, info)`` with the JAX package's structure, dicts for infos.
+        """
+        st, acts, draws = self._env_inputs(state, actions, draws, generator)
+        return _env0(self._step_engine(st, acts, params, draws))
+
+    def step(self, state: MultiAgentState, actions: Sequence,
+             params: MultiAgentParams, draws: Optional[StepDraws] = None,
+             generator: Optional[torch.Generator] = None):
+        """:meth:`step_env`, then :meth:`reset_env` from ``draws.reset``
+        where ``dones["__all__"]`` (ref: world.py:488-501)."""
+        st, acts, draws = self._env_inputs(state, actions, draws, generator)
+        obs_st, st_st, rewards, dones, info = self._step_engine(
+            st, acts, params, draws)
+        obs_re, st_re = self._reset_logged(draws.reset, params)
+        done = dones["__all__"]
+        return _env0((_where_done(done, obs_re, obs_st),
+                      _where_done(done, st_re, st_st), rewards, dones, info))
+
+    def action_space(self):
+        """The action spaces, one a type (ref: world.py:503-504)."""
+        return self.action_spaces
+
+    def observation_space(self):
+        """The observation spaces, one a type (ref: world.py:506-507)."""
+        return self.observation_spaces
 
 
 def make_world_env(ma_config: Optional[MultiAgentConfig] = None,

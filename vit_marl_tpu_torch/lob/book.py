@@ -40,6 +40,16 @@ class SideState:
     time_s: torch.Tensor
     time_ns: torch.Tensor
 
+    @property
+    def n(self) -> int:
+        """The side's capacity ``S`` (ref: book.py:44-46)."""
+        return self.price.shape[-1]
+
+    @property
+    def is_empty(self) -> torch.Tensor:
+        """Holes, ``(E, S)`` bool (ref: book.py:48-50)."""
+        return self.price == EMPTY_SLOT
+
 
 @dataclass
 class BookState:

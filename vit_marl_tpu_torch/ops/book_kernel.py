@@ -25,6 +25,16 @@ Each mode has two implementations of one function:
 wrappers the environment calls.  A CPU tensor takes the plain version; a
 CUDA tensor launches the kernel or raises.  Each wrapper's ``launches``
 counts its kernel's launches.
+
+Book capacities.  Both implementations have the Pallas kernel's semantics
+at every capacity ``S`` (``n_orders``): the plain version takes any, the
+kernel any from 1 to ``MAX_CAPACITY`` (1,024; more raises).  The kernel's
+slot map comes from :func:`capacity_route`: 32, 64, 128 and 256 take the
+exact kernels, every other capacity a masked one whose slots past ``S``
+are never live, never a hole and never recorded.  The Pallas kernel takes
+``S % 8 == 0``; at other capacities the JAX package runs its XLA scan,
+which agrees with these semantics but for the order-id corners of
+``tests/test_torch_engine.py::test_engines_differ_on_order_id_corners``.
 """
 
 from __future__ import annotations
@@ -54,6 +64,8 @@ from vit_marl_tpu_torch.ops import nvcc, tally
 AGG_STATS = 8    # buy_q, sell_q, buy_pqt, sell_pqt, a_q, a_pqt, dur, signed
 AGG_TOTALS = 2   # total_q, total_pq_tick
 REC_K = 16       # records per message the debug log keeps in modes 0 and 1
+MAX_CAPACITY = 1024  # the largest book the CUDA kernel takes (32 slots a lane)
+EXACT_CAPACITIES = (32, 64, 128, 256)
 N_REC_PLANES = 4  # price, -side * matched quant, passive oid, passive tid
 EMPTY_RECORD = (EMPTY_SLOT, 0, 0, 0)
 
@@ -353,14 +365,31 @@ def process_step_records_reference(cfg: EngineConfig, msgs: torch.Tensor,
 # CUDA kernel: build, load, launch
 # --------------------------------------------------------------------------
 
+
+def capacity_route(S: int) -> Tuple[int, bool]:
+    """The CUDA kernel's slot map for book capacity ``S``: ``(slots a
+    lane, masked)``.  The capacities of ``EXACT_CAPACITIES`` fill the 32
+    lanes of a warp (``S / 32`` slots a lane); any other ``S`` up to
+    ``MAX_CAPACITY`` takes the power of two of at least ``S / 32`` slots a
+    lane with the slots past ``S`` masked.  Raises ``ValueError`` outside
+    1 to ``MAX_CAPACITY``."""
+    if not 1 <= S <= MAX_CAPACITY:
+        raise ValueError(f"book capacity {S}: the CUDA kernel takes n_orders "
+                         f"from 1 to {MAX_CAPACITY}")
+    spl = 1 << (-(-S // 32) - 1).bit_length()
+    return spl, S not in EXACT_CAPACITIES
+
 _lib = None
 _lib_lock = threading.Lock()
+NVCC_FLAGS = ("--split-compile=0",)
 
 
 def build_library() -> str:
     """Compile ``csrc/book_scan.cu`` (see ``ops/nvcc.py``); returns the
-    library's path."""
-    return nvcc.build(SOURCE, "libbook_scan.so")
+    library's path.  Its 44 kernels (the slot maps times the modes) are
+    optimised in parallel (``--split-compile``): 34 s against 86 s in one
+    thread on the H100 machine's 8 cores."""
+    return nvcc.build(SOURCE, "libbook_scan.so", NVCC_FLAGS)
 
 
 def _library():
@@ -372,12 +401,12 @@ def _library():
             lib = ctypes.CDLL(build_library())
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.book_scan_aggs.argtypes = [p, p, p, p, p, p, p, p,
-                                           i, i, i, i, i, i, i, i, i, p]
+                                           *[i] * 11, p]
             lib.book_scan_aggs.restype = i
             lib.book_scan_records.argtypes = [p, p, p, p, p, p, p, p,
-                                              i, i, i, i, i, i, i, i, p]
+                                              *[i] * 10, p]
             lib.book_scan_records.restype = i
-            lib.book_scan_plan.argtypes = [i, i, i, p]
+            lib.book_scan_plan.argtypes = [i, i, i, i, i, p]
             lib.book_scan_plan.restype = i
             lib.book_scan_error_string.argtypes = [i]
             lib.book_scan_error_string.restype = ctypes.c_char_p
@@ -389,19 +418,27 @@ def _library():
 def launch_plan(S: int, n_agg: Optional[int], device, rec_k: int = 1) -> dict:
     """How the kernel for book capacity ``S`` runs on ``device``: records
     mode for ``n_agg=None`` (the kernel that ``rec_k`` takes: rows wider
-    than 96 records have a kernel of their own), else the aggregate kernel
-    for ``n_agg`` traders.  Registers and spill bytes a thread, dynamic
-    shared bytes a block of 4 warps (what each launch asks for), resident
-    blocks and warps an SM, from the CUDA runtime; worked out once per
-    (S, mode, n_agg, rec_k, device), before the kernel's first launch
-    there."""
-    lib = _library()
-    out = (ctypes.c_int * 4)()
+    than 96 records have a kernel of their own up to 256 slots), else the
+    aggregate kernel for ``n_agg`` traders.  The slot map
+    (:func:`capacity_route`: slots a lane, masked), registers and spill
+    bytes a thread, dynamic shared bytes a block of 4 warps (what each
+    launch asks for), resident blocks and warps an SM, from the CUDA
+    runtime; worked out once per (S, mode, n_agg, rec_k, device), before
+    the kernel's first launch there."""
     with torch.cuda.device(device):
-        err = lib.book_scan_plan(S, -1 if n_agg is None else n_agg, rec_k,
-                                 out)
+        return _plan(_library(), S, *capacity_route(S), n_agg, rec_k)
+
+
+def _plan(lib, S: int, spl: int, masked: bool, n_agg: Optional[int],
+          rec_k: int) -> dict:
+    """:func:`launch_plan` of the library ``lib`` on the current device,
+    for the slot map ``(spl, masked)``."""
+    out = (ctypes.c_int * 4)()
+    err = lib.book_scan_plan(S, spl, int(masked),
+                             -1 if n_agg is None else n_agg, rec_k, out)
     _raise_on(err, lib, "book_scan_plan")
-    return dict(registers=out[0], spill_bytes=out[1], dynamic_smem=out[2],
+    return dict(slots_per_lane=spl, masked=masked, registers=out[0],
+                spill_bytes=out[1], dynamic_smem=out[2],
                 blocks_per_sm=out[3], warps_per_sm=4 * out[3])
 
 
@@ -424,9 +461,7 @@ def _kernel_inputs(cfg: EngineConfig, msgs, book: BookState, prev, uniforms):
     E, M, _ = msgs.shape
     S = book.data.shape[-1]
     dev = msgs.device
-    if S not in (32, 64, 128, 256):
-        raise ValueError(f"book capacity {S}: the CUDA kernel takes "
-                         "n_orders in (32, 64, 128, 256)")
+    capacity_route(S)
     msgs = _aligned(msgs.to(torch.int32))
     book_in = _aligned(book.data)
     prev = prev.to(torch.int32).contiguous()
@@ -462,14 +497,16 @@ def _launch(cfg: EngineConfig, msgs, book: BookState, tids, prev, tick,
     n_acc = AGG_STATS * n_agg + AGG_TOTALS
     aggs = torch.empty((E, n_acc), dtype=torch.int32, device=dev)
     lib = _library()
-    smem = launch_plan(S, n_agg, dev)["dynamic_smem"]
+    plan = launch_plan(S, n_agg, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.book_scan_aggs(
             msgs.data_ptr(), book_in.data_ptr(), prev.data_ptr(),
             tids.data_ptr(), u_ptr, book_out.data_ptr(), bidask.data_ptr(),
-            aggs.data_ptr(), E, M, S, n_agg, int(cfg.cancel_mode),
-            int(cfg.init_id), int(tick), int(cfg.maxint), smem, stream)
+            aggs.data_ptr(), E, M, S, plan["slots_per_lane"],
+            int(plan["masked"]), n_agg, int(cfg.cancel_mode),
+            int(cfg.init_id), int(tick), int(cfg.maxint),
+            plan["dynamic_smem"], stream)
     _raise_on(err, lib, "book_scan_aggs")
     tally(book_out, process_step_aggs, "launches")
     per_agent = aggs[:, :AGG_STATS * n_agg].reshape(E, n_agg, AGG_STATS)
@@ -490,14 +527,15 @@ def _launch_records(cfg: EngineConfig, msgs, book: BookState, prev,
                           device=dev)
     counts = torch.empty((E, M), dtype=torch.int32, device=dev)
     lib = _library()
-    smem = launch_plan(S, None, dev, rec_k)["dynamic_smem"]
+    plan = launch_plan(S, None, dev, rec_k)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.book_scan_records(
             msgs.data_ptr(), book_in.data_ptr(), prev.data_ptr(), u_ptr,
             book_out.data_ptr(), bidask.data_ptr(), records.data_ptr(),
-            counts.data_ptr(), E, M, S, rec_k, int(cfg.cancel_mode),
-            int(cfg.init_id), int(cfg.maxint), smem, stream)
+            counts.data_ptr(), E, M, S, plan["slots_per_lane"],
+            int(plan["masked"]), rec_k, int(cfg.cancel_mode),
+            int(cfg.init_id), int(cfg.maxint), plan["dynamic_smem"], stream)
     _raise_on(err, lib, "book_scan_records")
     tally(book_out, process_step_records, "launches")
     return (BookState(book_out), (bidask[:, :, 0:2], bidask[:, :, 2:4]),
@@ -535,7 +573,8 @@ def process_step_aggs(cfg: EngineConfig, msgs: torch.Tensor, book: BookState,
 
     Args:
       msgs: (E, M, 8) int32 per-env message streams.
-      book: books, ``data`` (E, 2, 6, S) int32.
+      book: books, ``data`` (E, 2, 6, S) int32; on a CUDA tensor S is 1 to
+        ``MAX_CAPACITY`` (:func:`capacity_route`), else ``ValueError``.
       tids: (n_agg,) int32 trader ids, ordered [type 0 instances..., type 1
         instances, ...] as ``WorldEnv`` assigns them.
       prev_prices: (E, 2) int32 [last ask, last bid] seeding the forward

@@ -39,6 +39,27 @@
 //
 // Design.  One warp owns one env; lane l owns slots [l*SPL, l*SPL + SPL)
 // (SPL = S / 32, 4 at S = 128).
+// - Book capacities.  S in {32, 64, 128, 256} takes the exact kernels above.
+//   Any other S from 1 to 1024 takes a masked kernel (template MASK): SPL is
+//   the power of two of at least S / 32 slots a lane (100 -> 4, 200 -> 8,
+//   384 -> 16, 1024 -> 32), the book's global layout keeps its S, and the
+//   slots from S to 32 * SPL exist only in the warp: a price of EMPTY and a
+//   quantity of 0 that no step writes.  So they are never live for a match,
+//   a cancel or a record; the bid side's best price skips them (a hole
+//   counts there as -1, they do not); the insert looks for holes, and drops
+//   the last order of a full book, below S only.  Past SPL 8 (S over 256)
+//   the kernels keep the planes in registers at fewer blocks an SM (SPL 16:
+//   2, SPL 32: 1; the shared planes take 71 / 137 KB a block), and only the
+//   general aggregate kernel and one records kernel are built.  The loop
+//   carries no mask: a masked slot reads as a hole after every real one,
+//   so the insert compares the first hole it finds with n, and the bid
+//   side's best leaves masked slots out only when it comes out -1.  On
+//   S = 128's data the masked aggregate kernel runs 6-7% slower than the
+//   exact one, and S = 100 5-6% slower than S = 128 (PERF.md): the
+//   capacity held at run time costs it 32 spill bytes against 16.  A copy
+//   with the capacity a constant of the build runs S = 128 within 1% of
+//   the exact kernel; 16-byte book traffic moves nothing
+//   (tools/torch_ab_book.py --masks).
 // - Registers hold the planes every message reads: PRICE and QUANT of both
 //   sides.  OID, TID, TS and TNS live in shared memory, laid out so that a
 //   lane reads its SPL slots of a plane with 16-byte loads; an insert that
@@ -103,6 +124,7 @@ constexpr int kRecords = -1;              // KIND of the records mode
 constexpr int kRecordsWide = -2;          // its kernel for wide rows
 constexpr int kWideRows = 96;             // rec_k past which rows are wide
 constexpr unsigned kWrap = 1u << 31;      // a quantity sum that may wrap
+constexpr int kMaxSpl = 32;               // slots a lane; S <= 1024
 enum { OID = 0, TID, TS, TNS, NPL };      // planes in shared memory
 enum { F_BID = 1, F_LIM = 2, F_CANCEL = 4 };  // a decoded message's flags
 
@@ -187,6 +209,31 @@ __device__ __forceinline__ void store_slots(int* p, const int (&v)[SPL]) {
   }
 }
 
+// A lane's slots of a plane of the book in global memory, whose capacity
+// is n: aligned vector accesses in the exact kernels, one int a slot below
+// n in the masked ones (slots from n on read `fill`, and are not written).
+template <int SPL, bool MASK>
+__device__ __forceinline__ void load_plane(const int* p, int base, int n,
+                                           int fill, int (&v)[SPL]) {
+  if constexpr (!MASK) {
+    load_slots<SPL>(p + base, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) v[j] = base + j < n ? p[base + j] : fill;
+  }
+}
+template <int SPL, bool MASK>
+__device__ __forceinline__ void store_plane(int* p, int base, int n,
+                                            const int (&v)[SPL]) {
+  if constexpr (!MASK) {
+    store_slots<SPL>(p + base, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < SPL; ++j)
+      if (base + j < n) p[base + j] = v[j];
+  }
+}
+
 // One warp's shared memory, in ints: the four planes of both sides
 // [side][plane][slot], the message ring [stage][message][8], the uniforms'
 // ring [stage][message], the staged best quotes [message][4] and fill
@@ -221,6 +268,7 @@ struct Args {
   int4* records;
   int* counts;
   int rec_k, E, M, extra;  // extra: ints a warp adds to its Layout
+  int n;                   // book capacity S (the masked kernels' bound)
   Params p;
 };
 
@@ -292,6 +340,7 @@ template <int SPL>
 struct Env {
   int P[2][SPL], Q[2][SPL];   // PRICE and QUANT of [ask, bid]
   int* planes;                // this warp's [side][plane][slot]
+  int n;                      // the book's capacity (32 * SPL but masked)
   int st[8];                  // the scan's state (ST_*)
   bool pos;                   // every live quantity > 0
   // aggregate mode: lane i keeps sum i (KIND 1, 2); the general kernel
@@ -426,16 +475,25 @@ __device__ __forceinline__ void set_best(int (&st)[8], int side, int b,
 
 // Raw best price of a side and the quantity resting there: the ask's
 // lowest price (EMPTY when none or when it is maxint), the bid's highest
-// (EMPTY marks no bid); into the state.
-template <int SPL, bool ASK>
+// (EMPTY marks no bid; a hole counts as -1, a masked slot not at all: its
+// EMPTY price can be the bid's highest only where that is -1, and then
+// the masked slots are left out and the highest is worked out again);
+// into the state.
+template <int SPL, bool ASK, bool MASK>
 __device__ __forceinline__ void best_quote(const int (&P)[SPL],
                                            const int (&Q)[SPL], int maxint,
-                                           int (&st)[8]) {
+                                           int base, int n, int (&st)[8]) {
   int l = ASK ? INT_MAX : INT_MIN;
 #pragma unroll
   for (int j = 0; j < SPL; ++j)
     l = ASK ? min(l, P[j] == kEmpty ? maxint : P[j]) : max(l, P[j]);
   int b = ASK ? warp_min(l) : warp_max(l);
+  if (MASK && !ASK && b == kEmpty) {
+    l = INT_MIN;
+#pragma unroll
+    for (int j = 0; j < SPL; ++j) l = max(l, base + j < n ? P[j] : INT_MIN);
+    b = warp_max(l);
+  }
   if (ASK && b == maxint) b = kEmpty;
   int q = 0;
 #pragma unroll
@@ -448,12 +506,13 @@ __device__ __forceinline__ void best_quote(const int (&P)[SPL],
 // Returns a bit per side whose best quote must be worked out anew (1 ask,
 // 2 bid); in records mode writes the message's rec_k `rows` and its fill
 // count to *n_fills.
-template <int SPL, bool BID, int KIND>
+template <int SPL, bool BID, int KIND, bool MASK>
 __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
                                          float u, const Params& p,
                                          int4* rows, int rec_k, int* n_fills,
                                          int lane) {
   constexpr int S = SPL * 32;
+  const int n = MASK ? env.n : S;   // the book's capacity
   constexpr int YS = BID ? 1 : 0, XS = 1 - YS;
   const int base = lane * SPL;
   int (&YP)[SPL] = env.P[YS];
@@ -626,7 +685,7 @@ __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
   const int nk = BID ? wneg(msg.price) : msg.price;
   // an order rests before the new one if its price is better, or equal
   // and its time no later
-  int l_fw = S, l_lb = -1;
+  int l_fw = n, l_lb = -1;
   {
     int ys[SPL], yn[SPL];
     load_slots<SPL>(Ypl + TS * S + base, ys);
@@ -660,7 +719,9 @@ __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
     first_ha = warp_min(l_ha);
     last_hb = warp_max(l_hb);
   }
-  const bool case_bh = first_ha < S;
+  // a masked slot reads as a hole, but lies after every real one: the
+  // first hole at or after fw is real below n
+  const bool case_bh = first_ha < n;
   const bool case_c = last_hb >= 0;
   raise_qsum(env.st, YS, (unsigned)add_q);
 
@@ -700,10 +761,11 @@ __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
     return changed;
   }
   // shift (fw_b, ha] right by one slot with the new order at fw_b, or
-  // [hb, lb) left by one with the new order at lb
+  // [hb, lb) left by one with the new order at lb; a full book drops its
+  // last order (slot n - 1)
   const bool right = !case_c || case_bh;
-  const int lo = right ? (case_bh ? fw : min(fw, S - 1)) : last_hb;
-  const int hi = right ? (case_bh ? first_ha : S - 1) : lb;
+  const int lo = right ? (case_bh ? fw : min(fw, n - 1)) : last_hb;
+  const int hi = right ? (case_bh ? first_ha : n - 1) : lb;
   if (right) {
     // slot i in (lo, hi] takes slot i - 1; lane 0's first slot never moves
     auto shift = [&](int (&v)[SPL], int val) {
@@ -770,11 +832,16 @@ __device__ __forceinline__ unsigned step(Env<SPL>& env, const Msg& msg,
 // at E = 4096), but for rows of more than 96 records: held to 4 blocks,
 // the records kernel keeps its state in registers where at 8 it spills,
 // and past rec_k = 96 its spills cost more than a second wave (PERF.md).
-template <int SPL, int KIND>
-__global__ void __launch_bounds__(kWarps * 32,
-                                  SPL <= 4 && KIND != kRecordsWide ? 8 : 4)
+constexpr int min_blocks(int spl, int kind) {
+  return spl <= 4 && kind != kRecordsWide ? 8
+         : spl <= 8 ? 4 : spl == 16 ? 2 : 1;
+}
+
+template <int SPL, int KIND, bool MASK>
+__global__ void __launch_bounds__(kWarps * 32, min_blocks(SPL, KIND))
 book_scan_kernel(const Args a) {
   constexpr int S = SPL * 32;
+  const int n = MASK ? a.n : S;   // the book's capacity
   using L = Layout<SPL>;
   extern __shared__ int4 smem4[];
   const int lane = threadIdx.x & 31;
@@ -800,20 +867,32 @@ book_scan_kernel(const Args a) {
   };
 
   // the four shared planes of both sides and the first chunk, one group
-  const int* bk = a.book_in + (size_t)e * 2 * 6 * S;
-  for (int i = lane; i < 2 * NPL * S / 4; i += 32) {
-    const int flat = 4 * i, sf = flat / S, slot = flat % S;
-    cp_async16(w + flat, bk + ((sf / NPL) * 6 + 2 + sf % NPL) * S + slot);
+  // (the masked kernels: an int a slot; the masked slots read EMPTY)
+  const int* bk = a.book_in + (size_t)e * 2 * 6 * n;
+  if constexpr (!MASK) {
+    for (int i = lane; i < 2 * NPL * S / 4; i += 32) {
+      const int flat = 4 * i, sf = flat / S, slot = flat % S;
+      cp_async16(w + flat, bk + ((sf / NPL) * 6 + 2 + sf % NPL) * S + slot);
+    }
+  } else {
+    for (int i = lane; i < 2 * NPL * S; i += 32) {
+      const int sf = i / S, slot = i % S;
+      if (slot < n)
+        cp_async4(w + i, bk + ((sf / NPL) * 6 + 2 + sf % NPL) * n + slot);
+      else
+        w[i] = kEmpty;
+    }
   }
   issue(0);
   cp_commit();
 
   Env<SPL> env;
   env.planes = w;
-  load_slots<SPL>(bk + 0 * S + base, env.P[0]);
-  load_slots<SPL>(bk + 1 * S + base, env.Q[0]);
-  load_slots<SPL>(bk + 6 * S + base, env.P[1]);
-  load_slots<SPL>(bk + 7 * S + base, env.Q[1]);
+  env.n = n;
+  load_plane<SPL, MASK>(bk + 0 * n, base, n, kEmpty, env.P[0]);
+  load_plane<SPL, MASK>(bk + 1 * n, base, n, 0, env.Q[0]);
+  load_plane<SPL, MASK>(bk + 6 * n, base, n, kEmpty, env.P[1]);
+  load_plane<SPL, MASK>(bk + 7 * n, base, n, 0, env.Q[1]);
   {
     bool ok = true;
     unsigned lo[2] = {0, 0}, hi[2] = {0, 0};
@@ -844,8 +923,8 @@ book_scan_kernel(const Args a) {
     for (int k = lane; k < p.n_agg; k += 32)
       w[L::fixed + (KIND == 0 ? p.n_acc : 0) + k] = a.tids[k];
   }
-  best_quote<SPL, true>(env.P[0], env.Q[0], p.maxint, env.st);
-  best_quote<SPL, false>(env.P[1], env.Q[1], p.maxint, env.st);
+  best_quote<SPL, true, MASK>(env.P[0], env.Q[0], p.maxint, base, n, env.st);
+  best_quote<SPL, false, MASK>(env.P[1], env.Q[1], p.maxint, base, n, env.st);
   // the first message's forward fill starts from prev, not from the input
   // book's best (set after that message, below)
   env.st[ST_QUOTE + 0] = a.prev[2 * e];
@@ -885,14 +964,16 @@ book_scan_kernel(const Args a) {
       int n_fills = 0;
       const unsigned anew =
           (msg.flags & F_BID)
-              ? step<SPL, true, KIND>(env, msg, u, p, rows, a.rec_k, &n_fills,
-                                      lane)
-              : step<SPL, false, KIND>(env, msg, u, p, rows, a.rec_k,
-                                       &n_fills, lane);
+              ? step<SPL, true, KIND, MASK>(env, msg, u, p, rows, a.rec_k,
+                                            &n_fills, lane)
+              : step<SPL, false, KIND, MASK>(env, msg, u, p, rows, a.rec_k,
+                                             &n_fills, lane);
       if (anew & 1u)
-        best_quote<SPL, true>(env.P[0], env.Q[0], p.maxint, env.st);
+        best_quote<SPL, true, MASK>(env.P[0], env.Q[0], p.maxint, base, n,
+                                    env.st);
       if (anew & 2u)
-        best_quote<SPL, false>(env.P[1], env.Q[1], p.maxint, env.st);
+        best_quote<SPL, false, MASK>(env.P[1], env.Q[1], p.maxint, base, n,
+                                     env.st);
       if (m0 + k == 0) {
 #pragma unroll
         for (int sd = 0; sd < 2; ++sd)
@@ -926,7 +1007,7 @@ book_scan_kernel(const Args a) {
       a.aggs[(size_t)e * p.n_acc + i] = env.acc_s[i];
   }
   // canonicalise: every plane of a hole reads EMPTY (book_kernel.py:435-442)
-  int* ob = a.book_out + (size_t)e * 2 * 6 * S;
+  int* ob = a.book_out + (size_t)e * 2 * 6 * n;
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
     bool hole[SPL];
@@ -936,14 +1017,14 @@ book_scan_kernel(const Args a) {
       hole[j] = env.P[s][j] == kEmpty;
       v[j] = hole[j] ? kEmpty : env.Q[s][j];
     }
-    store_slots<SPL>(ob + (s * 6 + 0) * S + base, env.P[s]);
-    store_slots<SPL>(ob + (s * 6 + 1) * S + base, v);
+    store_plane<SPL, MASK>(ob + (s * 6 + 0) * n, base, n, env.P[s]);
+    store_plane<SPL, MASK>(ob + (s * 6 + 1) * n, base, n, v);
 #pragma unroll
     for (int f = 0; f < NPL; ++f) {
       load_slots<SPL>(w + (s * NPL + f) * S + base, v);
 #pragma unroll
       for (int j = 0; j < SPL; ++j) v[j] = hole[j] ? kEmpty : v[j];
-      store_slots<SPL>(ob + (s * 6 + 2 + f) * S + base, v);
+      store_plane<SPL, MASK>(ob + (s * 6 + 2 + f) * n, base, n, v);
     }
   }
 }
@@ -958,8 +1039,8 @@ constexpr int extra_ints(int kind, int n_agg, int n_acc) {
 // device) by the wrapper before its first launch: out = {registers a
 // thread, local bytes a thread (spills), dynamic shared bytes a block,
 // blocks an SM}.  Allows the dynamic shared memory past 48 KB where it goes
-// there (only the general kernel with many traders does).
-template <int SPL, int KIND>
+// there (the general kernel with many traders, and SPL 16 and 32).
+template <int SPL, int KIND, bool MASK>
 cudaError_t plan(int n_agg, int* out) {
   const size_t smem =
       (size_t)kWarps *
@@ -968,16 +1049,16 @@ cudaError_t plan(int n_agg, int* out) {
       sizeof(int);
   cudaError_t err = cudaSuccess;
   if (smem > 48 * 1024)
-    err = cudaFuncSetAttribute(book_scan_kernel<SPL, KIND>,
+    err = cudaFuncSetAttribute(book_scan_kernel<SPL, KIND, MASK>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   cudaFuncAttributes attr{};
   if (err == cudaSuccess)
-    err = cudaFuncGetAttributes(&attr, book_scan_kernel<SPL, KIND>);
+    err = cudaFuncGetAttributes(&attr, book_scan_kernel<SPL, KIND, MASK>);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, book_scan_kernel<SPL, KIND>, kWarps * 32, smem);
+        &blocks, book_scan_kernel<SPL, KIND, MASK>, kWarps * 32, smem);
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = (int)smem;
@@ -986,43 +1067,72 @@ cudaError_t plan(int n_agg, int* out) {
 }
 
 // A launch with the dynamic shared memory of its plan.
-template <int SPL, int KIND>
+template <int SPL, int KIND, bool MASK>
 cudaError_t launch(Args a, int smem, cudaStream_t stream) {
   a.extra = extra_ints(KIND, a.p.n_agg, a.p.n_acc);
   const dim3 grid((a.E + kWarps - 1) / kWarps), block(kWarps * 32);
-  book_scan_kernel<SPL, KIND><<<grid, block, smem, stream>>>(a);
+  book_scan_kernel<SPL, KIND, MASK><<<grid, block, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // kind: kRecords, kRecordsWide, or the aggregate kernel's KIND for n_agg
 // (1, 2, else 0).  With `a` null, makes the plan for n_agg into out; else
-// launches.
-template <int SPL>
+// launches.  Past SPL 8 one records kernel and the general aggregate
+// kernel take every kind (the launch bounds no longer differ).
+template <int SPL, bool MASK>
 int dispatch(int kind, const Args* a, int n_agg, int* out, int smem,
              cudaStream_t st) {
-  switch (kind) {
-    case kRecords:
-      return a ? launch<SPL, kRecords>(*a, smem, st)
-               : plan<SPL, kRecords>(n_agg, out);
-    case kRecordsWide:
-      return a ? launch<SPL, kRecordsWide>(*a, smem, st)
-               : plan<SPL, kRecordsWide>(n_agg, out);
-    case 1:
-      return a ? launch<SPL, 1>(*a, smem, st) : plan<SPL, 1>(n_agg, out);
-    case 2:
-      return a ? launch<SPL, 2>(*a, smem, st) : plan<SPL, 2>(n_agg, out);
-    default:
-      return a ? launch<SPL, 0>(*a, smem, st) : plan<SPL, 0>(n_agg, out);
+  if constexpr (SPL > 8) {
+    if (kind < 0)
+      return a ? launch<SPL, kRecords, MASK>(*a, smem, st)
+               : plan<SPL, kRecords, MASK>(n_agg, out);
+    return a ? launch<SPL, 0, MASK>(*a, smem, st)
+             : plan<SPL, 0, MASK>(n_agg, out);
+  } else {
+    switch (kind) {
+      case kRecords:
+        return a ? launch<SPL, kRecords, MASK>(*a, smem, st)
+                 : plan<SPL, kRecords, MASK>(n_agg, out);
+      case kRecordsWide:
+        return a ? launch<SPL, kRecordsWide, MASK>(*a, smem, st)
+                 : plan<SPL, kRecordsWide, MASK>(n_agg, out);
+      case 1:
+        return a ? launch<SPL, 1, MASK>(*a, smem, st)
+                 : plan<SPL, 1, MASK>(n_agg, out);
+      case 2:
+        return a ? launch<SPL, 2, MASK>(*a, smem, st)
+                 : plan<SPL, 2, MASK>(n_agg, out);
+      default:
+        return a ? launch<SPL, 0, MASK>(*a, smem, st)
+                 : plan<SPL, 0, MASK>(n_agg, out);
+    }
   }
 }
 
-int dispatch_s(int S, int kind, const Args* a, int n_agg, int* out, int smem,
-               cudaStream_t st) {
-  switch (S) {
-    case 32: return dispatch<1>(kind, a, n_agg, out, smem, st);
-    case 64: return dispatch<2>(kind, a, n_agg, out, smem, st);
-    case 128: return dispatch<4>(kind, a, n_agg, out, smem, st);
-    case 256: return dispatch<8>(kind, a, n_agg, out, smem, st);
+// The slot map (spl slots a lane, masked or not) is the caller's
+// (ops/book_kernel.py::capacity_route); a map that does not hold S, or an
+// exact map of another capacity, is refused.
+int dispatch_s(int S, int spl, int masked, int kind, const Args* a,
+               int n_agg, int* out, int smem, cudaStream_t st) {
+  if (S < 1 || spl < 1 || spl > kMaxSpl || S > 32 * spl ||
+      (!masked && S != 32 * spl))
+    return (int)cudaErrorInvalidValue;
+  if (!masked) {
+    switch (spl) {
+      case 1: return dispatch<1, false>(kind, a, n_agg, out, smem, st);
+      case 2: return dispatch<2, false>(kind, a, n_agg, out, smem, st);
+      case 4: return dispatch<4, false>(kind, a, n_agg, out, smem, st);
+      case 8: return dispatch<8, false>(kind, a, n_agg, out, smem, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (spl) {
+    case 1: return dispatch<1, true>(kind, a, n_agg, out, smem, st);
+    case 2: return dispatch<2, true>(kind, a, n_agg, out, smem, st);
+    case 4: return dispatch<4, true>(kind, a, n_agg, out, smem, st);
+    case 8: return dispatch<8, true>(kind, a, n_agg, out, smem, st);
+    case 16: return dispatch<16, true>(kind, a, n_agg, out, smem, st);
+    case 32: return dispatch<32, true>(kind, a, n_agg, out, smem, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1045,7 +1155,8 @@ Params make_params(int cancel_mode, int init_id, int maxint, int n_agg,
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Layouts, all int32 unless noted:
-// msgs (E, M, 8); book_in/book_out (E, 2, 6, S) [env, ask/bid, field, slot];
+// msgs (E, M, 8); book_in/book_out (E, 2, 6, S) [env, ask/bid, field, slot],
+// the capacity S (1 to 1024) on the slot map (spl, masked);
 // prev (E, 2); tids (n_agg,); uniforms (M, E) float32, read only when
 // cancel_mode >= 2; bidask (E, M, 4) [ask_p, ask_q, bid_p, bid_q];
 // aggs (E, 8 * n_agg + 2).  msgs, book_in, book_out and bidask 16-byte
@@ -1056,15 +1167,16 @@ extern "C" int book_scan_aggs(const int* msgs, const int* book_in,
                               const int* prev, const int* tids,
                               const float* uniforms, int* book_out,
                               int* bidask, int* aggs, int E, int M, int S,
-                              int n_agg, int cancel_mode, int init_id,
-                              int tick, int maxint, int smem, void* stream) {
+                              int spl, int masked, int n_agg,
+                              int cancel_mode, int init_id, int tick,
+                              int maxint, int smem, void* stream) {
   if (E <= 0 || M <= 0) return 0;
   if (tick <= 0) return (int)cudaErrorInvalidValue;
   const Args a{msgs, book_in, prev, tids, uniforms, book_out, bidask, aggs,
-               nullptr, nullptr, 0, E, M, 0,
+               nullptr, nullptr, 0, E, M, 0, S,
                make_params(cancel_mode, init_id, maxint, n_agg, tick)};
-  return dispatch_s(S, agg_kind(n_agg), &a, n_agg, nullptr, smem,
-                    static_cast<cudaStream_t>(stream));
+  return dispatch_s(S, spl, masked, agg_kind(n_agg), &a, n_agg, nullptr,
+                    smem, static_cast<cudaStream_t>(stream));
 }
 
 // Records mode: as book_scan_aggs without trader ids and sums; records
@@ -1075,25 +1187,28 @@ extern "C" int book_scan_records(const int* msgs, const int* book_in,
                                  const int* prev, const float* uniforms,
                                  int* book_out, int* bidask, int* records,
                                  int* fill_counts, int E, int M, int S,
-                                 int rec_k, int cancel_mode, int init_id,
-                                 int maxint, int smem, void* stream) {
+                                 int spl, int masked, int rec_k,
+                                 int cancel_mode, int init_id, int maxint,
+                                 int smem, void* stream) {
   if (E <= 0 || M <= 0) return 0;
   if (rec_k < 1 || rec_k > S) return (int)cudaErrorInvalidValue;
   const Args a{msgs, book_in, prev, nullptr, uniforms, book_out, bidask,
                nullptr, reinterpret_cast<int4*>(records), fill_counts,
-               rec_k, E, M, 0,
+               rec_k, E, M, 0, S,
                make_params(cancel_mode, init_id, maxint, 0, 1)};
-  return dispatch_s(S, records_kind(rec_k), &a, 0, nullptr, smem,
-                    static_cast<cudaStream_t>(stream));
+  return dispatch_s(S, spl, masked, records_kind(rec_k), &a, 0, nullptr,
+                    smem, static_cast<cudaStream_t>(stream));
 }
 
 // The launch plan of the kernel that book_scan_records (n_agg < 0, for
-// rec_k) or book_scan_aggs (n_agg >= 0) launches at capacity S, on the
-// current device: out[4] = {registers a thread, spill bytes a thread,
-// dynamic shared bytes a block, resident blocks of 4 warps an SM}.  Made
-// once before the kernel's first launch on the device.
-extern "C" int book_scan_plan(int S, int n_agg, int rec_k, int* out) {
-  return dispatch_s(S, n_agg < 0 ? records_kind(rec_k) : agg_kind(n_agg),
+// rec_k) or book_scan_aggs (n_agg >= 0) launches at capacity S on the slot
+// map (spl, masked), on the current device: out[4] = {registers a thread,
+// spill bytes a thread, dynamic shared bytes a block, resident blocks of 4
+// warps an SM}.  Made once before the kernel's first launch on the device.
+extern "C" int book_scan_plan(int S, int spl, int masked, int n_agg,
+                              int rec_k, int* out) {
+  return dispatch_s(S, spl, masked,
+                    n_agg < 0 ? records_kind(rec_k) : agg_kind(n_agg),
                     nullptr, n_agg < 0 ? 0 : n_agg, out, 0, nullptr);
 }
 
