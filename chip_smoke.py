@@ -241,9 +241,27 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
    ``debug_mode`` with cancel mode 3, kernel launches counted through the
    wrapper and on the graph; ``WorldEnv.reset_env`` and 8 ``step``s with
    sampled actions on the card and on the CPU, equal; and
-   ``tools/torch_fuzz_engine.py --kernel --minutes 0.5``.
-Every training phase (6-20, 22) collects with ``ROLLOUT_MODE``'s default,
-``auto``: on the card a CUDA graph of the env step (``rl/scan.py``),
+   ``tools/torch_fuzz_engine.py --kernel --minutes 0.5``;
+23. the book scan past 1,024 slots and the port's kernel A/B and ViT
+   stage tools (the port's seventeenth slice): each route's launch plan
+   at S of 1,025 to 16,384; kernels 1 and 2 on the block route against
+   their plain versions, bit-equal, at S in ``DEEP_CAPACITIES`` (1,025,
+   1,500, 2,048, 4,096) and E=256 in cancel modes 0 (random streams,
+   records at rec_k 16) and 3 (corner streams, rec_k = S), both with
+   sweeps, on full bid books below -1 at S=1,500 and 2,048, and at
+   S=16,384 (the book in device memory) and E=32 in modes 0 and 3; both
+   timed at E=4,096, M=112, cancel mode 1 at S=2,048 and 4,096 beside
+   their plain versions (every output bit-equal) and bounds, and kernel
+   1's block route against its warp route at S=512 and 1,024 in turns on
+   the same data (bit-equal); one update (one epoch) of
+   ``ippo_2player.yaml`` at 2,048 orders a side, 4,096 envs x 128 steps
+   on the graph, and in ``debug_mode`` with cancel mode 3 at 512 envs
+   (records at rec_k 2,048), launches counted through the wrapper and on
+   the graph; ``tools/torch_kernel_bench.py`` and
+   ``tools/torch_profile_vit.py`` at 8,192 envs, ``--reps 3``, their
+   tables printed.
+Every training phase (6-20, 22-23) collects with ``ROLLOUT_MODE``'s
+default, ``auto``: on the card a CUDA graph of the env step (``rl/scan.py``),
 replayed each step.  A wrapper counts the launches it makes: under the
 scan the warm-up step's (``rollout_steps``) and the update's; the
 graph's replays launch without the wrappers; phase 18 reads the
@@ -275,8 +293,17 @@ import yaml
 from vit_marl_tpu_torch.selfcheck import (
     ATT_TOL,
     F32_BLOCK_TOL,
+    block_calls,
     block_params,
     block_tol,
+    unfused_call,
+)
+from vit_marl_tpu_torch.utils.roofline import (
+    F32_FLOPS,
+    HBM_BYTES_PER_S,
+    attention_cost,
+    block_bound,
+    block_cost,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -291,8 +318,6 @@ SCAN_LAUNCHES = {4096: ("2-player", 128), 1024: ("vision", 128),
                  512: ("vision simplest", 32)}
 AGENT_TIDS = (-100, -101)
 TICK = 100
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate
-F32_FLOPS = 67e12               # H100 SXM float32 rate outside tensor cores
 UPDATES = 2
 SEED = 30
 BATCHES, PER_BATCH = 10, 20     # kernel timing: batches of launches
@@ -309,7 +334,6 @@ ATT_PAD_SHAPES = [((1000, 3, 37, 130)[i % 4], n, (1, 2, 3)[i % 3], d)
 # the attention kernels' times before their redesign (chip_smoke.py,
 # NVIDIA H100 80GB HBM3, 700 W): forward at B=32,768 and 1,024, backward
 ATT_EARLIER_MS = {"fwd": 1.1845, "fwd_rollout": 0.0472, "bwd": 2.9990}
-BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core rate
 MLP_RATIO = 4
 # ViT-Base: width, heads; images of the W=768 phase
 BASE_W, BASE_H, B_BASE = 768, 12, 1024
@@ -590,17 +614,6 @@ def host_ms(fn, calls=PER_BATCH):
     return ms
 
 
-def attention_cost(B, N, W, H, itemsize, backward):
-    """(bytes, float ops) the attention must move and do: qkv (and g) read
-    once, the output (dqkv) written once; 4 N^2 D H operations per image
-    forward (logits and P v), 10 backward (logits recomputed, dP, dq, dk,
-    dv)."""
-    rows = B * N
-    nbytes = rows * (3 * W + W + (3 * W if backward else 0)) * itemsize
-    flops = (10 if backward else 4) * B * N * N * W
-    return nbytes, flops
-
-
 def bound(nbytes, flops):
     """Least time in ms and what sets it: bytes over the memory rate or
     float32 operations over the float32 rate."""
@@ -756,81 +769,12 @@ def attention_phase(torch, attn, smi):
     }
 
 
-def block_cost(name, B, N, W, hidden, itemsize):
-    """(bytes, product operations, attention operations) of
-    one fused-block function: row inputs and weights read once, the output
-    written once (LayerNorm parameters and biases, float32, too)."""
-    rows = B * N
-    mm = {"fused_ln_qkv": 3 * W * W,
-          "fused_proj_mlp": W * W + 2 * W * hidden,
-          "fused_block_full": 4 * W * W + 2 * W * hidden,
-          "fused_ln_qkv_attn": 3 * W * W}[name]
-    row_io = {"fused_ln_qkv": W + 3 * W, "fused_proj_mlp": 3 * W,
-              "fused_block_full": 2 * W, "fused_ln_qkv_attn": 2 * W}[name]
-    vecs = {"fused_ln_qkv": 5 * W, "fused_proj_mlp": 4 * W + hidden,
-            "fused_block_full": 9 * W + hidden,
-            "fused_ln_qkv_attn": 5 * W}[name]
-    attn_ops = (4 * B * N * N * W
-                if name in ("fused_block_full", "fused_ln_qkv_attn") else 0)
-    nbytes = (rows * row_io + mm) * itemsize + 4 * vecs
-    return nbytes, 2 * rows * mm, attn_ops
-
-
-def block_bound(nbytes, mm_ops, attn_ops, dtype):
-    """Least time in ms: bytes over the memory rate, or the operations
-    (the products and the attention's) over the card's peak rate for the
-    inputs' type (bf16: the tensor cores' dense rate; float32: the rate
-    outside tensor cores), whichever is longer."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    rate = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
-    t_ops = (mm_ops + attn_ops) / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def fused_calls(torch, blk, name, x, a, p, N, H):
     """(kernel, plain version, unfused PyTorch sequence) of fused-block
     function ``name`` on rows x (and attention rows a for proj+MLP) of
     images of N tokens and H heads, parameters ``p``."""
-    import torch.nn.functional as F
-    W = x.shape[1]
-    D = W // H
-    dt = x.dtype
-
-    def ln(t, g, b):
-        return F.layer_norm(t.float(), (W,), g, b, 1e-6).to(dt)
-
-    def attn_sdpa(qkv):
-        q, k, v = qkv.view(-1, N, 3, H, D).permute(2, 0, 3, 1, 4)
-        o = F.scaled_dot_product_attention(q, k, v)
-        return o.transpose(1, 2).reshape(-1, W)
-
-    def tail(att, res):
-        x1 = res + F.linear(att, p["wp"], p["bp"].to(dt))
-        h = F.gelu(F.linear(ln(x1, p["g2"], p["b2"]), p["w1"],
-                            p["bm1"].to(dt)), approximate="tanh")
-        return x1 + F.linear(h, p["w2"], p["bm2"].to(dt))
-
-    def qkv_seq(t):
-        return F.linear(ln(t, p["g1"], p["b1"]), p["wqkv"], p["bqkv"].to(dt))
-
-    head = (x, p["g1"], p["b1"], p["wqkv"], p["bqkv"])
-    rest = tuple(p[k] for k in ("wp", "bp", "g2", "b2", "w1", "bm1", "w2",
-                                "bm2"))
-    if name == "fused_ln_qkv":
-        return (lambda: blk.fused_ln_qkv(*head),
-                lambda: blk.ln_qkv_reference(*head),
-                lambda: qkv_seq(x))
-    if name == "fused_proj_mlp":
-        return (lambda: blk.fused_proj_mlp(a, x, *rest),
-                lambda: blk.proj_mlp_reference(a, x, *rest),
-                lambda: tail(a, x))
-    if name == "fused_block_full":
-        return (lambda: blk.fused_block_full(*head, *rest, N, H),
-                lambda: blk.full_block_reference(*head, *rest, N, H),
-                lambda: tail(attn_sdpa(qkv_seq(x)), x))
-    return (lambda: blk.fused_ln_qkv_attn(*head, N, H),
-            lambda: blk.ln_qkv_attn_reference(*head, N, H),
-            lambda: attn_sdpa(qkv_seq(x)))
+    return (*block_calls(blk, name, x, a, p, N, H),
+            unfused_call(name, x, a, p, N, H))
 
 
 def block_phase(torch, blk, smi):
@@ -3424,19 +3368,16 @@ class RecordedScans:
         self._ppo.ScanRollout = self._base
 
 
-def upstream_training(torch, count, make_train, smi):
-    """One update (one PPO epoch) of ``ippo_2player.yaml`` at 100 orders a
-    side, 4,096 envs x 128 steps, on the graph; then the same in
-    ``debug_mode`` with cancel mode 3 (kernel 2 at rec_k 100).  Returns
-    each run's kernel launches: the wrappers' (the warm-up step) and the
-    graph's (its book-scan nodes times the replays counted)."""
+def orders_training(torch, count, make_train, smi, orders, runs):
+    """One update (one PPO epoch) of ``ippo_2player.yaml`` at ``orders``
+    orders a side, on the graph, for each run of ``runs``: (label, its
+    ``--set`` overrides, the book scan's count name).  Returns each run's
+    kernel launches, the wrappers' (the warm-up step) and the graph's (its
+    book-scan nodes times the replays counted), and seconds; and the first
+    run's env."""
     out, env = {}, None
-    for label, sets, name in (
-            ("n_orders=100", [], "book_scan"),
-            ("n_orders=100, debug_mode, cancel mode 3",
-             ["WORLD.DEBUG_MODE=true", "WORLD.CANCEL_MODE=3"],
-             "book_scan_records")):
-        ma, tc = config_with(CONFIG, [f"WORLD.N_ORDERS={UPSTREAM_ORDERS}",
+    for label, sets, name in runs:
+        ma, tc = config_with(CONFIG, [f"WORLD.N_ORDERS={orders}",
                                       "UPDATE_EPOCHS=1", *sets])
         with RecordedScans() as rec:
             m, got, train, _ = train_once(
@@ -3457,6 +3398,17 @@ def upstream_training(torch, count, make_train, smi):
               f"replays); rollout {m['rollout_s']:.3f}s, PPO "
               f"{m['update_s']:.3f}s [{smi}]", flush=True)
     return out, env
+
+
+def upstream_training(torch, count, make_train, smi):
+    """:func:`orders_training` at 100 orders a side, 4,096 envs x 128
+    steps; then the same in ``debug_mode`` with cancel mode 3 (kernel 2
+    at rec_k 100)."""
+    return orders_training(torch, count, make_train, smi, UPSTREAM_ORDERS, (
+        (f"n_orders={UPSTREAM_ORDERS}", [], "book_scan"),
+        (f"n_orders={UPSTREAM_ORDERS}, debug_mode, cancel mode 3",
+         ["WORLD.DEBUG_MODE=true", "WORLD.CANCEL_MODE=3"],
+         "book_scan_records")))
 
 
 def env_draws(d):
@@ -3559,6 +3511,182 @@ def capacity_phase(torch, attn, bkern, blk, make_train, smi):
     if rc != 0:
         raise AssertionError(f"the engine fuzzer failed (exit {rc})")
     part("e, the engine fuzzer")
+    return res
+
+
+DEEP_CAPACITIES = (1025, 1500, 2048, 4096)   # the block route's, checked
+DEEP_E = 256
+DEEPEST, DEEPEST_E = 16_384, 32   # the book in device memory
+DEEP_TIMED = (2048, 4096)         # timed at E=4,096 beside WIDE_S (22b)
+BLOCK_AT = (512, WIDE_S)          # the block route against a warp's
+DEEP_ORDERS = 2048
+DEEP_DEBUG_ENVS = 512             # records of 2,048 fills: 1.9 GB a step
+TOOL_REPS = ["--reps", "3"]
+
+
+def print_plans(bkern, sizes):
+    """Each capacity's launch plan for kernel 1 (2 traders) and kernel 2
+    (rec_k 16 and S); returns them by S."""
+    plans = {}
+    for S in sizes:
+        for n_agg, rec_k in ((2, 1), (None, 16), (None, S)):
+            plan = bkern.launch_plan(S, n_agg, DEV, rec_k)
+            plans.setdefault(S, {})["aggs" if n_agg else f"rec_k {rec_k}"] \
+                = plan
+            print(f"  book scan launch plan, S={S}, "
+                  + (f"records, rec_k={rec_k}" if n_agg is None
+                     else f"n_agg={n_agg}") + ": "
+                  + ", ".join(f"{k} {v}" for k, v in plan.items()),
+                  flush=True)
+    return plans
+
+
+def deep_checks(torch, bkern, smi):
+    """Kernels 1 and 2 against their plain versions, bit-equal, on the
+    block route: at DEEP_CAPACITIES and E=256 in cancel mode 0 (random
+    streams, records at rec_k 16) and 3 (corner streams, rec_k = S, as
+    ``debug_mode`` asks there), both with sweeps, and on full bid books
+    below -1 at S=1,500 and 2,048; at DEEPEST (the book in device memory)
+    and E=32 in modes 0 and 3."""
+    from vit_marl_tpu_torch.config import EngineConfig
+
+    checks = [(S, 0, "random", DEEP_E) for S in DEEP_CAPACITIES]
+    checks += [(S, 3, "corners", DEEP_E) for S in DEEP_CAPACITIES]
+    checks += [(S, 1, "negative", DEEP_E) for S in (1500, 2048)]
+    checks += [(DEEPEST, 0, "random", DEEPEST_E),
+               (DEEPEST, 3, "corners", DEEPEST_E)]
+    for S, mode, kind, E in checks:
+        rec_k = 16 if mode < 2 else S
+        fills = both_kernels_equal(
+            torch, bkern, EngineConfig(n_orders=S, cancel_mode=mode),
+            capacity_case(torch, S, mode, SEED + 11 * S + mode, kind, E=E),
+            rec_k, f"S={S}, mode {mode}, {kind}")
+        print(f"  S={S}, cancel mode {mode}, {kind} streams: kernels 1 and "
+              f"2 bit-equal to their plain versions (E={E}, rec_k={rec_k}, "
+              f"{fills} fills) [{smi}]", flush=True)
+    return [S for S, *_ in checks]
+
+
+def deep_timing(torch, bkern, smi):
+    """Kernels 1 and 2 (records at rec_k 16) at E=4,096, M=112, cancel
+    mode 1 and S in DEEP_TIMED, through the wrappers, every output
+    bit-equal to the plain versions timed on the same inputs, beside the
+    bytes bounds; then the block route at BLOCK_AT against the warp
+    route's kernels on the same data (``torch_cases.launch_slot_map``),
+    bit-equal.  Returns the rows by S."""
+    from torch_cases import launch_slot_map, make_case
+    from vit_marl_tpu_torch.config import EngineConfig
+    from vit_marl_tpu_torch.lob.book import BookState
+
+    tids = torch.tensor(AGENT_TIDS, dtype=torch.int32, device=DEV)
+    reps = dict(batches=5, per_batch=5, warm=2)
+    lib = bkern._library()
+    rows = {}
+
+    def data(S):
+        book, msgs, prev = make_case(E_MAIN, M_MAIN, S, SEED + S,
+                                     tids=AGENT_TIDS)
+        return (EngineConfig(n_orders=S, cancel_mode=1),
+                torch.from_numpy(msgs).to(DEV),
+                BookState(torch.from_numpy(book).to(DEV)),
+                torch.from_numpy(prev).to(DEV))
+
+    def same(got, want, label):
+        pairs = [(got[0].data, want[0].data), *zip(got[1], want[1]),
+                 *zip(got[2], want[2])]
+        if not all(torch.equal(x, y) for x, y in pairs):
+            raise AssertionError(f"{label} at E={E_MAIN}, mode 1")
+
+    for S in DEEP_TIMED:
+        cfg, msgs, book, prev = data(S)
+        k1 = time_launches(lambda: bkern._launch(cfg, msgs, book, tids, prev,
+                                                 TICK, None), **reps)
+        k2 = time_launches(lambda: bkern._launch_records(
+            cfg, msgs, book, prev, REC_K_DEBUG, None), **reps)
+        plain, want = [], []
+        for fn in (lambda: bkern.process_step_aggs_reference(
+                       cfg, msgs, book, tids, prev, TICK),
+                   lambda: bkern.process_step_records_reference(
+                       cfg, msgs, book, prev, REC_K_DEBUG)):
+            torch.cuda.synchronize()
+            tp = time.perf_counter()
+            want.append(fn())
+            torch.cuda.synchronize()
+            plain.append((time.perf_counter() - tp) * 1e3)
+        same(bkern.process_step_aggs(cfg, msgs, book, tids, prev, TICK),
+             want[0], f"kernel 1 != plain at S={S}")
+        same(bkern.process_step_records(cfg, msgs, book, prev, REC_K_DEBUG),
+             want[1], f"kernel 2 != plain at S={S}")
+        del want
+        rows[S] = dict(
+            ms=k1[0], records_ms=k2[0], plain_ms=plain[0],
+            records_plain_ms=plain[1],
+            bound_ms=scan_bytes(E_MAIN, M_MAIN, S, len(AGENT_TIDS))
+            / HBM_BYTES_PER_S * 1e3,
+            records_bound_ms=records_bytes(E_MAIN, M_MAIN, S, REC_K_DEBUG, 1)
+            / HBM_BYTES_PER_S * 1e3)
+        r = rows[S]
+        print(f"  S={S} (block route): kernel 1 {k1[0]:.4f} ms (min "
+              f"{k1[1]:.4f}), kernel 2 at rec_k {REC_K_DEBUG} {k2[0]:.4f} ms "
+              f"(min {k2[1]:.4f}) a launch at E={E_MAIN}, both bit-equal to "
+              f"their plain versions ({plain[0]:.2f} / {plain[1]:.2f} ms); "
+              f"bounds {r['bound_ms']:.4f} / {r['records_bound_ms']:.4f} ms, "
+              f"bytes [{smi}]", flush=True)
+    for S in BLOCK_AT:
+        cfg, msgs, book, prev = data(S)
+        warp = lambda: bkern._launch(cfg, msgs, book, tids, prev,  # noqa
+                                     TICK, None)
+        block = lambda: launch_slot_map(lib, cfg, msgs, book,  # noqa: E731
+                                        prev, bkern.BLOCK_ROUTE, False,
+                                        tids=tids)
+        same(block(), warp(), f"the block route != the warp's at S={S}")
+        times = [time_launches(fn, **reps)[0]
+                 for fn in (warp, block, block, warp)]
+        rows[f"{S}_block"] = dict(warp_ms=times[::3], block_ms=times[1:3])
+        print(f"  S={S}, kernel 1 in turns (warp, block, block, warp): "
+              + ", ".join(f"{t:.4f}" for t in times) + f" ms a launch at "
+              f"E={E_MAIN}; the block route bit-equal to the warp's "
+              f"[{smi}]", flush=True)
+    return rows
+
+
+def deep_phase(torch, attn, bkern, blk, make_train, smi):
+    """Phase 23: (a) kernels 1 and 2 on the block route against their
+    plain versions, and the routes' plans; (b) their times at S=2,048 and
+    4,096, and the block route against the warp route at 512 and 1,024;
+    (c) one update at 2,048 orders a side, and in ``debug_mode`` with
+    cancel mode 3 at 512 envs, each driven with every count set to 0 just
+    before it; (d) ``tools/torch_kernel_bench.py`` and
+    ``tools/torch_profile_vit.py`` at the bench's shape."""
+    import torch_kernel_bench
+    import torch_profile_vit
+
+    count = counters(attn, bkern, blk)
+    t0 = [time.perf_counter()]
+
+    def part(label):
+        now = time.perf_counter()
+        print(f"  23{label}: {now - t0[0]:.2f}s", flush=True)
+        t0[0] = now
+
+    res = dict(plans=print_plans(bkern, (*DEEP_CAPACITIES, DEEPEST)))
+    res["checks"] = deep_checks(torch, bkern, smi)
+    part("a, kernels 1 and 2 past 1,024 slots")
+    res["timing"] = deep_timing(torch, bkern, smi)
+    part("b, their times")
+    res["training"], _ = orders_training(
+        torch, count, make_train, smi, DEEP_ORDERS, (
+            (f"n_orders={DEEP_ORDERS}", [], "book_scan"),
+            (f"n_orders={DEEP_ORDERS}, debug_mode, cancel mode 3, "
+             f"{DEEP_DEBUG_ENVS} envs",
+             ["WORLD.DEBUG_MODE=true", "WORLD.CANCEL_MODE=3",
+              f"NUM_ENVS={DEEP_DEBUG_ENVS}"], "book_scan_records")))
+    part(f"c, training at {DEEP_ORDERS} orders a side")
+    for tool in (torch_kernel_bench, torch_profile_vit):
+        rc = tool.main(TOOL_REPS)
+        if rc != 0:
+            raise AssertionError(f"{tool.__name__} failed (exit {rc})")
+    part("d, the kernel A/B and ViT stage tools")
     return res
 
 
@@ -3924,8 +4052,15 @@ def main() -> int:
     phase("22 the book scan at every capacity, the per-env API, the "
           "fuzzer", t0)
     ct = cap["timing"]
+
+    # ---- phase 23: the book scan past 1,024 slots, the tools ----
+    t0 = time.perf_counter()
+    deep = deep_phase(torch, attn, bkern, blk, make_train, smi)
+    phase("23 the book scan past 1,024 slots, the kernel A/B and ViT "
+          "stage tools", t0)
+    ct.update(deep["timing"])
     by_s = lambda key: {str(S): ct[S][key]  # noqa: E731
-                        for S in (128, UPSTREAM_ORDERS, WIDE_S)}
+                        for S in (128, UPSTREAM_ORDERS, WIDE_S, *DEEP_TIMED)}
 
     # ---- summary ----
     print(json.dumps({"kernels": [{
@@ -3986,7 +4121,15 @@ def main() -> int:
         "bound_ms_by_capacity": by_s("bound_ms"),
         "ms_masked_route_at_128": ct["128_masked"]["ms"],
         "launches_n_orders_100": cap["training"]["n_orders=100"],
-        "capacities_checked": list(CAPACITIES) + list(EXACT_CHECKS),
+        "capacities_checked": list(CAPACITIES) + list(EXACT_CHECKS)
+        + sorted(set(deep["checks"])),
+        # phase 23: the block route at E=4,096 against the warp route's
+        # kernel on the same data, in turns; one update at 2,048 orders
+        "ms_block_route": {str(S): ct[f"{S}_block"] for S in BLOCK_AT},
+        "launches_n_orders_2048": deep["training"][
+            f"n_orders={DEEP_ORDERS}"],
+        "plans_by_capacity": {str(S): p["aggs"]
+                              for S, p in deep["plans"].items()},
     }, dict(records, launches=dgot["book_scan_records"],
             bit_equal_m126=m126["bit_equal_m126"],
             graph_launches_per_update=s12["scan_debug"]["graph_launches"][
@@ -3998,7 +4141,12 @@ def main() -> int:
             bound_ms_by_capacity=by_s("records_bound_ms"),
             ms_masked_route_at_128=ct["128_masked"]["records_ms"],
             launches_n_orders_100_debug=cap["training"][
-                "n_orders=100, debug_mode, cancel mode 3"])]
+                "n_orders=100, debug_mode, cancel mode 3"],
+            launches_n_orders_2048_debug=deep["training"][
+                f"n_orders={DEEP_ORDERS}, debug_mode, cancel mode 3, "
+                f"{DEEP_DEBUG_ENVS} envs"],
+            plans_by_capacity={str(S): p[f"rec_k {S}"]
+                               for S, p in deep["plans"].items()})]
       + [dict(att[k], launches=vision[k],
                launches_attn_ln_fold=modes["attn_ln_fold"][k],
                launches_pipeline=s11["pipeline"][k],

@@ -14,7 +14,9 @@ world runs its XLA scan.  Here the port's plain versions of kernels 1 and
 and the port's ``step_vec`` at ``n_orders=100`` meets the JAX ``step_vec``
 (its XLA scan) for 3 steps on replayed draws, in the default world and in
 ``debug_mode`` with random cancels (``rec_k = n_orders``: the whole log).
-Also: ``capacity_route``, the CUDA kernel's slot map, for every capacity.
+Also: ``capacity_route``, the CUDA kernel's slot map, for every capacity
+(past 1,024 the block route; ``tests/test_torch_deep_book.py`` holds the
+plain versions past it against the JAX package).
 
 Tolerances: every book, best quote, sum, record and trade log bit-equal;
 float observations, rewards and state within atol/rtol 1e-5 (float32), as
@@ -40,22 +42,27 @@ UPSTREAM = 100      # orders a side of the upstream stack's book
 
 
 def test_capacity_route_covers_every_capacity():
-    """Every S from 1 to 1,024 has a slot map that holds it: the smallest
-    power of two of slots a lane, masked but at 32, 64, 128 and 256; 0 and
-    1,025 raise, also where a CUDA launch checks its inputs."""
-    for S in range(1, bkern.MAX_CAPACITY + 1):
+    """Every S from 1 to 1,024 has a warp's slot map that holds it: the
+    smallest power of two of slots a lane, masked but at 32, 64, 128 and
+    256; every S from 1,025 to 65,536 the block route (a block of threads
+    an env, nothing masked), also where a CUDA launch checks its inputs;
+    only S < 1 raises."""
+    for S in range(1, bkern.WARP_CAPACITY + 1):
         spl, masked = bkern.capacity_route(S)
         assert spl in (1, 2, 4, 8, 16, 32)
         assert 32 * spl >= S and (spl == 1 or 16 * spl < S)
         assert masked == (S not in bkern.EXACT_CAPACITIES)
-    for S in (0, bkern.MAX_CAPACITY + 1):
-        with pytest.raises(ValueError, match="from 1 to 1024"):
+    for S in range(bkern.WARP_CAPACITY + 1, 65_537):
+        assert bkern.capacity_route(S) == (bkern.BLOCK_ROUTE, False)
+    for S in (0, -1):
+        with pytest.raises(ValueError, match="at least 1"):
             bkern.capacity_route(S)
+    S = bkern.WARP_CAPACITY + 1
     msgs = torch.zeros((1, 4, 8), dtype=torch.int32)
-    with pytest.raises(ValueError, match="from 1 to 1024"):
-        bkern._kernel_inputs(EngineConfig(n_orders=1025), msgs, BookState(
-            torch.full((1, 2, 6, 1025), -1, dtype=torch.int32)),
-            torch.zeros((1, 2), dtype=torch.int32), None)
+    book = BookState(torch.full((1, 2, 6, S), -1, dtype=torch.int32))
+    got = bkern._kernel_inputs(EngineConfig(n_orders=S), msgs, book,
+                               torch.zeros((1, 2), dtype=torch.int32), None)
+    assert got[1].shape == (1, 2, 6, S) and got[4] is None
 
 
 @pytest.mark.parametrize("mode", [0, 3])

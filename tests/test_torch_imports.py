@@ -1,5 +1,5 @@
-"""The port, chip_smoke.py, the engine fuzzer and the cases they share
-import nothing of JAX or the JAX package."""
+"""The port, chip_smoke.py, the port's tools (``tools/torch_*.py``) and
+the cases they share import nothing of JAX or the JAX package."""
 
 import ast
 import glob
@@ -11,8 +11,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vit_marl_tpu"}
 FILES = sorted(glob.glob(os.path.join(ROOT, "vit_marl_tpu_torch", "**",
                                       "*.py"), recursive=True)
+               + sorted(glob.glob(os.path.join(ROOT, "tools", "torch_*.py")))
                + [os.path.join(ROOT, "chip_smoke.py"),
-                  os.path.join(ROOT, "tools", "torch_fuzz_engine.py"),
                   os.path.join(ROOT, "tests", "torch_cases.py")])
 
 
@@ -39,3 +39,8 @@ def test_the_walk_sees_the_package():
                 "ops/block_kernel.py", "models/vit.py", "utils/cli.py",
                 "env/world.py", "env/execution.py"):
         assert any(p.endswith(mod) for p in FILES), mod
+    tools = [p for p in FILES if os.path.dirname(p).endswith("tools")]
+    assert len(tools) >= 9
+    for tool in ("torch_fuzz_engine.py", "torch_kernel_bench.py",
+                 "torch_profile_vit.py"):
+        assert any(p.endswith(tool) for p in tools), tool

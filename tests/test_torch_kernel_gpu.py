@@ -5,8 +5,11 @@ one, run ``python -m pytest tests/test_torch_kernel_gpu.py -q``.
 
 - Book scan: every output bit-equal, including ragged batches (E not a
   multiple of the kernel's 4 envs per block) and book capacities of
-  both routes (the exact 32-256 and the masked 1-1,024, full bid books
-  below -1 among them; 1,025 raises); in records mode at rec_k 16 and 128 with messages of more
+  every route (the exact 32-256, the masked 1-1,024 and the block route
+  past them, its book in shared memory to about 4,600 slots and in
+  device memory past that, full bid books below -1 among them; the
+  block route also at small capacities through
+  ``torch_cases.launch_slot_map``; only S < 1 raises); in records mode at rec_k 16 and 128 with messages of more
   than 16 fills, and the trade log built from the kernel's records equal
   to the one built on the CPU from the plain version's.  On corner books
   and streams (``torch_cases.make_corner_case``) in both modes, at every
@@ -378,20 +381,25 @@ def test_records_kernel_rejects_bad_rec_k(cuda):
                 torch.from_numpy(prev).to(cuda), rec_k)
 
 
-def test_kernel_rejects_unsupported_capacity(cuda):
-    """Past 1,024 slots no kernel takes the book: both modes raise, with no
-    route to the plain version."""
-    S = bkern.MAX_CAPACITY + 1
-    book, msgs, prev = make_case(4, 8, S, seed=1)
-    args = (EngineConfig(n_orders=S), torch.from_numpy(msgs).to(cuda),
-            BookState(torch.from_numpy(book).to(cuda)))
+@pytest.mark.parametrize("S", [bkern.WARP_CAPACITY + 1, 2048])
+def test_kernel_rejects_unsupported_capacity(cuda, S):
+    """Only a book of no slots is refused (both modes raise, with no route
+    to the plain version); past 1,024 slots, once refused, both kernels
+    take the block route, bit-equal to their plain versions."""
+    book, msgs, prev = make_case(4, 8, 1, seed=1)
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    empty = BookState(t(book)[..., :0].contiguous())
+    args = (EngineConfig(n_orders=1), t(msgs), empty)
     with pytest.raises(ValueError, match="capacity"):
         bkern.process_step_aggs(
             *args, torch.tensor(TIDS, dtype=torch.int32, device=cuda),
-            torch.from_numpy(prev).to(cuda), TICK)
-    with pytest.raises(ValueError, match="capacity"):
-        bkern.process_step_records(*args, torch.from_numpy(prev).to(cuda),
-                                   16)
+            t(prev), TICK)
+    with pytest.raises(ValueError, match="n_orders=0"):
+        bkern.process_step_records(*args, t(prev), 1)
+    book, msgs, prev = make_case(67, 40, S, seed=S, fill=0.8)
+    msgs = add_sweeps(msgs, every=4, seed=S)
+    want = _both_kernels(cuda, S, 1, book, msgs, prev, 16)
+    assert int(want[2][1].sum()) > 0
 
 
 def _both_kernels(cuda, S, mode, book, msgs, prev, rec_k, n_agg=2):
@@ -439,7 +447,96 @@ def test_kernels_bit_equal_at_every_capacity(cuda, mode, S):
     assert int(want[2][1].sum()) > 0
 
 
-@pytest.mark.parametrize("S", [24, 100, 200])
+BLOCK_ROUTE = (1025, 1500, 2048, 4096)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("S", BLOCK_ROUTE)
+def test_block_route_bit_equal_past_a_warp(cuda, mode, S):
+    """The block route (``capacity_route`` past 1,024): corner streams
+    with sweeps at a ragged E and M, 1-3 traders, records at rec_k =
+    min(S, 256), and random streams at rec_k = S."""
+    assert bkern.capacity_route(S) == (bkern.BLOCK_ROUTE, False)
+    E, M = 67, 23
+    book, msgs, prev = make_corner_case(E, M, S, seed=S + mode,
+                                        tids=CORNER_TIDS)
+    msgs = add_sweeps(msgs, every=3, seed=S)
+    want = _both_kernels(cuda, S, mode, book, msgs, prev, min(S, 256),
+                         n_agg=S % 3 + 1)
+    assert int(want[2][1].sum()) > 0
+    book, msgs, prev = make_case(130, 40, S, seed=S + 10 * mode, fill=0.8)
+    _both_kernels(cuda, S, mode, book, msgs, prev, S)
+
+
+@pytest.mark.parametrize("mode", [0, 3])
+def test_block_route_keeps_a_deep_book_in_device_memory(cuda, mode):
+    """Past what shared memory holds (16,384 slots: 786 KB a book) the
+    block route works on the output book in device memory."""
+    S = 16_384
+    plan = bkern.launch_plan(S, 2, cuda)
+    assert plan["book_in_device_memory"] and plan["threads_per_env"] == 256
+    assert not bkern.launch_plan(2048, 2, cuda)["book_in_device_memory"]
+    book, msgs, prev = make_corner_case(8, 40, S, seed=S + mode,
+                                        tids=CORNER_TIDS)
+    msgs = add_sweeps(msgs, every=3, seed=S)
+    want = _both_kernels(cuda, S, mode, book, msgs, prev, 64)
+    assert int(want[2][1].sum()) > 0
+
+
+@pytest.mark.parametrize("S", [1, 2, 24, 100, 257, 300, 1024])
+@pytest.mark.parametrize("mode", [0, 1, 3])
+def test_block_route_at_small_capacities(cuda, mode, S):
+    """The block route taken at capacities the wrappers send to a warp
+    (``torch_cases.launch_slot_map``, slots a lane 0): threads with no
+    slot, one slot a thread, an insert's shift across threads; both
+    kernels bit-equal to the plain versions."""
+    book, msgs, prev = make_corner_case(67, 23, S, seed=S + mode,
+                                        tids=CORNER_TIDS)
+    msgs = add_sweeps(msgs, every=3, seed=S)
+    E, M = msgs.shape[:2]
+    u = torch.from_numpy(np.random.default_rng(S).random(
+        (M, E), dtype=np.float32)).to(cuda)
+    t = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    cfg = EngineConfig(n_orders=S, cancel_mode=mode)
+    m, b, p = t(msgs), BookState(t(book)), t(prev)
+    tids = torch.tensor(CORNER_TIDS[:S % 3 + 1], dtype=torch.int32,
+                        device=cuda)
+    lib = bkern._library()
+    for got, want in (
+            (launch_slot_map(lib, cfg, m, b, p, bkern.BLOCK_ROUTE, False,
+                             tids=tids, uniforms=u),
+             bkern.process_step_aggs_reference(cfg, m, b, tids, p, TICK, u)),
+            (launch_slot_map(lib, cfg, m, b, p, bkern.BLOCK_ROUTE, False,
+                             rec_k=min(S, 64), uniforms=u),
+             bkern.process_step_records_reference(cfg, m, b, p,
+                                                  min(S, 64), u))):
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].data, want[0].data)
+        for g, w in zip(got[1] + got[2], want[1] + want[2]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("S", [1024, 1025])
+def test_plans_of_other_trader_counts_share_a_kernel(cuda, S):
+    """A plan for 2 traders after one for 3 (the general kernel, its
+    shared memory past 48 KB) leaves the 3-trader launch valid."""
+    bkern.launch_plan(S, 3, cuda)
+    bkern.launch_plan(S, 2, cuda)
+    book, msgs, prev = make_corner_case(67, 23, S, seed=S, tids=CORNER_TIDS)
+    _both_kernels(cuda, S, 1, book, msgs, prev, 16, n_agg=3)
+
+
+def test_every_capacity_has_a_plan(cuda):
+    """``launch_plan`` gives a route for every S from 1 to 1,100 and for
+    S to 65,536 by a stride, in both modes; an SM holds a block of it."""
+    for S in [*range(1, 1101), *range(1101, 65_537, 61), 65_536]:
+        for n_agg, rec_k in ((2, 1), (None, min(S, 128))):
+            plan = bkern.launch_plan(S, n_agg, cuda, rec_k)
+            assert plan["blocks_per_sm"] >= 1, (S, plan)
+            assert plan["slots_per_lane"] == bkern.capacity_route(S)[0]
+
+
+@pytest.mark.parametrize("S", [24, 100, 200, 1500])
 def test_kernels_bit_equal_on_full_negative_bid_books(cuda, S):
     """Full bid sides below -1: a slot past the capacity is no hole, so
     the best bid stays below -1 until a real hole opens."""

@@ -305,3 +305,64 @@ def test_speed_grid_runs_on_the_card_by_default(monkeypatch):
         speed_test.run_speed_grid()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         speed_test.main(["--csv", "unused.csv"])
+
+
+def _tool(name):
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    try:
+        return __import__(name)
+    finally:
+        sys.path.pop(0)
+
+
+def test_kernel_bench_smoke(capsys):
+    """``tools/torch_kernel_bench.py`` on the CPU at ViT-micro's width: a
+    row for each of the five kernels, the ratio and a bound in each, and
+    the device line; a width past the kernels' is a stated skip."""
+    tool = _tool("torch_kernel_bench")
+    assert tool.main(["--envs", "8", "--width", "64", "--heads", "2",
+                      "--reps", "1", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    for row in tool.ROWS:
+        line = [x for x in out if x.startswith(row + " ")]
+        assert len(line) == 1 and "x " in line[0] and "(bytes)" in line[0]
+    assert out[-1].startswith("# device=cpu")
+    assert tool.main(["--envs", "2", "--width", "768", "--heads", "12",
+                      "--reps", "1", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert all(f"skip {row}: W=768" in out for row in tool.FUSED)
+    assert "\nattention " in out
+
+
+def test_profile_vit_smoke(capsys):
+    """``tools/torch_profile_vit.py --preset micro --envs 8 --reps 1
+    --device cpu``: every stage's row, the roofline line at the card's
+    989 TFLOP/s; ViT-Base's fused stages would be stated skips."""
+    tool = _tool("torch_profile_vit")
+    assert tool.main(["--preset", "micro", "--envs", "8", "--reps", "1",
+                      "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    stages = ["full_policy_fwd", "vit_encoder", "vit_encoder_attnkernel",
+              "vit_encoder_fusedblock", "vit_encoder_fusedblockfull",
+              "vit_encoder_lnfold", "vit_encoder_rank3",
+              "vit_encoder_fwdbwd_bwdkernel", "vit_encoder_fwdbwd_xlabwd",
+              "vit_encoder_fwdbwd_lnfold", "attn_stack_x12",
+              "mlp_stack_x12", "ln_stack_x24"]
+    rows = [x.split()[0] for x in out.splitlines() if x.endswith("ms")
+            or "roofline share" in x]
+    assert rows == stages
+    assert "(peak 989 TFLOP/s)" in out and "# micro B=8 N=11 W=64" in out
+    assert out.rstrip().endswith("no card time)")
+    from vit_marl_tpu_torch.models.vit import VIT_PRESETS
+
+    base = VIT_PRESETS["base"]
+    for kernel in ("fused_proj_mlp", "fused_block_full", "fused_ln_qkv_attn"):
+        assert "width 768" in tool._why_skipped(kernel, base, 3072)
+    assert tool._why_skipped("attention", base, 3072) is None
+
+
+def test_tools_need_a_card_by_default(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("torch_kernel_bench", "torch_profile_vit"):
+        assert _tool(name).main([]) == 2
+        assert "--device cpu" in capsys.readouterr().err

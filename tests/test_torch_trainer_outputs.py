@@ -332,6 +332,48 @@ def test_checkpoint_round_trip_and_max_to_keep(tmp_path):
         tckpt.CheckpointManager(str(tmp_path / "empty")).restore()
 
 
+def test_keep_period_keeps_the_steps_the_jax_manager_keeps(tmp_path):
+    """Steps 0-9 saved with ``max_to_keep=2, keep_period=3``: the port's
+    manager keeps the steps the JAX (orbax) manager keeps; ``close`` is
+    idempotent and a save after it raises."""
+    from vit_marl_tpu.rl.checkpoint import CheckpointManager as JManager
+
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jm = JManager(jdir, max_to_keep=2, keep_period=3)
+    tm = tckpt.CheckpointManager(tdir, max_to_keep=2, keep_period=3)
+    net = torch.nn.Linear(2, 1)
+    opt = torch.optim.Adam(net.parameters())
+    for step in range(10):
+        jm.save(step, [{"w": np.full(2, step, np.float32)}])
+        tm.save(step, [net.state_dict()], [tckpt.adam_state(opt)], [step])
+    jm.close()
+    kept = sorted(int(d) for d in os.listdir(jdir) if d.isdigit())
+    assert tm.all_steps() == kept
+    assert 0 in kept and 3 in kept and 1 not in kept
+    tm.close()
+    tm.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        tm.save(10, [net.state_dict()], [tckpt.adam_state(opt)], [10])
+    assert tm.all_steps() == kept and tm.restore()["count"] == [9]
+
+
+def test_make_train_closes_its_checkpoint_manager(tmp_path, monkeypatch):
+    closed = []
+    close = tckpt.CheckpointManager.close
+
+    def recording(self):
+        closed.append(self)
+        close(self)
+
+    monkeypatch.setattr(tckpt.CheckpointManager, "close", recording)
+    _, _, tma, ttc = _train_configs("2-player",
+                                    checkpoint_dir=str(tmp_path))
+    tppo.make_train(tma, ttc, device="cpu")(seed=0)
+    assert len(closed) == 1 and closed[0].all_steps() == [0]
+    with pytest.raises(RuntimeError, match="closed"):
+        closed[0].save(1, [], [], [])
+
+
 def test_make_train_saves_every_k_and_the_last(tmp_path):
     _, _, tma, ttc = _train_configs(
         "2-player", total_timesteps=80, checkpoint_dir=str(tmp_path),

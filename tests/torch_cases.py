@@ -297,8 +297,10 @@ def launch_slot_map(lib, cfg, msgs, book, prev, spl, masked, tids=None,
                     tick=TICK, rec_k=1, uniforms=None):
     """One launch of a book-scan library ``lib`` (``ctypes``, the C
     interface of ``book_scan.cu``) on a slot map of the caller's choosing
-    (``spl`` slots a lane, ``masked`` or not), which the wrappers never
-    take: the masked map at an exact capacity times what the masks cost.
+    (``spl`` slots a lane, ``masked`` or not; ``spl`` 0,
+    ``book_kernel.BLOCK_ROUTE``, the block route at any capacity), which
+    the wrappers never take: the masked map at an exact capacity times
+    what the masks cost, the block route at 1,024 against the warp's.
     Kernel 1 with ``tids``, else kernel 2 at ``rec_k``; counts no launch.
     Returns the wrappers' ``(book, (asks, bids), (sums or records, totals
     or counts))``."""

@@ -20,7 +20,8 @@ each, in the order given and in a process of its own, the script
    ``cuobjdump -sass`` shows of the message loop: its instructions, global
    and shared loads and stores, warp collectives, and the fewest and most
    instructions on one pass through it (its control-flow graph, inner
-   loops taken once);
+   loops taken once), and the issue bound at the fewest (8 warps an env
+   on the block route);
 2. builds the checkout's library as its wrapper does and times, through
    that wrapper, kernel 1 at E=4096, 2048, 1024 and 512 (M=112, S=128, two
    traders, cancel mode 1, the 2-player path's; also on the card alone, as
@@ -96,6 +97,7 @@ TIDS = (-100, -101)
 TICK = 100
 REC_KS = (16, 32, 48, 64, 96, 128)   # --variants: rows of kernel 2
 SMS, SCHEDULERS = 132, 4
+BLOCK_WARPS = 8         # warps an env on book_scan.cu's block route
 WARPS = 4                       # warps a block, in every tree so far
 COLLECTIVES = ("SHFL", "REDUX", "VOTE", "MATCH")
 
@@ -307,7 +309,10 @@ def facts(root: str, smem_of) -> None:
                      f" waves {waves}")
         st = loop_stats(funcs.get(name, []))
         if st:
-            issue = {E: st["path_min"] * M * E / (SMS * SCHEDULERS)
+            # the block route runs an env on BLOCK_WARPS warps, each
+            # taking every message
+            warps = BLOCK_WARPS if "book_scan_kernel_block" in name else 1
+            issue = {E: st["path_min"] * M * E * warps / (SMS * SCHEDULERS)
                      / (clock * 1e3) for E in (4096, 1024)}
             line += (f"; message loop {st['instructions']} SASS ("
                      + ", ".join(f"{k} {v}" for k, v in st.items()

@@ -18,7 +18,8 @@ Each mode has two implementations of one function:
 - a plain PyTorch version on ``(E, S)`` tensors, a transcription of the
   Pallas kernel (:func:`process_step_aggs_reference`,
   :func:`process_step_records_reference`; one shared scan body);
-- a CUDA kernel in ``csrc/book_scan.cu`` (one warp per env; its source
+- a CUDA kernel in ``csrc/book_scan.cu`` (one warp per env, a block of
+  threads per env past 1,024 slots; its source
   note has the design and what bounds it).
 
 :func:`process_step_aggs` and :func:`process_step_records` are the
@@ -27,11 +28,13 @@ CUDA tensor launches the kernel or raises.  Each wrapper's ``launches``
 counts its kernel's launches.
 
 Book capacities.  Both implementations have the Pallas kernel's semantics
-at every capacity ``S`` (``n_orders``): the plain version takes any, the
-kernel any from 1 to ``MAX_CAPACITY`` (1,024; more raises).  The kernel's
-slot map comes from :func:`capacity_route`: 32, 64, 128 and 256 take the
-exact kernels, every other capacity a masked one whose slots past ``S``
-are never live, never a hole and never recorded.  The Pallas kernel takes
+at every capacity ``S >= 1`` (``n_orders``).  The kernel's slot map comes
+from :func:`capacity_route`: 32, 64, 128 and 256 take the exact kernels,
+every other capacity to ``WARP_CAPACITY`` (1,024) a masked one whose
+slots past ``S`` are never live, never a hole and never recorded, and
+every capacity past it the block route (``BLOCK_ROUTE``: a block of 256
+threads an env, the book in shared memory where it fits, else in device
+memory).  The Pallas kernel takes
 ``S % 8 == 0``; at other capacities the JAX package runs its XLA scan,
 which agrees with these semantics but for the order-id corners of
 ``tests/test_torch_engine.py::test_engines_differ_on_order_id_corners``.
@@ -64,8 +67,9 @@ from vit_marl_tpu_torch.ops import nvcc, tally
 AGG_STATS = 8    # buy_q, sell_q, buy_pqt, sell_pqt, a_q, a_pqt, dur, signed
 AGG_TOTALS = 2   # total_q, total_pq_tick
 REC_K = 16       # records per message the debug log keeps in modes 0 and 1
-MAX_CAPACITY = 1024  # the largest book the CUDA kernel takes (32 slots a lane)
+WARP_CAPACITY = 1024  # the largest book a warp holds (32 slots a lane)
 EXACT_CAPACITIES = (32, 64, 128, 256)
+BLOCK_ROUTE = 0     # capacity_route's slots a lane past WARP_CAPACITY
 N_REC_PLANES = 4  # price, -side * matched quant, passive oid, passive tid
 EMPTY_RECORD = (EMPTY_SLOT, 0, 0, 0)
 
@@ -370,12 +374,15 @@ def capacity_route(S: int) -> Tuple[int, bool]:
     """The CUDA kernel's slot map for book capacity ``S``: ``(slots a
     lane, masked)``.  The capacities of ``EXACT_CAPACITIES`` fill the 32
     lanes of a warp (``S / 32`` slots a lane); any other ``S`` up to
-    ``MAX_CAPACITY`` takes the power of two of at least ``S / 32`` slots a
-    lane with the slots past ``S`` masked.  Raises ``ValueError`` outside
-    1 to ``MAX_CAPACITY``."""
-    if not 1 <= S <= MAX_CAPACITY:
-        raise ValueError(f"book capacity {S}: the CUDA kernel takes n_orders "
-                         f"from 1 to {MAX_CAPACITY}")
+    ``WARP_CAPACITY`` takes the power of two of at least ``S / 32`` slots
+    a lane with the slots past ``S`` masked; past it, ``(BLOCK_ROUTE,
+    False)``: a block of threads an env, each thread ``ceil(S / 256)``
+    consecutive slots, nothing masked.  Raises ``ValueError`` for
+    ``S < 1``."""
+    if S < 1:
+        raise ValueError(f"book capacity {S}: n_orders must be at least 1")
+    if S > WARP_CAPACITY:
+        return BLOCK_ROUTE, False
     spl = 1 << (-(-S // 32) - 1).bit_length()
     return spl, S not in EXACT_CAPACITIES
 
@@ -386,9 +393,9 @@ NVCC_FLAGS = ("--split-compile=0",)
 
 def build_library() -> str:
     """Compile ``csrc/book_scan.cu`` (see ``ops/nvcc.py``); returns the
-    library's path.  Its 44 kernels (the slot maps times the modes) are
-    optimised in parallel (``--split-compile``): 34 s against 86 s in one
-    thread on the H100 machine's 8 cores."""
+    library's path.  Its 48 kernels (the slot maps times the modes, and
+    the block route's 4) are optimised in parallel
+    (``--split-compile``)."""
     return nvcc.build(SOURCE, "libbook_scan.so", NVCC_FLAGS)
 
 
@@ -421,10 +428,12 @@ def launch_plan(S: int, n_agg: Optional[int], device, rec_k: int = 1) -> dict:
     than 96 records have a kernel of their own up to 256 slots), else the
     aggregate kernel for ``n_agg`` traders.  The slot map
     (:func:`capacity_route`: slots a lane, masked), registers and spill
-    bytes a thread, dynamic shared bytes a block of 4 warps (what each
-    launch asks for), resident blocks and warps an SM, from the CUDA
-    runtime; worked out once per (S, mode, n_agg, rec_k, device), before
-    the kernel's first launch there."""
+    bytes a thread, dynamic shared bytes a block (what each launch asks
+    for), resident blocks and warps an SM, threads an env (a warp, or a
+    block of 256 on the block route) and whether the block route keeps
+    the book in device memory (past what shared memory holds), from the
+    CUDA runtime; worked out once per (S, mode, n_agg, rec_k, device),
+    before the kernel's first launch there."""
     with torch.cuda.device(device):
         return _plan(_library(), S, *capacity_route(S), n_agg, rec_k)
 
@@ -433,13 +442,15 @@ def _plan(lib, S: int, spl: int, masked: bool, n_agg: Optional[int],
           rec_k: int) -> dict:
     """:func:`launch_plan` of the library ``lib`` on the current device,
     for the slot map ``(spl, masked)``."""
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     err = lib.book_scan_plan(S, spl, int(masked),
                              -1 if n_agg is None else n_agg, rec_k, out)
     _raise_on(err, lib, "book_scan_plan")
     return dict(slots_per_lane=spl, masked=masked, registers=out[0],
                 spill_bytes=out[1], dynamic_smem=out[2],
-                blocks_per_sm=out[3], warps_per_sm=4 * out[3])
+                blocks_per_sm=out[3], warps_per_sm=out[3] * out[4] // 32,
+                threads_per_env=32 if spl != BLOCK_ROUTE else out[4],
+                book_in_device_memory=bool(out[5]))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -573,8 +584,8 @@ def process_step_aggs(cfg: EngineConfig, msgs: torch.Tensor, book: BookState,
 
     Args:
       msgs: (E, M, 8) int32 per-env message streams.
-      book: books, ``data`` (E, 2, 6, S) int32; on a CUDA tensor S is 1 to
-        ``MAX_CAPACITY`` (:func:`capacity_route`), else ``ValueError``.
+      book: books, ``data`` (E, 2, 6, S) int32, any S >= 1
+        (:func:`capacity_route`).
       tids: (n_agg,) int32 trader ids, ordered [type 0 instances..., type 1
         instances, ...] as ``WorldEnv`` assigns them.
       prev_prices: (E, 2) int32 [last ask, last bid] seeding the forward

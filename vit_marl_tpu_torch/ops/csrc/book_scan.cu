@@ -38,7 +38,9 @@
 // seventh in the per-trader sums.
 //
 // Design.  One warp owns one env; lane l owns slots [l*SPL, l*SPL + SPL)
-// (SPL = S / 32, 4 at S = 128).
+// (SPL = S / 32, 4 at S = 128), for S up to 1,024; past that a block of 256
+// threads owns one env (the block route, after the warp route's kernels
+// below: no upper limit but device memory).
 // - Book capacities.  S in {32, 64, 128, 256} takes the exact kernels above.
 //   Any other S from 1 to 1024 takes a masked kernel (template MASK): SPL is
 //   the power of two of at least S / 32 slots a lane (100 -> 4, 200 -> 8,
@@ -1038,8 +1040,9 @@ constexpr int extra_ints(int kind, int n_agg, int n_acc) {
 // The launch plan of one instantiation, made once per (S, mode, n_agg,
 // device) by the wrapper before its first launch: out = {registers a
 // thread, local bytes a thread (spills), dynamic shared bytes a block,
-// blocks an SM}.  Allows the dynamic shared memory past 48 KB where it goes
-// there (the general kernel with many traders, and SPL 16 and 32).
+// blocks an SM, threads a block, 0}.  Allows the dynamic shared memory
+// past 48 KB where it goes there (the general kernel with many traders, and
+// SPL 16 and 32).
 template <int SPL, int KIND, bool MASK>
 cudaError_t plan(int n_agg, int* out) {
   const size_t smem =
@@ -1048,10 +1051,19 @@ cudaError_t plan(int n_agg, int* out) {
        extra_ints(KIND, n_agg, kAggStats * n_agg + kAggTotals)) *
       sizeof(int);
   cudaError_t err = cudaSuccess;
-  if (smem > 48 * 1024)
-    err = cudaFuncSetAttribute(book_scan_kernel<SPL, KIND, MASK>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+  if (smem > 48 * 1024) {
+    // every size a block may take: the general kernel's plans for other
+    // trader counts share the kernel
+    int dev = 0, optin = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(book_scan_kernel<SPL, KIND, MASK>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 optin);
+  }
   cudaFuncAttributes attr{};
   if (err == cudaSuccess)
     err = cudaFuncGetAttributes(&attr, book_scan_kernel<SPL, KIND, MASK>);
@@ -1063,6 +1075,8 @@ cudaError_t plan(int n_agg, int* out) {
   out[1] = (int)attr.localSizeBytes;
   out[2] = (int)smem;
   out[3] = blocks;
+  out[4] = kWarps * 32;
+  out[5] = 0;
   return err;
 }
 
@@ -1109,12 +1123,551 @@ int dispatch(int kind, const Args* a, int n_agg, int* out, int smem,
   }
 }
 
-// The slot map (spl slots a lane, masked or not) is the caller's
-// (ops/book_kernel.py::capacity_route); a map that does not hold S, or an
-// exact map of another capacity, is refused.
+// ---------------------------------------------------------------------------
+// The block route: any capacity S >= 1 (the wrappers' route past 1,024
+// slots, where one warp cannot hold an env: 64 slots a lane would take 256
+// registers for the price and quantity planes alone).
+//
+// One block of kBlock threads owns one env; thread t owns the consecutive
+// slots [t c, t c + c) of every plane, c = ceil(S / kBlock), so the scan
+// runs the plain version's semantics as written: every message takes the
+// whole cancel chain, the prefix sum, the insert and both sides' best
+// quotes anew, with none of the warp route's shortcuts.  A pass over a
+// thread's slots is its own; what crosses threads goes through block
+// reductions (a warp's __reduce_*_sync or shuffle scan, then one barrier
+// and a read of every warp's value from shared memory, in two alternating
+// buffers so that no second barrier is needed) and through the insert's
+// shift, whose slots at a thread's edge are read before a barrier and
+// written after it.  Control flow depends only on the message and on
+// reduced values, so every thread takes every barrier.
+//
+// The book lives in shared memory where its 48 S bytes fit (S up to about
+// 4,600), a word of padding every 32 slots so that threads reading slot
+// t c + i fall in different banks, and otherwise in the output book in
+// device memory, read through L1 and L2.  The kernel is built once per
+// mode and place (4 kernels), not once per capacity.
+// ---------------------------------------------------------------------------
+
+constexpr int kBlock = 256;                    // threads an env
+constexpr int kBlockWarps = kBlock / 32;
+constexpr int kRedVals = 8;                    // values a reduction carries
+
+// Ints of a block's shared memory before the book: the reduction buffers,
+// then (aggregate mode) the sums and the trader ids.
+constexpr int block_fixed_ints(bool rec, int n_agg, int n_acc) {
+  return (2 * kBlockWarps * kRedVals + (rec ? 0 : n_acc + n_agg) + 3) / 4 *
+         4;
+}
+// Ints of a plane of the book in shared memory (a word every 32 slots).
+__host__ __device__ constexpr int padded_plane(int S) {
+  return S + (S + 31) / 32;
+}
+
+// Block-wide reductions in two alternating buffers [2][warps][kRedVals].
+struct Rounds {
+  int* buf;
+  int n, warp, lane;
+  __device__ int* next() {
+    int* b = buf + (n & 1) * kBlockWarps * kRedVals;
+    ++n;
+    return b;
+  }
+};
+
+// Every thread's v[i] becomes the block's minimum (MIN) or wrapping sum.
+template <bool MIN, int NV>
+__device__ __forceinline__ void block_reduce(Rounds& r, int (&v)[NV]) {
+  int* b = r.next();
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    v[i] = MIN ? warp_min(v[i]) : warp_sum(v[i]);
+  if (r.lane == 0) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) b[r.warp * kRedVals + i] = v[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    int x = b[i];
+    for (int w = 1; w < kBlockWarps; ++w)
+      x = MIN ? min(x, b[w * kRedVals + i]) : wadd(x, b[w * kRedVals + i]);
+    v[i] = x;
+  }
+}
+
+// Exclusive wrapping prefix sums of v[i] over the threads in order, and
+// their totals.
+template <int NV>
+__device__ __forceinline__ void block_scan(Rounds& r, const int (&v)[NV],
+                                           int (&excl)[NV],
+                                           int (&total)[NV]) {
+  int* b = r.next();
+  int inc[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) inc[i] = warp_scan(v[i], r.lane);
+  if (r.lane == 31) {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) b[r.warp * kRedVals + i] = inc[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    int pre = 0, tot = 0;
+    for (int w = 0; w < kBlockWarps; ++w) {
+      const int x = b[w * kRedVals + i];
+      pre = w < r.warp ? wadd(pre, x) : pre;
+      tot = wadd(tot, x);
+    }
+    excl[i] = wadd(pre, wsub(inc[i], v[i]));
+    total[i] = tot;
+  }
+}
+
+// The block's view of the book: plane f of side s, slot j.
+template <bool SHARED>
+struct BlockBook {
+  int* base;
+  int stride;   // ints a plane
+  __device__ int* plane(int s, int f) const {
+    return base + (s * 6 + f) * stride;
+  }
+  __device__ static int at(int j) { return SHARED ? j + (j >> 5) : j; }
+};
+
+enum { BP = 0, BQ, BO, BT, BTS, BTN };   // the planes of the global layout
+
+// Uniform pick among the candidates of `cand(j)`, by order id, as
+// cdf_pick does in a warp (book_kernel.py:193-211).
+template <bool SHARED, class Cand>
+__device__ __forceinline__ int block_cdf_pick(Rounds& r, const int* Yp,
+                                              const int* Yo, int lo, int hi,
+                                              int S, float u, Cand cand) {
+  using B = BlockBook<SHARED>;
+  int cnt = 0;
+  for (int j = lo; j < hi; ++j) cnt += cand(j) ? 1 : 0;
+  int c1[1] = {cnt}, ex[1], tot[1];
+  block_scan(r, c1, ex, tot);
+  if (tot[0] == 0) return S;
+  const float uu = __fmul_rn(u, fmaxf((float)tot[0], 1.0f));
+  int run = ex[0], hit = S;
+  for (int j = lo; j < hi; ++j) {
+    run += cand(j) ? 1 : 0;
+    if (hit == S && (float)run > uu) hit = j;
+  }
+  int v[1] = {hit};
+  block_reduce<true>(r, v);
+  const int pick = v[0] == S ? 0 : v[0];   // f32 corner: no hit -> slot 0
+  int ch[1] = {pick >= lo && pick < hi && cand(pick) ? Yo[B::at(pick)] : 0};
+  block_reduce<false>(r, ch);
+  int loc = S;
+  for (int j = lo; j < hi && loc == S; ++j)
+    if (Yp[B::at(j)] != kEmpty && Yo[B::at(j)] == ch[0]) loc = j;
+  v[0] = loc;
+  block_reduce<true>(r, v);
+  return v[0];
+}
+
+// Shift slots (lo, hi] of side `side` right by one (RIGHT) or [lo, hi)
+// left by one, and put the new order at lo (RIGHT) or hi.  A thread reads
+// the slot beyond its edge before the barrier and writes its own after.
+template <bool SHARED, bool RIGHT>
+__device__ __forceinline__ void block_shift(const BlockBook<SHARED>& bk,
+                                            int side, int lo, int hi,
+                                            int my_lo, int my_hi,
+                                            const int (&nv)[6]) {
+  using B = BlockBook<SHARED>;
+  int edge[6];
+  const int src = RIGHT ? my_lo - 1 : my_hi;
+  const bool need = my_lo < my_hi &&
+                    (RIGHT ? my_lo > lo && my_lo <= hi
+                           : my_hi - 1 >= lo && my_hi - 1 < hi);
+#pragma unroll
+  for (int f = 0; f < 6; ++f)
+    edge[f] = need ? bk.plane(side, f)[B::at(src)] : 0;
+  __syncthreads();
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    int* pl = bk.plane(side, f);
+    if (RIGHT) {
+      for (int j = min(hi, my_hi - 1); j >= max(lo + 1, my_lo); --j)
+        pl[B::at(j)] = j > my_lo ? pl[B::at(j - 1)] : edge[f];
+    } else {
+      for (int j = max(lo, my_lo); j <= min(hi - 1, my_hi - 1); ++j)
+        pl[B::at(j)] = j < my_hi - 1 ? pl[B::at(j + 1)] : edge[f];
+    }
+    const int at = RIGHT ? lo : hi;
+    if (at >= my_lo && at < my_hi) pl[B::at(at)] = nv[f];
+  }
+}
+
+// REC: records mode, else aggregate mode with any n_agg.  SHARED: the
+// book in shared memory at int a.extra, else in a.book_out.
+template <bool REC, bool SHARED>
+__global__ void __launch_bounds__(kBlock, 2)
+book_scan_kernel_block(const Args a) {
+  using B = BlockBook<SHARED>;
+  const int S = a.n, M = a.M, e = blockIdx.x;
+  const int t = threadIdx.x;
+  const Params& p = a.p;
+  extern __shared__ int4 smem4[];
+  int* sm = reinterpret_cast<int*>(smem4);
+  Rounds rd{sm, 0, t >> 5, t & 31};
+  int* acc = sm + 2 * kBlockWarps * kRedVals;
+  int* tids_s = acc + p.n_acc;
+  int* gbook = a.book_out + (size_t)e * 12 * S;
+  const BlockBook<SHARED> bk{SHARED ? sm + a.extra : gbook,
+                             SHARED ? padded_plane(S) : S};
+  const int* src = a.book_in + (size_t)e * 12 * S;
+  if constexpr (SHARED) {
+    for (int i = t; i < 12 * S; i += kBlock)
+      bk.base[(i / S) * bk.stride + B::at(i % S)] = src[i];
+  } else {
+    for (int i = t; i < 3 * S; i += kBlock)
+      reinterpret_cast<int4*>(gbook)[i] =
+          reinterpret_cast<const int4*>(src)[i];
+  }
+  if constexpr (!REC) {
+    for (int i = t; i < p.n_acc; i += kBlock) acc[i] = 0;
+    for (int k = t; k < p.n_agg; k += kBlock) tids_s[k] = a.tids[k];
+  }
+  __syncthreads();
+  const int c = (S + kBlock - 1) / kBlock;
+  const int my_lo = min(t * c, S), my_hi = min(my_lo + c, S);
+  int prev_a = a.prev[2 * e], prev_b = a.prev[2 * e + 1];
+
+  for (int m = 0; m < M; ++m) {
+    const int* mp = a.msgs + ((size_t)e * M + m) * 8;
+    const int4 head = *reinterpret_cast<const int4*>(mp);
+    const int4 rest = *reinterpret_cast<const int4*>(mp + 4);
+    const int ty = head.x, sd = head.y, quant = head.z, price = head.w;
+    // (type, side) dispatch (book_kernel.py:141-150): unknown -> index 0
+    int index = 0;
+    if ((sd == 1 && ty == 1) || (sd == -1 && ty == 4)) index = 1;
+    if (sd == -1 && (ty == 2 || ty == 3)) index = 2;
+    if (sd == 1 && (ty == 2 || ty == 3)) index = 3;
+    if (sd == 0 && ty == 0) index = 4;
+    const bool is_lim = index <= 1, is_cancel = index == 2 || index == 3;
+    const bool bid = index == 1 || index == 3;
+    const int YS = bid ? 1 : 0, XS = 1 - YS;
+    const float u = p.cancel_mode >= 2 ? a.uniforms[(size_t)m * a.E + e]
+                                       : 0.0f;
+    int* Yp = bk.plane(YS, BP);
+    int* Yq = bk.plane(YS, BQ);
+    const int* Yo = bk.plane(YS, BO);
+    int* Xp = bk.plane(XS, BP);
+    int* Xq = bk.plane(XS, BQ);
+
+    // ---- cancel pass on Y ----
+    const int c_quant = is_cancel ? quant : 0;
+    const int c_oid = is_cancel ? rest.x : 0;
+    int cv[2] = {S, S};
+    for (int j = my_lo; j < my_hi; ++j) {
+      const int yp = Yp[B::at(j)], yo = Yo[B::at(j)];
+      if (yp == kEmpty) continue;
+      if (cv[0] == S && yo == c_oid) cv[0] = j;
+      if (cv[1] == S && yp == price && yo <= p.init_id &&
+          Yq[B::at(j)] >= c_quant)
+        cv[1] = j;
+    }
+    block_reduce<true>(rd, cv);
+    int cidx = cv[0] < S ? cv[0] : p.cancel_mode >= 1 ? cv[1] : S;
+    if (p.cancel_mode >= 2 && cidx >= S)
+      cidx = block_cdf_pick<SHARED>(
+          rd, Yp, Yo, my_lo, my_hi, S, u, [&](int j) {
+            const int yp = Yp[B::at(j)];
+            return yp != kEmpty && yp == price && Yq[B::at(j)] >= c_quant &&
+                   Yo[B::at(j)] != 0;
+          });
+    if (p.cancel_mode >= 3 && cidx >= S)
+      cidx = block_cdf_pick<SHARED>(
+          rd, Yp, Yo, my_lo, my_hi, S, u, [&](int j) {
+            const int yp = Yp[B::at(j)];
+            return yp != kEmpty && yp == price && Yo[B::at(j)] != 0;
+          });
+    if (cidx >= my_lo && cidx < my_hi) {
+      const int nq = wsub(Yq[B::at(cidx)], c_quant);
+      Yq[B::at(cidx)] = nq;
+      if (nq <= 0) Yp[B::at(cidx)] = kEmpty;
+    }
+
+    // ---- limit pass: match against X by prefix sum over crossing slots ----
+    const int lim_quant = is_lim ? quant : 0;
+    auto crosses = [&](int j) {
+      const int xp = Xp[B::at(j)];
+      return xp != kEmpty && (bid ? xp <= price : xp >= price);
+    };
+    int sv[2] = {0, 0}, base[2], tot[2];
+    for (int j = my_lo; j < my_hi; ++j)
+      if (crosses(j)) {
+        sv[0] = wadd(sv[0], Xq[B::at(j)]);
+        ++sv[1];
+      }
+    block_scan(rd, sv, base, tot);
+    // f(j, matched) over this thread's crossing slots, in order
+    auto each_match = [&](auto f) {
+      int cum = base[0];
+      for (int j = my_lo; j < my_hi; ++j) {
+        if (!crosses(j)) continue;
+        const int q = Xq[B::at(j)];
+        cum = wadd(cum, q);
+        f(j, min(max(wsub(lim_quant, wsub(cum, q)), 0), q));
+      }
+    };
+    int total_matched = 0, fills = 0;
+    if (tot[1] > 0) {
+      // matched, fills, and the fills' quantity x (price // tick)
+      int sums[3] = {0, 0, 0};
+      each_match([&](int j, int x) {
+        sums[0] = wadd(sums[0], x);
+        if (x > 0) {
+          ++sums[1];
+          sums[2] = wadd(sums[2], wmul(x, floordiv(Xp[B::at(j)], p)));
+        }
+      });
+      const int my_fills = sums[1];
+      block_reduce<false>(rd, sums);
+      total_matched = sums[0];
+      fills = sums[1];
+      if constexpr (REC) {
+        // rank = fills up to the slot (book_kernel.py:241-285)
+        int nf[1] = {my_fills}, ex[1], nt[1];
+        block_scan(rd, nf, ex, nt);
+        int4* rows = a.records + ((size_t)e * M + m) * a.rec_k;
+        const int neg_s = wneg(sd);
+        const int* Xo = bk.plane(XS, BO);
+        const int* Xt = bk.plane(XS, BT);
+        int r = ex[0];
+        each_match([&](int j, int x) {
+          if (x > 0 && ++r <= a.rec_k)
+            __stcs(rows + r - 1, make_int4(Xp[B::at(j)], wmul(neg_s, x),
+                                           Xo[B::at(j)], Xt[B::at(j)]));
+        });
+      } else if (p.n_agg > 0) {
+        // the sums of book_kernel.py:287-326
+        if (t == 0) {
+          acc[p.n_acc - 2] = wadd(acc[p.n_acc - 2], total_matched);
+          acc[p.n_acc - 1] = wadd(acc[p.n_acc - 1], sums[2]);
+        }
+        const int* Xt = bk.plane(XS, BT);
+        const bool s_pos = sd == 1;
+        for (int k = 0; k < p.n_agg && fills > 0; ++k) {
+          const int tk = tids_s[k];
+          const bool agr = rest.y == tk;
+          // buy_q, sell_q, buy_pqt, sell_pqt, a_q, a_pqt, dur
+          int v[7] = {0, 0, 0, 0, 0, 0, 0};
+          each_match([&](int j, int x) {
+            const int xt = Xt[B::at(j)];
+            const bool pm = xt == tk;
+            if (x <= 0 || !(pm || agr)) return;
+            const int mpt = wmul(x, floordiv(Xp[B::at(j)], p));
+            const bool buy = s_pos ? agr : pm, sell = s_pos ? pm : agr;
+            v[0] = wadd(v[0], buy ? x : 0);
+            v[1] = wadd(v[1], sell ? x : 0);
+            v[2] = wadd(v[2], buy ? mpt : 0);
+            v[3] = wadd(v[3], sell ? mpt : 0);
+            v[4] = wadd(v[4], x);
+            v[5] = wadd(v[5], mpt);
+            v[6] = wadd(v[6], wmul(x, xt));
+          });
+          block_reduce<false>(rd, v);
+          if (t == 0) {
+            int* o = acc + kAggStats * k;
+#pragma unroll
+            for (int i = 0; i < 7; ++i) o[i] = wadd(o[i], v[i]);
+            o[7] = wadd(o[7], wmul(wneg(sd), v[4]));
+          }
+        }
+      }
+      each_match([&](int j, int x) {
+        const int nq = wsub(Xq[B::at(j)], x);
+        Xq[B::at(j)] = nq;
+        if (x > 0 && nq <= 0) Xp[B::at(j)] = kEmpty;
+      });
+    }
+    if constexpr (REC) {
+      int4* rows = a.records + ((size_t)e * M + m) * a.rec_k;
+      for (int k = fills + t; k < a.rec_k; k += kBlock)
+        __stcs(rows + k, make_int4(kEmpty, 0, 0, 0));
+      if (t == 0) a.counts[(size_t)e * M + m] = fills;
+    }
+
+    // ---- insert the remainder into Y (book_kernel.py:332-374) ----
+    const int add_q = max(0, wsub(lim_quant, total_matched));
+    if (add_q > 0) {
+      const int* Ys = bk.plane(YS, BTS);
+      const int* Yn = bk.plane(YS, BTN);
+      const int nk = bid ? wneg(price) : price;
+      // the first order after the new one, ~ the last before it
+      int fl[2] = {S, ~(-1)};
+      for (int j = my_lo; j < my_hi; ++j) {
+        const int yp = Yp[B::at(j)];
+        if (yp == kEmpty) continue;
+        const int pk = bid ? wneg(yp) : yp;
+        const int ys = Ys[B::at(j)];
+        const bool before =
+            pk < nk ||
+            (pk == nk &&
+             (ys < rest.z || (ys == rest.z && Yn[B::at(j)] <= rest.w)));
+        if (!before && fl[0] == S) fl[0] = j;
+        if (before) fl[1] = ~j;
+      }
+      block_reduce<true>(rd, fl);
+      const int fw = fl[0], lb = ~fl[1];
+      const int nv[6] = {price, add_q, rest.x, rest.y, rest.z, rest.w};
+      if (lb + 1 < fw) {
+        // a slot strictly between them is a hole: the first takes it
+        const int pos = lb + 1;
+        if (pos >= my_lo && pos < my_hi)
+#pragma unroll
+          for (int f = 0; f < 6; ++f) bk.plane(YS, f)[B::at(pos)] = nv[f];
+      } else {
+        // the first hole at or after fw, ~ the last at or before lb
+        int hl[2] = {S, ~(-1)};
+        for (int j = my_lo; j < my_hi; ++j) {
+          if (Yp[B::at(j)] != kEmpty) continue;
+          if (j >= fw && hl[0] == S) hl[0] = j;
+          if (j <= lb) hl[1] = ~j;
+        }
+        block_reduce<true>(rd, hl);
+        const int ha = hl[0], hb = ~hl[1];
+        // shift (fw_b, ha] right with the new order at fw_b, or [hb, lb)
+        // left with it at lb; a full book drops its last order
+        if (ha < S || hb < 0)
+          block_shift<SHARED, true>(bk, YS, ha < S ? fw : min(fw, S - 1),
+                                    ha < S ? ha : S - 1, my_lo, my_hi, nv);
+        else
+          block_shift<SHARED, false>(bk, YS, hb, lb, my_lo, my_hi, nv);
+      }
+    }
+
+    // ---- best ask and bid, forward-filled from the previous message ----
+    const int* Ap = bk.plane(0, BP);
+    const int* Bp = bk.plane(1, BP);
+    int best[2] = {INT_MAX, ~INT_MIN};
+    for (int j = my_lo; j < my_hi; ++j) {
+      const int ap = Ap[B::at(j)];
+      best[0] = min(best[0], ap == kEmpty ? p.maxint : ap);
+      best[1] = min(best[1], ~Bp[B::at(j)]);
+    }
+    block_reduce<true>(rd, best);
+    const int ba = best[0] == p.maxint ? kEmpty : best[0], bb = ~best[1];
+    int bq[2] = {0, 0};
+    const int* Aq = bk.plane(0, BQ);
+    const int* Bq = bk.plane(1, BQ);
+    for (int j = my_lo; j < my_hi; ++j) {
+      bq[0] = wadd(bq[0], Ap[B::at(j)] == ba ? Aq[B::at(j)] : 0);
+      bq[1] = wadd(bq[1], Bp[B::at(j)] == bb ? Bq[B::at(j)] : 0);
+    }
+    block_reduce<false>(rd, bq);
+    prev_a = ba == kEmpty ? prev_a : ba;
+    prev_b = bb == kEmpty ? prev_b : bb;
+    if (t == 0)
+      reinterpret_cast<int4*>(a.bidask)[(size_t)e * M + m] =
+          make_int4(prev_a, ba == kEmpty ? 0 : bq[0], prev_b,
+                    bb == kEmpty ? 0 : bq[1]);
+  }
+
+  // canonicalise: every plane of a hole reads EMPTY (book_kernel.py:435-442)
+  for (int s = 0; s < 2; ++s)
+    for (int j = my_lo; j < my_hi; ++j)
+      if (bk.plane(s, BP)[B::at(j)] == kEmpty)
+        for (int f = 1; f < 6; ++f) bk.plane(s, f)[B::at(j)] = kEmpty;
+  __syncthreads();
+  if constexpr (SHARED) {
+    for (int i = t; i < 12 * S; i += kBlock)
+      gbook[i] = bk.base[(i / S) * bk.stride + B::at(i % S)];
+  }
+  if constexpr (!REC) {
+    for (int i = t; i < p.n_acc; i += kBlock)
+      a.aggs[(size_t)e * p.n_acc + i] = acc[i];
+  }
+}
+
+// Dynamic shared bytes of the block route at capacity S on the current
+// device (the book's too where it fits), and the most a block may take.
+cudaError_t block_smem(int S, bool rec, int n_agg, size_t* fixed,
+                       size_t* smem, int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *fixed = (size_t)block_fixed_ints(rec, n_agg,
+                                    kAggStats * n_agg + kAggTotals) *
+           sizeof(int);
+  const size_t book = (size_t)12 * padded_plane(S) * sizeof(int);
+  *smem = *fixed + book <= (size_t)*optin ? *fixed + book : *fixed;
+  return err;
+}
+
+// The kernel's attribute allows every size a block may take: plans of
+// several capacities and trader counts share the kernel.
+template <bool REC, bool SHARED>
+cudaError_t block_plan(size_t smem, int optin, int* out) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(book_scan_kernel_block<REC, SHARED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess)
+    err = cudaFuncGetAttributes(&attr, book_scan_kernel_block<REC, SHARED>);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, book_scan_kernel_block<REC, SHARED>, kBlock, smem);
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  out[4] = kBlock;
+  out[5] = SHARED ? 0 : 1;
+  return err;
+}
+
+// The block route: with `a` null makes the plan for S into out; else
+// launches with the plan's shared bytes, which say where the book lives.
+int dispatch_block(int S, bool rec, const Args* a, int n_agg, int* out,
+                   int smem, cudaStream_t st) {
+  if (!a) {
+    size_t fixed = 0, want = 0;
+    int optin = 0;
+    cudaError_t err = block_smem(S, rec, n_agg, &fixed, &want, &optin);
+    if (err != cudaSuccess) return (int)err;
+    const bool shared = want > fixed;
+    return rec ? (shared ? block_plan<true, true>(want, optin, out)
+                         : block_plan<true, false>(want, optin, out))
+               : (shared ? block_plan<false, true>(want, optin, out)
+                         : block_plan<false, false>(want, optin, out));
+  }
+  Args b = *a;
+  b.extra = block_fixed_ints(rec, b.p.n_agg, b.p.n_acc);
+  const bool shared =
+      (size_t)smem >= (size_t)(b.extra + 12 * padded_plane(S)) * sizeof(int);
+  const dim3 grid(b.E), block(kBlock);
+  if (rec) {
+    if (shared)
+      book_scan_kernel_block<true, true><<<grid, block, smem, st>>>(b);
+    else
+      book_scan_kernel_block<true, false><<<grid, block, smem, st>>>(b);
+  } else {
+    if (shared)
+      book_scan_kernel_block<false, true><<<grid, block, smem, st>>>(b);
+    else
+      book_scan_kernel_block<false, false><<<grid, block, smem, st>>>(b);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The slot map (spl slots a lane, masked or not; spl 0: the block route)
+// is the caller's (ops/book_kernel.py::capacity_route); a map that does
+// not hold S, or an exact map of another capacity, is refused.
 int dispatch_s(int S, int spl, int masked, int kind, const Args* a,
                int n_agg, int* out, int smem, cudaStream_t st) {
-  if (S < 1 || spl < 1 || spl > kMaxSpl || S > 32 * spl ||
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  if (spl == 0)
+    return dispatch_block(S, kind < 0, a, n_agg, out, smem, st);
+  if (spl < 1 || spl > kMaxSpl || S > 32 * spl ||
       (!masked && S != 32 * spl))
     return (int)cudaErrorInvalidValue;
   if (!masked) {
@@ -1156,7 +1709,8 @@ Params make_params(int cancel_mode, int init_id, int maxint, int n_agg,
 
 // Plain C interface (loaded with ctypes).  Layouts, all int32 unless noted:
 // msgs (E, M, 8); book_in/book_out (E, 2, 6, S) [env, ask/bid, field, slot],
-// the capacity S (1 to 1024) on the slot map (spl, masked);
+// the capacity S (any S >= 1) on the slot map (spl, masked; spl 0 the
+// block route);
 // prev (E, 2); tids (n_agg,); uniforms (M, E) float32, read only when
 // cancel_mode >= 2; bidask (E, M, 4) [ask_p, ask_q, bid_p, bid_q];
 // aggs (E, 8 * n_agg + 2).  msgs, book_in, book_out and bidask 16-byte
@@ -1202,9 +1756,12 @@ extern "C" int book_scan_records(const int* msgs, const int* book_in,
 
 // The launch plan of the kernel that book_scan_records (n_agg < 0, for
 // rec_k) or book_scan_aggs (n_agg >= 0) launches at capacity S on the slot
-// map (spl, masked), on the current device: out[4] = {registers a thread,
-// spill bytes a thread, dynamic shared bytes a block, resident blocks of 4
-// warps an SM}.  Made once before the kernel's first launch on the device.
+// map (spl, masked), on the current device: out[6] = {registers a thread,
+// spill bytes a thread, dynamic shared bytes a block, resident blocks an
+// SM, threads a block (4 envs a block of 128 on the warp route, one env a
+// block of 256 on the block route), 1 where the block route keeps the book
+// in device memory, else 0}.  Made once before the kernel's first launch on
+// the device.
 extern "C" int book_scan_plan(int S, int spl, int masked, int n_agg,
                               int rec_k, int* out) {
   return dispatch_s(S, spl, masked,

@@ -14,7 +14,8 @@ of CPU tensors, ints and floats, loadable with
 
 A step's directory is written under a temporary name and renamed into
 place, so a run killed mid-save leaves the previous checkpoints whole.
-The ``max_to_keep`` most recent steps are kept, as orbax does.
+The ``max_to_keep`` most recent steps are kept, and with ``keep_period``
+every step that is a multiple of it besides, as orbax does.
 """
 
 from __future__ import annotations
@@ -29,10 +30,13 @@ FILE = "state.pt"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_to_keep: int = 2):
+    def __init__(self, directory: str, max_to_keep: int = 2,
+                 keep_period: Optional[int] = None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.keep_period = keep_period
+        self._closed = False
 
     def all_steps(self) -> List[int]:
         """The saved steps, oldest first."""
@@ -48,7 +52,10 @@ class CheckpointManager:
              metrics: Optional[Dict] = None) -> str:
         """Save per-type ``state_dict``s, the Adam states of
         :func:`adam_state` and the optimizer step counts; returns the
-        step's directory."""
+        step's directory.  Raises ``RuntimeError`` after :meth:`close`."""
+        if self._closed:
+            raise RuntimeError(f"checkpoint manager of {self.directory} is "
+                               "closed")
         payload = {"params": [{k: v.detach().cpu() for k, v in p.items()}
                               for p in params_list],
                    "opt": [{k: [t.detach().cpu() for t in ts]
@@ -68,9 +75,18 @@ class CheckpointManager:
         return final
 
     def _prune(self) -> None:
+        """Delete every step but the ``max_to_keep`` most recent and, with
+        ``keep_period``, its multiples (orbax's ``LatestN`` and
+        ``EveryNSteps`` preservation policies)."""
         steps = self.all_steps()
         for s in steps[:max(len(steps) - self.max_to_keep, 0)]:
-            shutil.rmtree(os.path.join(self.directory, str(s)))
+            if self.keep_period is None or s % self.keep_period:
+                shutil.rmtree(os.path.join(self.directory, str(s)))
+
+    def close(self) -> None:
+        """End saving: :meth:`save` writes before it returns, so nothing
+        is waited for; a later :meth:`save` raises.  Idempotent."""
+        self._closed = True
 
     def restore(self, step: Optional[int] = None) -> Dict:
         step = self.latest_step() if step is None else step

@@ -1186,6 +1186,8 @@ def make_train(ma_config: MultiAgentConfig, cfg: TrainConfig,
                     ckpt.save(u, [lr.net.state_dict() for lr in learners],
                               opt_states, [lr.count for lr in learners],
                               metrics=metrics)
+        if ckpt is not None:
+            ckpt.close()
         return {"metrics": metrics_history, "networks": nets,
                 "state": carry.state, "learners": learners}
 

@@ -93,6 +93,48 @@ def block_calls(blk, name: str, x, a, p, n_tokens: int, heads: int):
             lambda: blk.ln_qkv_attn_reference(*head, n_tokens, heads))
 
 
+def unfused_attention(qkv: torch.Tensor, n_tokens: int, heads: int):
+    """Attention over flat ``(B*N, 3W)`` qkv rows as one library call,
+    ``scaled_dot_product_attention``, on the heads laid out for it."""
+    W = qkv.shape[1] // 3
+    q, k, v = qkv.view(-1, n_tokens, 3, heads, W // heads).permute(
+        2, 0, 3, 1, 4)
+    o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+    return o.transpose(1, 2).reshape(-1, W)
+
+
+def unfused_call(name: str, x, a, p, n_tokens: int, heads: int):
+    """The unfused PyTorch sequence of fused-block function ``name`` (the
+    yardstick of the kernels' times; the port never runs it): LayerNorm
+    in float32, ``F.linear`` in the rows' type, tanh GELU and
+    :func:`unfused_attention`, on rows ``x`` (and attention rows ``a``
+    for proj+MLP)."""
+    F = torch.nn.functional
+    W = x.shape[1]
+    dt = x.dtype
+
+    def ln(t, g, b):
+        return F.layer_norm(t.float(), (W,), g, b, 1e-6).to(dt)
+
+    def tail(att, res):
+        x1 = res + F.linear(att, p["wp"], p["bp"].to(dt))
+        h = F.gelu(F.linear(ln(x1, p["g2"], p["b2"]), p["w1"],
+                            p["bm1"].to(dt)), approximate="tanh")
+        return x1 + F.linear(h, p["w2"], p["bm2"].to(dt))
+
+    def qkv_seq(t):
+        return F.linear(ln(t, p["g1"], p["b1"]), p["wqkv"], p["bqkv"].to(dt))
+
+    if name == "fused_ln_qkv":
+        return lambda: qkv_seq(x)
+    if name == "fused_proj_mlp":
+        return lambda: tail(a, x)
+    if name == "fused_block_full":
+        return lambda: tail(unfused_attention(qkv_seq(x), n_tokens, heads),
+                            x)
+    return lambda: unfused_attention(qkv_seq(x), n_tokens, heads)
+
+
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
 

@@ -7,6 +7,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import statistics
+import subprocess
 import tempfile
 import time
 
@@ -76,3 +78,52 @@ def timed(label: str, sync=None):
                     if isinstance(x, torch.Tensor) and x.is_cuda}:
             torch.cuda.synchronize(dev)
     print(f"[{label}] {time.perf_counter() - t0:.4f}s")
+
+
+L2_FLUSH_BYTES = 128 << 20      # more than an H100's 50 MB of L2
+
+
+def median_ms(fn, device: torch.device, reps: int = 10, inner: int = 4):
+    """Median ms a call of ``fn()`` over ``reps`` batches of ``inner``
+    back-to-back calls, after two warm-up calls.  On a card: CUDA events
+    around each batch, the L2 flushed (a 128 MiB write) before it; on the
+    CPU the host clock.  Inputs stay as they are: a CUDA stream runs every
+    launch it is given, and its events time them (the JAX package's
+    ``tools/profile_vit.py::timed`` perturbs its inputs and fetches one
+    scalar to get past a remote relay that dedupes identical executions
+    and whose syncs return early; neither applies here)."""
+    for _ in range(2):
+        fn()
+    times = []
+    if device.type == "cuda":
+        flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+        for _ in range(reps):
+            flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(inner):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / inner)
+    else:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(inner):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / inner)
+    return statistics.median(times)
+
+
+def device_label(device: torch.device) -> str:
+    """What a run's times were taken on: the card's name and its name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit`` gives them,
+    or the CPU (whose times say nothing of a card)."""
+    if device.type != "cuda":
+        return "# device=cpu (the plain versions; a smoke run, no card time)"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return f"# device={torch.cuda.get_device_name(device)} [{smi}]"
